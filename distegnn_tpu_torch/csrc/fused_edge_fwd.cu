@@ -1,0 +1,363 @@
+// fused_edge_fwd.cu — one EGCL layer's in-window edge pass, forward, for
+// Hopper (sm_90a). Plain C interface, loaded with ctypes
+// (distegnn_tpu_torch/ops/edge_pipeline.py: _fused_edge_layer_cuda).
+//
+// Replaces the TPU kernel _fwd_kernel (distegnn_tpu/ops/edge_pipeline.py:288,
+// launched by pallas_call in _fused_fwd_impl, :474). Same function: for every
+// in-window edge of the blocked layout
+//     cd = x[row] - x[col]; radial = |cd|^2                     (f32)
+//     t1 = hr[row] + hc[col] + [radial, a0, a1] @ ws + b1; y1 = silu(t1)
+//     ef = silu(y1 @ w2 + b2); y2 = silu(ef @ w3 + b3)          (compute dtype)
+//     g  = y2 . w4;  trans = cd * g                              (f32)
+// and out[row] += [bf16 hi(trans), bf16 lo(trans), 1, 0, bf16(ef)], summed
+// in f32 — the TPU kernel's roundings, kept even in f32 mode so that the two
+// agree to summation order.
+//
+// What bounds it on the H100: the two H x H products per edge. At H=64 that
+// is 4*H*H = 16 Kflop per edge against ~44 bytes of edge stream plus two
+// gathered node rows (mostly L2 hits: [N, 2H] is a few MB at serving sizes),
+// so the f32 CUDA-core rate (67 TFLOP/s) and not the 3.35 TB/s memory bounds
+// it. This first version runs the products as f32 FMAs from shared memory
+// (exact f32 parity; bf16 operands are exact in f32), not on tensor cores.
+//
+// Design, against the TPU kernel:
+//  - The TPU gathers the sender rows from a 3-block VMEM window and sums with
+//    one-hot MXU products over a sequential (nb, nt) grid. Here each block
+//    takes tiles of TE=64 consecutive row-sorted edges, rebuilds global
+//    (row, col) from the same layout arrays (row_t/col_l/kblk and the window
+//    start clip(b-1, 0, nb-3)), and gathers hr/hc straight from global
+//    memory. An edge is processed iff scal[e, 2] (the in-window & real mask
+//    of build_edge_blocks) is set, so the edge set is the TPU kernel's.
+//  - w2 and w3 (2*H*H f32, 32 KB at H=64) are loaded once per block into
+//    shared memory; blocks are persistent (grid = resident blocks per SM x
+//    SMs) and walk the tiles with a grid stride, so the weights are read
+//    once per block, not once per tile.
+//  - Tiles with no active edge (trailing padding blocks of a bucketed batch)
+//    are skipped after one __syncthreads_or.
+//  - Aggregation: edges are sorted by row, so each of the H+8 output columns
+//    is reduced by one thread walking the tile in order; only the tile's
+//    row-segment ends issue an f32 atomicAdd into the zeroed [N, H+8] output
+//    (a row's sum is therefore order-dependent across tiles at f32 rounding).
+//  - No allocation, no synchronisation; launched on the caller's stream.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int TE = 64;         // edges per tile
+constexpr int THREADS = 256;   // 16 x 16 thread grid of the tile products
+constexpr int XL = 8;          // lanes of scal [E, XL]
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <bool BF16>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (BF16) {
+    return round_bf16(v);
+  } else {
+    return v;
+  }
+}
+
+// silu(t) = t * sigmoid(t), the sigmoid rounded to the compute dtype first
+// (jax.nn.sigmoid on a bf16 array returns bf16)
+template <bool BF16>
+__device__ __forceinline__ float silu(float t) {
+  const float s = rnd<BF16>(1.0f / (1.0f + expf(-t)));
+  return rnd<BF16>(t * s);
+}
+
+__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+
+// dst[e, j] = silu(round(round(src[e, :] @ W[:, j]) + bias[j])), and with
+// head != nullptr the gate terms dst[e, j] * head[j] instead. Thread (ty, tx)
+// owns rows ty + 16r and columns tx + 16c: conflict-free shared reads.
+template <int H, bool BF16>
+__device__ __forceinline__ void tile_dense_silu(const float* src,
+                                                const float* W,
+                                                const float* bias,
+                                                const float* head,
+                                                float* dst) {
+  constexpr int LDA = H + 1;
+  constexpr int CPT = H / 16;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float acc[4][CPT];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < H; ++k) {
+    float a[4], b[CPT];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = src[(ty + 16 * r) * LDA + k];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) b[c] = W[k * H + tx + 16 * c];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int j = tx + 16 * c;
+      float y = silu<BF16>(rnd<BF16>(rnd<BF16>(acc[r][c]) + bias[j]));
+      if (head != nullptr) y *= head[j];
+      dst[(ty + 16 * r) * LDA + j] = y;
+    }
+}
+
+template <int H>
+constexpr size_t smem_bytes() {
+  return (2 * H * H + 2 * TE * (H + 1) + 7 * H + 7 * TE) * sizeof(float) +
+         2 * TE * sizeof(int);
+}
+
+template <int H, bool BF16>
+__global__ void __launch_bounds__(THREADS)
+fused_edge_fwd_kernel(const int* __restrict__ row_t,
+                      const int* __restrict__ col_l,
+                      const int* __restrict__ kblk,
+                      const float* __restrict__ scal,
+                      const float* __restrict__ x,
+                      const std::conditional_t<BF16, __nv_bfloat16, float>* __restrict__ hr,
+                      const std::conditional_t<BF16, __nv_bfloat16, float>* __restrict__ hc,
+                      const float* __restrict__ ws, const float* __restrict__ b1,
+                      const float* __restrict__ w2, const float* __restrict__ b2,
+                      const float* __restrict__ w3, const float* __restrict__ b3,
+                      const float* __restrict__ w4, float* __restrict__ out,
+                      int n_nodes, int n_edges, int block) {
+  constexpr int LDA = H + 1;
+  constexpr int F = H + 8;
+  extern __shared__ float smem[];
+  float* sW2 = smem;                // [H, H]
+  float* sW3 = sW2 + H * H;         // [H, H]
+  float* sA = sW3 + H * H;          // [TE, LDA] y1, then the gate terms
+  float* sB = sA + TE * LDA;        // [TE, LDA] ef
+  float* sWs = sB + TE * LDA;       // [3, H]
+  float* sB1 = sWs + 3 * H;
+  float* sB2 = sB1 + H;
+  float* sB3 = sB2 + H;
+  float* sW4 = sB3 + H;
+  float* sCd = sW4 + H;             // [TE, 3]
+  float* sS = sCd + 3 * TE;         // [TE, 3] [radial, a0, a1] in dtype
+  float* sG = sS + 3 * TE;          // [TE]
+  int* sRow = reinterpret_cast<int*>(sG + TE);   // [TE], -1 = inactive
+  int* sCol = sRow + TE;                         // [TE]
+
+  const int tid = threadIdx.x;
+  // weights in the compute dtype (the TPU kernel casts them with astype);
+  // the phi_x head w4 stays f32
+  for (int i = tid; i < H * H; i += THREADS) {
+    sW2[i] = rnd<BF16>(w2[i]);
+    sW3[i] = rnd<BF16>(w3[i]);
+  }
+  for (int i = tid; i < 3 * H; i += THREADS) sWs[i] = rnd<BF16>(ws[i]);
+  for (int i = tid; i < H; i += THREADS) {
+    sB1[i] = rnd<BF16>(b1[i]);
+    sB2[i] = rnd<BF16>(b2[i]);
+    sB3[i] = rnd<BF16>(b3[i]);
+    sW4[i] = w4[i];
+  }
+
+  const int T = block;
+  const int nb = n_nodes / T;
+  const int epb = n_edges / nb;
+  const int smax = nb - 3 > 0 ? nb - 3 : 0;
+  const int n_tiles = (n_edges + TE - 1) / TE;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();  // weights loaded / previous tile fully consumed
+
+    // ---- per edge: layout -> global (row, col), geometry, scalars
+    int active = 0;
+    if (tid < TE) {
+      const int e = tile * TE + tid;
+      int row = -1, col = 0;
+      float cd0 = 0.f, cd1 = 0.f, cd2 = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f;
+      if (e < n_edges) {
+        const float m = scal[(size_t)e * XL + 2];
+        const int rl = row_t[e];
+        if (m > 0.f && rl < T) {
+          const int b = e / epb;
+          const int s = min(max(b - 1, 0), smax);
+          row = b * T + rl;
+          col = (s + kblk[e]) * T + col_l[e];
+          cd0 = x[3 * (size_t)row + 0] - x[3 * (size_t)col + 0];
+          cd1 = x[3 * (size_t)row + 1] - x[3 * (size_t)col + 1];
+          cd2 = x[3 * (size_t)row + 2] - x[3 * (size_t)col + 2];
+          // no FMA contraction: |cd|^2 rounded as the reference sums it
+          const float radial = __fadd_rn(
+              __fadd_rn(__fmul_rn(cd0, cd0), __fmul_rn(cd1, cd1)),
+              __fmul_rn(cd2, cd2));
+          s0 = rnd<BF16>(radial);
+          s1 = rnd<BF16>(scal[(size_t)e * XL + 0]);
+          s2 = rnd<BF16>(scal[(size_t)e * XL + 1]);
+          active = 1;
+        }
+      }
+      sRow[tid] = row;
+      sCol[tid] = col;
+      sCd[3 * tid + 0] = cd0;
+      sCd[3 * tid + 1] = cd1;
+      sCd[3 * tid + 2] = cd2;
+      sS[3 * tid + 0] = s0;
+      sS[3 * tid + 1] = s1;
+      sS[3 * tid + 2] = s2;
+    }
+    if (!__syncthreads_or(active)) continue;  // all-padding tile
+
+    // ---- t1 = (hr[row] + hc[col]) + sfeat @ ws + b1;  y1 = silu(t1)
+    for (int i = tid; i < TE * H; i += THREADS) {
+      const int el = i / H, j = i % H;
+      const int row = sRow[el];
+      float y = 0.f;
+      if (row >= 0) {
+        const float hrc = rnd<BF16>(load(hr, (size_t)row * H + j) +
+                                    load(hc, (size_t)sCol[el] * H + j));
+        const float sw = rnd<BF16>(
+            fmaf(sS[3 * el + 2], sWs[2 * H + j],
+                 fmaf(sS[3 * el + 1], sWs[H + j], sS[3 * el] * sWs[j])));
+        y = silu<BF16>(rnd<BF16>(rnd<BF16>(hrc + sw) + sB1[j]));
+      }
+      sA[el * LDA + j] = y;
+    }
+    __syncthreads();
+
+    // ---- ef = silu(y1 @ w2 + b2)
+    tile_dense_silu<H, BF16>(sA, sW2, sB2, nullptr, sB);
+    __syncthreads();
+
+    // ---- gate terms silu(ef @ w3 + b3) * w4 (into sA, free again)
+    tile_dense_silu<H, BF16>(sB, sW3, sB3, sW4, sA);
+    __syncthreads();
+
+    if (tid < TE) {
+      float g = 0.f;
+      for (int j = 0; j < H; ++j) g += sA[tid * LDA + j];
+      sG[tid] = g;
+    }
+    __syncthreads();
+
+    // ---- segment sums by row: column c per thread, in edge order
+    if (tid < F && tid != 7) {
+      const int c = tid;
+      float acc = 0.f;
+      int cur = -1;
+      for (int el = 0; el < TE; ++el) {
+        const int row = sRow[el];
+        if (row < 0) continue;
+        float v;
+        if (c < 6) {
+          const float tr = sCd[3 * el + (c % 3)] * sG[el];
+          const float hi = round_bf16(tr);
+          v = c < 3 ? hi : round_bf16(tr - hi);
+        } else if (c == 6) {
+          v = 1.f;
+        } else {
+          v = round_bf16(sB[el * LDA + (c - 8)]);
+        }
+        if (row != cur) {
+          if (cur >= 0) atomicAdd(&out[(size_t)cur * F + c], acc);
+          cur = row;
+          acc = 0.f;
+        }
+        acc += v;
+      }
+      if (cur >= 0) atomicAdd(&out[(size_t)cur * F + c], acc);
+    }
+  }
+}
+
+template <int H, bool BF16>
+cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
+                   const void* scal, const void* x, const void* hr,
+                   const void* hc, const void* ws, const void* b1,
+                   const void* w2, const void* b2, const void* w3,
+                   const void* b3, const void* w4, void* out, int n_nodes,
+                   int n_edges, int block, int n_sm, cudaStream_t stream) {
+  using Act = std::conditional_t<BF16, __nv_bfloat16, float>;
+  constexpr size_t smem = smem_bytes<H>();
+  auto kern = fused_edge_fwd_kernel<H, BF16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (n_edges + TE - 1) / TE;
+  int grid = (per_sm > 0 ? per_sm : 1) * n_sm;
+  if (grid > n_tiles) grid = n_tiles;
+  if (grid < 1) return cudaSuccess;
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const int*>(row_t), static_cast<const int*>(col_l),
+      static_cast<const int*>(kblk), static_cast<const float*>(scal),
+      static_cast<const float*>(x), static_cast<const Act*>(hr),
+      static_cast<const Act*>(hc), static_cast<const float*>(ws),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(w3),
+      static_cast<const float*>(b3), static_cast<const float*>(w4),
+      static_cast<float*>(out), n_nodes, n_edges, block);
+  return cudaGetLastError();
+}
+
+template <int H>
+cudaError_t dispatch_dtype(int bf16, const void* row_t, const void* col_l,
+                           const void* kblk, const void* scal, const void* x,
+                           const void* hr, const void* hc, const void* ws,
+                           const void* b1, const void* w2, const void* b2,
+                           const void* w3, const void* b3, const void* w4,
+                           void* out, int n_nodes, int n_edges, int block,
+                           int n_sm, cudaStream_t stream) {
+  if (bf16)
+    return launch<H, true>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2,
+                           b2, w3, b3, w4, out, n_nodes, n_edges, block, n_sm,
+                           stream);
+  return launch<H, false>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2, b2,
+                          w3, b3, w4, out, n_nodes, n_edges, block, n_sm,
+                          stream);
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 = success). out [N, H+8] f32 must
+// be zeroed by the caller; hr/hc are f32 (bf16 == 0) or bf16 (bf16 == 1).
+extern "C" int fused_edge_fwd(const void* row_t, const void* col_l,
+                              const void* kblk, const void* scal,
+                              const void* x, const void* hr, const void* hc,
+                              const void* ws, const void* b1, const void* w2,
+                              const void* b2, const void* w3, const void* b3,
+                              const void* w4, void* out, int n_nodes,
+                              int n_edges, int block, int H, int bf16,
+                              int n_sm, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DEG_CASE(HH)                                                        \
+  case HH:                                                                  \
+    return (int)dispatch_dtype<HH>(bf16, row_t, col_l, kblk, scal, x, hr,   \
+                                   hc, ws, b1, w2, b2, w3, b3, w4, out,     \
+                                   n_nodes, n_edges, block, n_sm, s);
+  switch (H) {
+    DEG_CASE(16)
+    DEG_CASE(32)
+    DEG_CASE(48)
+    DEG_CASE(64)
+    DEG_CASE(80)
+    DEG_CASE(96)
+    DEG_CASE(112)
+    DEG_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DEG_CASE
+}

@@ -44,6 +44,10 @@ def pytest_configure(config):
     # the full-epoch blocked-layout parity sweep is additionally `slow`
     config.addinivalue_line(
         "markers", "io: input-pipeline tests (sharded datasets, prefetch)")
+    # the PyTorch port's CUDA kernels have no CPU mode: these tests skip,
+    # with a reason, where torch.cuda.is_available() is false
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (distegnn_tpu_torch kernels)")
 
 
 @pytest.fixture(autouse=True)

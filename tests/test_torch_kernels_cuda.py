@@ -1,0 +1,84 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA card and skip without one (the kernels have no CPU
+mode). This file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
+
+It also holds the small blocked-graph builder that the CPU tests of the
+fused edge pipeline share.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from distegnn_tpu_torch.ops import edge_pipeline as P
+
+T = 512
+H = 16
+
+
+def _blocked_graph(rng, nb=5, fill=0.6, empty_tail_blocks=1):
+    """Blocked-layout edge arrays: nb node blocks of T nodes, each owning a
+    T-slot edge slice; ``fill`` of the slots hold real edges (rows inside
+    the block, cols anywhere, so many are remote); the last
+    ``empty_tail_blocks`` blocks get no real edges."""
+    n_nodes, E = nb * T, nb * T
+    row = np.zeros(E, np.int64)
+    col = np.zeros(E, np.int64)
+    emask = np.zeros(E, np.float32)
+    for b in range(nb):
+        sl = slice(b * T, (b + 1) * T)
+        k = 0 if b >= nb - empty_tail_blocks else int(fill * T)
+        row[sl] = np.sort(rng.integers(b * T, (b + 1) * T, size=T))
+        col[sl] = rng.integers(0, n_nodes, size=T)
+        emask[b * T: b * T + k] = 1.0
+    ea = rng.normal(size=(E, 2)).astype(np.float32)
+    return row, col, ea, emask, n_nodes
+
+
+def _weights(rng):
+    s = 0.3 / np.sqrt(H)
+    return [(rng.normal(size=shape) * s).astype(np.float32)
+            for shape in ((3, H), (1, H), (H, H), (1, H), (H, H), (1, H),
+                          (1, H))]
+
+
+def _setup(seed=7, **kw):
+    rng = np.random.default_rng(seed)
+    row, col, ea, em, n = _blocked_graph(rng, **kw)
+    x = rng.uniform(0, 1, size=(n, 3)).astype(np.float32)
+    hr = (rng.normal(size=(n, H)) * 0.5).astype(np.float32)
+    hc = (rng.normal(size=(n, H)) * 0.5).astype(np.float32)
+    return row, col, ea, em, n, x, hr, hc, _weights(rng)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+def test_fused_edge_kernel_matches_plain_version_on_card(dtype_name):
+    """The CUDA kernel against fused_edge_layer_ref on the same card tensors
+    (max error <= 2^-7 of each output's scale: both round per-edge features
+    to bf16 at the same points; f32 summation order, and in bf16 mode
+    single-ulp rounding flips of intermediates, differ)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    row, col, ea, em, n, x, hr, hc, w = _setup(13)
+    dev = torch.device("cuda")
+    pa = [a.to(dev) for a in P.build_edge_blocks(*_t(row, col, ea, em),
+                                                  block=T, n_nodes=n)]
+    args = [a.to(dev) for a in _t(x, hr, hc)]
+    wt = P.EdgeWeights(*[a.to(dev) for a in _t(*w)])
+    before = P.fused_edge_layer.launches
+    out = P.fused_edge_layer(*args, *pa, wt, T, dtype_name)
+    torch.cuda.synchronize()
+    assert P.fused_edge_layer.launches == before + 1
+    ref = P.fused_edge_layer_ref(*args, *pa, wt, T, dtype_name)
+    for a, b in zip(out, ref):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2 ** -7 * scale
