@@ -1,14 +1,19 @@
 """Config loading for the port — the slice of ``distegnn_tpu/config.py`` that
-the serving path reads: YAML merged over defaults, overrides, and the
-``model``/``data``/``serve`` checks (pure Python, no jax).
+the serving and training paths read: YAML merged over defaults, overrides,
+the ``model``/``data``/``train``/``log``/``serve`` checks, the trainer's
+command-line flags and its derived run name (pure Python, no jax).
 
-Sections the port does not read yet (train, log, obs, ...) are carried through
-from the YAML unchanged, without defaults or validation.
+Sections the port does not read yet (obs, parallel, promote, ...) are carried
+through from the YAML unchanged; keys of the read sections that the port
+does not use yet (``train.resume``, ``data.split_mode``, ...) keep their
+YAML values unchecked.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
+import time
 from typing import Any, Mapping, Optional
 
 import yaml
@@ -35,8 +40,13 @@ class ConfigDict(dict):
         self[name] = (ConfigDict(value) if isinstance(value, Mapping)
                       and not isinstance(value, ConfigDict) else value)
 
+    def to_dict(self) -> dict:
+        return {k: v.to_dict() if isinstance(v, ConfigDict) else v
+                for k, v in self.items()}
 
-# The defaults of the JAX package for the fields the serving path reads.
+
+# The defaults of the JAX package for the fields the serving and training
+# paths read.
 _DEFAULTS: dict = {
     "seed": 43,
     "model": {
@@ -50,12 +60,38 @@ _DEFAULTS: dict = {
         "edge_attr_nf": 2,
         "checkpoint": None,
         "compute_dtype": None,
+        # recompute each layer's activations in the backward pass
+        "remat": False,
         "edge_impl": "plain",
     },
     "data": {
+        "data_dir": "./data",
         "dataset_name": "nbody_100",
+        "max_samples": 5000,
+        "batch_size": 1,
+        "accelerate_mode": "cutoff_edges",
         "radius": -1.0,
+        "cutoff_rate": 0.0,
+        "frame_0": 30,
+        "frame_T": 40,
+        "node_order": "none",
+        "node_bucket": 8,
+        "edge_bucket": 128,
         "edge_block": 0,
+    },
+    "train": {
+        "learning_rate": 5e-4,
+        "weight_decay": 1e-12,
+        "epochs": 2500,
+        "early_stop": 2500,
+        "mmd": {"sigma": 1.5, "weight": 0.03, "samples": 3},
+        "accumulation_steps": 1,
+        "warmup_epochs": 0,
+        "scheduler": "None",
+    },
+    "log": {
+        "log_dir": "./logs",
+        "test_interval": 2,
     },
     "serve": {
         "node_floor": 64,
@@ -111,8 +147,36 @@ def apply_overrides(cfg: ConfigDict, overrides: Mapping) -> None:
         node[key] = value
 
 
+_VALID_ACCEL_MODES = ("cutoff_edges", "distribute")
+_VALID_NODE_ORDERS = ("none", "morton")
+
+
 def validate_config(cfg: ConfigDict) -> None:
-    """The model/data/serve checks of the JAX package's validate_config."""
+    """The model/data/train/log/serve checks of the JAX package's
+    validate_config, for the keys the port reads."""
+    d = cfg.data
+    if d.accelerate_mode not in _VALID_ACCEL_MODES:
+        raise ValueError(
+            f"data.accelerate_mode must be one of {_VALID_ACCEL_MODES}")
+    if not 0.0 <= float(d.cutoff_rate) < 1.0:
+        raise ValueError("data.cutoff_rate must be in [0, 1)")
+    if int(d.batch_size) < 1:
+        raise ValueError("data.batch_size must be >= 1")
+    if (d.node_order or "none") not in _VALID_NODE_ORDERS:
+        raise ValueError(f"data.node_order must be one of {_VALID_NODE_ORDERS}")
+    t = cfg.train
+    if int(t.accumulation_steps) < 1:
+        raise ValueError("train.accumulation_steps must be >= 1")
+    if int(t.epochs) < 0 or int(t.early_stop) < 1:
+        raise ValueError("train.epochs must be >= 0 and train.early_stop >= 1")
+    if float(t.mmd.sigma) <= 0 or int(t.mmd.samples) < 1:
+        raise ValueError("train.mmd.sigma must be > 0 and train.mmd.samples "
+                         ">= 1")
+    lg = cfg.log
+    if not isinstance(lg.get("log_dir", ""), str):
+        raise ValueError("log.log_dir must be a string path")
+    if int(lg.get("test_interval", 2)) < 1:
+        raise ValueError("log.test_interval must be >= 1")
     if int(cfg.model.virtual_channels) < 1:
         raise ValueError("model.virtual_channels must be >= 1")
     edge_impl = cfg.model.get("edge_impl", "plain")
@@ -139,3 +203,49 @@ def validate_config(cfg: ConfigDict) -> None:
         raise ValueError("serve.growth must be > 1")
     if int(s.max_batch) < 1:
         raise ValueError("serve.max_batch must be >= 1")
+
+
+# Command-line flags of the trainer: name -> (dotted config path, type), the
+# JAX package's flags for the keys the port reads.
+CLI_FIELDS = {
+    "lr": ("train.learning_rate", float),
+    "seed": ("seed", int),
+    "model_name": ("model.model_name", str),
+    "batch_size": ("data.batch_size", int),
+    "early_stop": ("train.early_stop", int),
+    "checkpoint": ("model.checkpoint", str),
+    "cutoff_rate": ("data.cutoff_rate", float),
+    "virtual_channels": ("model.virtual_channels", int),
+    "epochs": ("train.epochs", int),
+    "edge_impl": ("model.edge_impl", str),
+}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="DistEGNN trainer (PyTorch + CUDA port)")
+    parser.add_argument("--config_path", type=str, required=True)
+    parser.add_argument("--device", type=str, default=None,
+                        help="'cuda' (the default) or 'cpu'")
+    for name, (_, typ) in CLI_FIELDS.items():
+        parser.add_argument(f"--{name}", type=typ, default=None)
+    return parser
+
+
+def cli_overrides(args: argparse.Namespace) -> dict:
+    """Parsed flags -> ``{dotted path: value}`` for :func:`load_config`."""
+    return {path: getattr(args, name)
+            for name, (path, _) in CLI_FIELDS.items()}
+
+
+def derive_runtime_fields(cfg: ConfigDict) -> ConfigDict:
+    """Set ``data.world_size`` (1: the port trains on one device) and
+    ``log.exp_name`` as the JAX package does for ``cutoff_edges``: dataset,
+    radius and cutoff, model, world size, channels and a time stamp."""
+    cfg.data.world_size = 1
+    d = cfg.data
+    stamp = time.strftime("%Y%m%d_%H%M%S")
+    cfg.log.exp_name = (
+        f"{d.dataset_name}_r{d.radius}_cut{d.cutoff_rate}"
+        f"_{cfg.model.model_name}_ws1_C{cfg.model.virtual_channels}_{stamp}")
+    return cfg

@@ -39,83 +39,20 @@
 //    row-segment ends issue an f32 atomicAdd into the zeroed [N, H+8] output
 //    (a row's sum is therefore order-dependent across tiles at f32 rounding).
 //  - No allocation, no synchronisation; launched on the caller's stream.
+//  - rnd, silu and the tile product live in fused_edge_common.cuh, shared
+//    with the backward kernel (fused_edge_bwd.cu), which recomputes this
+//    forward with the same roundings.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "fused_edge_common.cuh"
+
 namespace {
 
-constexpr int TE = 64;         // edges per tile
-constexpr int THREADS = 256;   // 16 x 16 thread grid of the tile products
-constexpr int XL = 8;          // lanes of scal [E, XL]
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float v) {
-  if constexpr (BF16) {
-    return round_bf16(v);
-  } else {
-    return v;
-  }
-}
-
-// silu(t) = t * sigmoid(t), the sigmoid rounded to the compute dtype first
-// (jax.nn.sigmoid on a bf16 array returns bf16)
-template <bool BF16>
-__device__ __forceinline__ float silu(float t) {
-  const float s = rnd<BF16>(1.0f / (1.0f + expf(-t)));
-  return rnd<BF16>(t * s);
-}
-
-__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-// dst[e, j] = silu(round(round(src[e, :] @ W[:, j]) + bias[j])), and with
-// head != nullptr the gate terms dst[e, j] * head[j] instead. Thread (ty, tx)
-// owns rows ty + 16r and columns tx + 16c: conflict-free shared reads.
-template <int H, bool BF16>
-__device__ __forceinline__ void tile_dense_silu(const float* src,
-                                                const float* W,
-                                                const float* bias,
-                                                const float* head,
-                                                float* dst) {
-  constexpr int LDA = H + 1;
-  constexpr int CPT = H / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][CPT];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < H; ++k) {
-    float a[4], b[CPT];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = src[(ty + 16 * r) * LDA + k];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) b[c] = W[k * H + tx + 16 * c];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = tx + 16 * c;
-      float y = silu<BF16>(rnd<BF16>(rnd<BF16>(acc[r][c]) + bias[j]));
-      if (head != nullptr) y *= head[j];
-      dst[(ty + 16 * r) * LDA + j] = y;
-    }
-}
+using namespace fused_edge;
 
 template <int H>
 constexpr size_t smem_bytes() {

@@ -1,0 +1,146 @@
+"""Static-shape graph loaders (port of the single-device half of
+``distegnn_tpu/data/loader.py``).
+
+``GraphDataset`` holds graph dicts in memory (or reads them from a pickle);
+``GraphLoader`` collates them into padded ``GraphBatch``es whose node count,
+edges per block and remote pad are fixed once per dataset, so every batch of
+a run has one shape. The permutation of an epoch is numpy's
+``default_rng([seed, epoch])``, so the batches are bitwise those of the JAX
+loader. Only the blocked ``split_remote`` layout of the fused edge kernel is
+ported; the plain layout comes with port slice 3.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+
+from distegnn_tpu_torch.ops.blocked import (max_block_degree,
+                                            prepare_blocked_graph)
+from distegnn_tpu_torch.ops.edge_pipeline import count_remote_edges
+from distegnn_tpu_torch.ops.graph import _round_up, pad_graphs
+from distegnn_tpu_torch.ops.order import morton_perm, reorder_graph
+
+_SLICE_PLAIN = ("port slice 3 (the plain EdgeOps path and its segment "
+                "lowerings)")
+
+
+class GraphDataset:
+    """A list of graph dicts, from a pickle file or in memory.
+
+    ``node_order='morton'`` relabels each graph's nodes along a Z curve of
+    its positions (the caller's list is not modified)."""
+
+    def __init__(self, source: Union[str, Sequence[dict]],
+                 node_order: Optional[str] = "none"):
+        if isinstance(source, str):
+            with open(source, "rb") as f:
+                self.graphs: List[dict] = pickle.load(f)
+        else:
+            self.graphs = list(source)
+        if node_order == "morton":
+            self.graphs = [reorder_graph(g, morton_perm(g["loc"]))
+                           for g in self.graphs]
+        elif node_order not in ("none", None):
+            raise ValueError(f"GraphDataset: unknown node_order {node_order!r}")
+
+    def __len__(self) -> int:
+        return len(self.graphs)
+
+    def __getitem__(self, i: int) -> dict:
+        return self.graphs[i]
+
+    def size_maxima(self):
+        n = max(g["loc"].shape[0] for g in self.graphs)
+        e = max(g["edge_index"].shape[1] for g in self.graphs)
+        return n, e
+
+
+class GraphLoader:
+    """Deterministic batching over a GraphDataset: the order of an epoch
+    derives from (seed, epoch) only; drop_last always.
+
+    Batches are CPU ``GraphBatch``es in the blocked layout of
+    ``edge_block`` nodes per block with the compact remote list of the fused
+    edge kernel: one ``max_nodes`` (at least 3 blocks), one
+    ``edges_per_block`` and one ``remote_pad`` for the whole dataset. The
+    blockified graphs are cached across epochs while they fit
+    ``CACHE_BYTES``."""
+
+    EDGE_TILE = 512
+    CACHE_BYTES = 2 << 30
+
+    def __init__(self, dataset: GraphDataset, batch_size: int,
+                 shuffle: bool = False, seed: int = 0, edge_block: int = 0):
+        if not edge_block:
+            raise NotImplementedError(
+                "GraphLoader: only the blocked layout (edge_block >= 512) of "
+                f"the fused edge kernel is ported; the plain layout comes "
+                f"with {_SLICE_PLAIN}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self.edge_block = edge_block
+        n, _ = dataset.size_maxima()
+        # the fused kernel's 3-block window needs nb >= 3; small graphs pay
+        # all-padding blocks rather than failing
+        self.max_nodes = max(_round_up(max(n, 1), edge_block), 3 * edge_block)
+        deg = max([1] + [max_block_degree(np.sort(dataset[i]["edge_index"][0]),
+                                          self.max_nodes, edge_block)
+                         for i in range(len(dataset))])
+        self.edges_per_block = _round_up(deg, self.EDGE_TILE)
+        self.max_edges = (self.max_nodes // edge_block) * self.edges_per_block
+        # blockify never adds out-of-window edges (its padding slots sit in
+        # their own block): scan the raw lists, pad to 128 lanes
+        er = max(count_remote_edges(dataset[i]["edge_index"], block=edge_block,
+                                    n_nodes=self.max_nodes)
+                 for i in range(len(dataset)))
+        self.remote_pad = max(_round_up(er, 128), 128)
+        d0 = dataset[0].get("edge_attr")
+        per = self.max_edges * (8 + 4 + 8 + (d0.shape[1] * 4
+                                             if d0 is not None else 0))
+        self._prepared_cache = ({} if per * len(dataset) <= self.CACHE_BYTES
+                                else None)
+        if len(self) == 0:
+            raise ValueError(f"batch_size {batch_size} > dataset size "
+                             f"{len(dataset)}: drop_last leaves zero batches")
+
+    def pad_kwargs(self) -> dict:
+        """kwargs that make pad_graphs emit this loader's layout."""
+        return dict(edge_block=self.edge_block, edge_tile=self.EDGE_TILE,
+                    edges_per_block=self.edges_per_block,
+                    max_nodes=self.max_nodes, split_remote=True,
+                    remote_pad=self.remote_pad)
+
+    def _graph(self, i: int) -> dict:
+        cache = self._prepared_cache
+        if cache is not None and i in cache:
+            return cache[i]
+        g = prepare_blocked_graph(self.dataset[i], self.max_nodes,
+                                  self.edges_per_block, self.edge_block)
+        if cache is not None:
+            cache[i] = g
+        return g
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def _order(self) -> np.ndarray:
+        if not self.shuffle:
+            return np.arange(len(self.dataset))
+        return np.random.default_rng([self.seed, self.epoch]).permutation(
+            len(self.dataset))
+
+    def __iter__(self):
+        order = self._order()
+        for b in range(len(self)):
+            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            yield pad_graphs([self._graph(int(i)) for i in idx],
+                             **self.pad_kwargs())

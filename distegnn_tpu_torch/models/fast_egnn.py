@@ -5,6 +5,12 @@ Each EGCL layer runs its in-window real edges through ``fused_edge_layer``
 (the CUDA kernel on the card), the out-of-window remote tail as plain tensor
 code plus ``index_add_``, and the virtual-node section as dense tensor code.
 
+Gradients flow through every path (the fused layer is an autograd
+Function whose backward is the CUDA backward kernel on the card);
+``remat=True`` checkpoints each layer, as ``nn.remat(EGCLVel)`` does in the
+JAX package: its activations are recomputed in the backward pass instead of
+kept.
+
 Layouts follow the JAX package at every public boundary: ``[B, N, ...]``
 node arrays, virtual coordinates ``[B, 3, C]`` and virtual features
 ``[B, H, C]``. Shape legend: B graphs, N padded nodes, E padded edges,
@@ -18,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distegnn_tpu_torch.models.common import (MLP, CoordMLP, TorchDense,
                                               gather_nodes, resolve_dtype,
@@ -199,7 +206,8 @@ class FastEGNN(nn.Module):
                  virtual_channels: int = 3, n_layers: int = 4,
                  residual: bool = True, attention: bool = False,
                  normalize: bool = False, tanh: bool = False,
-                 compute_dtype=None, edge_impl: str = "fused", *,
+                 compute_dtype=None, edge_impl: str = "fused",
+                 remat: bool = False, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if edge_impl != "fused":
@@ -220,6 +228,7 @@ class FastEGNN(nn.Module):
         self.hidden_nf, self.virtual_channels = H, C
         self.n_layers = n_layers
         self.edge_impl = edge_impl
+        self.remat = bool(remat)
         # learnable virtual feature seed, shared across graphs (randn init)
         self.virtual_node_feat = nn.Parameter(
             torch.randn((1, H, C), generator=generator))
@@ -247,5 +256,10 @@ class FastEGNN(nn.Module):
                                        g.edge_mask, block=g.edge_block,
                                        n_nodes=g.max_nodes)
         for layer in self.gcl:
-            h, x, Hv, X = layer(h, x, v, X, Hv, g, fused_arrs)
+            if self.remat and torch.is_grad_enabled():
+                # keep only the layer's inputs; the backward reruns it
+                h, x, Hv, X = checkpoint(layer, h, x, v, X, Hv, g,
+                                         fused_arrs, use_reentrant=False)
+            else:
+                h, x, Hv, X = layer(h, x, v, X, Hv, g, fused_arrs)
         return x, X

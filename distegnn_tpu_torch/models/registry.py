@@ -30,4 +30,5 @@ def get_model(model_config,
         normalize=model_config.normalize,
         compute_dtype=model_config.get("compute_dtype"),
         edge_impl=model_config.get("edge_impl", "plain"),
+        remat=bool(model_config.get("remat", False)),
         generator=generator)

@@ -14,6 +14,8 @@ this layout.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 
@@ -86,3 +88,28 @@ def prepare_blocked_graph(g: dict, n_nodes_padded: int, epb: int,
     g["edge_index"], g["edge_attr"], g["_edge_mask"] = ei, ea, em
     g["_blockified"] = stamp
     return g
+
+
+def pairing_perm(edge_index: np.ndarray) -> Optional[np.ndarray]:
+    """Reverse-edge involution P with edge_index[:, P[e]] == (col[e],
+    row[e]), or None when the edge list is not symmetric."""
+    r, c = edge_index[0], edge_index[1]
+    by_rc = np.lexsort((c, r))
+    by_cr = np.lexsort((r, c))
+    pair = np.empty(r.shape[0], np.int64)
+    pair[by_rc] = by_cr
+    if not (np.array_equal(r[pair], c) and np.array_equal(c[pair], r)):
+        return None
+    return pair
+
+
+def scan_dataset_for_blocking(dataset, n_nodes_padded: int, block: int):
+    """One pass over a dataset: (max block degree, every-graph-symmetric).
+    Both are layout decisions made once per dataset, so every batch of a run
+    has one shape."""
+    deg, symmetric = 1, True
+    for i in range(len(dataset)):
+        ei = dataset[i]["edge_index"]
+        deg = max(deg, max_block_degree(np.sort(ei[0]), n_nodes_padded, block))
+        symmetric = symmetric and pairing_perm(ei) is not None
+    return deg, symmetric

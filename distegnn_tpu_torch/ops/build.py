@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under
-``distegnn_tpu_torch/_build/`` (named by a hash of the source, so an edited
-source is rebuilt) and loaded with ``ctypes``. Nothing is built or loaded at
-import time: the CPU tests import every module of the port.
+``distegnn_tpu_torch/_build/`` (named by a hash of the source and the shared
+``csrc/*.cuh`` headers, so an edited source or header is rebuilt) and loaded
+with ``ctypes``. Nothing is built or loaded at import time: the CPU tests
+import every module of the port.
 """
 
 from __future__ import annotations
@@ -56,9 +57,13 @@ def _nvcc() -> str:
 
 def _build(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header under csrc/ it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(out):

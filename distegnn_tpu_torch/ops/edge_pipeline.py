@@ -12,11 +12,15 @@ sender lies in node blocks ``s_b .. s_b+2`` with ``s_b = clip(b-1, 0, nb-3)``
 for the receiver's block ``b``; ``build_edge_blocks`` masks the rest, and
 ``split_remote_edges`` routes those (the remote tail) to plain tensor code.
 
-``fused_edge_layer`` runs the hand-written CUDA kernel
-(``csrc/fused_edge_fwd.cu``) on CUDA tensors and its plain PyTorch version
-``fused_edge_layer_ref`` on CPU tensors. The roundings are those of the TPU
-kernel, in f32 mode too: the aggregated translation is split into two bf16
-terms (hi + lo) and the edge features are rounded to bf16 before an f32 sum.
+``fused_edge_layer`` is the ``torch.autograd.Function`` ``FusedEdgeLayer``.
+Its forward runs the hand-written CUDA kernel ``csrc/fused_edge_fwd.cu`` on
+CUDA tensors and the plain PyTorch version ``fused_edge_layer_ref`` on CPU
+tensors; its backward runs ``csrc/fused_edge_bwd.cu`` (which recomputes the
+per-edge forward: no ``[E, H]`` residual is kept) or the plain
+``fused_edge_layer_bwd_ref``. The roundings are those of the TPU kernels, in
+f32 mode too: the aggregated translation and its cotangent are split into
+two bf16 terms (hi + lo), and the edge features and the per-edge ``d_t1``
+payload are rounded to bf16 before an f32 sum.
 """
 
 from __future__ import annotations
@@ -118,6 +122,13 @@ def _remote_sel(edge_index: np.ndarray, block: int, n_nodes: int) -> np.ndarray:
     return (bc < s) | (bc > s + 2)
 
 
+def count_remote_edges(edge_index: np.ndarray, *, block: int,
+                       n_nodes: int) -> int:
+    """Number of out-of-window edges (loader scans use this to pick a
+    dataset-stable remote pad without materialising the split)."""
+    return int(_remote_sel(np.asarray(edge_index), block, n_nodes).sum())
+
+
 def remote_selection(edge_index: np.ndarray, *, block: int,
                      n_nodes: int) -> np.ndarray:
     """Row-sorted indices of the out-of-window edges."""
@@ -167,6 +178,12 @@ def _silu(t: torch.Tensor) -> torch.Tensor:
     # x * sigmoid(x) with the sigmoid rounded to x's dtype first, as the
     # JAX package's _silu rounds it
     return t * torch.sigmoid(t)
+
+
+def _dsilu(t: torch.Tensor) -> torch.Tensor:
+    # silu'(t) = s * (1 + t * (1 - s)), each op rounded to t's dtype
+    s = torch.sigmoid(t)
+    return s * (1.0 + t * (1.0 - s))
 
 
 def _split2(x: torch.Tensor):
@@ -223,16 +240,101 @@ def fused_edge_layer_ref(x, hr, hc, row_t, col_l, kblk, scal,
     return out[:, 0:3] + out[:, 3:6], out[:, 6], out[:, 8:]
 
 
+def _combine_bwd(drow, dcol, H):
+    """Row- and column-side sums [N, H+8] -> (d_x, d_hr, d_hc), added in the
+    order of the JAX package's combine."""
+    d_x = drow[:, 0:3] + drow[:, 3:6]
+    d_x = d_x + dcol[:, 0:3] + dcol[:, 3:6]
+    return d_x, drow[:, 8:], dcol[:, 8:]
+
+
+def fused_edge_layer_bwd_ref(x, hr, hc, row_t, col_l, kblk, scal,
+                             weights: EdgeWeights, g_trans, g_ef, block: int,
+                             dtype_name: str = "bf16"):
+    """Plain PyTorch version of the fused layer's backward: the arguments of
+    :func:`fused_edge_layer` plus the cotangents ``g_trans [N, 3]`` and
+    ``g_ef [N, H]`` of its sums (``count`` has none). Returns ``(d_x [N, 3],
+    d_hr [N, H], d_hc [N, H], EdgeWeights of the weight gradients)``, all
+    f32.
+
+    Written step by step after the TPU kernel's backward, with its roundings
+    (autograd through :func:`fused_edge_layer_ref` rounds elsewhere): the
+    per-edge ``d_t1`` payload is rounded to bf16 and ``d_cd`` split into bf16
+    hi + lo before the segment sums; in bf16 mode ``d_y2``, ``d_t3``,
+    ``d_t2``, ``d_t1`` and every ``@ w.T`` product are bf16, and the
+    weight-gradient products take the bf16 operands with f32 accumulation."""
+    T = block
+    n_nodes, H = hr.shape
+    _check_grid(n_nodes, T)
+    dt = _DTYPES[dtype_name]
+    f32 = torch.float32
+    w = weights
+    row, col = _global_edges(row_t, col_l, kblk, n_nodes, T)
+    mask = scal[:, 2:3]                                     # [E, 1] f32
+
+    # the forward, recomputed as the kernel recomputes it
+    cd = (x[row] - x[col]) * mask                           # [E, 3] f32
+    radial = torch.sum(cd * cd, dim=1, keepdim=True)
+    sfeat = torch.cat([radial, scal[:, 0:2]], dim=1).to(dt)
+    ws, b1, w2, b2, w3, b3 = (a.to(dt) for a in (w.ws, w.b1, w.w2, w.b2,
+                                                  w.w3, w.b3))
+    hr_, hc_ = hr.to(dt), hc.to(dt)
+    t1 = (hr_[row] + hc_[col]) + sfeat @ ws + b1
+    y1 = _silu(t1)
+    t2 = y1 @ w2 + b2
+    ef = _silu(t2)
+    t3 = ef @ w3 + b3
+    y2 = _silu(t3)
+    g = torch.sum(y2.to(f32) * w.w4, dim=1, keepdim=True) * mask
+
+    # the chain, per edge
+    d_trans = g_trans.to(f32)[row] * mask                   # [E, 3]
+    d_ef_up = g_ef.to(f32)[row] * mask                      # [E, H]
+    d_g = torch.sum(cd * d_trans, dim=1, keepdim=True)      # [E, 1]
+    d_cd3 = d_trans * g
+    d_y2 = (d_g * w.w4).to(dt)
+    dw4 = torch.sum(y2.to(f32) * d_g, dim=0, keepdim=True)
+    d_t3 = d_y2 * _dsilu(t3)
+    d_ef = d_ef_up.to(dt) + d_t3 @ w3.T
+    dw3 = ef.to(f32).T @ d_t3.to(f32)
+    db3 = torch.sum(d_t3.to(f32), dim=0, keepdim=True)
+    d_t2 = d_ef * _dsilu(t2)
+    d_y1 = d_t2 @ w2.T
+    dw2 = y1.to(f32).T @ d_t2.to(f32)
+    db2 = torch.sum(d_t2.to(f32), dim=0, keepdim=True)
+    d_t1 = d_y1 * _dsilu(t1)
+    dws = sfeat.to(f32).T @ d_t1.to(f32)
+    db1 = torch.sum(d_t1.to(f32), dim=0, keepdim=True)
+    d_sfeat = d_t1 @ ws.T                                   # [E, 3]
+    d_radial = d_sfeat[:, 0:1].to(f32) * mask
+    d_cd = 2.0 * cd * d_radial + d_cd3                      # [E, 3] f32
+
+    # row side at row, column side (d_x_col = -d_cd, d_hc = d_t1) at col
+    d_t1m = (d_t1 * mask.to(dt)).to(torch.bfloat16).to(f32)
+    hi, lo = _split2(d_cd)
+    hi, lo = hi.to(f32), lo.to(f32)
+    zero2 = torch.zeros_like(d_cd[:, 0:2])
+    row_data = torch.cat([hi, lo, zero2, d_t1m], dim=1)     # [E, H+8]
+    col_data = torch.cat([-hi, -lo, zero2, d_t1m], dim=1)
+    drow = torch.zeros((n_nodes, H + 8), dtype=f32, device=x.device)
+    dcol = torch.zeros_like(drow)
+    drow.index_add_(0, row, row_data)
+    dcol.index_add_(0, col, col_data)
+    d_x, d_hr, d_hc = _combine_bwd(drow, dcol, H)
+    return d_x, d_hr, d_hc, EdgeWeights(dws, db1, dw2, db2, dw3, db3, dw4)
+
+
 # ---------------------------------------------------------------- kernel
 
-def _launch_fn():
+def _lib_fn(name: str, n_ptr: int, n_int: int):
     from distegnn_tpu_torch.ops.build import LIBRARIES
 
-    fn = LIBRARIES.get("fused_edge_fwd").fused_edge_fwd
+    fn = getattr(LIBRARIES.get(name), name)
     if fn.argtypes is None:
+        # every pointer (and the stream) as c_void_p: ctypes would pass a
+        # bare Python int as a 32-bit int and cut the pointer
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, p]
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -249,52 +351,150 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def _fused_edge_layer_cuda(x, hr, hc, row_t, col_l, kblk, scal,
-                           weights: EdgeWeights, block, dtype_name):
+def _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights: EdgeWeights,
+                 block, dtype_name, kernel: str, sizes):
+    """Check and lay out the inputs both kernels share; returns the
+    contiguous (row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2, b2, w3, b3,
+    w4) tuple the C entry points take, and the edge-slot count."""
     T = block
     n_nodes, H = hr.shape
     nb = _check_grid(n_nodes, T)
-    if H % 16 or H > 128:
-        raise ValueError(f"fused_edge_fwd supports H in {{16, 32, ..., 128}} "
-                         f"(multiples of 16), got H={H}")
+    if H not in sizes:
+        raise ValueError(f"{kernel} supports H in {sorted(sizes)}, got H={H}")
     E = scal.shape[0]
     if E % nb or (E // nb) % T:
         raise ValueError(f"layout mismatch: N={n_nodes} E={E} block={T}")
     dev = x.device
     dt = _DTYPES[dtype_name]
     f32, i32 = torch.float32, torch.int32
-    # the kernel reads the activations in the compute dtype, as the TPU
-    # kernel's packed [hr || hc] array
+    # the kernels read the activations in the compute dtype, as the TPU
+    # kernels' packed [hr || hc] array
     hr, hc = hr.to(dt).contiguous(), hc.to(dt).contiguous()
     w = weights
-    ws, b1, w2, b2 = (w.ws.contiguous(), w.b1.reshape(-1).contiguous(),
-                      w.w2.contiguous(), w.b2.reshape(-1).contiguous())
-    w3, b3, w4 = (w.w3.contiguous(), w.b3.reshape(-1).contiguous(),
-                  w.w4.reshape(-1).contiguous())
-    for t, name, dtype, shape in (
-            (x, "x", f32, (n_nodes, 3)), (hr, "hr", dt, (n_nodes, H)),
-            (hc, "hc", dt, (n_nodes, H)),
-            (row_t, "row_t", i32, (E // T, T)), (col_l, "col_l", i32, (E, 1)),
-            (kblk, "kblk", i32, (E, 1)), (scal, "scal", f32, (E, XL)),
-            (ws, "ws", f32, (3, H)), (b1, "b1", f32, (H,)),
-            (w2, "w2", f32, (H, H)), (b2, "b2", f32, (H,)),
-            (w3, "w3", f32, (H, H)), (b3, "b3", f32, (H,)),
-            (w4, "w4", f32, (H,))):
+    flat = [w.ws.contiguous()] + [a.reshape(-1).contiguous() if a.shape[0] == 1
+                                  else a.contiguous()
+                                  for a in (w.b1, w.w2, w.b2, w.w3, w.b3,
+                                            w.w4)]
+    args = (x, hr, hc, row_t, col_l, kblk, scal, *flat)
+    for t, name, dtype, shape in zip(
+            args,
+            ("x", "hr", "hc", "row_t", "col_l", "kblk", "scal", "ws", "b1",
+             "w2", "b2", "w3", "b3", "w4"),
+            (f32, dt, dt, i32, i32, i32, f32) + (f32,) * 7,
+            ((n_nodes, 3), (n_nodes, H), (n_nodes, H), (E // T, T), (E, 1),
+             (E, 1), (E, XL), (3, H), (H,), (H, H), (H,), (H, H), (H,),
+             (H,))):
         _check(t, name, dtype, shape, dev)
+    # the C entry points take the edge layout first
+    return args[3:7] + args[0:3] + args[7:], E
 
-    out = torch.zeros((n_nodes, H + 8), dtype=f32, device=dev)
-    fn = _launch_fn()
+
+_FWD_SIZES = frozenset(range(16, 129, 16))
+_BWD_SIZES = frozenset((16, 32, 64))
+
+
+def _fused_edge_layer_cuda(x, hr, hc, row_t, col_l, kblk, scal,
+                           weights: EdgeWeights, block, dtype_name):
+    args, E = _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights,
+                           block, dtype_name, "fused_edge_fwd", _FWD_SIZES)
+    n_nodes, H = hr.shape
+    dev = x.device
+    out = torch.zeros((n_nodes, H + 8), dtype=torch.float32, device=dev)
+    fn = _lib_fn("fused_edge_fwd", 15, 6)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(row_t.data_ptr(), col_l.data_ptr(), kblk.data_ptr(),
-             scal.data_ptr(), x.data_ptr(), hr.data_ptr(), hc.data_ptr(),
-             ws.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-             w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), out.data_ptr(),
-             n_nodes, E, T, H, int(dtype_name == "bf16"), n_sm, stream)
+    err = fn(*(a.data_ptr() for a in args), out.data_ptr(),
+             n_nodes, E, block, H, int(dtype_name == "bf16"), n_sm, stream)
     if err != 0:
         raise RuntimeError(f"fused_edge_fwd launch failed: CUDA error {err}")
     fused_edge_layer.launches += 1
     return out[:, 0:3] + out[:, 3:6], out[:, 6], out[:, 8:]
+
+
+def _fused_edge_bwd_cuda(x, hr, hc, row_t, col_l, kblk, scal,
+                         weights: EdgeWeights, g_trans, g_ef, block,
+                         dtype_name):
+    """Launch ``csrc/fused_edge_bwd.cu``: the same results as
+    :func:`fused_edge_layer_bwd_ref` (column-side sums by f32 atomics, so
+    their summation order changes from run to run)."""
+    args, E = _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights,
+                           block, dtype_name, "fused_edge_bwd", _BWD_SIZES)
+    n_nodes, H = hr.shape
+    dev = x.device
+    f32 = torch.float32
+    g_pack = torch.cat([g_trans.to(f32),
+                        torch.zeros((n_nodes, XL - 3), dtype=f32, device=dev),
+                        g_ef.to(f32)], dim=1).contiguous()     # [N, H+8]
+    drow = torch.zeros((n_nodes, H + 8), dtype=f32, device=dev)
+    dcol = torch.zeros_like(drow)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_grid = 2 * n_sm            # the kernel's residency: 2 blocks per SM
+    n_w = 7 * H + 2 * H * H        # one weight-gradient vector
+    part = torch.empty((max_grid, n_w), dtype=f32, device=dev)
+    dw = torch.empty((n_w,), dtype=f32, device=dev)
+    fn = _lib_fn("fused_edge_bwd", 19, 7)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*(a.data_ptr() for a in args), g_pack.data_ptr(),
+             drow.data_ptr(), dcol.data_ptr(), part.data_ptr(), dw.data_ptr(),
+             n_nodes, E, block, H, int(dtype_name == "bf16"), n_sm, max_grid,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"fused_edge_bwd launch failed: CUDA error {err}")
+    fused_edge_layer.bwd_launches += 1
+    d_x, d_hr, d_hc = _combine_bwd(drow, dcol, H)
+    o = np.cumsum([0, 3 * H, H, H * H, H, H * H, H, H])
+    dws, db1, dw2, db2, dw3, db3, dw4 = (dw[o[k]:o[k + 1]] for k in range(7))
+    d_w = EdgeWeights(dws.reshape(3, H), db1.reshape(1, H), dw2.reshape(H, H),
+                      db2.reshape(1, H), dw3.reshape(H, H), db3.reshape(1, H),
+                      dw4.reshape(1, H))
+    return d_x, d_hr, d_hc, d_w
+
+
+def _on_device(kernel, plain, x):
+    """CUDA tensors take the kernel, CPU tensors the plain version; any other
+    device is refused (there is no fallback)."""
+    if x.device.type == "cuda":
+        return kernel
+    if x.device.type == "cpu":
+        return plain
+    raise ValueError(f"fused_edge_layer: unsupported device {x.device}")
+
+
+class FusedEdgeLayer(torch.autograd.Function):
+    """The fused layer as an autograd node. The seven weights come in as
+    separate tensors (autograd cannot see into an EdgeWeights tuple), so
+    their gradients reach the parameters they are views of."""
+
+    @staticmethod
+    def forward(ctx, x, hr, hc, row_t, col_l, kblk, scal, ws, b1, w2, b2, w3,
+                b3, w4, block, dtype_name):
+        run = _on_device(_fused_edge_layer_cuda, fused_edge_layer_ref, x)
+        w = EdgeWeights(ws, b1, w2, b2, w3, b3, w4)
+        trans, count, ef_sum = run(x, hr, hc, row_t, col_l, kblk, scal, w,
+                                   block, dtype_name)
+        ctx.save_for_backward(x, hr, hc, row_t, col_l, kblk, scal, ws, b1,
+                              w2, b2, w3, b3, w4)
+        ctx.block, ctx.dtype_name = block, dtype_name
+        count = count.contiguous()
+        # count is data-independent (the mask sum): no gradient
+        ctx.mark_non_differentiable(count)
+        return trans, count, ef_sum.contiguous()
+
+    @staticmethod
+    def backward(ctx, g_trans, g_count, g_ef):
+        x, hr, hc, row_t, col_l, kblk, scal, *w = ctx.saved_tensors
+        run = _on_device(_fused_edge_bwd_cuda, fused_edge_layer_bwd_ref, x)
+        n_nodes, H = hr.shape
+        if g_trans is None:
+            g_trans = x.new_zeros((n_nodes, 3))
+        if g_ef is None:
+            g_ef = x.new_zeros((n_nodes, H))
+        d_x, d_hr, d_hc, d_w = run(x, hr, hc, row_t, col_l, kblk, scal,
+                                   EdgeWeights(*w), g_trans, g_ef, ctx.block,
+                                   ctx.dtype_name)
+        d_ws = [d.reshape(p.shape).to(p.dtype) for d, p in zip(d_w, w)]
+        return (d_x, d_hr.to(hr.dtype), d_hc.to(hc.dtype), None, None, None,
+                None, *d_ws, None, None)
 
 
 def fused_edge_layer(x, hr, hc, row_t, col_l, kblk, scal,
@@ -312,17 +512,16 @@ def fused_edge_layer(x, hr, hc, row_t, col_l, kblk, scal,
     Returns (trans_sum [N, 3] f32, count [N] f32, ef_sum [N, H] f32): the
     un-normalised in-window segment sums; the caller adds the remote tail.
 
-    CUDA tensors run the CUDA kernel (a failed build or launch raises; there
-    is no fallback); CPU tensors run :func:`fused_edge_layer_ref`.
-    ``fused_edge_layer.launches`` counts the kernel launches.
+    Differentiable in x, hr, hc and the weights (:class:`FusedEdgeLayer`).
+    CUDA tensors run the CUDA kernels (a failed build or launch raises; there
+    is no fallback); CPU tensors run :func:`fused_edge_layer_ref` and
+    :func:`fused_edge_layer_bwd_ref`. ``fused_edge_layer.launches`` and
+    ``fused_edge_layer.bwd_launches`` count the forward and backward kernel
+    launches.
     """
-    if x.device.type == "cuda":
-        return _fused_edge_layer_cuda(x, hr, hc, row_t, col_l, kblk, scal,
-                                      weights, block, dtype_name)
-    if x.device.type == "cpu":
-        return fused_edge_layer_ref(x, hr, hc, row_t, col_l, kblk, scal,
-                                    weights, block, dtype_name)
-    raise ValueError(f"fused_edge_layer: unsupported device {x.device}")
+    return FusedEdgeLayer.apply(x, hr, hc, row_t, col_l, kblk, scal,
+                                *weights, block, dtype_name)
 
 
 fused_edge_layer.launches = 0
+fused_edge_layer.bwd_launches = 0

@@ -75,3 +75,16 @@ def radius_graph_np(pos: np.ndarray, r: float, loop: bool = False) -> np.ndarray
     col = np.concatenate(cols)
     perm = np.lexsort((col, row))
     return np.stack([row[perm], col[perm]])
+
+
+def cutoff_edges_np(edge_index: np.ndarray, pos: np.ndarray,
+                    cutoff_rate: float) -> np.ndarray:
+    """Drop the longest ``cutoff_rate`` fraction of edges: sort by length,
+    keep the shortest ``int(E * (1 - rate))`` in their original order."""
+    if cutoff_rate <= 0 or edge_index.shape[1] == 0:
+        return edge_index
+    d = np.linalg.norm(pos[edge_index[0]] - pos[edge_index[1]], axis=1)
+    keep = int(edge_index.shape[1] * (1.0 - cutoff_rate))
+    idx = np.argsort(d, kind="stable")[:keep]
+    idx.sort()
+    return edge_index[:, idx]

@@ -82,3 +82,40 @@ def test_fused_edge_kernel_matches_plain_version_on_card(dtype_name):
     for a, b in zip(out, ref):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 2 ** -7 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+def test_fused_edge_bwd_kernel_matches_plain_version_on_card(dtype_name):
+    """The backward kernel against fused_edge_layer_bwd_ref on the same card
+    tensors, through the autograd Function (one forward and one backward
+    launch). Max error <= 2^-7 of each output's scale (f32: summation order,
+    the column side by atomics; bf16: single-ulp flips of intermediates)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    row, col, ea, em, n, x, hr, hc, w = _setup(17)
+    rng = np.random.default_rng(18)
+    gt = rng.normal(size=(n, 3)).astype(np.float32)
+    ge = rng.normal(size=(n, H)).astype(np.float32)
+    dev = torch.device("cuda")
+    pa = [a.to(dev) for a in P.build_edge_blocks(*_t(row, col, ea, em),
+                                                  block=T, n_nodes=n)]
+    leaves = [a.to(dev).requires_grad_() for a in _t(x, hr, hc, *w)]
+    gtd, ged = (a.to(dev) for a in _t(gt, ge))
+    before = (P.fused_edge_layer.launches, P.fused_edge_layer.bwd_launches)
+    trans, _, ef = P.fused_edge_layer(*leaves[:3], *pa,
+                                      P.EdgeWeights(*leaves[3:]), T,
+                                      dtype_name)
+    grads = torch.autograd.grad((trans * gtd).sum() + (ef * ged).sum(),
+                                leaves)
+    torch.cuda.synchronize()
+    assert (P.fused_edge_layer.launches,
+            P.fused_edge_layer.bwd_launches) == (before[0] + 1, before[1] + 1)
+    d_x, d_hr, d_hc, d_w = P.fused_edge_layer_bwd_ref(
+        *[a.detach() for a in leaves[:3]], *pa,
+        P.EdgeWeights(*[a.detach() for a in leaves[3:]]), gtd, ged, T,
+        dtype_name)
+    for a, b in zip(grads, (d_x, d_hr, d_hc, *d_w)):
+        assert a.shape == b.shape
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2 ** -7 * scale
