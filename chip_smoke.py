@@ -16,6 +16,13 @@ or of the JAX package. Phases (any failure exits nonzero):
      degree ~20), in f32 and bf16.
   2b. the same for the backward kernel, with random cotangents: all ten
      outputs (d_x, d_hr, d_hc and the seven weight gradients).
+  2c. the prefix-scan kernel (csrc/prefix_scan.cu) in both directions, f32
+     and bf16 input, against f64 and against its plain version, at the
+     plain train path's shapes ([E, 68], [E, 64], [E, 3] with E the padded
+     edge count of a 113140-node cloud), the plain serve path's [4, E, 68]
+     and edge cases (E under one tile, ragged E, F = 1, a batch of 4);
+     prefix_sum's autograd backward against the suffix kernel; each path
+     shape timed beside its plain version, its bound and torch.cumsum.
   3. serve: ``engine_with_params_from_config`` on configs/nbody_serve.yaml
      with model.edge_impl=fused and data.edge_block=512 (H=64, L=4, C=3,
      max_batch 4, random weights from the config's seed); answer four
@@ -23,6 +30,11 @@ or of the JAX package. Phases (any failure exits nonzero):
      count set to 0 just before and read just after; check finiteness, the
      exact launch count, equivariance under a random rotation + translation,
      and agreement with the same model run through the plain version.
+  3b. serve configs/nbody_serve.yaml as published (edge_impl plain,
+     segment_impl scatter: no kernel), then with model.segment_impl=cumsum
+     (one scan launch per layer and request, the batch axis in the launch):
+     exact launch counts, equivariance, and the cumsum model held against
+     the scatter model, with the kernel and with its plain version.
   4. time each kernel and its plain version with CUDA events, its bound from
      this run's shapes, and per-request predict time on the host clock.
   5. train: ``distegnn_tpu_torch.main.run`` on configs/largefluid_distegnn.yaml
@@ -37,10 +49,20 @@ or of the JAX package. Phases (any failure exits nonzero):
      optimizer update again with the kernels and with their plain versions
      (losses, gradient norm, and each parameter's gradient must agree),
      micro-step ms, nodes/s and peak device memory.
+  6. train the plain path: the same run with only
+     data.accelerate_mode=cutoff_edges and model.segment_impl=cumsum on the
+     published config (edge_block 0: the plain row-sorted layout with the
+     reverse-edge pairing), the scan's launch counts by width set to 0 just
+     before and checked exactly just after; finite losses, parameters moved;
+     the first optimizer update again with the kernel, with its plain
+     version and with segment_impl=scatter, the kernel's and the plain
+     version's distance from the exact scatter lowering compared;
+     micro-step ms, nodes/s and peak device memory.
 
 With ``--profile`` it then breaks one request of the largest scene into host
 stages and profiles it with torch.profiler (device time by kernel, the
-device's idle share), and profiles one train micro-step the same way.
+device's idle share), and profiles one train micro-step of each train path
+the same way.
 
 Output: timing lines, then one JSON line ``{"kernels": [...]}``, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -59,6 +81,8 @@ from unittest import mock
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"f32": 67e12, "bf16": 989e12}
 
+# every phase runs here (a CPU rehearsal of the phases points it elsewhere)
+DEVICE = "cuda"
 BLOCK = 512
 KERNEL_N, KERNEL_DEG, HIDDEN = 8192, 20.0, 64
 SCENES = (1500, 3000, 6000, 10000)
@@ -89,6 +113,29 @@ TOL_TRAIN = 1e-3
 # the bf16 modules' weight gradients come out of bf16 products, rounded to
 # bf16, and an ulp of a tensor's max is 2^-8..2^-7 of it; allow two
 TOL_PARAM = 2 ** -6
+# phase 2c: the scan against f64, as a fraction of each column's max
+# |prefix| (the scan of |x|), which the f32 rounding of a running total is
+# relative to; the plain version is held to the same bound
+TOL_SCAN = 1e-5
+SCAN_CASES = ((1, 100, 5), (1, 4097, 1), (2, 9001, 3), (4, 12345, 68))
+# phases 3b and 6: a cumsum segment sum is the difference of two f32
+# prefixes, rounded at ~|prefix| * eps, so the kernel and its plain version
+# are two roundings of one cancellation; each is held against the exact
+# scatter lowering instead, and the kernel's distance from it may be at most
+# SCATTER_FACTOR times the plain version's, plus SCATTER_FLOOR (of the
+# metric's own scale: coordinates O(1), relative errors). In training the
+# rule holds the aggregate distances (losses, gradient norm, the gradient's
+# relative L2 distance): once the bf16 model rounds, a one-ulp flip moves
+# single gradient entries, and the max-entry distances of the kernel and of
+# the plain version from scatter were 2x apart on an H100 (1.7e-4, 8.4e-5
+# of the max; the scatter lowering's backward itself sums in bf16). Those
+# are held to bounds of their own: TOL_TRAIN for the gradient's max abs
+# error over its max, and SCATTER_PARAM for each tensor's against its own
+# max (the virtual-coordinate heads phi_X, whose gradients cancel over all
+# nodes, measured 0.10-0.13 for both).
+SCATTER_FACTOR = 2.0
+SCATTER_FLOOR = 1e-6
+SCATTER_PARAM = 2 ** -2
 
 
 def fail(msg):
@@ -325,7 +372,11 @@ def edge_bwd_kernel_phase(model, dev):
     return res
 
 
-def serve_phase(cfg, model, eng, dev):
+def serve_scenes():
+    return [scene(n, seed=100 + i) for i, n in enumerate(SCENES)]
+
+
+def serve_phase(cfg, model, eng, dev, scenes):
     """Phase 3 + per-request timings of phase 4."""
     import numpy as np
     import torch
@@ -333,7 +384,6 @@ def serve_phase(cfg, model, eng, dev):
     from distegnn_tpu_torch.models import fast_egnn
     from distegnn_tpu_torch.ops import edge_pipeline as ep
 
-    scenes = [scene(n, seed=100 + i) for i, n in enumerate(SCENES)]
     for n, g in zip(SCENES, scenes):
         e = g["edge_index"].shape[1]
         sel = ep.remote_selection(g["edge_index"], block=BLOCK,
@@ -359,18 +409,7 @@ def serve_phase(cfg, model, eng, dev):
         check(o.shape == (g["loc"].shape[0], 3), f"bad output {o.shape}")
         check(np.isfinite(o).all(), "non-finite served output")
 
-    # equivariance on the 3000-node request
-    rng = np.random.default_rng(7)
-    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
-    R = (q * np.sign(np.diag(r))).astype(np.float32)
-    t = rng.normal(size=(3,)).astype(np.float32)
-    g = scenes[1]
-    gr = dict(g, loc=(g["loc"] @ R.T + t).astype(np.float32),
-              vel=(g["vel"] @ R.T).astype(np.float32))
-    err = float(np.abs(eng.predict(gr) - (outs[1] @ R.T + t)).max())
-    print(f"equivariance (rotation + translation): max_abs_err={err:.3e} "
-          f"tol={TOL_EQUIV:.1e}")
-    check(err <= TOL_EQUIV, "equivariance violated")
+    check_equivariance("", eng, scenes[1], outs[1])
 
     # the same model through the plain version, on the card
     with mock.patch.object(fast_egnn, "fused_edge_layer",
@@ -381,17 +420,43 @@ def serve_phase(cfg, model, eng, dev):
           f"tol={TOL_PLAIN:.1e}")
     check(perr <= TOL_PLAIN, "served output disagrees with the plain path")
 
-    for n, g in zip(SCENES, scenes):
+    predict_times("", eng, scenes)
+    print(f"predict ms, first pass mean over the {len(scenes)} requests: "
+          f"{first_ms:.3f}")
+    return launches
+
+
+def check_equivariance(label, eng, g, out):
+    """The served answer for ``g`` rotated and translated (a random proper
+    rotation and offset) against ``out`` moved the same way."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    R = (q * np.sign(np.diag(r))).astype(np.float32)
+    t = rng.normal(size=(3,)).astype(np.float32)
+    gr = dict(g, loc=(g["loc"] @ R.T + t).astype(np.float32),
+              vel=(g["vel"] @ R.T).astype(np.float32))
+    err = float(np.abs(eng.predict(gr) - (out @ R.T + t)).max())
+    print(f"{label}equivariance (rotation + translation, n="
+          f"{g['loc'].shape[0]}): max_abs_err={err:.3e} tol={TOL_EQUIV:.1e}")
+    check(err <= TOL_EQUIV, f"{label}equivariance violated")
+
+
+def predict_times(label, eng, scenes, reps=5):
+    """Host-clock predict ms per scene, median of ``reps``."""
+    meds = []
+    for g in scenes:
         ts = []
-        for _ in range(5):
+        for _ in range(reps):
             t0 = time.perf_counter()
             eng.predict(g)
             ts.append((time.perf_counter() - t0) * 1e3)
-        print(f"predict ms n={n}: median={sorted(ts)[2]:.3f} "
-              f"min={min(ts):.3f} max={max(ts):.3f}")
-    print(f"predict ms, first pass mean over the {len(scenes)} requests: "
-          f"{first_ms:.3f}")
-    return launches, scenes
+        ts.sort()
+        meds.append(ts[reps // 2])
+        print(f"{label}predict ms n={g['loc'].shape[0]}: median="
+              f"{ts[reps // 2]:.3f} min={ts[0]:.3f} max={ts[-1]:.3f}")
+    return meds
 
 
 def fluid_cloud(seed):
@@ -424,19 +489,56 @@ def fluid_cloud(seed):
         "edge_attr": np.repeat(d[:, None], 2, axis=1).astype(np.float32)}
 
 
-def first_update(cfg, init_sd, batches, dev, plain=False, time_extra=0,
-                 profile=False):
+def fused_counts():
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+
+    return ep.fused_edge_layer.launches, ep.fused_edge_layer.bwd_launches
+
+
+def fused_plain_patches():
+    """The fused kernels' wrappers pointed at their plain versions."""
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+
+    return (mock.patch.object(ep, "_fused_edge_layer_cuda",
+                              ep.fused_edge_layer_ref),
+            mock.patch.object(ep, "_fused_edge_bwd_cuda",
+                              ep.fused_edge_layer_bwd_ref))
+
+
+def scan_counts():
+    from distegnn_tpu_torch.ops import cumsum as CS
+
+    return CS.prefix_sum.launches, CS.prefix_sum.suffix_launches
+
+
+def reset_scan_counts():
+    from distegnn_tpu_torch.ops import cumsum as CS
+
+    CS.prefix_sum.launches = 0
+    CS.prefix_sum.suffix_launches = 0
+    CS.prefix_sum.launch_widths.clear()
+
+
+def scan_plain_patches():
+    """The scan wrapper's kernel call pointed at its plain version."""
+    from distegnn_tpu_torch.ops import cumsum as CS
+
+    return (mock.patch.object(CS, "_scan_cuda", CS.prefix_sum_ref),)
+
+
+def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
+                 time_extra=0, profile=False):
     """One optimizer update (accumulation_steps micro-steps) of the train
     step from ``init_sd`` over ``batches`` (on the card), with the per-step
     generators of epoch 1. Returns a dict: the micro-steps' losses with and
     without MMD, the accumulated gradient as one vector (as the optimizer
-    sees it, by parameter name), the kernel launches the update made, and the micro-step ms of
-    ``time_extra`` more timed micro-steps. ``plain=True`` runs the plain
-    versions of the kernels."""
+    sees it, by parameter name), the change of ``counts()`` (kernel
+    launches) over the update, and the micro-step ms of ``time_extra`` more
+    timed micro-steps. ``patches`` (e.g. :func:`fused_plain_patches`) are
+    entered around it all."""
     import torch
 
     from distegnn_tpu_torch.models.registry import get_model
-    from distegnn_tpu_torch.ops import edge_pipeline as ep
     from distegnn_tpu_torch.train.step import (TrainState, make_optimizer,
                                                make_train_step,
                                                needs_grad_clip,
@@ -464,12 +566,7 @@ def first_update(cfg, init_sd, batches, dev, plain=False, time_extra=0,
     state = TrainState(model, opt)
     step = make_train_step(model, opt, t.mmd.weight, t.mmd.sigma,
                            t.mmd.samples)
-    patches = ((mock.patch.object(ep, "_fused_edge_layer_cuda",
-                                  ep.fused_edge_layer_ref),
-                mock.patch.object(ep, "_fused_edge_bwd_cuda",
-                                  ep.fused_edge_layer_bwd_ref))
-               if plain else ())
-    counts = (ep.fused_edge_layer.launches, ep.fused_edge_layer.bwd_launches)
+    before = counts()
     with contextlib.ExitStack() as stack:
         for pt in patches:
             stack.enter_context(pt)
@@ -480,8 +577,7 @@ def first_update(cfg, init_sd, batches, dev, plain=False, time_extra=0,
             for k in out:
                 out[k].append(float(m[k]))
         out["grad"] = grads[0]
-        out["launches"] = (ep.fused_edge_layer.launches - counts[0],
-                           ep.fused_edge_layer.bwd_launches - counts[1])
+        out["launches"] = tuple(a - b for a, b in zip(counts(), before))
         ms = []
         for i in range(time_extra):
             b = batches[i % len(batches)]
@@ -495,6 +591,35 @@ def first_update(cfg, init_sd, batches, dev, plain=False, time_extra=0,
             profile_step(lambda: step(state, batches[0],
                                       step_generator(cfg.seed, 3, 0, dev)))
     return out
+
+
+def update_distance(a, b):
+    """How far the first update ``a`` lies from ``b`` (two results of
+    :func:`first_update`): the micro-step losses' (with and without MMD)
+    max relative error; the accumulated gradient's norm relative error, max
+    abs error over its max abs entry, and the norm of the difference over
+    the norm ("grad l2"); and each parameter tensor's max abs error over
+    its own max |b|. Returns (the five global numbers, the per-tensor
+    numbers)."""
+    import torch
+
+    errs = {}
+    for name in ("loss_with_mmd", "loss"):
+        errs[name] = max(abs(x - y) / abs(y) for x, y in zip(a[name], b[name]))
+    check(a["grad"].keys() == b["grad"].keys(),
+          "two updates gave gradients of different parameters")
+    ga = torch.cat([g.reshape(-1) for g in a["grad"].values()])
+    gb = torch.cat([b["grad"][n].reshape(-1) for n in a["grad"]])
+    errs["grad norm"] = abs(float(ga.norm()) - float(gb.norm())) / float(
+        gb.norm())
+    errs["grad"] = float((ga - gb).abs().max()) / float(gb.abs().max())
+    errs["grad l2"] = float((ga - gb).norm()) / float(gb.norm())
+    per = {}
+    for n, x in a["grad"].items():
+        y = b["grad"][n]
+        scale, d = float(y.abs().max()), float((x - y).abs().max())
+        per[n] = d / scale if scale > 0 else (0.0 if d == 0 else math.inf)
+    return errs, per
 
 
 def flagship_kernel_phase(model, batch, dev):
@@ -581,7 +706,7 @@ def profile_step(fn):
         print(f"profile train kernel: {ms:.3f} ms  x{n}  {key[:90]}")
 
 
-def train_phase(root, dev, profile=False):
+def train_phase(root, dev, clouds, profile=False):
     """Phase 5: a few training steps of the flagship model on Fluid113K-scale
     clouds through distegnn_tpu_torch.main.run, with exact launch counts,
     then the first optimizer update again with the kernels and with their
@@ -590,17 +715,107 @@ def train_phase(root, dev, profile=False):
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as log_dir:
-        return _train_phase(root, dev, log_dir, profile)
+        return _train_phase(root, dev, clouds, log_dir, profile)
 
 
-def _train_phase(root, dev, log_dir, profile):
-    import numpy as np
+def fluid_datasets(clouds, order):
+    """4 train, 1 valid, 1 test cloud."""
+    from distegnn_tpu_torch.data.loader import GraphDataset
+
+    return [GraphDataset(clouds[:4], node_order=order),
+            GraphDataset(clouds[4:5], node_order=order),
+            GraphDataset(clouds[5:], node_order=order)]
+
+
+def drive_train(cfg, ds, dev, reset_counts, read_counts, label):
+    """The main path of a train phase: ``distegnn_tpu_torch.main.run`` from
+    the config's seeded initial weights, with ``reset_counts()`` just before
+    and ``read_counts()`` just after. Checks finite losses and that the
+    parameters moved; prints the losses, the peak device memory and the
+    micro-step times in the trainer's loop. Returns (initial state_dict,
+    counts, micro-steps, eval forwards)."""
     import torch
 
-    from distegnn_tpu_torch.config import load_config
-    from distegnn_tpu_torch.data.loader import GraphDataset
-    from distegnn_tpu_torch.main import make_loaders, run
+    from distegnn_tpu_torch.main import run
     from distegnn_tpu_torch.models.registry import get_model
+
+    init_sd = get_model(cfg.model, generator=torch.Generator().manual_seed(
+        int(cfg.seed))).state_dict()
+    marks = []
+
+    def on_step(epoch, step, metrics):
+        torch.cuda.synchronize()
+        marks.append((epoch, step, time.perf_counter(),
+                      float(metrics["loss_with_mmd"])))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, _, log = run(cfg, *ds, device=dev, on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    micro = TRAIN_EPOCHS * len(ds[0]) // cfg.data.batch_size
+    evals = (TRAIN_EPOCHS // cfg.log.test_interval) * (len(ds[1]) + len(ds[2]))
+    print(f"{label}trained {micro} micro-steps ({state.optimizer.updates} "
+          f"optimizer updates) + {evals} eval forwards in {wall:.1f} s")
+    losses = [mk[3] for mk in marks]
+    print(f"{label}train losses (with MMD): "
+          + " ".join(f"{v:.6g}" for v in losses))
+    check(len(losses) == micro and all(math.isfinite(v) for v in losses),
+          f"{label}non-finite or missing train loss")
+    check(all(math.isfinite(v) for v in log["loss_train"] + log["loss"]),
+          f"{label}non-finite epoch loss")
+    moved = max(float((p.detach().cpu() - init_sd[k]).abs().max())
+                for k, p in state.model.state_dict().items())
+    print(f"{label}log.json losses: train {log['loss_train']} test "
+          f"{log['loss']}; max |param change| {moved:.3e}; peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    check(moved > 0, f"{label}the parameters did not change")
+    gaps = [(b[2] - a[2]) * 1e3 for a, b in zip(marks, marks[1:])
+            if a[0] == b[0]]
+    print(f"{label}micro-step ms in the trainer (host clock, loader "
+          "included): " + " ".join(f"{v:.1f}" for v in gaps))
+    return init_sd, state, counts, micro, evals
+
+
+def host_batches(cfg, ds, dev, label):
+    """The train loader's epoch-1 batches on the card, with where the
+    trainer's host time goes: the loader's first and second pass (layout
+    work cached on the first) and the copy to the card."""
+    import torch
+
+    from distegnn_tpu_torch.main import make_loaders
+
+    loader = make_loaders(cfg, *ds)[0]
+    loader.set_epoch(1)
+    t0 = time.perf_counter()
+    host = list(loader)
+    t1 = time.perf_counter()
+    host = list(loader)
+    t2 = time.perf_counter()
+    batches = [b.to(dev) for b in host]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    nb = len(host)
+    print(f"{label}loader ms per batch (host): first pass "
+          f"{(t1 - t0) * 1e3 / nb:.1f}, second {(t2 - t1) * 1e3 / nb:.1f}; "
+          f"copy to the card {(t3 - t2) * 1e3 / nb:.1f} ms per batch")
+    return loader, batches
+
+
+def step_times(label, k, n_real):
+    """Median micro-step ms of a first_update's timed steps, and nodes/s."""
+    ms = sorted(k["ms"])
+    med = ms[len(ms) // 2]
+    print(f"{label}train micro-step ms (synchronised, step only, {len(ms)} "
+          f"after the first update): median {med:.3f} min {ms[0]:.3f} max "
+          f"{ms[-1]:.3f}; {n_real / (med / 1e3):.0f} nodes/s")
+    return med
+
+
+def _train_phase(root, dev, clouds, log_dir, profile):
+    from distegnn_tpu_torch.config import load_config
     from distegnn_tpu_torch.ops import edge_pipeline as ep
 
     cfg = load_config(
@@ -616,116 +831,49 @@ def _train_phase(root, dev, log_dir, profile):
           f"remat={m.remat} batch={cfg.data.batch_size} "
           f"accumulation_steps={cfg.train.accumulation_steps} "
           f"epochs={cfg.train.epochs} test_interval={cfg.log.test_interval}")
-    t0 = time.perf_counter()
-    clouds = [fluid_cloud(300 + i) for i in range(6)]
-    order = cfg.data.node_order
-    ds = [GraphDataset(clouds[:4], node_order=order),
-          GraphDataset(clouds[4:5], node_order=order),
-          GraphDataset(clouds[5:], node_order=order)]
-    e = [c["edge_index"].shape[1] for c in clouds]
-    print(f"clouds: 6 x N={FLUID_N}, edges {min(e)}..{max(e)} (mean degree "
-          f"{np.mean(e) / FLUID_N:.2f}), built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    ds = fluid_datasets(clouds, cfg.data.node_order)
 
-    init_sd = get_model(cfg.model, generator=torch.Generator().manual_seed(
-        int(cfg.seed))).state_dict()
-    marks = []
-
-    def on_step(epoch, step, metrics):
-        torch.cuda.synchronize()
-        marks.append((epoch, step, time.perf_counter(),
-                      float(metrics["loss_with_mmd"])))
+    def reset():
+        ep.fused_edge_layer.launches = 0
+        ep.fused_edge_layer.bwd_launches = 0
 
     # the main path: counts 0 just before, read just after
-    torch.cuda.reset_peak_memory_stats()
-    ep.fused_edge_layer.launches = 0
-    ep.fused_edge_layer.bwd_launches = 0
-    t0 = time.perf_counter()
-    state, best, log = run(cfg, *ds, device=dev, on_step=on_step)
-    wall = time.perf_counter() - t0
-    fwd, bwd = ep.fused_edge_layer.launches, ep.fused_edge_layer.bwd_launches
-    peak = torch.cuda.max_memory_allocated()
+    init_sd, state, (fwd, bwd), micro, evals = drive_train(
+        cfg, ds, dev, reset, fused_counts, "")
     L = m.n_layers
-    micro = TRAIN_EPOCHS * len(ds[0]) // cfg.data.batch_size
-    evals = (TRAIN_EPOCHS // cfg.log.test_interval) * (len(ds[1]) + len(ds[2]))
     want_fwd, want_bwd = L * micro * 2 + L * evals, L * micro
-    print(f"trained {micro} micro-steps ({state.optimizer.updates} optimizer "
-          f"updates) + {evals} eval forwards in {wall:.1f} s: fused_edge_fwd "
-          f"launches={fwd} (expected {L} layers x {micro} micro-steps x 2 "
-          f"(remat) + {L} x {evals} = {want_fwd}), fused_edge_bwd launches="
-          f"{bwd} (expected {L} x {micro} = {want_bwd})")
+    print(f"fused_edge_fwd launches={fwd} (expected {L} layers x {micro} "
+          f"micro-steps x 2 (remat) + {L} x {evals} = {want_fwd}), "
+          f"fused_edge_bwd launches={bwd} (expected {L} x {micro} = "
+          f"{want_bwd})")
     check(fwd == want_fwd, f"fwd launch count {fwd} != {want_fwd}")
     check(bwd == want_bwd, f"bwd launch count {bwd} != {want_bwd}")
-    losses = [mk[3] for mk in marks]
-    print("train losses (with MMD): " + " ".join(f"{v:.6g}" for v in losses))
-    check(len(losses) == micro and all(math.isfinite(v) for v in losses),
-          "non-finite or missing train loss")
-    check(all(math.isfinite(v) for v in log["loss_train"] + log["loss"]),
-          "non-finite epoch loss")
-    moved = max(float((p.detach().cpu() - init_sd[k]).abs().max())
-                for k, p in state.model.state_dict().items())
-    print(f"log.json losses: train {log['loss_train']} test {log['loss']}; "
-          f"max |param change| {moved:.3e}; peak device memory "
-          f"{peak / 2**30:.3f} GiB")
-    check(moved > 0, "the parameters did not change")
-    gaps = [(b[2] - a[2]) * 1e3 for a, b in zip(marks, marks[1:])
-            if a[0] == b[0]]
-    print("micro-step ms in the trainer (host clock, loader included): "
-          + " ".join(f"{v:.1f}" for v in gaps))
 
-    # where the trainer's host time goes: the loader (blockify on its
-    # first pass, cached afterwards) and the copy to the card
-    loader = make_loaders(cfg, *ds)[0]
-    loader.set_epoch(1)
-    t0 = time.perf_counter()
-    host = list(loader)
-    t1 = time.perf_counter()
-    host = list(loader)
-    t2 = time.perf_counter()
-    batches = [b.to(dev) for b in host]
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    nb = len(host)
-    print(f"loader ms per batch (host): first pass {(t1 - t0) * 1e3 / nb:.1f} "
-          f"(blockify + collate), cached {(t2 - t1) * 1e3 / nb:.1f}; copy to "
-          f"the card {(t3 - t2) * 1e3 / nb:.1f} ms per batch")
-
+    _, batches = host_batches(cfg, ds, dev, "")
     flagship = flagship_kernel_phase(state.model, batches[0], dev)
 
     # the first optimizer update again: the kernels, then the plain versions
     n_real = float(batches[0].node_mask.sum())
     k = first_update(cfg, init_sd, batches, dev, time_extra=TRAIN_TIMED,
                      profile=profile)
-    p = first_update(cfg, init_sd, batches, dev, plain=True)
+    p = first_update(cfg, init_sd, batches, dev,
+                     patches=fused_plain_patches())
     n_micro = cfg.train.accumulation_steps
     check(k["launches"] == (2 * L * n_micro, L * n_micro)
           and p["launches"] == (0, 0),
           f"first update launches: kernels {k['launches']}, plain "
           f"{p['launches']}")
-    errs = {}
+    errs, perr = update_distance(k, p)
     for name in ("loss_with_mmd", "loss"):
-        errs[name] = max(abs(a - b) / abs(b) for a, b in zip(k[name], p[name]))
         print(f"first update, kernels vs plain, {name}: {k[name]} vs "
               f"{p[name]} (max rel err {errs[name]:.3e}, tol {TOL_TRAIN:.0e})")
-    check(k["grad"].keys() == p["grad"].keys(),
-          "kernels and plain versions gave gradients of different parameters")
-    gk = torch.cat([g.reshape(-1) for g in k["grad"].values()])
-    gp = torch.cat([p["grad"][n].reshape(-1) for n in k["grad"]])
-    norm_k, norm_p = float(gk.norm()), float(gp.norm())
-    errs["grad norm"] = abs(norm_k - norm_p) / norm_p
-    errs["grad"] = float((gk - gp).abs().max()) / float(gp.abs().max())
-    print(f"first update, kernels vs plain, accumulated gradient ({gk.numel()} "
-          f"entries): norm {norm_k:.6g} vs {norm_p:.6g} (rel err "
-          f"{errs['grad norm']:.3e}), max abs err / max abs "
+    print(f"first update, kernels vs plain, accumulated gradient: norm rel "
+          f"err {errs['grad norm']:.3e}, max abs err / max abs "
           f"{errs['grad']:.3e} (tol {TOL_TRAIN:.0e} each); launches: kernels "
           f"{k['launches']}, plain {p['launches']}")
-    check(all(v <= TOL_TRAIN for v in errs.values()),
+    check(all(errs[key] <= TOL_TRAIN
+              for key in ("loss_with_mmd", "loss", "grad norm", "grad")),
           "the train step with the kernels disagrees with the plain versions")
-    perr = {}
-    for n, a in k["grad"].items():
-        b = p["grad"][n]
-        scale, d = float(b.abs().max()), float((a - b).abs().max())
-        perr[n] = d / scale if scale > 0 else (0.0 if d == 0 else math.inf)
     worst = sorted(perr.items(), key=lambda kv: -kv[1])
     fused = [kv for kv in worst if ".phi_e_fused." in kv[0]]
     print(f"first update, kernels vs plain, per-parameter gradient max abs "
@@ -737,12 +885,309 @@ def _train_phase(root, dev, log_dir, profile):
     check(worst[0][1] <= TOL_PARAM,
           f"the gradient of {worst[0][0]} with the kernels disagrees with the "
           f"plain versions ({worst[0][1]:.3e} of its max)")
-    ms = k["ms"]
-    med = sorted(ms)[len(ms) // 2]
-    print(f"train micro-step ms (synchronised, step only, {len(ms)} after "
-          f"the first update): median {med:.3f} min {min(ms):.3f} max "
-          f"{max(ms):.3f}; {n_real / (med / 1e3):.0f} nodes/s")
+    step_times("", k, n_real)
     return fwd, bwd, flagship
+
+
+def scan_ref64(x, reverse):
+    """The exact scan of ``x`` [B, E, F] along E, in f64, and its scale:
+    each column's max of the scan of |x| (shaped [B, 1, F]). Both are taken
+    along the innermost axis of a transposed copy: torch's scan along an
+    outer axis of a tall array runs one thread per column."""
+    xd = x.double().transpose(1, 2).contiguous()
+    if reverse:
+        xd = xd.flip(-1)
+    ref, scale = xd.cumsum(-1), xd.abs().cumsum(-1).amax(-1, keepdim=True)
+    if reverse:
+        ref = ref.flip(-1)
+    return ref.transpose(1, 2), scale.transpose(1, 2).clamp(min=1e-30)
+
+
+def scan_phase(dev, e_train, e_serve):
+    """Phase 2c: the prefix-scan kernel in both directions, f32 and bf16
+    input, against f64 and its plain version at the paths' shapes and the
+    edge cases; prefix_sum's backward against the suffix kernel; then each
+    path shape timed (kernel, plain version, torch.cumsum) beside its bound.
+    Returns {row: result} for the ``kernels`` line."""
+    import torch
+
+    from distegnn_tpu_torch.ops import cumsum as CS
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # row -> (B, E, F, input type, reverse): the shapes the paths launch
+    rows = {"serve f32": (4, e_serve, 68, f32, False),
+            "train fwd f32": (1, e_train, 68, f32, False),
+            "train bwd bf16": (1, e_train, 64, bf16, False),
+            "train bwd f32": (1, e_train, 3, f32, False),
+            "suffix f32": (1, e_train, 68, f32, True)}
+    shapes = list(dict.fromkeys([r[:3] for r in rows.values()]
+                                + list(SCAN_CASES)))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = 0.0
+    for B, E, F in shapes:
+        for dt in (f32, bf16):
+            x = torch.randn((B, E, F), generator=gen, device=dev).to(dt)
+            for rev in (False, True):
+                out = CS._scan_cuda(x, rev)
+                torch.cuda.synchronize()
+                check(out.dtype == f32 and out.shape == x.shape
+                      and bool(torch.isfinite(out).all()),
+                      f"scan [{B}, {E}, {F}] {dt} reverse={rev}: bad output")
+                ref, scale = scan_ref64(x, rev)
+                plain = CS.prefix_sum_ref(x, rev)
+                err = float(((out.double() - ref).abs() / scale).max())
+                perr = float(((plain.double() - ref).abs() / scale).max())
+                kperr = float(((out.double() - plain.double()).abs()
+                               / scale).max())
+                print(f"scan [{B}, {E}, {F}] {str(dt)[6:]} "
+                      f"{'suffix' if rev else 'prefix'}: error over max "
+                      f"|prefix| vs f64: kernel {err:.3e}, plain {perr:.3e}; "
+                      f"kernel vs plain {kperr:.3e} (tol {TOL_SCAN:.0e})")
+                check(max(err, perr, kperr) <= TOL_SCAN,
+                      f"scan [{B}, {E}, {F}] {dt} reverse={rev} disagrees")
+                worst = max(worst, err)
+                del out, ref, scale, plain
+    # a positive stream (the edge features' columns): |prefix| grows with
+    # every row, so the f32 rounding of the running totals shows; the
+    # kernel may stray from f64 at most SCATTER_FACTOR x the TPU algorithm
+    B, E, F, _, _ = rows["train fwd f32"]
+    x = torch.randn((B, E, F), generator=gen, device=dev).abs()
+    ref, scale = scan_ref64(x, False)
+    err = float(((CS._scan_cuda(x, False).double() - ref).abs()
+                 / scale).max())
+    perr = float(((CS.prefix_sum_ref(x).double() - ref).abs() / scale).max())
+    print(f"scan [{B}, {E}, {F}] positive f32 prefix: error over max "
+          f"|prefix| vs f64: kernel {err:.3e}, plain {perr:.3e} (kernel <= "
+          f"{SCATTER_FACTOR} x plain + 1e-9)")
+    check(err <= SCATTER_FACTOR * perr + 1e-9,
+          "the scan kernel rounds further from f64 than the TPU algorithm")
+    del x, ref, scale
+    # prefix_sum's autograd backward is the suffix kernel, bit for bit
+    x = torch.randn((E, F), generator=gen, device=dev).requires_grad_()
+    w = torch.randn((E, F), generator=gen, device=dev)
+    before = scan_counts()
+    (g,) = torch.autograd.grad((CS.prefix_sum(x) * w).sum(), x)
+    torch.cuda.synchronize()
+    after = scan_counts()
+    check(after == (before[0] + 1, before[1] + 1) and torch.equal(
+        g, CS._scan_cuda(w, True)),
+        "prefix_sum's backward is not the suffix kernel")
+    print(f"scan: prefix_sum backward == suffix kernel at [{E}, {F}] "
+          f"(bitwise); worst kernel error over max |prefix| {worst:.3e}")
+    del x, w, g
+
+    res = {}
+    for name, (B, E, F, dt, rev) in rows.items():
+        x = torch.randn((B, E, F), generator=gen, device=dev).to(dt)
+        out = CS._scan_cuda(x, rev)
+        plain = CS.prefix_sum_ref(x, rev)
+        err = float((out - plain).abs().max())
+        del out, plain
+        ms = cuda_ms(lambda: CS._scan_cuda(x, rev))
+        plain_ms = cuda_ms(lambda: CS.prefix_sum_ref(x, rev), reps=3, warm=1)
+        # one PyTorch call computes the prefix direction; none the suffix
+        lib_ms = (None if rev else cuda_ms(
+            lambda: torch.cumsum(x, 1, dtype=f32), reps=2, warm=1))
+        # [B, E, F] read once, written once as f32; one add per element
+        nbytes = B * E * F * (x.element_size() + 4)
+        b_ms, b_by = bound(nbytes, B * E * F, "f32")
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         err=err, bound_ms=b_ms, bound_by=b_by,
+                         shape=f"[{B}, {E}, {F}]")
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"scan time {name} [{B}, {E}, {F}]: {ms:.4f} ms/launch, plain "
+              f"{plain_ms:.4f} ms, torch.cumsum {lib} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}: {nbytes} B), {b_ms / ms:.3f} of bound; max abs "
+              f"err vs plain {err:.3e}")
+        del x
+    return res
+
+
+def plain_serve_phase(root, dev, scenes):
+    """Phase 3b: configs/nbody_serve.yaml as published (scatter, no kernel)
+    and with segment_impl=cumsum, each main path with the scan's counts set
+    to 0 just before and read just after; equivariance; the cumsum model
+    with the kernel and with its plain version, each against the scatter
+    model. Returns (scan launches, {impl: predict ms medians})."""
+    import numpy as np
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.ops import cumsum as CS
+    from distegnn_tpu_torch.serve import engine_with_params_from_config
+
+    path = os.path.join(root, "configs", "nbody_serve.yaml")
+    outs, times, engines, weights = {}, {}, {}, {}
+    launches = 0
+    for impl in ("scatter", "cumsum"):
+        cfg = load_config(path, {"model.segment_impl": "cumsum"}
+                          if impl == "cumsum" else None)
+        m = cfg.model
+        model, eng = engine_with_params_from_config(cfg)
+        weights[impl] = model.state_dict()
+        print(f"serve plain {impl}: edge_impl={m.edge_impl} segment_impl="
+              f"{m.segment_impl} H={m.hidden_nf} L={m.n_layers} "
+              f"C={m.virtual_channels} max_batch={eng.max_batch}")
+        eng.warmup([(g["loc"].shape[0], g["edge_index"].shape[1])
+                    for g in scenes])
+        torch.cuda.synchronize()
+        # the main path: counts 0 just before, read just after
+        reset_scan_counts()
+        o = [eng.predict(g) for g in scenes]
+        n, n_suffix = scan_counts()
+        widths = dict(CS.prefix_sum.launch_widths)
+        want = m.n_layers * len(scenes) if impl == "cumsum" else 0
+        print(f"serve plain {impl}: {len(scenes)} requests, prefix_scan "
+              f"launches={n} by width {widths}, suffix {n_suffix} (expected "
+              f"{want}: {m.n_layers} layers x 1 packed [{eng.max_batch}, E, "
+              f"{m.hidden_nf + 4}] aggregation x {len(scenes)} requests)"
+              if impl == "cumsum" else
+              f"serve plain {impl}: {len(scenes)} requests, prefix_scan "
+              f"launches={n}, suffix {n_suffix} (expected 0: index_add_)")
+        check(n == want and n_suffix == 0 and widths == (
+            {("prefix", "f32", m.hidden_nf + 4): want} if want else {}),
+            f"serve plain {impl}: scan launch count {n}/{n_suffix} "
+            f"{widths} != {want}")
+        for g, a in zip(scenes, o):
+            check(a.shape == (g["loc"].shape[0], 3)
+                  and bool(np.isfinite(a).all()),
+                  f"serve plain {impl}: bad output")
+        check_equivariance(f"serve plain {impl} ", eng, scenes[1], o[1])
+        times[impl] = predict_times(f"serve plain {impl} ", eng, scenes)
+        outs[impl], engines[impl] = o, eng
+        if impl == "cumsum":
+            launches = n
+    check(all(torch.equal(a, weights["cumsum"][k])
+              for k, a in weights["scatter"].items()),
+          "the scatter and cumsum models drew different weights")
+    with contextlib.ExitStack() as stack:
+        for pt in scan_plain_patches():
+            stack.enter_context(pt)
+        plain = [engines["cumsum"].predict(g) for g in scenes]
+    err_k = max(float(np.abs(a - b).max())
+                for a, b in zip(outs["cumsum"], outs["scatter"]))
+    err_p = max(float(np.abs(a - b).max())
+                for a, b in zip(plain, outs["scatter"]))
+    err_kp = max(float(np.abs(a - b).max())
+                 for a, b in zip(outs["cumsum"], plain))
+    print(f"serve plain: cumsum vs scatter model, max abs err: kernel "
+          f"{err_k:.3e}, plain version {err_p:.3e} (kernel <= "
+          f"{SCATTER_FACTOR} x plain + {SCATTER_FLOOR:.0e}, and <= "
+          f"{TOL_PLAIN:.0e}); kernel vs plain version {err_kp:.3e}")
+    check(err_k <= SCATTER_FACTOR * err_p + SCATTER_FLOOR
+          and err_k <= TOL_PLAIN,
+          "served cumsum model: the kernel strays from the scatter model")
+    return launches, times
+
+
+def plain_train_phase(root, dev, clouds, e_train, profile=False):
+    """Phase 6 in a temporary log directory (see :func:`train_phase`)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plain_") as log_dir:
+        return _plain_train_phase(root, dev, clouds, e_train, log_dir,
+                                  profile)
+
+
+def _plain_train_phase(root, dev, clouds, e_train, log_dir, profile):
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.ops import cumsum as CS
+
+    path = os.path.join(root, "configs", "largefluid_distegnn.yaml")
+    run_len = {"train.epochs": TRAIN_EPOCHS,
+               "log.test_interval": TRAIN_EPOCHS, "log.log_dir": log_dir}
+    ov = {"data.accelerate_mode": "cutoff_edges",
+          "model.segment_impl": "cumsum"}
+    cfg = load_config(path, {**ov, **run_len})
+    m, d = cfg.model, cfg.data
+    print(f"plain train config: edge_impl={m.edge_impl} segment_impl="
+          f"{m.segment_impl} edge_block={d.edge_block} "
+          f"node_order={d.node_order} H={m.hidden_nf} L={m.n_layers} "
+          f"C={m.virtual_channels} compute_dtype={m.compute_dtype} "
+          f"remat={m.remat} hoist_edge_mlp={m.hoist_edge_mlp} "
+          f"fuse_agg={m.fuse_agg} agg_dtype={m.agg_dtype} "
+          f"accumulation_steps={cfg.train.accumulation_steps} "
+          f"epochs={cfg.train.epochs}")
+    check(m.edge_impl == "plain" and d.edge_block == 0,
+          "the published config is no longer the plain layout")
+    ds = fluid_datasets(clouds, d.node_order)
+
+    def read():
+        return scan_counts() + (dict(CS.prefix_sum.launch_widths),)
+
+    # the main path: counts 0 just before, read just after
+    init_sd, state, (n, n_suffix, widths), micro, evals = drive_train(
+        cfg, ds, dev, reset_scan_counts, read, "plain ")
+    L, H = m.n_layers, m.hidden_nf
+    # per micro-step: the packed [E, 3 + H + 1] aggregation of each layer,
+    # forward and remat recompute; the backward of the bf16 [E, H] hoisted
+    # row and column gathers of each layer; the backward of the f32 [E, 3]
+    # coordinate gathers of layers 1..L-1 (layer 0's x is the batch's); and
+    # one packed aggregation per layer of every eval forward
+    want = {("prefix", "f32", H + 4): 2 * L * micro + L * evals,
+            ("prefix", "bf16", H): 2 * L * micro,
+            ("prefix", "f32", 3): 2 * (L - 1) * micro}
+    print(f"plain prefix_scan launches={n} by width {widths}, suffix "
+          f"{n_suffix} (expected {want}, suffix 0: {micro} micro-steps, "
+          f"{evals} eval forwards)")
+    check(widths == want and n == sum(want.values()) and n_suffix == 0,
+          f"plain train: scan launch count {n}/{n_suffix} {widths} != {want}")
+
+    loader, batches = host_batches(cfg, ds, dev, "plain ")
+    check(loader.max_edges == e_train and loader.pairing
+          and batches[0].edge_pair is not None,
+          f"plain train batches: E={loader.max_edges} (phase 2c timed "
+          f"{e_train}), pairing {loader.pairing}")
+    print(f"plain train batch: N={loader.max_nodes} E={loader.max_edges} "
+          f"max_in_degree={loader.max_in_degree}, "
+          f"{int(batches[0].edge_mask.sum())} real edges")
+
+    # the first optimizer update again: the kernel, its plain version, and
+    # the exact scatter lowering
+    n_real = float(batches[0].node_mask.sum())
+    n_micro = cfg.train.accumulation_steps
+    k = first_update(cfg, init_sd, batches, dev, counts=scan_counts,
+                     time_extra=TRAIN_TIMED, profile=profile)
+    p = first_update(cfg, init_sd, batches, dev, counts=scan_counts,
+                     patches=scan_plain_patches())
+    cfg_s = load_config(path, {**ov, **run_len,
+                               "model.segment_impl": "scatter"})
+    sc = first_update(cfg_s, init_sd, batches, dev, counts=scan_counts,
+                      time_extra=TRAIN_TIMED)
+    check(k["launches"] == ((4 * L + 2 * (L - 1)) * n_micro, 0)
+          and p["launches"] == (0, 0) and sc["launches"] == (0, 0),
+          f"first update launches: kernel {k['launches']}, plain "
+          f"{p['launches']}, scatter {sc['launches']}")
+    ek, pk = update_distance(k, sc)
+    ep_, pp = update_distance(p, sc)
+    ekp, pkp = update_distance(k, p)
+    ek["param"], ep_["param"], ekp["param"] = (
+        max(pk.values()), max(pp.values()), max(pkp.values()))
+    ratio = ("loss_with_mmd", "loss", "grad norm", "grad l2")
+    bounds = {"grad": TOL_TRAIN, "param": SCATTER_PARAM}
+    for key in ratio + tuple(bounds):
+        rule = (f"kernel <= {SCATTER_FACTOR} x plain + {SCATTER_FLOOR:.0e}"
+                if key in ratio else f"both <= {bounds[key]:.3e}")
+        kp_tol = SCATTER_PARAM if key == "param" else TOL_TRAIN
+        print(f"plain first update vs scatter, {key}: kernel {ek[key]:.3e}, "
+              f"plain version {ep_[key]:.3e} ({rule}); kernel vs plain "
+              f"version {ekp[key]:.3e} (<= {kp_tol:.3e})")
+    worst = sorted(pk.items(), key=lambda kv: -kv[1])
+    print("plain first update vs scatter, worst 6 parameters (kernel): "
+          + ", ".join(f"{nm} {v:.3e} (plain {pp[nm]:.3e})"
+                      for nm, v in worst[:6]))
+    bad = [key for key in ratio
+           if ek[key] > SCATTER_FACTOR * ep_[key] + SCATTER_FLOOR]
+    bad += [key for key, b in bounds.items() if max(ek[key], ep_[key]) > b]
+    # the kernel against its plain version directly, at the same bounds
+    bad += [f"kernel vs plain {key}" for key in ratio + ("grad",)
+            if ekp[key] > TOL_TRAIN]
+    bad += ["kernel vs plain param"] if ekp["param"] > SCATTER_PARAM else []
+    check(not bad, f"plain train: the cumsum lowering strays from the "
+          f"scatter lowering ({bad})")
+    med = step_times("plain ", k, n_real)
+    med_s = step_times("plain scatter ", sc, n_real)
+    return dict(widths=widths, suffix=n_suffix, ms=med, scatter_ms=med_s)
 
 
 def profile_phase(eng, g, reps=5):
@@ -827,15 +1272,18 @@ def main():
         print(f"chip_smoke: run from the root of a checkout: {exc}",
               file=sys.stderr)
         return 3
+    import numpy as np
+
     from distegnn_tpu_torch.config import load_config
     from distegnn_tpu_torch.ops.build import build_all
+    from distegnn_tpu_torch.ops.graph import _round_up
     from distegnn_tpu_torch.serve import engine_with_params_from_config
 
     smi = nvidia_smi()
     print(f"card: {smi}")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     t0 = time.perf_counter()
-    reports = build_all(["fused_edge_fwd", "fused_edge_bwd"])
+    reports = build_all(["fused_edge_fwd", "fused_edge_bwd", "prefix_scan"])
     print(f"built {len(reports)} kernel source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
@@ -843,34 +1291,67 @@ def main():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     root = os.path.dirname(os.path.abspath(__file__))
+    profile = "--profile" in sys.argv[1:]
+    t0 = time.perf_counter()
+    clouds = [fluid_cloud(300 + i) for i in range(6)]
+    scenes = serve_scenes()
+    e = [c["edge_index"].shape[1] for c in clouds]
+    print(f"clouds: 6 x N={FLUID_N}, edges {min(e)}..{max(e)} (mean degree "
+          f"{np.mean(e) / FLUID_N:.2f}); serve scenes; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
     cfg = load_config(os.path.join(root, "configs", "nbody_serve.yaml"),
                       {"model.edge_impl": "fused", "data.edge_block": BLOCK})
     model, eng = engine_with_params_from_config(cfg)
-    profile = "--profile" in sys.argv[1:]
     kres = edge_kernel_phase(model, dev)
     edge_bwd_kernel_phase(model, dev)
-    launches, scenes = serve_phase(cfg, model, eng, dev)
+    # the plain paths' scan shapes: the train loader's padded E (the 4
+    # train clouds' max, rounded to the edge bucket), the serve bucket of
+    # the largest scene
+    e_train = _round_up(max(e[:4]), 128)
+    e_serve = eng.ladder.bucket_of_graph(scenes[-1]).e
+    sres = scan_phase(dev, e_train, e_serve)
+    launches = serve_phase(cfg, model, eng, dev, scenes)
     if profile:
         profile_phase(eng, scenes[-1])
     del model, eng
-    train_fwd, train_bwd, flagship = train_phase(root, dev, profile=profile)
+    serve_scans, _ = plain_serve_phase(root, dev, scenes)
+    train_fwd, train_bwd, flagship = train_phase(root, dev, clouds,
+                                                 profile=profile)
+    plain = plain_train_phase(root, dev, clouds, e_train, profile=profile)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
-          f"{train_fwd} (train), fused_edge_bwd {train_bwd} (train)")
+          f"{train_fwd} (train), fused_edge_bwd {train_bwd} (train), "
+          f"prefix_scan {serve_scans} (serve cumsum) + "
+          f"{sum(plain['widths'].values())} (plain train), suffix "
+          f"{plain['suffix']}")
 
     # one row per kernel and path, with the numbers of the dtype and shape
     # that path launches the kernel at: serving f32 at phase 2's shape,
-    # training bf16 at the train batch's
-    def row(name, path, k, replaces, n):
+    # training bf16 at the train batch's; the scan at each path's shapes
+    def row(name, path, k, replaces, n, source=None):
         return {"name": name, "route": "cuda",
-                "source": f"distegnn_tpu_torch/csrc/{name}.cu",
+                "source": f"distegnn_tpu_torch/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": n, "max_abs_err": k["err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                "library_ms": None, "path": path}
+                "library_ms": k.get("library_ms"), "path": path}
 
     fwd_tpu = "distegnn_tpu/ops/edge_pipeline.py:288"
+    H = HIDDEN
+    w = plain["widths"]
+    scan_rows = (
+        ("prefix_scan", "serve f32", serve_scans,
+         "distegnn_tpu/ops/cumsum.py:38"),
+        ("prefix_scan", "train fwd f32", w.get(("prefix", "f32", H + 4), 0),
+         "distegnn_tpu/ops/cumsum.py:38"),
+        ("prefix_scan", "train bwd bf16", w.get(("prefix", "bf16", H), 0),
+         "distegnn_tpu/ops/cumsum.py:38"),
+        ("prefix_scan", "train bwd f32", w.get(("prefix", "f32", 3), 0),
+         "distegnn_tpu/ops/cumsum.py:38"),
+        ("suffix_scan", "suffix f32", plain["suffix"],
+         "distegnn_tpu/ops/cumsum.py:62"))
     kernels = [
         row("fused_edge_fwd", "serve f32 N=8192", kres["f32"], fwd_tpu,
             launches),
@@ -881,6 +1362,9 @@ def main():
             f"{flagship['fused_edge_bwd']['shape']}",
             flagship["fused_edge_bwd"],
             "distegnn_tpu/ops/edge_pipeline.py:314", train_bwd)]
+    kernels += [row(name, f"{key} {sres[key]['shape']}", sres[key], tpu, n,
+                    source="prefix_scan")
+                for name, key, n, tpu in scan_rows]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -62,6 +62,15 @@ _DEFAULTS: dict = {
         "compute_dtype": None,
         # recompute each layer's activations in the backward pass
         "remat": False,
+        # the plain path's knobs (models/fast_egnn.py): the blocked
+        # lowering (port slice 5), the hoisted edge MLP, the aggregation
+        # lowering ('scatter' | 'cumsum' | 'ell'), one packed aggregation
+        # per layer, and its stream dtype (None = f32, 'bf16')
+        "blocked_impl": "einsum",
+        "hoist_edge_mlp": True,
+        "segment_impl": "scatter",
+        "fuse_agg": True,
+        "agg_dtype": None,
         "edge_impl": "plain",
     },
     "data": {

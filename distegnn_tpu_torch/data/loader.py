@@ -6,8 +6,10 @@
 edges per block and remote pad are fixed once per dataset, so every batch of
 a run has one shape. The permutation of an epoch is numpy's
 ``default_rng([seed, epoch])``, so the batches are bitwise those of the JAX
-loader. Only the blocked ``split_remote`` layout of the fused edge kernel is
-ported; the plain layout comes with port slice 3.
+loader. Two layouts: the plain row-sorted one (``edge_block`` 0, the
+``edge_impl='plain'`` path; optionally with the reverse-edge pairing and
+``max_in_degree`` of the scatter-free lowerings) and the blocked
+``split_remote`` one of the fused edge kernel.
 """
 
 from __future__ import annotations
@@ -22,10 +24,6 @@ from distegnn_tpu_torch.ops.blocked import (max_block_degree,
 from distegnn_tpu_torch.ops.edge_pipeline import count_remote_edges
 from distegnn_tpu_torch.ops.graph import _round_up, pad_graphs
 from distegnn_tpu_torch.ops.order import morton_perm, reorder_graph
-
-_SLICE_PLAIN = ("port slice 3 (the plain EdgeOps path and its segment "
-                "lowerings)")
-
 
 class GraphDataset:
     """A list of graph dicts, from a pickle file or in memory.
@@ -62,30 +60,47 @@ class GraphLoader:
     """Deterministic batching over a GraphDataset: the order of an epoch
     derives from (seed, epoch) only; drop_last always.
 
-    Batches are CPU ``GraphBatch``es in the blocked layout of
-    ``edge_block`` nodes per block with the compact remote list of the fused
-    edge kernel: one ``max_nodes`` (at least 3 blocks), one
-    ``edges_per_block`` and one ``remote_pad`` for the whole dataset. The
-    blockified graphs are cached across epochs while they fit
-    ``CACHE_BYTES``."""
+    Batches are CPU ``GraphBatch``es with one shape for the whole dataset.
+    ``edge_block`` 0: the plain layout, ``max_nodes``/``max_edges`` the
+    dataset maxima rounded up to ``node_bucket``/``edge_bucket``;
+    ``pairing=True`` attaches the reverse-edge pairing to every batch with a
+    dataset-stable ``max_in_degree`` (the cumsum and ELL lowerings use
+    them). ``edge_block`` > 0: the blocked layout of ``edge_block`` nodes per
+    block with the compact remote list of the fused edge kernel: one
+    ``max_nodes`` (at least 3 blocks), one ``edges_per_block`` and one
+    ``remote_pad``; the blockified graphs are cached across epochs while
+    they fit ``CACHE_BYTES``."""
 
     EDGE_TILE = 512
     CACHE_BYTES = 2 << 30
 
     def __init__(self, dataset: GraphDataset, batch_size: int,
-                 shuffle: bool = False, seed: int = 0, edge_block: int = 0):
-        if not edge_block:
-            raise NotImplementedError(
-                "GraphLoader: only the blocked layout (edge_block >= 512) of "
-                f"the fused edge kernel is ported; the plain layout comes "
-                f"with {_SLICE_PLAIN}")
+                 shuffle: bool = False, seed: int = 0, edge_block: int = 0,
+                 pairing: bool = False, node_bucket: int = 8,
+                 edge_bucket: int = 128):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
         self.edge_block = edge_block
-        n, _ = dataset.size_maxima()
+        self.pairing = bool(pairing) and not edge_block
+        self._prepared_cache = None
+        if len(self) == 0:
+            raise ValueError(f"batch_size {batch_size} > dataset size "
+                             f"{len(dataset)}: drop_last leaves zero batches")
+        n, e = dataset.size_maxima()
+        if not edge_block:
+            self.max_nodes = _round_up(max(n, 1), node_bucket)
+            self.max_edges = _round_up(max(e, 1), edge_bucket)
+            self.max_in_degree = None
+            if self.pairing:
+                # one ELL degree for the run, so every batch has one shape
+                deg = max(int(np.bincount(dataset[i]["edge_index"][0],
+                                          minlength=1).max())
+                          for i in range(len(dataset)))
+                self.max_in_degree = _round_up(max(deg, 1), 8)
+            return
         # the fused kernel's 3-block window needs nb >= 3; small graphs pay
         # all-padding blocks rather than failing
         self.max_nodes = max(_round_up(max(n, 1), edge_block), 3 * edge_block)
@@ -105,18 +120,21 @@ class GraphLoader:
                                              if d0 is not None else 0))
         self._prepared_cache = ({} if per * len(dataset) <= self.CACHE_BYTES
                                 else None)
-        if len(self) == 0:
-            raise ValueError(f"batch_size {batch_size} > dataset size "
-                             f"{len(dataset)}: drop_last leaves zero batches")
 
     def pad_kwargs(self) -> dict:
         """kwargs that make pad_graphs emit this loader's layout."""
+        if not self.edge_block:
+            return dict(max_nodes=self.max_nodes, max_edges=self.max_edges,
+                        compute_pair=self.pairing,
+                        max_in_degree=self.max_in_degree)
         return dict(edge_block=self.edge_block, edge_tile=self.EDGE_TILE,
                     edges_per_block=self.edges_per_block,
                     max_nodes=self.max_nodes, split_remote=True,
                     remote_pad=self.remote_pad)
 
     def _graph(self, i: int) -> dict:
+        if not self.edge_block:
+            return self.dataset[i]
         cache = self._prepared_cache
         if cache is not None and i in cache:
             return cache[i]

@@ -54,10 +54,17 @@ def _require_single_device(config) -> None:
 
 def make_loaders(config, ds_train, ds_valid, ds_test):
     d = config.data
+    edge_block = int(d.edge_block)
+    # the scatter-free lowerings of a plain batch want the reverse-edge
+    # pairing (gather-only column backwards) and the ELL degree
+    pairing = (not edge_block and config.model.get("segment_impl")
+               in ("cumsum", "ell"))
 
     def mk(ds, shuffle):
         return GraphLoader(ds, d.batch_size, shuffle=shuffle, seed=config.seed,
-                           edge_block=int(d.edge_block))
+                           edge_block=edge_block, pairing=pairing,
+                           node_bucket=int(d.node_bucket),
+                           edge_bucket=int(d.edge_bucket))
 
     return mk(ds_train, True), mk(ds_valid, False), mk(ds_test, False)
 

@@ -88,17 +88,59 @@ class MLP(nn.Module):
 
 
 class CoordMLP(MLP):
-    """Dense(H) -> silu -> Dense(1, no bias, coordinate-head init). The
-    scalar feeds geometry, so it is returned in f32."""
+    """Dense(H) -> silu -> Dense(1, no bias, coordinate-head init)
+    [-> tanh]. The scalar feeds geometry, so it is returned in f32."""
 
-    def __init__(self, fan_in: int, hidden_nf: int, *,
+    def __init__(self, fan_in: int, hidden_nf: int, *, tanh: bool = False,
                  dtype: Optional[torch.dtype] = None, generator=None):
         super().__init__(fan_in, [hidden_nf, 1], use_bias_last=False,
                          coord_head_last=True, dtype=dtype,
                          generator=generator)
+        self.tanh = tanh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x).to(torch.float32)
+        x = super().forward(x).to(torch.float32)
+        return torch.tanh(x) if self.tanh else x
+
+
+class HoistedEdgeMLP(nn.Module):
+    """phi_e with its first Dense evaluated on the node axis.
+
+    The first layer is linear and gathering commutes with a linear map, so
+
+        concat([h_row, h_col, s]) @ W
+            == gather_row(h @ W[:H]) + gather_col(h @ W[H:2H]) + s @ W[2H:]
+
+    — the same math as MLP([H, H], act_last=True) on the concat, with the
+    big product over N node rows instead of E edge rows and no [E, 2H+S]
+    concat. Parameters: one ``kernel`` [2H+S, H] and ``bias`` [H] in the JAX
+    package's [in, out] orientation, drawn at the full fan-in, then
+    ``dense`` (the second Dense, H -> H). ``ops`` is the EdgeOps dispatch.
+    """
+
+    def __init__(self, hidden_nf: int, scalar_nf: int, *,
+                 dtype: Optional[torch.dtype] = None, generator=None):
+        super().__init__()
+        H, fan_in = hidden_nf, 2 * hidden_nf + scalar_nf
+        self.hidden_nf = H
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty((fan_in, H)))
+        self.bias = nn.Parameter(torch.empty((H,)))
+        uniform_(self.kernel, 1.0 / math.sqrt(fan_in), generator)
+        uniform_(self.bias, 1.0 / math.sqrt(fan_in), generator)
+        self.dense = TorchDense(H, H, dtype=dtype, generator=generator)
+
+    def forward(self, h: torch.Tensor, scalars: torch.Tensor,
+                ops) -> torch.Tensor:
+        H, dt = self.hidden_nf, self.dtype
+        w, b = self.kernel, self.bias
+        if dt is not None:
+            h, scalars, w, b = (a.to(dt) for a in (h, scalars, w, b))
+        y = (ops.gather_rows(h @ w[:H]) + ops.gather_cols(h @ w[H:2 * H])
+             + scalars @ w[2 * H:] + b)
+        y = y * torch.sigmoid(y)
+        y = self.dense(y)
+        return y * torch.sigmoid(y)
 
 
 def gather_nodes(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

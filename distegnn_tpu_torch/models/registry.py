@@ -29,6 +29,11 @@ def get_model(model_config,
         n_layers=model_config.n_layers,
         normalize=model_config.normalize,
         compute_dtype=model_config.get("compute_dtype"),
-        edge_impl=model_config.get("edge_impl", "plain"),
         remat=bool(model_config.get("remat", False)),
+        blocked_impl=model_config.get("blocked_impl", "einsum"),
+        hoist_edge_mlp=bool(model_config.get("hoist_edge_mlp", True)),
+        segment_impl=model_config.get("segment_impl", "scatter"),
+        fuse_agg=bool(model_config.get("fuse_agg", True)),
+        agg_dtype=model_config.get("agg_dtype"),
+        edge_impl=model_config.get("edge_impl", "plain"),
         generator=generator)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from distegnn_tpu_torch.ops.blocked import (max_block_degree,
+                                            pairing_perm_fast,
                                             prepare_blocked_graph)
 from distegnn_tpu_torch.ops.edge_pipeline import split_remote_edges
 
@@ -38,8 +39,15 @@ class GraphBatch:
       remote_edge_index [B, 2, R] int32, remote_edge_attr [B, R, D],
       remote_edge_mask [B, R] — the compact out-of-window edge list of the
       fused edge kernel (present only with ``split_remote=True``).
+      edge_pair [B, E] int32 — the reverse-edge involution of a plain
+      symmetric batch (``compute_pair=True``): edge_index[:, pair[e]] ==
+      (col[e], row[e]); padded slots pair with themselves.
 
+    ``edges_sorted``: every graph's rows ascend, the padded tail included.
     ``edge_block`` is 0 or the node-block size of the blocked layout.
+    ``max_in_degree``: the batch's max real in-degree rounded up to 8 (0 =
+    not computed; set together with the plain pairing), the D of the ELL
+    lowering.
     """
 
     node_feat: torch.Tensor
@@ -55,9 +63,11 @@ class GraphBatch:
     remote_edge_index: Optional[torch.Tensor] = None
     remote_edge_attr: Optional[torch.Tensor] = None
     remote_edge_mask: Optional[torch.Tensor] = None
+    edge_pair: Optional[torch.Tensor] = None
     edges_sorted: bool = False
     edge_block: int = 0
     edge_tile: int = 0
+    max_in_degree: int = 0
 
     def to(self, device) -> "GraphBatch":
         """A copy with every tensor on ``device``."""
@@ -102,6 +112,8 @@ def pad_graphs(
     edge_block: int = 0,
     edges_per_block: Optional[int] = None,
     edge_tile: int = 512,
+    compute_pair: Optional[bool] = None,
+    max_in_degree: Optional[int] = None,
     split_remote: bool = False,
     remote_pad: Optional[int] = None,
 ) -> GraphBatch:
@@ -117,6 +129,13 @@ def pad_graphs(
     outside the fused kernel's 3-block window into the compact
     ``remote_edge_*`` arrays, padded to ``remote_pad`` (auto: the batch max
     rounded to 128). The arrays are those of the JAX package's pad_graphs.
+
+    ``compute_pair`` (plain layout; ``None`` = off) attaches the reverse-edge
+    pairing ``edge_pair`` when every graph is symmetric, and with it
+    ``max_in_degree`` (auto: the batch's max in-degree rounded up to 8;
+    loaders pass a dataset-stable value, which is validated). Each graph's
+    pairing is cached on its dict as ``_plain_pair``. The blocked layout
+    carries no pairing: its lowerings come with port slice 5.
     """
     bsz = len(graphs)
     n_max = max(g["loc"].shape[0] for g in graphs)
@@ -212,6 +231,37 @@ def pad_graphs(
             edge_attr[b, :e] = g["edge_attr"]
         edge_mask[b, :e] = g["_edge_mask"] if edge_block else 1.0
 
+    edge_pair = None
+    if edge_block or not (compute_pair and edges_sorted):
+        max_in_degree = 0
+    else:
+        deg = max(int(np.bincount(g["edge_index"][0], minlength=1).max())
+                  for g in graphs)
+        if max_in_degree is None:
+            max_in_degree = _round_up(max(deg, 1), 8)
+        elif max_in_degree < deg:
+            raise ValueError(f"pad_graphs: max_in_degree {max_in_degree} < "
+                             f"actual batch max in-degree {deg}")
+        # each graph's pairing on its raw edge list, cached on its dict (it
+        # is index-stable: padding is appended after the real edges); the
+        # padded tail pairs with itself; all or nothing across the batch
+        pairs = []
+        for g in graphs:
+            e = g["edge_index"].shape[1]
+            p = g.get("_plain_pair")
+            if p is None or p.shape[0] != e:
+                p = pairing_perm_fast(g["edge_index"].astype(np.int64))
+                if p is not None:
+                    g["_plain_pair"] = p
+            if p is None:
+                pairs = None
+                break
+            full = np.arange(E, dtype=np.int32)
+            full[:e] = p
+            pairs.append(full)
+        if pairs is not None:
+            edge_pair = np.stack(pairs).astype(np.int32)
+
     t = torch.from_numpy
     return GraphBatch(
         node_feat=t(node_feat), node_attr=t(node_attr), loc=t(loc),
@@ -221,5 +271,7 @@ def pad_graphs(
         remote_edge_index=t(remote[0]) if remote else None,
         remote_edge_attr=t(remote[1]) if remote else None,
         remote_edge_mask=t(remote[2]) if remote else None,
+        edge_pair=t(edge_pair) if edge_pair is not None else None,
         edges_sorted=edges_sorted, edge_block=edge_block,
-        edge_tile=edge_tile if edge_block else 0)
+        edge_tile=edge_tile if edge_block else 0,
+        max_in_degree=max_in_degree)

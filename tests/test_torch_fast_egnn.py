@@ -56,7 +56,7 @@ def _compare(graphs, max_nodes, H, L, C, seed=0):
     jx, jX = jax.jit(jm.apply)(params, jb)
 
     pm = FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=H,
-                  virtual_channels=C, n_layers=L)
+                  virtual_channels=C, n_layers=L, edge_impl="fused")
     pm.load_state_dict(params_from_jax(params))
     pb = pad_graphs(graphs, max_nodes=max_nodes, edge_block=BLOCK,
                     split_remote=True)
@@ -92,7 +92,7 @@ def test_converted_state_dict_covers_every_parameter():
                         split_remote=True)
     sd = params_from_jax(numpy_params(jm, jb, 1))
     pm = FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=16,
-                  virtual_channels=2, n_layers=2)
+                  virtual_channels=2, n_layers=2, edge_impl="fused")
     own = pm.state_dict()
     assert sd.keys() == own.keys()
     for k in own:
@@ -100,20 +100,34 @@ def test_converted_state_dict_covers_every_parameter():
 
 
 @pytest.mark.parametrize("kw, match", [
-    ({"edge_impl": "plain"}, "slice 3"),
+    ({"edge_impl": "plain"}, "slice 5"),
     ({"edge_impl": "fused_stack"}, "slice 4"),
-    ({"attention": True}, "slice 3"),
-    ({"normalize": True}, "slice 3"),
-    ({"tanh": True}, "slice 3"),
+    ({"blocked_impl": "pallas"}, "slice 5"),
+    ({"segment_impl": "cumsum"}, "slice 5"),
+    ({"segment_impl": "ell", "attention": True}, "slice 5"),
 ])
 def test_unported_options_raise_and_name_their_slice(kw, match):
+    """fused_stack is refused when the model is built; a plain model (every
+    lowering) refuses a blocked batch, whose one-hot lowerings are later
+    work."""
+    pb = pad_graphs([blocked_test_graph(0, n_real=BLOCK)], edge_block=BLOCK)
     with pytest.raises(NotImplementedError, match=match):
-        FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=16, **kw)
+        pm = FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=16,
+                      virtual_channels=2, n_layers=1, **kw)
+        pm(pb)
+
+
+@pytest.mark.parametrize("head", ["attention", "normalize", "tanh"])
+def test_fused_model_refuses_the_plain_heads(head):
+    """As in the JAX package: the fused kernel bakes the flagship EGCL."""
+    with pytest.raises(ValueError, match="edge_impl='plain'"):
+        FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=16,
+                 edge_impl="fused", **{head: True})
 
 
 def test_forward_rejects_unblocked_batch():
     pm = FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=16,
-                  virtual_channels=2, n_layers=1)
+                  virtual_channels=2, n_layers=1, edge_impl="fused")
     pb = pad_graphs([blocked_test_graph(0, n_real=BLOCK)])
     with pytest.raises(ValueError, match="split_remote=True"):
         pm(pb)

@@ -49,13 +49,36 @@ def blocked_test_graph(seed, n_real=4 * BLOCK, node_feat_nf=2):
     }
 
 
+def plain_test_graph(seed, n=300, radius=0.2, node_feat_nf=2,
+                     node_attr_nf=0):
+    """A symmetric radius graph over ``n`` uniform points (rows ascending,
+    so the plain layout carries the reverse-edge pairing), with random
+    features, velocities, targets and 2 edge attributes."""
+    rng = np.random.default_rng(seed)
+    loc = rng.uniform(0, 1, size=(n, 3)).astype(np.float32)
+    ei = pradius.radius_graph_np(loc, radius).astype(np.int64)
+    g = {
+        "node_feat": rng.normal(size=(n, node_feat_nf)).astype(np.float32),
+        "loc": loc,
+        "vel": (rng.normal(size=(n, 3)) * 0.05).astype(np.float32),
+        "target": rng.uniform(0, 1, size=(n, 3)).astype(np.float32),
+        "edge_index": ei,
+        "edge_attr": rng.normal(size=(ei.shape[1], 2)).astype(np.float32),
+    }
+    if node_attr_nf:
+        g["node_attr"] = rng.normal(size=(n, node_attr_nf)).astype(np.float32)
+    return g
+
+
 _FIELDS = ("node_feat", "node_attr", "loc", "vel", "target", "loc_mean",
            "node_mask", "edge_index", "edge_attr", "edge_mask",
            "remote_edge_index", "remote_edge_attr", "remote_edge_mask")
 
 
-def assert_batches_equal(jb, pb):
-    for f in _FIELDS:
+def assert_batches_equal(jb, pb, plain_pair=False):
+    """Field by field, bitwise; ``plain_pair`` also holds the plain layout's
+    reverse-edge pairing and ELL degree."""
+    for f in _FIELDS + (("edge_pair",) if plain_pair else ()):
         a, b = getattr(jb, f), getattr(pb, f)
         assert (a is None) == (b is None), f
         if a is not None:
@@ -65,6 +88,8 @@ def assert_batches_equal(jb, pb):
     assert jb.edge_block == pb.edge_block
     assert jb.edge_tile == pb.edge_tile
     assert jb.edges_sorted == pb.edges_sorted
+    if plain_pair:
+        assert jb.max_in_degree == pb.max_in_degree
 
 
 @pytest.mark.parametrize("r", [0.08, 0.2, -1.0])

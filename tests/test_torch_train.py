@@ -56,7 +56,8 @@ from distegnn_tpu_torch.train.checkpoint import (CheckpointCorruptError,
 from distegnn_tpu_torch.train.step import (TrainState, make_loss_fn,
                                            make_optimizer, step_generator)
 from test_torch_fast_egnn import numpy_params
-from test_torch_graph import BLOCK, assert_batches_equal, blocked_test_graph
+from test_torch_graph import (BLOCK, assert_batches_equal, blocked_test_graph,
+                              plain_test_graph)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(REPO, "configs", "largefluid_distegnn.yaml")
@@ -199,7 +200,7 @@ def _small_models(graphs, remat=False):
     params = numpy_params(jm, jb, 3)
     pm = FastEGNN(node_feat_nf=3, node_attr_nf=2, edge_attr_nf=2,
                   hidden_nf=H_SMALL, virtual_channels=C_SMALL,
-                  n_layers=L_SMALL, remat=remat)
+                  n_layers=L_SMALL, remat=remat, edge_impl="fused")
     pm.load_state_dict(params_from_jax(params))
     pb = pad_graphs(graphs, edge_block=BLOCK, split_remote=True)
     return jm, jb, params, pm, pb
@@ -311,9 +312,23 @@ def test_graph_loader_batches_are_bitwise_the_jax_loaders(node_order):
 
 
 def test_graph_loader_plain_layout_names_slice_3():
-    _, pd = _datasets("none")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        GraphLoader(pd, batch_size=1, edge_block=0)
+    """The plain layout (port slice 3) batches bitwise as the JAX loader's
+    plain layout, with the reverse-edge pairing and the ELL degree."""
+    graphs = [plain_test_graph(s, n=200 + 40 * s, node_feat_nf=3,
+                               node_attr_nf=2) for s in range(5)]
+    jd = JaxGraphDataset(graphs, node_order="morton")
+    pd = GraphDataset(graphs, node_order="morton")
+    kw = dict(batch_size=2, shuffle=True, seed=43, edge_block=0,
+              pairing=True)
+    jl, pl = JaxGraphLoader(jd, **kw), GraphLoader(pd, **kw)
+    assert (pl.max_nodes, pl.max_edges, pl.max_in_degree) == (
+        jl.max_nodes, jl.max_edges, jl.max_in_degree)
+    for epoch in (1, 2):
+        jl.set_epoch(epoch)
+        pl.set_epoch(epoch)
+        for jb, pb in zip(jl, pl):
+            assert pb.edge_pair is not None and pb.edge_block == 0
+            assert_batches_equal(jb, pb, plain_pair=True)
 
 
 def test_blocking_scans_match_jax():
