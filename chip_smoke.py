@@ -16,6 +16,11 @@ or of the JAX package. Phases (any failure exits nonzero):
      degree ~20), in f32 and bf16.
   2b. the same for the backward kernel, with random cotangents: all ten
      outputs (d_x, d_hr, d_hc and the seven weight gradients).
+  2d. the fused-stack megakernel (csrc/fused_stack_fwd.cu) against its
+     plain version at H=64, C=3, L=4, A=2 on the JAX package's megakernel
+     workload (4 node blocks of 512 + a trailing empty block, ~10 %
+     far-block edges): all four outputs and four checkpoints, f32 and bf16,
+     gravity on and off, timed beside its bound and its plain version.
   2c. the prefix-scan kernel (csrc/prefix_scan.cu) in both directions, f32
      and bf16 input, against f64 and against its plain version, at the
      plain train path's shapes ([E, 68], [E, 64], [E, 3] with E the padded
@@ -35,6 +40,14 @@ or of the JAX package. Phases (any failure exits nonzero):
      (one scan launch per layer and request, the batch axis in the launch):
      exact launch counts, equivariance, and the cumsum model held against
      the scatter model, with the kernel and with its plain version.
+  3c. serve configs/nbody_serve.yaml + model.edge_impl=fused_stack,
+     data.edge_block=512: scenes of ~500 and ~1000 nodes (rung 1536), the
+     counts set to 0 just before and read just after: exactly one stack
+     launch per padded graph and request and no fused_edge_fwd launch;
+     equivariance; agreement with the same weights under edge_impl=fused
+     and through the plain stack; a 1500-node scene (rung 2048) raises
+     StackVmemBudgetError before any launch; the kernel timed at the served
+     shape.
   4. time each kernel and its plain version with CUDA events, its bound from
      this run's shapes, and per-request predict time on the host clock.
   5. train: ``distegnn_tpu_torch.main.run`` on configs/largefluid_distegnn.yaml
@@ -58,6 +71,16 @@ or of the JAX package. Phases (any failure exits nonzero):
      version and with segment_impl=scatter, the kernel's and the plain
      version's distance from the exact scatter lowering compared;
      micro-step ms, nodes/s and peak device memory.
+
+  7. train configs/fluid_fused_stack.yaml as published (H=64, L=4, C=3, bf16,
+     edge_block 512, MSE + MMD, Adam with 4-step accumulation) through
+     main.run over 4 train + 1 valid + 1 test synthetic fluid clouds of
+     1536 nodes at phase 5's density, 2 epochs; exact launches (per
+     micro-step 1 stack + L fused_edge_fwd + L fused_edge_bwd, 1 stack per
+     eval forward); finite losses, parameters moved; the three kernels at
+     the train batch's shape; the first optimizer update again through the
+     plain stack and with edge_impl=fused, at phase 5's bounds; micro-step
+     ms, nodes/s and peak device memory.
 
 With ``--profile`` it then breaks one request of the largest scene into host
 stages and profiles it with torch.profiler (device time by kernel, the
@@ -459,9 +482,9 @@ def predict_times(label, eng, scenes, reps=5):
     return meds
 
 
-def fluid_cloud(seed):
-    """A synthetic fluid cloud at Fluid113K scale (the recipe of bench.py's
-    make_fluid_cloud): N=113140 nodes uniform in a cube sized for ~15
+def fluid_cloud(seed, n=FLUID_N):
+    """A synthetic fluid cloud at Fluid113K density (the recipe of bench.py's
+    make_fluid_cloud): ``n`` nodes uniform in a cube sized for ~15
     radius-0.075 neighbours each, Morton-ordered, 3 node features
     [|v|, v_x, v_y], 2 node attributes, edge_attr = [d, d]."""
     import numpy as np
@@ -470,10 +493,10 @@ def fluid_cloud(seed):
     from distegnn_tpu_torch.ops.radius import radius_graph_np
 
     rng = np.random.default_rng(seed)
-    vol = FLUID_N * (4.0 / 3.0) * np.pi * FLUID_RADIUS ** 3 / FLUID_DEGREE
+    vol = n * (4.0 / 3.0) * np.pi * FLUID_RADIUS ** 3 / FLUID_DEGREE
     side = max(vol ** (1.0 / 3.0), 2.0 * FLUID_RADIUS)
-    loc = rng.uniform(0, side, size=(FLUID_N, 3)).astype(np.float32)
-    vel = rng.normal(size=(FLUID_N, 3)).astype(np.float32) * 0.01
+    loc = rng.uniform(0, side, size=(n, 3)).astype(np.float32)
+    vel = rng.normal(size=(n, 3)).astype(np.float32) * 0.01
     p = morton_perm(loc)
     loc, vel = loc[p], vel[p]
     ei = radius_graph_np(loc, FLUID_RADIUS)
@@ -482,7 +505,7 @@ def fluid_cloud(seed):
         "node_feat": np.concatenate([np.linalg.norm(vel, axis=1,
                                                     keepdims=True),
                                      vel[:, :2]], axis=1).astype(np.float32),
-        "node_attr": np.ones((FLUID_N, 2), np.float32),
+        "node_attr": np.ones((n, 2), np.float32),
         "loc": loc, "vel": vel, "target": loc + vel * 0.05,
         "loc_mean": loc.mean(axis=0),
         "edge_index": ei.astype(np.int32),
@@ -558,8 +581,11 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
 
     def capture_then_step(*a, **kw):
         if not grads:
+            # a parameter no loss term reaches has no gradient in one
+            # lowering and a zero one in another: both count as zero
             grads.append({pname[id(p)]: p.grad.detach().clone()
-                          for p in opt.params if p.grad is not None})
+                          if p.grad is not None else torch.zeros_like(p)
+                          for p in opt.params})
         return adam_step(*a, **kw)
 
     opt.adam.step = capture_then_step
@@ -1190,6 +1216,406 @@ def _plain_train_phase(root, dev, clouds, e_train, log_dir, profile):
     return dict(widths=widths, suffix=n_suffix, ms=med, scatter_ms=med_s)
 
 
+# ------------------------------------------------ the fused-stack megakernel
+
+STACK_TPU = "distegnn_tpu/ops/layer_pipeline.py:425"
+STACK_NAMES = ("h", "x", "X", "Hv", "ck_h", "ck_x", "ck_X", "ck_Hv")
+# phase 2d's workload at the published width; its residency estimate
+# exceeds the 16 MiB default, so it passes an explicit budget
+STACK_BUDGET_2D = 64 * 2 ** 20
+# phase 3c: two scenes whose rung pads to 3 blocks (1536 nodes) and one
+# whose rung (2048) exceeds the default budget
+STACK_SCENES = (500, 1000)
+STACK_OVER_BUDGET = 1500
+# phase 7: synthetic fluid clouds at phase 5's density, bench.py's
+# 1536-node cap for this lowering
+STACK_FLUID_N = 1536
+# phase 7 holds the first update's losses, gradient norm and max gradient
+# entry at phase 5's TOL_TRAIN; each tensor against its own max at
+# SCATTER_PARAM: the phi_X heads' gradients cancel over the cloud's 1536
+# nodes, and single bf16-ulp flips of the checkpoints (~1e-3 of h's scale)
+# moved them by 2.7e-2 of their own max on an H100 (all else <= 2^-6)
+STACK_PARAM = SCATTER_PARAM
+
+
+def stack_counts():
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+
+    return (lp.fused_egnn_stack.launches, ep.fused_edge_layer.launches,
+            ep.fused_edge_layer.bwd_launches)
+
+
+def reset_stack_counts():
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+
+    lp.fused_egnn_stack.launches = 0
+    ep.fused_edge_layer.launches = 0
+    ep.fused_edge_layer.bwd_launches = 0
+
+
+def stack_plain_patches():
+    """The stack wrapper's kernel call pointed at its plain version."""
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+
+    return (mock.patch.object(lp, "_fused_egnn_stack_cuda",
+                              lp.fused_egnn_stack_ref),)
+
+
+def stack_work(cfg, ops, n_real):
+    """(bytes, flop) of one launch: the bytes of the JAX package's
+    hbm_bytes_per_step('fused_stack') model at these shapes; the operations
+    of this run's data over L layers (active in-window and remote edges
+    through phi_e + phi_x, the hoisted products and the node / virtual MLPs
+    of the real nodes)."""
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+
+    H, C, A, L = cfg.hidden, cfg.channels, cfg.node_attr_nf, cfg.n_layers
+    N = ops[0].shape[0]
+    E, R = ops[8][1].shape[0], ops[9][0].shape[0]
+    active = int((ops[8][3][:, 2] > 0).sum()) + int((ops[9][3] > 0).sum())
+    nbytes = lp.hbm_bytes_per_step(
+        "fused_stack", n_nodes=N, n_edges=E, hidden=H, channels=C,
+        n_layers=L, remote_pad=R, node_attr_nf=A,
+        dtype_name=cfg.dtype_name)["total"]
+    heads = 2 if cfg.has_gravity else 1
+    macs_node = (2 * H * H                              # hoisted hr, hc
+                 + C * ((2 * H + 1 + C) * H + H * H)    # phi_ev
+                 + 2 * C * (H * H + H)                  # phi_xv, phi_X
+                 + heads * (H * H + H)                  # phi_v (+ phi_g)
+                 + (3 * H + A) * H + H * H)             # phi_h
+    macs_virtual = C * (2 * H * H + H * H)              # phi_hv
+    flops = L * (active * (4 * H * H + 12 * H + 8)
+                 + 2 * n_real * macs_node + 2 * macs_virtual)
+    return nbytes, flops, active
+
+
+def stack_time(label, cfg, ops, w, n_real, reps=20):
+    """The kernel against its plain version on the same card tensors (all
+    four outputs and checkpoints), then both timed (CUDA events) beside the
+    bound of the shape. Returns the row's numbers."""
+    import torch
+
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+
+    dname = cfg.dtype_name
+    with torch.no_grad():
+        out, cks = lp._fused_egnn_stack_cuda(cfg, *ops, w)
+        torch.cuda.synchronize()
+        info = dict(lp.fused_egnn_stack.last_launch)
+        ref, ref_cks = lp.fused_egnn_stack_ref(cfg, *ops, w)
+        err = compare(label, dname, STACK_NAMES, list(out) + list(cks),
+                      list(ref) + list(ref_cks))
+        del out, cks, ref, ref_cks
+        ms = cuda_ms(lambda: lp._fused_egnn_stack_cuda(cfg, *ops, w),
+                     reps=reps)
+        plain_ms = cuda_ms(lambda: lp.fused_egnn_stack_ref(cfg, *ops, w),
+                           reps=3, warm=1)
+    nbytes, flops, active = stack_work(cfg, ops, n_real)
+    b_ms, b_by = bound(nbytes, flops, dname)
+    f32_ms, _ = bound(nbytes, flops, "f32")
+    N = ops[0].shape[0]
+    E, R = ops[8][1].shape[0], ops[9][0].shape[0]
+    shape = (f"N={N} E_slots={E} R={R} active_edges={active} H={cfg.hidden} "
+             f"C={cfg.channels} L={cfg.n_layers}")
+    print(f"{label} {dname}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop), "
+          f"{b_ms / ms:.4f} of bound; f32 FMA bound {f32_ms:.4f} ms; grid "
+          f"{info['grid']} blocks ({info['blocks_per_sm']} per SM), "
+          f"{info['smem_bytes']} B dynamic shared memory; {shape}")
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=b_ms,
+                bound_by=b_by, dtype=dname, shape=shape)
+
+
+def stack_graph(rng):
+    """The JAX package's megakernel workload (tests/test_layer_pipeline.py):
+    4 real node blocks, edges near the diagonal with ~10 % into a far block,
+    2 node attributes."""
+    import numpy as np
+
+    n_real = 4 * BLOCK
+    rows, cols = [], []
+    for b in range(4):
+        r = rng.integers(b * BLOCK, (b + 1) * BLOCK, size=384)
+        near = rng.integers(max(0, (b - 1) * BLOCK),
+                            min(n_real, (b + 2) * BLOCK), size=384)
+        far_block = (b + 3) % 4
+        far = rng.integers(far_block * BLOCK, (far_block + 1) * BLOCK,
+                           size=384)
+        rows.append(r)
+        cols.append(np.where(rng.uniform(size=384) < 0.1, far, near))
+    row, col = np.concatenate(rows), np.concatenate(cols)
+    order = np.argsort(row, kind="stable")
+    ei = np.stack([row[order], col[order]]).astype(np.int64)
+    return {"node_feat": rng.normal(size=(n_real, 2)).astype(np.float32),
+            "node_attr": rng.normal(size=(n_real, 2)).astype(np.float32),
+            "loc": rng.uniform(0, 1, size=(n_real, 3)).astype(np.float32),
+            "vel": (rng.normal(size=(n_real, 3)) * 0.05).astype(np.float32),
+            "edge_index": ei,
+            "edge_attr": rng.normal(size=(ei.shape[1], 2)).astype(np.float32)}
+
+
+def stack_model_operands(model, batch, b=0):
+    """The megakernel's operands for graph ``b`` of a blocked batch on the
+    card, exactly as FastEGNN._fused_stack_forward builds them."""
+    import torch
+
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+
+    with torch.no_grad():
+        cfg = model.stack_config(batch)
+        w = {k: a.detach() for k, a in model.stacked_weights().items()}
+        arrs = tuple(a[b].contiguous() for a in ep.build_edge_blocks(
+            batch.row, batch.col, batch.edge_attr, batch.edge_mask,
+            block=batch.edge_block, n_nodes=batch.max_nodes))
+        H, C = model.hidden_nf, model.virtual_channels
+        ops = (model.embedding_in(batch.node_feat)[b], batch.loc[b],
+               batch.vel[b], batch.loc_mean[b][:, None].repeat(1, C),
+               model.virtual_node_feat[0].detach(), batch.node_mask[b],
+               batch.node_attr[b] if model.node_attr_nf else None,
+               model.gravity if model.has_gravity else None, arrs,
+               (batch.remote_edge_index[b, 0], batch.remote_edge_index[b, 1],
+                batch.remote_edge_attr[b], batch.remote_edge_mask[b]))
+    return cfg, ops, w, float(batch.node_mask[b].sum())
+
+
+def stack_kernel_phase(dev):
+    """Phase 2d: the megakernel against its plain version at H=64, C=3,
+    L=4, A=2 on the JAX package's workload, f32 and bf16, gravity on and
+    off; timed in each dtype without gravity (the published configs')."""
+    import numpy as np
+    import torch
+
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+    from distegnn_tpu_torch.ops.graph import pad_graphs
+
+    rng = np.random.default_rng(31)
+    pb = pad_graphs([stack_graph(rng)], max_nodes=5 * BLOCK,
+                    edge_block=BLOCK, split_remote=True).to(dev)
+    H, C, A, L = HIDDEN, 3, 2, 4
+    res = {}
+    for gravity in (False, True):
+        for dname in ("f32", "bf16"):
+            cfg = lp.StackConfig(n_layers=L, block=BLOCK, hidden=H,
+                                 channels=C, node_attr_nf=A,
+                                 has_gravity=gravity, dtype_name=dname,
+                                 vmem_budget=STACK_BUDGET_2D)
+            w = {}
+            for k, (a, b) in lp.stack_weight_shapes(cfg).items():
+                s = (1e-3 if k in ("e_w4", "xv_k1", "X_k1") else 1.0) \
+                    / math.sqrt(a if a > 1 else b)
+                w[k] = torch.from_numpy(rng.uniform(-s, s, size=(L, a, b))
+                                        .astype(np.float32)).to(dev)
+            nm = pb.node_mask[0]
+            arrs = tuple(a[0].contiguous() for a in ep.build_edge_blocks(
+                pb.row, pb.col, pb.edge_attr, pb.edge_mask, block=BLOCK,
+                n_nodes=5 * BLOCK))
+            ops = (torch.from_numpy(rng.normal(size=(5 * BLOCK, H))
+                                    .astype(np.float32)).to(dev)
+                   * nm[:, None], pb.loc[0], pb.vel[0],
+                   pb.loc_mean[0][:, None].repeat(1, C),
+                   torch.from_numpy(rng.normal(size=(H, C))
+                                    .astype(np.float32)).to(dev),
+                   nm, pb.node_attr[0],
+                   torch.tensor([0.0, 0.0, -9.8], device=dev)
+                   if gravity else None, arrs,
+                   (pb.remote_edge_index[0, 0], pb.remote_edge_index[0, 1],
+                    pb.remote_edge_attr[0], pb.remote_edge_mask[0]))
+            est = lp.estimate_stack_vmem_bytes(
+                cfg, n_nodes=5 * BLOCK, n_edges=arrs[1].shape[0],
+                remote_pad=ops[9][0].shape[0])
+            label = f"stack kernel (2d) gravity={gravity}"
+            print(f"{label}: residency estimate {est / 2**20:.2f} MiB "
+                  f"(budget passed {STACK_BUDGET_2D / 2**20:.0f} MiB)")
+            r = stack_time(label, cfg, ops, w, float(nm.sum()),
+                           reps=20 if not gravity else 3)
+            res[(dname, gravity)] = r
+    return res
+
+
+def stack_serve_phase(root, dev, profile=False):
+    """Phase 3c. Returns (stack launches, kernel row at the served shape,
+    predict ms medians, and those of the same weights under
+    edge_impl=fused)."""
+    import numpy as np
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+    from distegnn_tpu_torch.serve import engine_with_params_from_config
+
+    path = os.path.join(root, "configs", "nbody_serve.yaml")
+    ov = {"model.edge_impl": "fused_stack", "data.edge_block": BLOCK}
+    cfg = load_config(path, ov)
+    model, eng = engine_with_params_from_config(cfg)
+    m = cfg.model
+    print(f"serve stack: edge_impl={m.edge_impl} H={m.hidden_nf} "
+          f"L={m.n_layers} C={m.virtual_channels} max_batch={eng.max_batch} "
+          f"budget={m.stack_vmem_budget or lp.DEFAULT_STACK_VMEM_BUDGET}")
+    scenes = [scene(n, seed=200 + i) for i, n in enumerate(STACK_SCENES)]
+    for g in scenes:
+        batch, _ = eng.ladder.pad_batch([g], eng.ladder.bucket_of_graph(g),
+                                        eng.max_batch, **eng._layout_opts)
+        N, E = batch.max_nodes, batch.max_edges
+        R = batch.remote_edge_mask.shape[-1]
+        est = lp.estimate_stack_vmem_bytes(
+            model.stack_config(batch), n_nodes=N, n_edges=E, remote_pad=R)
+        print(f"serve stack scene n={g['loc'].shape[0]} edges="
+              f"{g['edge_index'].shape[1]}: padded N={N} E={E} R={R}, "
+              f"residency estimate {est / 2**20:.2f} MiB")
+    eng.warmup([(g["loc"].shape[0], g["edge_index"].shape[1])
+                for g in scenes])
+    torch.cuda.synchronize()
+
+    # the main path: counts 0 just before, read just after
+    reset_stack_counts()
+    outs = [eng.predict(g) for g in scenes]
+    stack, fwd, bwd = stack_counts()
+    want = eng.max_batch * len(scenes)
+    print(f"serve stack: {len(scenes)} requests, fused_stack_fwd launches="
+          f"{stack} (expected {eng.max_batch} padded graphs x {len(scenes)} "
+          f"requests = {want}), fused_edge_fwd {fwd}, fused_edge_bwd {bwd} "
+          f"(expected 0)")
+    check(stack == want and fwd == 0 and bwd == 0,
+          f"serve stack: launches {stack}/{fwd}/{bwd} != {want}/0/0")
+    for g, o in zip(scenes, outs):
+        check(o.shape == (g["loc"].shape[0], 3)
+              and bool(np.isfinite(o).all()), "serve stack: bad output")
+    check_equivariance("serve stack ", eng, scenes[1], outs[1])
+
+    # the same weights under edge_impl=fused, and through the plain stack
+    fmodel, feng = engine_with_params_from_config(
+        load_config(path, dict(ov, **{"model.edge_impl": "fused"})))
+    check(all(torch.equal(a, fmodel.state_dict()[k].to(a.device))
+              for k, a in model.state_dict().items()),
+          "serve stack: the fused model drew different weights")
+    fused = [feng.predict(g) for g in scenes]
+    fused_times = predict_times("serve stack (as edge_impl=fused) ", feng,
+                                scenes)
+    with contextlib.ExitStack() as st:
+        for pt in stack_plain_patches():
+            st.enter_context(pt)
+        plain = [eng.predict(g) for g in scenes]
+    err_f = max(float(np.abs(a - b).max()) for a, b in zip(outs, fused))
+    err_p = max(float(np.abs(a - b).max()) for a, b in zip(outs, plain))
+    print(f"serve stack vs edge_impl=fused: max_abs_err={err_f:.3e}; vs the "
+          f"plain stack: {err_p:.3e} (tol {TOL_PLAIN:.1e})")
+    check(err_f <= TOL_PLAIN and err_p <= TOL_PLAIN,
+          "serve stack disagrees with the fused model or the plain stack")
+    del fmodel, feng
+
+    # a scene whose rung does not fit: the typed error, before any launch
+    big = scene(STACK_OVER_BUDGET, seed=210)
+    before = stack_counts()
+    try:
+        eng.predict(big)
+    except lp.StackVmemBudgetError as exc:
+        print(f"serve stack n={STACK_OVER_BUDGET}: StackVmemBudgetError: "
+              f"{str(exc)[:120]}...")
+    else:
+        fail("serve stack: an over-budget scene did not raise")
+    check(stack_counts() == before, "serve stack: launched over budget")
+
+    times = predict_times("serve stack ", eng, scenes)
+    if profile:
+        profile_phase(eng, scenes[-1])
+    batch, _ = eng.ladder.pad_batch(
+        [scenes[-1]], eng.ladder.bucket_of_graph(scenes[-1]), eng.max_batch,
+        **eng._layout_opts)
+    cfg_k, ops, w, n_real = stack_model_operands(model, batch.to(dev))
+    row = stack_time("serve stack kernel", cfg_k, ops, w, n_real)
+    return stack, row, times, fused_times
+
+
+def stack_train_phase(root, dev, clouds, profile=False):
+    """Phase 7 in a temporary log directory (see :func:`train_phase`)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stack_") as log_dir:
+        return _stack_train_phase(root, dev, clouds, log_dir, profile)
+
+
+def _stack_train_phase(root, dev, clouds, log_dir, profile):
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+
+    path = os.path.join(root, "configs", "fluid_fused_stack.yaml")
+    run_len = {"train.epochs": TRAIN_EPOCHS,
+               "log.test_interval": TRAIN_EPOCHS, "log.log_dir": log_dir}
+    cfg = load_config(path, run_len)
+    m, d = cfg.model, cfg.data
+    print(f"stack train config: edge_impl={m.edge_impl} H={m.hidden_nf} "
+          f"L={m.n_layers} C={m.virtual_channels} node_feat_nf="
+          f"{m.node_feat_nf} node_attr_nf={m.node_attr_nf} compute_dtype="
+          f"{m.compute_dtype} edge_block={d.edge_block} node_order="
+          f"{d.node_order} accelerate_mode={d.accelerate_mode} batch="
+          f"{d.batch_size} accumulation_steps={cfg.train.accumulation_steps} "
+          f"epochs={cfg.train.epochs}")
+    check(m.edge_impl == "fused_stack", "the published config changed")
+    ds = fluid_datasets(clouds, d.node_order)
+
+    # the main path: counts 0 just before, read just after
+    init_sd, state, (stack, fwd, bwd), micro, evals = drive_train(
+        cfg, ds, dev, reset_stack_counts, stack_counts, "stack ")
+    L = m.n_layers
+    want = (micro + evals, L * micro, L * micro)
+    print(f"stack train launches: fused_stack_fwd={stack}, fused_edge_fwd="
+          f"{fwd}, fused_edge_bwd={bwd} (expected {want}: {micro} micro-steps "
+          f"x (1 stack + {L} fwd + {L} bwd) + {evals} eval forwards x 1 "
+          f"stack)")
+    check((stack, fwd, bwd) == want,
+          f"stack train: launches {(stack, fwd, bwd)} != {want}")
+
+    loader, batches = host_batches(cfg, ds, dev, "stack ")
+    b0 = batches[0]
+    est = lp.estimate_stack_vmem_bytes(
+        state.model.stack_config(b0), n_nodes=b0.max_nodes,
+        n_edges=b0.max_edges, remote_pad=b0.remote_edge_mask.shape[-1])
+    print(f"stack train batch: N={b0.max_nodes} E={b0.max_edges} R="
+          f"{b0.remote_edge_mask.shape[-1]}, {int(b0.edge_mask.sum())} real "
+          f"edges, residency estimate {est / 2**20:.2f} MiB")
+    cfg_k, ops, w, n_real = stack_model_operands(state.model, b0)
+    row = stack_time("train stack kernel", cfg_k, ops, w, n_real)
+    edge_rows = flagship_kernel_phase(state.model, b0, dev)
+
+    # the first optimizer update again: the kernel, the plain stack, and
+    # the per-layer fused lowering of the same weights
+    n_micro = cfg.train.accumulation_steps
+    k = first_update(cfg, init_sd, batches, dev, counts=stack_counts,
+                     time_extra=TRAIN_TIMED, profile=profile)
+    p = first_update(cfg, init_sd, batches, dev, counts=stack_counts,
+                     patches=stack_plain_patches())
+    cfg_f = load_config(path, dict(run_len, **{"model.edge_impl": "fused"}))
+    f = first_update(cfg_f, init_sd, batches, dev, counts=stack_counts,
+                     time_extra=TRAIN_TIMED)
+    per = (L * n_micro, L * n_micro)
+    check(k["launches"] == (n_micro,) + per and p["launches"] == (0,) + per
+          and f["launches"] == (0,) + per,
+          f"stack first update launches: kernel {k['launches']}, plain "
+          f"{p['launches']}, fused {f['launches']}")
+    for other, name in ((p, "plain stack"), (f, "edge_impl=fused")):
+        errs, perr = update_distance(k, other)
+        worst = sorted(perr.items(), key=lambda kv: -kv[1])
+        print(f"stack first update, kernel vs {name}: losses "
+              f"{errs['loss_with_mmd']:.3e} / {errs['loss']:.3e}, gradient "
+              f"norm {errs['grad norm']:.3e}, max abs / max "
+              f"{errs['grad']:.3e}, l2 {errs['grad l2']:.3e} (tol "
+              f"{TOL_TRAIN:.0e}); worst parameters: " + ", ".join(
+                  f"{n} {v:.3e}" for n, v in worst[:4])
+              + f" (tol {STACK_PARAM:.3e})")
+        check(all(errs[key] <= TOL_TRAIN for key in
+                  ("loss_with_mmd", "loss", "grad norm", "grad"))
+              and worst[0][1] <= STACK_PARAM,
+              f"the stack's first update disagrees with the {name}")
+    n_real_b = float(b0.node_mask.sum())
+    med = step_times("stack ", k, n_real_b)
+    med_f = step_times("stack (as edge_impl=fused) ", f, n_real_b)
+    return dict(launches=(stack, fwd, bwd), row=row, edge_rows=edge_rows,
+                ms=med, fused_ms=med_f)
+
+
 def profile_phase(eng, g, reps=5):
     """``--profile``: where one request's time goes, for the largest scene.
     Host clock around each stage (each ended by a synchronise), then
@@ -1283,7 +1709,8 @@ def main():
     print(f"card: {smi}")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     t0 = time.perf_counter()
-    reports = build_all(["fused_edge_fwd", "fused_edge_bwd", "prefix_scan"])
+    reports = build_all(["fused_edge_fwd", "fused_edge_bwd", "prefix_scan",
+                         "fused_stack_fwd"])
     print(f"built {len(reports)} kernel source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
@@ -1296,6 +1723,7 @@ def main():
     profile = "--profile" in sys.argv[1:]
     t0 = time.perf_counter()
     clouds = [fluid_cloud(300 + i) for i in range(6)]
+    stack_clouds = [fluid_cloud(400 + i, n=STACK_FLUID_N) for i in range(6)]
     scenes = serve_scenes()
     e = [c["edge_index"].shape[1] for c in clouds]
     print(f"clouds: 6 x N={FLUID_N}, edges {min(e)}..{max(e)} (mean degree "
@@ -1307,6 +1735,7 @@ def main():
     model, eng = engine_with_params_from_config(cfg)
     kres = edge_kernel_phase(model, dev)
     edge_bwd_kernel_phase(model, dev)
+    stack_kernel_phase(dev)
     # the plain paths' scan shapes: the train loader's padded E (the 4
     # train clouds' max, rounded to the edge bucket), the serve bucket of
     # the largest scene
@@ -1318,14 +1747,20 @@ def main():
         profile_phase(eng, scenes[-1])
     del model, eng
     serve_scans, _ = plain_serve_phase(root, dev, scenes)
+    serve_stacks, serve_stack_row, _, _ = stack_serve_phase(root, dev,
+                                                            profile)
     train_fwd, train_bwd, flagship = train_phase(root, dev, clouds,
                                                  profile=profile)
     plain = plain_train_phase(root, dev, clouds, e_train, profile=profile)
+    stack = stack_train_phase(root, dev, stack_clouds, profile=profile)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
-          f"{train_fwd} (train), fused_edge_bwd {train_bwd} (train), "
-          f"prefix_scan {serve_scans} (serve cumsum) + "
+          f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
+          f"backward), fused_edge_bwd {train_bwd} (train) + "
+          f"{stack['launches'][2]} (stack train backward), prefix_scan "
+          f"{serve_scans} (serve cumsum) + "
           f"{sum(plain['widths'].values())} (plain train), suffix "
-          f"{plain['suffix']}")
+          f"{plain['suffix']}, fused_stack_fwd {serve_stacks} (serve) + "
+          f"{stack['launches'][0]} (stack train)")
 
     # one row per kernel and path, with the numbers of the dtype and shape
     # that path launches the kernel at: serving f32 at phase 2's shape,
@@ -1365,6 +1800,19 @@ def main():
     kernels += [row(name, f"{key} {sres[key]['shape']}", sres[key], tpu, n,
                     source="prefix_scan")
                 for name, key, n, tpu in scan_rows]
+    ef, eb = stack["edge_rows"]["fused_edge_fwd"], \
+        stack["edge_rows"]["fused_edge_bwd"]
+    kernels += [
+        row("fused_edge_fwd", f"stack train backward {ef['dtype']} "
+            f"{ef['shape']}", ef, fwd_tpu, stack["launches"][1]),
+        row("fused_edge_bwd", f"stack train backward {eb['dtype']} "
+            f"{eb['shape']}", eb, "distegnn_tpu/ops/edge_pipeline.py:314",
+            stack["launches"][2]),
+        row("fused_stack_fwd", f"serve f32 {serve_stack_row['shape']}",
+            serve_stack_row, STACK_TPU, serve_stacks),
+        row("fused_stack_fwd", f"train {stack['row']['dtype']} "
+            f"{stack['row']['shape']}", stack["row"], STACK_TPU,
+            stack["launches"][0])]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

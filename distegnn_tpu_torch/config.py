@@ -72,6 +72,8 @@ _DEFAULTS: dict = {
         "fuse_agg": True,
         "agg_dtype": None,
         "edge_impl": "plain",
+        # the fused_stack residency budget in bytes (0 = the 16 MiB default)
+        "stack_vmem_budget": 0,
     },
     "data": {
         "data_dir": "./data",
@@ -205,6 +207,20 @@ def validate_config(cfg: ConfigDict) -> None:
         if bool(cfg.model.normalize):
             raise ValueError(f"model.edge_impl='{edge_impl}' does not support "
                              "model.normalize (flagship EGCL only)")
+    if edge_impl == "fused_stack":
+        # what the config alone can know; the shape-dependent residency
+        # check raises StackVmemBudgetError before the kernel's launch
+        if int(cfg.model.n_layers) < 1:
+            raise ValueError(
+                "model.edge_impl='fused_stack' requires model.n_layers >= 1 "
+                "(the megakernel grid runs one step per layer)")
+        budget = int(cfg.model.get("stack_vmem_budget", 0) or 0)
+        if budget < 0:
+            raise ValueError(
+                "model.stack_vmem_budget must be >= 0 bytes (0 = the "
+                "16 MiB/core default; the fused_stack megakernel raises "
+                "StackVmemBudgetError at trace time when the VMEM-resident "
+                "graph exceeds this bound)")
     s = cfg.get("serve")
     if s is None:
         return

@@ -1,5 +1,6 @@
 """Parameter conversion from the JAX package's flax tree to the port's
-``state_dict`` (FastEGNN, ``edge_impl`` 'fused' or 'plain').
+``state_dict`` (FastEGNN, ``edge_impl`` 'fused', 'fused_stack' or 'plain';
+a 'fused_stack' tree is the 'fused' tree).
 
 The flax tree:
 
@@ -18,6 +19,7 @@ The flax tree:
                                                concat MLP)
   gcl_i/phi_x/MLP_0/TorchDense_k/...        -> gcl.i.phi_x.layers.k.*
   gcl_i/{att,att_v}/Dense_0/{kernel,bias}   -> gcl.i.{att,att_v}.* (attention)
+  gcl_i/phi_g/TorchDense_k/Dense_0/...      -> gcl.i.phi_g.layers.k.* (gravity)
 
 Flax kernels are [in, out]; ``nn.Linear.weight`` is [out, in], so dense
 kernels are transposed. The raw phi_e_fused arrays and the hoisted phi_e
@@ -86,6 +88,8 @@ def params_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
                 _dense(gcl[name], f"{pre}.{name}", out)
         for name in _MLPS:
             _mlp(gcl[name], f"{pre}.{name}", out)
+        if "phi_g" in gcl:
+            _mlp(gcl["phi_g"], f"{pre}.phi_g", out)
         for name in _COORD_MLPS:
             _mlp(gcl[name]["MLP_0"], f"{pre}.{name}", out)
         i += 1

@@ -39,9 +39,11 @@
 //    row-segment ends issue an f32 atomicAdd into the zeroed [N, H+8] output
 //    (a row's sum is therefore order-dependent across tiles at f32 rounding).
 //  - No allocation, no synchronisation; launched on the caller's stream.
-//  - rnd, silu and the tile product live in fused_edge_common.cuh, shared
-//    with the backward kernel (fused_edge_bwd.cu), which recomputes this
-//    forward with the same roundings.
+//  - rnd, silu, the tile product and the whole tile (setup, MLPs, row
+//    sums) live in fused_edge_common.cuh, shared with the backward kernel
+//    (fused_edge_bwd.cu), which recomputes this forward with the same
+//    roundings, and with the fused-stack megakernel (fused_stack_fwd.cu),
+//    whose in-window pass is this tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,8 +58,7 @@ using namespace fused_edge;
 
 template <int H>
 constexpr size_t smem_bytes() {
-  return (2 * H * H + 2 * TE * (H + 1) + 7 * H + 7 * TE) * sizeof(float) +
-         2 * TE * sizeof(int);
+  return FwdTile<H>::kBytes;
 }
 
 template <int H, bool BF16>
@@ -74,145 +75,18 @@ fused_edge_fwd_kernel(const int* __restrict__ row_t,
                       const float* __restrict__ w3, const float* __restrict__ b3,
                       const float* __restrict__ w4, float* __restrict__ out,
                       int n_nodes, int n_edges, int block) {
-  constexpr int LDA = H + 1;
-  constexpr int F = H + 8;
   extern __shared__ float smem[];
-  float* sW2 = smem;                // [H, H]
-  float* sW3 = sW2 + H * H;         // [H, H]
-  float* sA = sW3 + H * H;          // [TE, LDA] y1, then the gate terms
-  float* sB = sA + TE * LDA;        // [TE, LDA] ef
-  float* sWs = sB + TE * LDA;       // [3, H]
-  float* sB1 = sWs + 3 * H;
-  float* sB2 = sB1 + H;
-  float* sB3 = sB2 + H;
-  float* sW4 = sB3 + H;
-  float* sCd = sW4 + H;             // [TE, 3]
-  float* sS = sCd + 3 * TE;         // [TE, 3] [radial, a0, a1] in dtype
-  float* sG = sS + 3 * TE;          // [TE]
-  int* sRow = reinterpret_cast<int*>(sG + TE);   // [TE], -1 = inactive
-  int* sCol = sRow + TE;                         // [TE]
+  const FwdTile<H> s(smem);
+  fwd_load_weights<H, BF16>(s, ws, b1, w2, b2, w3, b3, w4);
 
-  const int tid = threadIdx.x;
-  // weights in the compute dtype (the TPU kernel casts them with astype);
-  // the phi_x head w4 stays f32
-  for (int i = tid; i < H * H; i += THREADS) {
-    sW2[i] = rnd<BF16>(w2[i]);
-    sW3[i] = rnd<BF16>(w3[i]);
-  }
-  for (int i = tid; i < 3 * H; i += THREADS) sWs[i] = rnd<BF16>(ws[i]);
-  for (int i = tid; i < H; i += THREADS) {
-    sB1[i] = rnd<BF16>(b1[i]);
-    sB2[i] = rnd<BF16>(b2[i]);
-    sB3[i] = rnd<BF16>(b3[i]);
-    sW4[i] = w4[i];
-  }
-
-  const int T = block;
-  const int nb = n_nodes / T;
-  const int epb = n_edges / nb;
-  const int smax = nb - 3 > 0 ? nb - 3 : 0;
   const int n_tiles = (n_edges + TE - 1) / TE;
-
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     __syncthreads();  // weights loaded / previous tile fully consumed
-
-    // ---- per edge: layout -> global (row, col), geometry, scalars
-    int active = 0;
-    if (tid < TE) {
-      const int e = tile * TE + tid;
-      int row = -1, col = 0;
-      float cd0 = 0.f, cd1 = 0.f, cd2 = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f;
-      if (e < n_edges) {
-        const float m = scal[(size_t)e * XL + 2];
-        const int rl = row_t[e];
-        if (m > 0.f && rl < T) {
-          const int b = e / epb;
-          const int s = min(max(b - 1, 0), smax);
-          row = b * T + rl;
-          col = (s + kblk[e]) * T + col_l[e];
-          cd0 = x[3 * (size_t)row + 0] - x[3 * (size_t)col + 0];
-          cd1 = x[3 * (size_t)row + 1] - x[3 * (size_t)col + 1];
-          cd2 = x[3 * (size_t)row + 2] - x[3 * (size_t)col + 2];
-          // no FMA contraction: |cd|^2 rounded as the reference sums it
-          const float radial = __fadd_rn(
-              __fadd_rn(__fmul_rn(cd0, cd0), __fmul_rn(cd1, cd1)),
-              __fmul_rn(cd2, cd2));
-          s0 = rnd<BF16>(radial);
-          s1 = rnd<BF16>(scal[(size_t)e * XL + 0]);
-          s2 = rnd<BF16>(scal[(size_t)e * XL + 1]);
-          active = 1;
-        }
-      }
-      sRow[tid] = row;
-      sCol[tid] = col;
-      sCd[3 * tid + 0] = cd0;
-      sCd[3 * tid + 1] = cd1;
-      sCd[3 * tid + 2] = cd2;
-      sS[3 * tid + 0] = s0;
-      sS[3 * tid + 1] = s1;
-      sS[3 * tid + 2] = s2;
-    }
+    const int active = fwd_setup_inwindow<H, BF16>(
+        s, tile, row_t, col_l, kblk, scal, x, n_nodes, n_edges, block);
     if (!__syncthreads_or(active)) continue;  // all-padding tile
-
-    // ---- t1 = (hr[row] + hc[col]) + sfeat @ ws + b1;  y1 = silu(t1)
-    for (int i = tid; i < TE * H; i += THREADS) {
-      const int el = i / H, j = i % H;
-      const int row = sRow[el];
-      float y = 0.f;
-      if (row >= 0) {
-        const float hrc = rnd<BF16>(load(hr, (size_t)row * H + j) +
-                                    load(hc, (size_t)sCol[el] * H + j));
-        const float sw = rnd<BF16>(
-            fmaf(sS[3 * el + 2], sWs[2 * H + j],
-                 fmaf(sS[3 * el + 1], sWs[H + j], sS[3 * el] * sWs[j])));
-        y = silu<BF16>(rnd<BF16>(rnd<BF16>(hrc + sw) + sB1[j]));
-      }
-      sA[el * LDA + j] = y;
-    }
-    __syncthreads();
-
-    // ---- ef = silu(y1 @ w2 + b2)
-    tile_dense_silu<H, BF16>(sA, sW2, sB2, nullptr, sB);
-    __syncthreads();
-
-    // ---- gate terms silu(ef @ w3 + b3) * w4 (into sA, free again)
-    tile_dense_silu<H, BF16>(sB, sW3, sB3, sW4, sA);
-    __syncthreads();
-
-    if (tid < TE) {
-      float g = 0.f;
-      for (int j = 0; j < H; ++j) g += sA[tid * LDA + j];
-      sG[tid] = g;
-    }
-    __syncthreads();
-
-    // ---- segment sums by row: column c per thread, in edge order
-    if (tid < F && tid != 7) {
-      const int c = tid;
-      float acc = 0.f;
-      int cur = -1;
-      for (int el = 0; el < TE; ++el) {
-        const int row = sRow[el];
-        if (row < 0) continue;
-        float v;
-        if (c < 6) {
-          const float tr = sCd[3 * el + (c % 3)] * sG[el];
-          const float hi = round_bf16(tr);
-          v = c < 3 ? hi : round_bf16(tr - hi);
-        } else if (c == 6) {
-          v = 1.f;
-        } else {
-          v = round_bf16(sB[el * LDA + (c - 8)]);
-        }
-        if (row != cur) {
-          if (cur >= 0) atomicAdd(&out[(size_t)cur * F + c], acc);
-          cur = row;
-          acc = 0.f;
-        }
-        acc += v;
-      }
-      if (cur >= 0) atomicAdd(&out[(size_t)cur * F + c], acc);
-    }
+    fwd_tile_mlp<H, BF16>(s, hr, hc);
+    fwd_aggregate_inwindow<H>(s, out, H + 8);
   }
 }
 

@@ -19,6 +19,11 @@ through every path; ``remat=True`` checkpoints each layer, as
 ``nn.remat(EGCLVel)`` does in the JAX package: its activations are
 recomputed in the backward pass instead of kept.
 
+``FastEGNN(edge_impl='fused_stack')`` builds the same ``'fused'`` layers
+(the ``state_dict`` is identical) but runs the whole layer loop of each graph
+as ONE launch of the megakernel ``fused_egnn_stack`` (ops/layer_pipeline.py),
+with the per-layer parameters stacked at run time.
+
 Layouts follow the JAX package at every public boundary: ``[B, N, ...]``
 node arrays, virtual coordinates ``[B, 3, C]`` and virtual features
 ``[B, H, C]``. Shape legend: B graphs, N padded nodes, E padded edges,
@@ -42,11 +47,13 @@ from distegnn_tpu_torch.ops.edge_pipeline import (EdgeWeights,
                                                   build_edge_blocks,
                                                   fused_edge_layer)
 from distegnn_tpu_torch.ops.graph import GraphBatch
+from distegnn_tpu_torch.ops.layer_pipeline import (DEFAULT_STACK_VMEM_BUDGET,
+                                                   StackConfig,
+                                                   fused_egnn_stack,
+                                                   stack_weight_shapes)
 from distegnn_tpu_torch.ops.segment import segment_sum
 from distegnn_tpu_torch.parallel.collectives import global_node_mean
 
-# the slice of the port that brings what this one refuses (ROADMAP.md, queue 1)
-_SLICE_STACK = "port slice 4 (the fused_stack megakernel)"
 _FUSED_HEADS = ("edge_impl='fused' supports the flagship EGCL only: "
                 "attention/normalize/tanh are baked out of the kernel — use "
                 "edge_impl='plain' with those heads")
@@ -78,15 +85,17 @@ class FusedEdgeParams(nn.Module):
 class EGCLVel(nn.Module):
     """E(n)-equivariant layer with velocity and virtual-node channels
     (reference E_GCL_vel): MLPs phi_e, phi_ev, phi_x, phi_xv, phi_X, phi_v,
-    phi_h, phi_hv, the optional attention gates ``att``/``att_v``, and the
-    real edges through ``edge_impl`` (see the module docstring)."""
+    phi_h, phi_hv, the optional attention gates ``att``/``att_v``, the
+    gravity head ``phi_g`` (``has_gravity``), and the real edges through
+    ``edge_impl`` (see the module docstring)."""
 
     def __init__(self, hidden_nf: int, virtual_channels: int,
                  node_attr_nf: int = 0, edge_attr_nf: int = 2, *,
                  residual: bool = True, attention: bool = False,
                  normalize: bool = False, coords_agg: str = "mean",
-                 tanh: bool = False, epsilon: float = 1e-8,
-                 compute_dtype=None, hoist_edge_mlp: bool = True,
+                 tanh: bool = False, has_gravity: bool = False,
+                 epsilon: float = 1e-8, compute_dtype=None,
+                 hoist_edge_mlp: bool = True,
                  seg_impl: str = "scatter", fuse_agg: bool = True,
                  agg_dtype=None, edge_impl: str = "plain",
                  blocked_impl: str = "einsum", generator=None):
@@ -111,6 +120,7 @@ class EGCLVel(nn.Module):
         self.node_attr_nf, self.edge_attr_nf = node_attr_nf, edge_attr_nf
         self.residual, self.attention = residual, attention
         self.normalize, self.coords_agg = normalize, coords_agg
+        self.has_gravity = has_gravity
         self.epsilon = epsilon
         self.hoist_edge_mlp, self.seg_impl = hoist_edge_mlp, seg_impl
         self.fuse_agg, self.agg_dtype = fuse_agg, agg_dtype
@@ -135,6 +145,8 @@ class EGCLVel(nn.Module):
         self.phi_v = MLP(H, [H, 1], **kw)
         self.phi_h = MLP(3 * H + node_attr_nf, [H, H], **kw)
         self.phi_hv = MLP(2 * H, [H, H], **kw)
+        if has_gravity:
+            self.phi_g = MLP(H, [H, 1], **kw)
 
     def _c(self, a: torch.Tensor) -> torch.Tensor:
         return a.to(self.dt) if self.dt is not None else a
@@ -209,8 +221,10 @@ class EGCLVel(nn.Module):
                else ops.agg_rows_mean(trans))
         return agg, ops.agg_rows_mean(edge_feat)
 
-    def forward(self, h, x, v, X, Hv, g: GraphBatch, fused_arrs=None):
-        """h [B,N,H], x/v [B,N,3], X [B,3,C], Hv [B,H,C] -> (h, x, Hv, X)."""
+    def forward(self, h, x, v, X, Hv, g: GraphBatch, fused_arrs=None,
+                gravity=None):
+        """h [B,N,H], x/v [B,N,3], X [B,3,C], Hv [B,H,C], gravity [3] (with
+        ``has_gravity``) -> (h, x, Hv, X)."""
         H, C = self.hidden_nf, self.virtual_channels
         node_mask = g.node_mask
         nm = node_mask[..., None]
@@ -243,6 +257,8 @@ class EGCLVel(nn.Module):
         phi_xv = self.phi_xv(vef)                              # [B, N, C, 1]
         x = x + torch.mean(-vcd * phi_xv.transpose(2, 3), dim=-1)
         x = x + self.phi_v(h).to(torch.float32) * v
+        if self.has_gravity:
+            x = x + self.phi_g(h).to(torch.float32) * gravity
         x = x * nm
 
         trans_X = vcd * self.phi_X(vef).transpose(2, 3)        # [B, N, 3, C]
@@ -267,28 +283,28 @@ class EGCLVel(nn.Module):
 class FastEGNN(nn.Module):
     """FastEGNN: ``forward(batch) -> (loc_pred [B,N,3], virtual_loc
     [B,3,C])``. ``edge_impl='plain'`` takes a plain batch (``edge_block``
-    0), ``'fused'`` a blocked ``split_remote`` batch. The arguments are the
-    JAX package's; ``segment_impl`` ('scatter', 'cumsum', 'ell'),
-    ``fuse_agg``, ``agg_dtype`` and ``hoist_edge_mlp`` shape the plain path.
-    ``blocked_impl`` is accepted for the blocked plain lowerings, which
-    come with port slice 5; ``edge_impl='fused_stack'`` raises and names
-    port slice 4."""
+    0), ``'fused'`` and ``'fused_stack'`` a blocked ``split_remote`` batch.
+    The arguments are the JAX package's; ``segment_impl`` ('scatter',
+    'cumsum', 'ell'), ``fuse_agg``, ``agg_dtype`` and ``hoist_edge_mlp``
+    shape the plain path. ``blocked_impl`` is accepted for the blocked plain
+    lowerings, which come with port slice 5. ``gravity`` (a 3-vector or
+    None) adds each layer's gravity head. ``stack_vmem_budget`` (bytes, 0 =
+    the 16 MiB default) bounds the ``fused_stack`` residency estimate;
+    ``remat`` does not apply to ``fused_stack``, whose backward reruns each
+    layer from its checkpoint anyway."""
 
     def __init__(self, node_feat_nf: int, node_attr_nf: int = 0,
                  edge_attr_nf: int = 0, hidden_nf: int = 64,
                  virtual_channels: int = 3, n_layers: int = 4,
                  residual: bool = True, attention: bool = False,
                  normalize: bool = False, tanh: bool = False,
+                 gravity: Optional[Tuple[float, float, float]] = None,
                  compute_dtype=None, hoist_edge_mlp: bool = True,
                  blocked_impl: str = "einsum", segment_impl: str = "scatter",
                  remat: bool = False, fuse_agg: bool = True, agg_dtype=None,
-                 edge_impl: str = "plain", *,
+                 edge_impl: str = "plain", stack_vmem_budget: int = 0, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if edge_impl == "fused_stack":
-            raise NotImplementedError(
-                f"edge_impl='fused_stack' comes with {_SLICE_STACK}; "
-                "'plain' and 'fused' are ported")
         if virtual_channels < 1:
             raise ValueError("virtual_channels must be > 0")
         H, C = hidden_nf, virtual_channels
@@ -296,30 +312,74 @@ class FastEGNN(nn.Module):
         self.edge_attr_nf = edge_attr_nf
         self.hidden_nf, self.virtual_channels = H, C
         self.n_layers = n_layers
+        self.residual = residual
         self.edge_impl = edge_impl
         self.remat = bool(remat)
+        self.compute_dtype = resolve_dtype(compute_dtype)
+        self.stack_vmem_budget = int(stack_vmem_budget)
+        if edge_impl == "fused_stack":
+            self._check_stack_model(attention, normalize, tanh)
+        # gravity rides as a non-persistent buffer: the state_dict is the
+        # same with or without it, and .to(device) moves it
+        self.has_gravity = gravity is not None
+        self.register_buffer(
+            "gravity", torch.tensor(gravity if self.has_gravity
+                                    else (0.0, 0.0, 0.0), dtype=torch.float32),
+            persistent=False)
         # learnable virtual feature seed, shared across graphs (randn init)
         self.virtual_node_feat = nn.Parameter(
             torch.randn((1, H, C), generator=generator))
         self.embedding_in = TorchDense(node_feat_nf, H, generator=generator)
+        layer_impl = "fused" if edge_impl == "fused_stack" else edge_impl
         self.gcl = nn.ModuleList([
             EGCLVel(H, C, node_attr_nf, edge_attr_nf, residual=residual,
                     attention=attention, normalize=normalize, tanh=tanh,
+                    has_gravity=self.has_gravity,
                     compute_dtype=compute_dtype,
                     hoist_edge_mlp=hoist_edge_mlp, seg_impl=segment_impl,
                     fuse_agg=fuse_agg, agg_dtype=agg_dtype,
-                    edge_impl=edge_impl, blocked_impl=blocked_impl,
+                    edge_impl=layer_impl, blocked_impl=blocked_impl,
                     generator=generator)
             for _ in range(n_layers)])
 
+    def _check_stack_model(self, attention, normalize, tanh):
+        """The megakernel's model constraints, with the JAX messages."""
+        if attention or normalize or tanh:
+            raise ValueError(
+                "edge_impl='fused_stack' supports the flagship EGCL "
+                "only: attention/normalize/tanh are baked out of the "
+                "megakernel — use edge_impl='plain' with those heads")
+        if self.edge_attr_nf != 2:
+            raise ValueError(
+                f"edge_impl='fused_stack' requires edge_attr_nf=2 (the "
+                f"kernel scalar lanes are [radial, attr0, attr1]); got "
+                f"{self.edge_attr_nf}")
+        if self.n_layers < 1:
+            raise ValueError(
+                f"edge_impl='fused_stack' needs n_layers >= 1 (the "
+                f"megakernel grid is (n_layers,)); got {self.n_layers}")
+
     def forward(self, g: GraphBatch) -> Tuple[torch.Tensor, torch.Tensor]:
         fused_arrs = None
-        if self.edge_impl == "fused":
-            if g.edge_block <= 0 or g.remote_edge_index is None:
+        if self.edge_impl == "fused" and (g.edge_block <= 0
+                                          or g.remote_edge_index is None):
+            raise ValueError(
+                "edge_impl='fused' needs a blocked batch built with "
+                "split_remote=True (data.edge_block >= 512, a multiple "
+                "of 512)")
+        if self.edge_impl == "fused_stack":
+            # the JAX package's messages
+            if g.edge_block <= 0:
                 raise ValueError(
-                    "edge_impl='fused' needs a blocked batch built with "
-                    "split_remote=True (data.edge_block >= 512, a multiple "
-                    "of 512)")
+                    "edge_impl='fused_stack' requires a blocked batch "
+                    "(data.edge_block >= 512, a multiple of 512)")
+            if g.remote_edge_index is None:
+                raise ValueError(
+                    "edge_impl='fused_stack' needs a blocked batch built "
+                    "with split_remote=True (the megakernel folds the "
+                    "compact remote tail in per layer) — check "
+                    "data.edge_block and the loader's split_remote flag")
+        if self.edge_impl in ("fused", "fused_stack"):
             # the kernel's edge layout is layer-invariant: built once
             fused_arrs = build_edge_blocks(g.row, g.col, g.edge_attr,
                                            g.edge_mask, block=g.edge_block,
@@ -331,11 +391,73 @@ class FastEGNN(nn.Module):
         X = g.loc_mean[:, :, None].repeat(1, 1, C)                # [B, 3, C]
         h = self.embedding_in(g.node_feat)
         x, v = g.loc, g.vel
+        gravity = self.gravity if self.has_gravity else None
+        if self.edge_impl == "fused_stack":
+            return self._fused_stack_forward(g, h, x, v, X, Hv, gravity,
+                                             fused_arrs)
         for layer in self.gcl:
             if self.remat and torch.is_grad_enabled():
                 # keep only the layer's inputs; the backward reruns it
                 h, x, Hv, X = checkpoint(layer, h, x, v, X, Hv, g,
-                                         fused_arrs, use_reentrant=False)
+                                         fused_arrs, gravity,
+                                         use_reentrant=False)
             else:
-                h, x, Hv, X = layer(h, x, v, X, Hv, g, fused_arrs)
+                h, x, Hv, X = layer(h, x, v, X, Hv, g, fused_arrs, gravity)
         return x, X
+
+    def stack_config(self, g: GraphBatch) -> StackConfig:
+        """The megakernel configuration of this model over batch ``g``."""
+        return StackConfig(
+            n_layers=self.n_layers, block=g.edge_block, hidden=self.hidden_nf,
+            channels=self.virtual_channels, node_attr_nf=self.node_attr_nf,
+            has_gravity=self.has_gravity, residual=self.residual,
+            coords_mean=True,  # FastEGNN always aggregates with 'mean'
+            dtype_name="bf16" if self.compute_dtype is torch.bfloat16
+            else "f32",
+            vmem_budget=self.stack_vmem_budget or DEFAULT_STACK_VMEM_BUDGET)
+
+    def stacked_weights(self) -> dict:
+        """The per-layer parameters as the megakernel's ``{key: [L, a, b]}``
+        (``stack_weight_shapes``): ``torch.stack`` of ``[in, out]`` views,
+        so gradients reach each layer's parameters."""
+        def layer_weights(m: EGCLVel) -> dict:
+            p = m.phi_e_fused
+            w = {"e_w1": p.w1, "e_b1": p.b1[None], "e_w2": p.w2,
+                 "e_b2": p.b2[None], "e_w3": p.w3, "e_b3": p.b3[None],
+                 "e_w4": p.w4.T}
+            for pre, mlp in (("ev", m.phi_ev), ("xv", m.phi_xv),
+                             ("X", m.phi_X), ("v", m.phi_v), ("h", m.phi_h),
+                             ("hv", m.phi_hv)) + (
+                                 (("g", m.phi_g),) if m.has_gravity else ()):
+                for i, lin in enumerate(mlp.layers):
+                    w[f"{pre}_k{i}"] = lin.weight.T
+                    if lin.bias is not None:
+                        w[f"{pre}_b{i}"] = lin.bias[None]
+            return w
+
+        per = [layer_weights(m) for m in self.gcl]
+        return {k: torch.stack([w[k] for w in per]) for k in per[0]}
+
+    def _fused_stack_forward(self, g: GraphBatch, h, x, v, X, Hv, gravity,
+                             fused_arrs):
+        """The whole layer loop as ONE megakernel launch per graph."""
+        cfg = self.stack_config(g)
+        wstack = self.stacked_weights()
+        shapes = stack_weight_shapes(cfg)
+        if wstack.keys() != shapes.keys():
+            raise ValueError(f"stacked weights {sorted(wstack)} do not match "
+                             f"the megakernel's {sorted(shapes)}")
+        row_t, col_l, kblk, scal = fused_arrs
+        xs, Xs = [], []
+        for b in range(g.batch_size):
+            edge_arrs = (row_t[b], col_l[b], kblk[b], scal[b])
+            remote_arrs = (g.remote_edge_index[b, 0],
+                           g.remote_edge_index[b, 1],
+                           g.remote_edge_attr[b], g.remote_edge_mask[b])
+            _, x_b, X_b, _ = fused_egnn_stack(
+                cfg, h[b], x[b], v[b], X[b], Hv[b], g.node_mask[b],
+                g.node_attr[b] if self.node_attr_nf else None, gravity,
+                edge_arrs, remote_arrs, wstack)
+            xs.append(x_b)
+            Xs.append(X_b)
+        return torch.stack(xs), torch.stack(Xs)

@@ -28,6 +28,7 @@ def get_model(model_config,
         virtual_channels=model_config.virtual_channels,
         n_layers=model_config.n_layers,
         normalize=model_config.normalize,
+        gravity=None,
         compute_dtype=model_config.get("compute_dtype"),
         remat=bool(model_config.get("remat", False)),
         blocked_impl=model_config.get("blocked_impl", "einsum"),
@@ -36,4 +37,5 @@ def get_model(model_config,
         fuse_agg=bool(model_config.get("fuse_agg", True)),
         agg_dtype=model_config.get("agg_dtype"),
         edge_impl=model_config.get("edge_impl", "plain"),
+        stack_vmem_budget=int(model_config.get("stack_vmem_budget", 0) or 0),
         generator=generator)

@@ -101,15 +101,14 @@ def test_converted_state_dict_covers_every_parameter():
 
 @pytest.mark.parametrize("kw, match", [
     ({"edge_impl": "plain"}, "slice 5"),
-    ({"edge_impl": "fused_stack"}, "slice 4"),
+    ({"hoist_edge_mlp": False}, "slice 5"),
     ({"blocked_impl": "pallas"}, "slice 5"),
     ({"segment_impl": "cumsum"}, "slice 5"),
     ({"segment_impl": "ell", "attention": True}, "slice 5"),
 ])
 def test_unported_options_raise_and_name_their_slice(kw, match):
-    """fused_stack is refused when the model is built; a plain model (every
-    lowering) refuses a blocked batch, whose one-hot lowerings are later
-    work."""
+    """A plain model (every lowering, either edge MLP) refuses a blocked
+    batch, whose one-hot lowerings are later work."""
     pb = pad_graphs([blocked_test_graph(0, n_real=BLOCK)], edge_block=BLOCK)
     with pytest.raises(NotImplementedError, match=match):
         pm = FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=16,

@@ -197,3 +197,152 @@ def test_prefix_scan_kernel_rounds_no_worse_than_the_tpu_algorithm():
     err = float(((CS._scan(x, False).double() - ref).abs() / scale).max())
     perr = float(((CS.prefix_sum_ref(x).double() - ref).abs() / scale).max())
     assert err <= 2 * perr + 1e-9
+
+
+# ------------------------------------------------------ fused-stack megakernel
+
+def _stack_graph(rng, n_real=4 * T):
+    """4 real node blocks (padded to 5: a trailing empty block), edges near
+    the diagonal with ~10 % into a far block (a remote tail), 2 node
+    attributes — the JAX package's megakernel workload."""
+    rows, cols = [], []
+    for b in range(n_real // T):
+        r = rng.integers(b * T, (b + 1) * T, size=384)
+        near = rng.integers(max(0, (b - 1) * T), min(n_real, (b + 2) * T),
+                            size=384)
+        far_block = (b + 3) % (n_real // T)
+        far = rng.integers(far_block * T, (far_block + 1) * T, size=384)
+        rows.append(r)
+        cols.append(np.where(rng.uniform(size=384) < 0.1, far, near))
+    row, col = np.concatenate(rows), np.concatenate(cols)
+    order = np.argsort(row, kind="stable")
+    ei = np.stack([row[order], col[order]]).astype(np.int64)
+    return {"node_feat": rng.normal(size=(n_real, 2)).astype(np.float32),
+            "node_attr": rng.normal(size=(n_real, 2)).astype(np.float32),
+            "loc": rng.uniform(0, 1, size=(n_real, 3)).astype(np.float32),
+            "vel": (rng.normal(size=(n_real, 3)) * 0.05).astype(np.float32),
+            "target": rng.uniform(0, 1, size=(n_real, 3)).astype(np.float32),
+            "edge_index": ei,
+            "edge_attr": rng.normal(size=(ei.shape[1], 2)).astype(np.float32)}
+
+
+def _stack_operands(seed, L, dtype_name, gravity, dev, C=2, A=2):
+    from distegnn_tpu_torch.ops import layer_pipeline as LP
+    from distegnn_tpu_torch.ops.graph import pad_graphs
+
+    rng = np.random.default_rng(seed)
+    pb = pad_graphs([_stack_graph(rng)], max_nodes=5 * T, edge_block=T,
+                    split_remote=True).to(dev)
+    arrs = tuple(a[0].contiguous() for a in P.build_edge_blocks(
+        pb.row, pb.col, pb.edge_attr, pb.edge_mask, block=T,
+        n_nodes=5 * T))
+    N = 5 * T
+    cfg = LP.StackConfig(n_layers=L, block=T, hidden=H, channels=C,
+                         node_attr_nf=A, has_gravity=gravity,
+                         dtype_name=dtype_name)
+    wstack = {}
+    for k, (a, b) in LP.stack_weight_shapes(cfg).items():
+        s = (1e-3 if k in ("e_w4", "xv_k1", "X_k1") else 1.0) / np.sqrt(
+            a if a > 1 else b)
+        wstack[k] = torch.from_numpy(rng.uniform(-s, s, size=(L, a, b))
+                                     .astype(np.float32)).to(dev)
+    nm = pb.node_mask[0]
+    ops = (torch.from_numpy(rng.normal(size=(N, H)).astype(np.float32))
+           .to(dev) * nm[:, None],
+           pb.loc[0], pb.vel[0], pb.loc_mean[0][:, None].repeat(1, C),
+           torch.from_numpy(rng.normal(size=(H, C)).astype(np.float32))
+           .to(dev), nm, pb.node_attr[0],
+           torch.tensor([0.0, 0.0, -9.8], device=dev) if gravity else None,
+           arrs, (pb.remote_edge_index[0, 0], pb.remote_edge_index[0, 1],
+                  pb.remote_edge_attr[0], pb.remote_edge_mask[0]))
+    return cfg, ops, wstack
+
+
+def _close(a, b, dtype_name):
+    """Kernel vs plain version: max abs error <= 2^-7 (f32) / 2^-5 (bf16)
+    and mean <= 1e-5 / 2^-9 of the output's scale (summation order; single
+    bf16-ulp flips of per-edge features that sat on a rounding boundary,
+    carried through the layers)."""
+    tmax, tmean = {"f32": (2 ** -7, 1e-5), "bf16": (2 ** -5, 2 ** -9)}[
+        dtype_name]
+    assert a.shape == b.shape and bool(torch.isfinite(a).all())
+    d = (a.float() - b.float()).abs()
+    scale = float(b.abs().max())
+    assert float(d.max()) <= tmax * scale and float(d.mean()) <= tmean * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gravity", [False, True])
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+def test_fused_stack_kernel_matches_plain_version_on_card(dtype_name,
+                                                          gravity):
+    """csrc/fused_stack_fwd.cu against fused_egnn_stack_ref on the same card
+    tensors (L=2, H=16, C=2, A=2, a remote tail and a trailing empty node
+    block): the four outputs and the four layer-input checkpoints, one
+    launch."""
+    from distegnn_tpu_torch.ops import layer_pipeline as LP
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    cfg, ops, w = _stack_operands(21, 2, dtype_name, gravity, dev)
+    before = LP.fused_egnn_stack.launches
+    with torch.no_grad():
+        out, cks = LP._fused_egnn_stack_cuda(cfg, *ops, w)
+        torch.cuda.synchronize()
+        assert LP.fused_egnn_stack.launches == before + 1
+        ref_out, ref_cks = LP.fused_egnn_stack_ref(cfg, *ops, w)
+    for a, b in zip(list(out) + list(cks), list(ref_out) + list(ref_cks)):
+        _close(a, b, dtype_name)
+    assert torch.equal(cks[0][0], ops[0])      # slot 0 is the input
+
+
+@pytest.mark.cuda
+def test_fused_stack_launch_counts_and_gradients_on_card():
+    """Through the autograd Function: one stack launch forward; backward L
+    fused_edge_fwd + L fused_edge_bwd launches (each layer rerun from its
+    checkpoint), and gradients within 2^-7 of the largest of those of the
+    same walk from the plain version's checkpoints."""
+    from unittest import mock
+
+    from distegnn_tpu_torch.ops import layer_pipeline as LP
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    L = 2
+    cfg, ops, w = _stack_operands(22, L, "f32", True, dev)
+
+    def grads():
+        diff = [a.clone().requires_grad_() for a in ops[:5]]
+        wt = {k: a.clone().requires_grad_() for k, a in w.items()}
+        out = LP.fused_egnn_stack(cfg, *diff, *ops[5:], wt)
+        loss = sum((o * o).sum() for o in out)
+        return torch.autograd.grad(loss, diff + list(wt.values()))
+
+    counts = (lambda: (LP.fused_egnn_stack.launches,
+                       P.fused_edge_layer.launches,
+                       P.fused_edge_layer.bwd_launches))
+    before = counts()
+    g = grads()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + L, before[2] + L)
+    with mock.patch.object(LP, "_fused_egnn_stack_cuda",
+                           LP.fused_egnn_stack_ref):
+        g_ref = grads()
+    scale = max(float(a.abs().max()) for a in g_ref)
+    for a, b in zip(g, g_ref):
+        assert float((a - b).abs().max()) <= 2 ** -7 * scale
+
+
+@pytest.mark.cuda
+def test_fused_stack_budget_error_before_any_launch_on_card():
+    from distegnn_tpu_torch.ops import layer_pipeline as LP
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cfg, ops, w = _stack_operands(23, 2, "f32", False, torch.device("cuda"))
+    before = LP.fused_egnn_stack.launches
+    with pytest.raises(LP.StackVmemBudgetError):
+        LP.fused_egnn_stack(cfg._replace(vmem_budget=1024), *ops, w)
+    assert LP.fused_egnn_stack.launches == before
