@@ -72,6 +72,23 @@ or of the JAX package. Phases (any failure exits nonzero):
      version's distance from the exact scatter lowering compared;
      micro-step ms, nodes/s and peak device memory.
 
+  2e. the blocked one-hot kernels (csrc/blocked_onehot.cu: the segment sum
+     and the row gather of the blocked layout) against f64 and their plain
+     versions (the gather bitwise) at edge cases (an all-sentinel block,
+     epb == tile, F = 1, a batch of 4, bf16, F = 128), at the rollout
+     batch's shape ([4, 4096] nodes, 48 x 256 slots per block; F = 1, 3,
+     64) and, with phase 8, at the train batch's (113152 nodes in 442
+     blocks of 256; F = 1, 3, 64, f32 and bf16); each path shape timed
+     beside its plain version, index_add_ / index_select, the einsum
+     lowering and its bound.
+  3d. rollout serving: configs/nbody_serve.yaml + serve.rollout (radius of
+     mean degree ~20, max_degree 48, max_per_cell 32, edge_block 256) +
+     model.blocked_impl=pallas; engine.rollout of a 4000-node scene and
+     engine.rollout_batch of 4 scenes of 1000-4000 nodes (rung 4096), K=8
+     steps, with the counts set to 0 just before and checked exactly just
+     after each (per step 2L+1 seg_sum and 2L gather launches); finite, no
+     overflow, first-step equivariance, the trajectory against the plain
+     versions and against blocked_impl=einsum; ms per request and step.
   7. train configs/fluid_fused_stack.yaml as published (H=64, L=4, C=3, bf16,
      edge_block 512, MSE + MMD, Adam with 4-step accumulation) through
      main.run over 4 train + 1 valid + 1 test synthetic fluid clouds of
@@ -81,6 +98,15 @@ or of the JAX package. Phases (any failure exits nonzero):
      the train batch's shape; the first optimizer update again through the
      plain stack and with edge_impl=fused, at phase 5's bounds; micro-step
      ms, nodes/s and peak device memory.
+  8. train configs/largefluid_distegnn.yaml + data.edge_block=256,
+     data.accelerate_mode=cutoff_edges, model.blocked_impl=pallas (the
+     blocked layout with the pairing, no remote tail) over phase 5's clouds,
+     2 epochs, with exact launch counts by width (the remat reruns and the
+     backward roles of both kernels derived from the code); finite losses,
+     parameters moved; the first optimizer update again with the plain
+     versions, with blocked_impl=einsum and with edge_block=0 (scatter), at
+     phase 5's aggregate bounds and phase 6's per-tensor bound; micro-step ms,
+     nodes/s and peak device memory.
 
 With ``--profile`` it then breaks one request of the largest scene into host
 stages and profiles it with torch.profiler (device time by kernel, the
@@ -91,6 +117,7 @@ Output: timing lines, then one JSON line ``{"kernels": [...]}``, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -1616,6 +1643,615 @@ def _stack_train_phase(root, dev, clouds, log_dir, profile):
                 ms=med, fused_ms=med_f)
 
 
+# ------------------------------------------------ the blocked one-hot kernels
+
+BLOCKED_TPU = {"blocked_seg_sum": "distegnn_tpu/ops/blocked.py:290",
+               "blocked_gather": "distegnn_tpu/ops/blocked.py:306"}
+RB_BLOCK, RB_TILE = 256, 512
+# phase 3d: rollout scenes at one density (the radius of a 4000-node unit
+# cube scene at mean degree ~20; smaller scenes fill a smaller cube)
+ROLLOUT_N, ROLLOUT_DEG = 4000, 20.0
+ROLLOUT_SIZES = (1000, 2000, 3000, 4000)
+ROLLOUT_STEPS = 8
+ROLLOUT_OPTS = {"max_degree": 48, "max_per_cell": 32, "edge_block": RB_BLOCK}
+# phase 2e: the segment sum against f64 and against its plain version, as a
+# fraction of each column's max |sum| (f32 accumulation in another order);
+# the gather is a bit copy and is held bitwise
+TOL_BLOCKED = 1e-6
+# phase 3d: the kernels' rollout against the same engine through the plain
+# versions and through blocked_impl=einsum, as a fraction of what the model
+# moves the scene: the first step against max |x_1 - x_0| (~2e-3), the
+# whole trajectory against max |x_k - x_0|. They differ by f32 summation
+# order and by the rounding of x + dx at |x| ~ 1, where one ulp (1.2e-7,
+# 2.4e-7 above 1.0) is 6e-5 to 1.2e-4 of the first step; the trajectory
+# bound leaves room for a few such flips over K steps. PERF.md records the
+# readings the bounds were set from. A wrong aggregation (zeroed
+# translations, a wrong inv_deg) moves the scene by a different amount:
+# an error of order 1 of the displacement.
+TOL_ROLLOUT_STEP = 2e-4
+TOL_ROLLOUT_TRAJ = 5e-4
+
+
+def blocked_counts():
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    return BL.blocked_segment_sum.launches, BL.blocked_gather.launches
+
+
+def blocked_widths():
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    return (dict(BL.blocked_segment_sum.launch_widths),
+            dict(BL.blocked_gather.launch_widths))
+
+
+def reset_blocked_counts():
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    for f in (BL.blocked_segment_sum, BL.blocked_gather):
+        f.launches = 0
+        f.launch_widths.clear()
+
+
+def blocked_plain_patches():
+    """The two kernels' wrappers pointed at their plain versions."""
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    return (mock.patch.object(BL, "_seg_sum_cuda",
+                              BL.blocked_segment_sum_ref),
+            mock.patch.object(BL, "_gather_cuda", BL.blocked_gather_ref))
+
+
+def blocked_want(L, steps=0, micro=0, evals=0):
+    """Launches by (F, type) from the code: per forward (hoist_edge_mlp,
+    fuse_agg, no pairing on the f32 rollout path) 1 seg_sum of the [E, 1]
+    mask (inv_deg) and per layer a gather of x [E, 3] and of the hoisted
+    h @ W [E, H], and a seg_sum of the translations [E, 3] and of the edge
+    features [E, H]. Training (bf16 message MLPs, remat, the pairing
+    attached) adds per micro-step the remat rerun of each layer (not of
+    inv_deg) and the backward: a gather of each seg_sum's cotangent (but
+    the last layer's edge-feature mean, which reaches only that layer's h,
+    unused by the loss), a seg_sum for the row gather and the paired column
+    gather of h @ W in every layer and of x in layers 1..L-1 (layer 0's x
+    is the batch's)."""
+    H = HIDDEN
+    seg = collections.Counter()
+    gat = collections.Counter()
+    if steps:
+        seg[(1, "f32")] += steps
+        seg[(3, "f32")] += steps * L
+        seg[(H, "f32")] += steps * L
+        gat[(3, "f32")] += steps * L
+        gat[(H, "f32")] += steps * L
+    n_fwd = micro + evals
+    if n_fwd:
+        seg[(1, "f32")] += n_fwd
+        seg[(3, "f32")] += L * (2 * micro + evals) + 2 * (L - 1) * micro
+        seg[(H, "bf16")] += L * (2 * micro + evals) + 2 * L * micro
+        gat[(3, "f32")] += L * (2 * micro + evals) + L * micro
+        gat[(H, "bf16")] += L * (2 * micro + evals) + (L - 1) * micro
+    return dict(seg), dict(gat)
+
+
+def seg_ref64(data, slot, n_nodes, block):
+    """The exact segment sum in f64 [B, N, F] and each column's scale (the
+    max over nodes of the sum of |data|), shaped [B, 1, F]."""
+    import torch
+
+    B, E, F = data.shape
+    epb = E // (n_nodes // block)
+    blk = (torch.arange(E, device=slot.device) // epb) * block
+    valid = (slot >= 0) & (slot < block)
+    idx = torch.where(valid, slot.long() + blk, torch.zeros_like(blk))
+    idx = idx[..., None].expand(B, E, F)
+    d = data.double() * valid[..., None]
+    out = torch.zeros((B, n_nodes, F), dtype=torch.float64,
+                      device=data.device).scatter_add_(1, idx, d)
+    mag = torch.zeros_like(out).scatter_add_(1, idx, d.abs())
+    return out, mag.amax(dim=1, keepdim=True).clamp(min=1e-30)
+
+
+def blocked_case(label, slot, n_nodes, F, dtype, gen, dev, timed=False,
+                 reps=20):
+    """Both kernels at one shape: held against f64 / their plain versions,
+    and with ``timed`` timed (CUDA events) beside their plain versions, the
+    library call (``index_add_`` into a zeroed output / ``index_select``
+    from h with a zero row for the sentinels), the einsum lowering and the
+    bound. Returns {kernel name: result}."""
+    import torch
+
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    B, E = slot.shape
+    block, tile = RB_BLOCK, RB_TILE
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    elt = 2 if dname == "bf16" else 4
+    data = torch.randn((B, E, F), generator=gen, device=dev).to(dtype)
+    h = torch.randn((B, n_nodes, F), generator=gen, device=dev).to(dtype)
+    real = int((slot < block).sum())
+    out = BL._seg_sum_cuda(data, slot, n_nodes, block, tile)
+    torch.cuda.synchronize()
+    ref, scale = seg_ref64(data, slot, n_nodes, block)
+    err64 = float(((out.double() - ref).abs() / scale).max())
+    plain = BL.blocked_segment_sum_ref(data, slot, n_nodes, block, tile)
+    errp = float(((out - plain).double().abs() / scale).max())
+    again = torch.equal(BL._seg_sum_cuda(data, slot, n_nodes, block, tile),
+                        out)
+    g = BL._gather_cuda(h, slot, block, tile)
+    torch.cuda.synchronize()
+    gp = BL.blocked_gather_ref(h, slot, block, tile)
+    sentinel = slot >= block
+    g_ok = (torch.equal(g, gp) and g.dtype == dtype
+            and bool((g[sentinel] == 0).all()))
+    print(f"2e {label} B={B} N={n_nodes} E={E} F={F} {dname}: seg_sum vs "
+          f"f64 {err64:.3e}, vs plain {errp:.3e} (tol {TOL_BLOCKED:.0e} of "
+          f"each column's max), repeat bitwise {again}; gather vs plain "
+          f"bitwise {g_ok}; {real} real slots")
+    check(err64 <= TOL_BLOCKED and errp <= TOL_BLOCKED and again,
+          f"2e {label}: the seg_sum kernel disagrees")
+    check(g_ok, f"2e {label}: the gather kernel disagrees")
+    res = {"blocked_seg_sum": dict(err=float((out - plain).abs().max())),
+           "blocked_gather": dict(err=float((g.float() - gp.float()).abs()
+                                            .max()))}
+    if not timed:
+        return res
+    shape = f"B={B} N={n_nodes} E={E} F={F} {dname}"
+    # the library calls and the einsum lowering on the same inputs
+    epb = E // (n_nodes // block)
+    blk = (torch.arange(E, device=dev) // epb) * block
+    bofs = (torch.arange(B, device=dev) * (n_nodes + 1))[:, None]
+    idx = torch.where(sentinel, torch.full_like(blk, n_nodes),
+                      slot.long() + blk) + bofs
+    idx = idx.reshape(-1)
+    src = data.float().reshape(B * E, F)
+    h_ext = torch.cat([h, torch.zeros((B, 1, F), dtype=dtype, device=dev)],
+                      dim=1).reshape(B * (n_nodes + 1), F)
+    oh = BL.onehot_blocks(slot, epb, block)
+    ms_s = cuda_ms(lambda: BL._seg_sum_cuda(data, slot, n_nodes, block,
+                                            tile), reps=reps)
+    pl_s = cuda_ms(lambda: BL.blocked_segment_sum_ref(data, slot, n_nodes,
+                                                      block, tile),
+                   reps=3, warm=1)
+    lib_s = cuda_ms(lambda: torch.zeros((B * (n_nodes + 1), F),
+                                        device=dev).index_add_(0, idx, src),
+                    reps=reps)
+    ein_s = cuda_ms(lambda: BL._ein_seg_sum_raw(data, oh), reps=3, warm=1)
+    ms_g = cuda_ms(lambda: BL._gather_cuda(h, slot, block, tile), reps=reps)
+    pl_g = cuda_ms(lambda: BL.blocked_gather_ref(h, slot, block, tile),
+                   reps=3, warm=1)
+    lib_g = cuda_ms(lambda: torch.index_select(h_ext, 0, idx), reps=reps)
+    ein_g = cuda_ms(lambda: BL._ein_gather_raw(h, oh).to(dtype), reps=3,
+                    warm=1)
+    del oh
+    nodes = B * n_nodes
+    for name, ms, pl, lib, ein, nbytes, flops in (
+            ("blocked_seg_sum", ms_s, pl_s, lib_s, ein_s,
+             B * E * (F * elt + 4) + nodes * F * 4, real * F),
+            ("blocked_gather", ms_g, pl_g, lib_g, ein_g,
+             nodes * F * elt + B * E * (4 + F * elt), 0)):
+        b_ms, b_by = bound(nbytes, flops, "f32")
+        res[name].update(ms=ms, plain_ms=pl, library_ms=lib, einsum_ms=ein,
+                         bound_ms=b_ms, bound_by=b_by, shape=shape)
+        print(f"2e {label} {name} {shape}: {ms:.4f} ms/launch, plain "
+              f"{pl:.4f} ms, library {lib:.4f} ms "
+              f"({'index_add_' if 'seg' in name else 'index_select'}), "
+              f"einsum lowering {ein:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+              f"{nbytes} B), {b_ms / ms:.4f} of bound")
+    return res
+
+
+def blocked_kernel_phase(dev, rollout_slot):
+    """Phase 2e, the edge cases and the rollout batch's shapes (the train
+    batch's come with phase 8)."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rng = np.random.default_rng(5)
+
+    def synthetic(B, nb, epb, empty_last=True, fill=0.7):
+        s = np.full((B, nb, epb), RB_BLOCK, np.int32)
+        for b in range(B):
+            for k in range(nb):
+                if empty_last and b == 0 and k == nb - 1:
+                    continue            # an all-sentinel block
+                n = int(fill * epb)
+                s[b, k, :n] = np.sort(rng.integers(0, RB_BLOCK, n))
+                s[b, k] = rng.permutation(s[b, k])
+        return torch.from_numpy(s.reshape(B, nb * epb)).to(dev)
+
+    for label, slot, nb, F, dtype in (
+            ("epb == tile, all-sentinel block", synthetic(1, 5, RB_TILE), 5,
+             64, torch.float32),
+            ("F=1", synthetic(1, 5, 1024), 5, 1, torch.float32),
+            ("batch of 4, bf16", synthetic(4, 6, 1536), 6, 64,
+             torch.bfloat16),
+            ("batch of 4, F=3", synthetic(4, 6, 1536), 6, 3, torch.float32),
+            ("bf16 F=128", synthetic(2, 3, 512), 3, 128, torch.bfloat16)):
+        blocked_case(label, slot, nb * RB_BLOCK, F, dtype, gen, dev)
+    n = rollout_slot.shape[1] // (ROLLOUT_OPTS["max_degree"])
+    rows = {}
+    for F in (1, 3, HIDDEN):
+        r = blocked_case("rollout", rollout_slot, n, F, torch.float32, gen,
+                         dev, timed=True)
+        if F == HIDDEN:
+            rows = r
+    return rows
+
+
+def rollout_scene(n, seed, r0):
+    """A Morton-ordered uniform scene of ``n`` nodes at the density of
+    :data:`ROLLOUT_N` nodes per unit cube (so radius ``r0`` gives every
+    scene a mean degree of ~:data:`ROLLOUT_DEG`): loc, vel."""
+    import numpy as np
+
+    from distegnn_tpu_torch.ops.order import morton_perm
+
+    rng = np.random.default_rng(seed)
+    side = (n / ROLLOUT_N) ** (1.0 / 3.0)
+    loc = (rng.uniform(0, side, size=(n, 3))).astype(np.float32)
+    vel = (rng.normal(size=(n, 3)) * 0.01 * r0).astype(np.float32)
+    p = morton_perm(loc)
+    return {"loc": loc[p], "vel": vel[p]}
+
+
+def rollout_slots(eng, scenes, dev):
+    """The slot ids of the first step of a rollout_batch of ``scenes`` (the
+    batch the 3d main path runs), for phase 2e."""
+    import numpy as np
+    import torch
+
+    from distegnn_tpu_torch.ops.blocked import slot_ids
+    from distegnn_tpu_torch.ops.radius_dev import (ell_to_edge_list,
+                                                   radius_graph_dev)
+
+    o = eng._rollout_opts
+    n_pad = max(eng.rollout_rung(s["loc"].shape[0]) for s in scenes)
+    slots = []
+    for s in scenes:
+        n = s["loc"].shape[0]
+        loc = np.zeros((n_pad, 3), np.float32)
+        mask = np.zeros((n_pad,), np.float32)
+        loc[:n], mask[:n] = s["loc"], 1.0
+        g = radius_graph_dev(torch.from_numpy(loc).to(dev), o["radius"],
+                             o["max_degree"], o["max_per_cell"],
+                             node_mask=torch.from_numpy(mask).to(dev))
+        ei, em = ell_to_edge_list(g)
+        slots.append(slot_ids(ei[0], em, o["edge_block"],
+                              o["max_degree"] * o["edge_block"]))
+    return torch.stack(slots)
+
+
+def rollout_serve_phase(root, dev, profile=False):
+    """Phase 3d: K-step rollouts of configs/nbody_serve.yaml (H=64, L=4,
+    C=3, f32, max_batch 4) with serve.rollout set and
+    model.blocked_impl=pallas, through engine.rollout and
+    engine.rollout_batch; exact launch counts, finiteness, no overflow,
+    first-step equivariance, and the trajectory against the plain versions
+    and against blocked_impl=einsum. Returns the launches, the phase 2e
+    rows at the rollout batch's shape and the timings."""
+    import numpy as np
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.serve import engine_with_params_from_config
+
+    from distegnn_tpu_torch.ops.radius import radius_graph_np
+
+    # the radius of a 4000-node unit-cube scene at mean degree ~20 (one
+    # correction for the cube's boundary, as in :func:`scene`)
+    r0 = (3.0 * ROLLOUT_DEG / (4.0 * math.pi * ROLLOUT_N)) ** (1.0 / 3.0)
+    probe = rollout_scene(ROLLOUT_N, 500, r0)["loc"]
+    e = radius_graph_np(probe, r0).shape[1]
+    r0 *= (ROLLOUT_DEG / (e / ROLLOUT_N)) ** (1.0 / 3.0)
+    e = radius_graph_np(probe, r0).shape[1]
+    print(f"rollout scenes: radius {r0:.5f}, mean degree {e / ROLLOUT_N:.2f} "
+          f"at {ROLLOUT_N} nodes per unit cube")
+    opts = dict(ROLLOUT_OPTS, radius=float(r0))
+    path = os.path.join(root, "configs", "nbody_serve.yaml")
+    cfg = load_config(path, {"model.blocked_impl": "pallas",
+                             "serve.rollout": opts})
+    m = cfg.model
+    model, eng = engine_with_params_from_config(cfg)
+    L, K = m.n_layers, ROLLOUT_STEPS
+    print(f"rollout config: H={m.hidden_nf} L={L} C={m.virtual_channels} "
+          f"edge_impl={m.edge_impl} blocked_impl={m.blocked_impl} "
+          f"max_batch={eng.max_batch} rollout={opts}")
+    one = rollout_scene(ROLLOUT_N, 501, r0)
+    many = [rollout_scene(n, 510 + i, r0)
+            for i, n in enumerate(ROLLOUT_SIZES)]
+    rung = eng.rollout_rung(ROLLOUT_N)
+    print(f"rollout rungs: {ROLLOUT_N} nodes -> {rung}; the batch of "
+          f"{ROLLOUT_SIZES} -> {max(map(eng.rollout_rung, ROLLOUT_SIZES))}")
+    check(max(map(eng.rollout_rung, ROLLOUT_SIZES)) == rung,
+          "rollout: the batch does not pad to the single scene's rung")
+    reqs = [dict(s, steps=K) for s in many]
+    eng.rollout(one["loc"], one["vel"], 1)          # warm-up: loads the kernels
+    torch.cuda.synchronize()
+
+    # the main path: counts 0 just before, read just after each request
+    reset_blocked_counts()
+    traj = eng.rollout(one["loc"], one["vel"], K)
+    single = blocked_counts(), blocked_widths()
+    reset_blocked_counts()
+    trajs = eng.rollout_batch(reqs)
+    batched = blocked_counts(), blocked_widths()
+    want = blocked_want(L, steps=K)
+    for name, (n, w) in (("rollout", single), ("rollout_batch", batched)):
+        print(f"{name} (K={K}): blocked_seg_sum launches {n[0]} {w[0]}, "
+              f"blocked_gather {n[1]} {w[1]} (expected per step 2L+1 = "
+              f"{2 * L + 1} and 2L = {2 * L}: {want})")
+        check(w == want and n == (K * (2 * L + 1), K * 2 * L),
+              f"{name}: launch counts {n} {w} != {want}")
+    check(traj.shape == (K, ROLLOUT_N, 3) and np.isfinite(traj).all(),
+          "rollout: bad or non-finite trajectory")
+    for t, s in zip(trajs, many):
+        check(t.shape == (K, s["loc"].shape[0], 3) and np.isfinite(t).all(),
+              "rollout_batch: bad or non-finite trajectory")
+    # what the model moves the scene: the error scales of the comparisons
+    d1 = float(np.abs(traj[0] - one["loc"]).max())
+    dk = float(np.abs(traj - one["loc"]).max())
+    print(f"rollout: trajectory finite, no overflow; max |x_1 - x_0| "
+          f"{d1:.3e}, max |x_k - x_0| over {K} steps {dk:.3e}, max |x| "
+          f"{np.abs(traj).max():.3e}")
+    check(d1 > 0.0, "rollout: the first step moved nothing")
+
+    # first-step equivariance under a random rotation + translation
+    rng = np.random.default_rng(7)
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    R = (q * np.sign(np.diag(r))).astype(np.float32)
+    t = rng.normal(size=(3,)).astype(np.float32)
+    rot = eng.rollout((one["loc"] @ R.T + t).astype(np.float32),
+                      (one["vel"] @ R.T).astype(np.float32), 1)
+    err = float(np.abs(rot[0] - (traj[0] @ R.T + t)).max())
+    print(f"rollout first-step equivariance: max_abs_err={err:.3e} tol "
+          f"{TOL_EQUIV:.1e}")
+    check(err <= TOL_EQUIV, "rollout: equivariance violated")
+
+    # the same engine through the plain versions; the einsum lowering
+    with contextlib.ExitStack() as stack:
+        for pt in blocked_plain_patches():
+            stack.enter_context(pt)
+        reset_blocked_counts()
+        traj_p = eng.rollout(one["loc"], one["vel"], K)
+        check(blocked_counts() == (0, 0), "plain versions launched kernels")
+    cfg_e = load_config(path, {"model.blocked_impl": "einsum",
+                               "serve.rollout": opts})
+    model_e, eng_e = engine_with_params_from_config(cfg_e)
+    check(all(torch.equal(a, model_e.state_dict()[k])
+              for k, a in model.state_dict().items()),
+          "the einsum engine drew other weights")
+    reset_blocked_counts()
+    traj_e = eng_e.rollout(one["loc"], one["vel"], K)
+    check(blocked_counts() == (0, 0), "the einsum lowering launched kernels")
+    errs = {}
+    for name, other in (("plain versions", traj_p), ("einsum", traj_e)):
+        a1 = float(np.abs(traj[0] - other[0]).max())
+        ak = float(np.abs(traj - other).max())
+        e1, ek = a1 / d1, ak / dk
+        errs[name] = (e1, ek)
+        print(f"rollout kernels vs {name}: first step {a1:.3e} = {e1:.3e} "
+              f"of max |x_1 - x_0| (tol {TOL_ROLLOUT_STEP:.0e}), all {K} "
+              f"steps {ak:.3e} = {ek:.3e} of max |x_k - x_0| (tol "
+              f"{TOL_ROLLOUT_TRAJ:.0e})")
+        check(e1 <= TOL_ROLLOUT_STEP and ek <= TOL_ROLLOUT_TRAJ,
+              f"rollout: the kernels disagree with the {name}")
+    del model_e, eng_e
+
+    # request times: median of 5 after the warm-up
+    def times(fn):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ts.sort()
+        return ts
+    t1 = times(lambda: eng.rollout(one["loc"], one["vel"], K))
+    tb = times(lambda: eng.rollout_batch(reqs))
+    for name, ts, n in (("rollout (1 scene)", t1, 1),
+                        ("rollout_batch (4 scenes)", tb, len(reqs))):
+        print(f"{name} K={K}: ms per request median {ts[2]:.3f} (min "
+              f"{ts[0]:.3f} max {ts[-1]:.3f}), per step {ts[2] / K:.3f}, "
+              f"{n * K * 1e3 / ts[2]:.1f} scene-steps/s")
+    if profile:
+        rollout_profile(eng, reqs)
+    rows = blocked_kernel_phase(dev, rollout_slots(eng, many, dev))
+    return dict(launches=(single[0], batched[0]), rows=rows,
+                ms=(t1[2], tb[2]), errs=errs)
+
+
+def rollout_profile(eng, reqs, reps=5):
+    """``--profile``: host stages of one batched rollout step (each ended
+    by a synchronise: the per-scene radius graphs, the batch's assembly,
+    the forward), then torch.profiler over one request (device time by
+    kernel, idle share)."""
+    import functools
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distegnn_tpu_torch import rollout as R
+
+    o = eng._rollout_fn_opts()
+    n_pad = max(eng.rollout_rung(s["loc"].shape[0]) for s in reqs)
+    loc = np.zeros((len(reqs), n_pad, 3), np.float32)
+    vel = np.zeros_like(loc)
+    mask = np.zeros((len(reqs), n_pad), np.float32)
+    for i, s in enumerate(reqs):
+        n = s["loc"].shape[0]
+        loc[i, :n], vel[i, :n], mask[i, :n] = s["loc"], s["vel"], 1.0
+    x, v, m = (torch.from_numpy(a).to(eng.device) for a in (loc, vel, mask))
+    graph_fn = functools.partial(
+        R._scene_graph, radius=o["radius"], max_degree=o["max_degree"],
+        max_per_cell=o["max_per_cell"],
+        feature_fn=o.get("feature_fn", R.default_feature_fn),
+        edge_attr_fn=o.get("edge_attr_fn", R.default_edge_attr_fn))
+    stages = {"radius_graphs": [], "batch": [], "forward": []}
+    with torch.no_grad():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            per = [graph_fn(x[b], v[b], m[b]) for b in range(x.shape[0])]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            batch = R._batch([p[0] for p in per], o["edge_block"])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            eng.model(batch)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for k, a, z in (("radius_graphs", t0, t1), ("batch", t1, t2),
+                            ("forward", t2, t3)):
+                stages[k].append((z - a) * 1e3)
+    print("profile rollout_batch step stage ms (median of {}): {}".format(
+        reps, json.dumps({k: sorted(v)[reps // 2]
+                          for k, v in stages.items()})))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.rollout_batch(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"profile rollout_batch: wall {wall_ms:.3f} ms, device kernel time "
+          f"{busy:.3f} ms, busy share {busy / wall_ms:.4f}, idle share "
+          f"{1 - busy / wall_ms:.4f}, {sum(r[2] for r in rows)} device ops")
+    for key, ms, n in rows[:12]:
+        print(f"profile rollout kernel: {ms:.3f} ms  x{n}  {key[:90]}")
+
+
+def blocked_train_phase(root, dev, clouds, profile=False):
+    """Phase 8 in a temporary log directory (see :func:`train_phase`)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_blocked_") as log_dir:
+        return _blocked_train_phase(root, dev, clouds, log_dir, profile)
+
+
+def _blocked_train_phase(root, dev, clouds, log_dir, profile):
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.ops.blocked import slot_ids
+
+    path = os.path.join(root, "configs", "largefluid_distegnn.yaml")
+    run_len = {"train.epochs": TRAIN_EPOCHS,
+               "log.test_interval": TRAIN_EPOCHS, "log.log_dir": log_dir}
+    ov = {"data.edge_block": RB_BLOCK, "data.accelerate_mode": "cutoff_edges",
+          "model.blocked_impl": "pallas"}
+    cfg = load_config(path, {**ov, **run_len})
+    m, d = cfg.model, cfg.data
+    print(f"blocked train config: edge_impl={m.edge_impl} blocked_impl="
+          f"{m.blocked_impl} edge_block={d.edge_block} node_order="
+          f"{d.node_order} H={m.hidden_nf} L={m.n_layers} "
+          f"C={m.virtual_channels} compute_dtype={m.compute_dtype} "
+          f"remat={m.remat} hoist_edge_mlp={m.hoist_edge_mlp} "
+          f"fuse_agg={m.fuse_agg} agg_dtype={m.agg_dtype} "
+          f"accumulation_steps={cfg.train.accumulation_steps} "
+          f"epochs={cfg.train.epochs}")
+    check(m.edge_impl == "plain" and m.hoist_edge_mlp and m.fuse_agg
+          and m.remat and m.agg_dtype is None,
+          "the published config's plain-path knobs changed")
+    ds = fluid_datasets(clouds, d.node_order)
+
+    def read():
+        return blocked_counts(), blocked_widths()
+
+    # the main path: counts 0 just before, read just after
+    init_sd, state, (n, widths), micro, evals = drive_train(
+        cfg, ds, dev, reset_blocked_counts, read, "blocked ")
+    L = m.n_layers
+    want = blocked_want(L, micro=micro, evals=evals)
+    print(f"blocked train launches: blocked_seg_sum {n[0]} {widths[0]}, "
+          f"blocked_gather {n[1]} {widths[1]} (expected {want}: {micro} "
+          f"micro-steps, {evals} eval forwards)")
+    check(widths == want and n == (sum(want[0].values()),
+                                   sum(want[1].values())),
+          f"blocked train: launch counts {n} {widths} != {want}")
+
+    loader, batches = host_batches(cfg, ds, dev, "blocked ")
+    b0 = batches[0]
+    check(loader.pairing and not loader.split_remote
+          and b0.edge_pair is not None and b0.remote_edge_index is None
+          and b0.max_nodes == -(-FLUID_N // RB_BLOCK) * RB_BLOCK,
+          f"blocked train batch: N={b0.max_nodes} pairing {loader.pairing} "
+          f"split_remote {loader.split_remote}")
+    print(f"blocked train batch: N={b0.max_nodes} "
+          f"({b0.max_nodes // RB_BLOCK} blocks) epb={b0.edges_per_block} "
+          f"E={b0.max_edges}, {int(b0.edge_mask.sum())} real edges, pairing "
+          f"attached")
+
+    # phase 2e at the train batch's shapes
+    slot = slot_ids(b0.row, b0.edge_mask, b0.edge_block, b0.edges_per_block)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = {}
+    for F, dtype, timed in ((1, torch.float32, True),
+                            (3, torch.float32, True),
+                            (HIDDEN, torch.bfloat16, True),
+                            (HIDDEN, torch.float32, False)):
+        r = blocked_case("train", slot, b0.max_nodes, F, dtype, gen, dev,
+                         timed=timed, reps=10)
+        if F == HIDDEN and dtype == torch.bfloat16:
+            rows = r
+    del slot
+
+    # the first optimizer update again: the kernels, their plain versions,
+    # the einsum lowering and the scatter lowering of the plain layout
+    n_micro = cfg.train.accumulation_steps
+    n_real = float(b0.node_mask.sum())
+    k = first_update(cfg, init_sd, batches, dev, counts=blocked_counts,
+                     time_extra=TRAIN_TIMED, profile=profile)
+    p = first_update(cfg, init_sd, batches, dev, counts=blocked_counts,
+                     patches=blocked_plain_patches())
+    cfg_e = load_config(path, {**ov, **run_len,
+                               "model.blocked_impl": "einsum"})
+    e = first_update(cfg_e, init_sd, batches, dev, counts=blocked_counts,
+                     time_extra=TRAIN_TIMED)
+    del batches
+    cfg_s = load_config(path, {"data.accelerate_mode": "cutoff_edges",
+                               **run_len})
+    _, plain_batches = host_batches(cfg_s, ds, dev, "scatter ")
+    s = first_update(cfg_s, init_sd, plain_batches, dev,
+                     counts=blocked_counts, time_extra=TRAIN_TIMED)
+    del plain_batches
+    per = blocked_want(L, micro=n_micro)
+    check(k["launches"] == (sum(per[0].values()), sum(per[1].values()))
+          and p["launches"] == e["launches"] == s["launches"] == (0, 0),
+          f"blocked first update launches: kernels {k['launches']}, plain "
+          f"{p['launches']}, einsum {e['launches']}, scatter "
+          f"{s['launches']}")
+    for other, name in ((p, "plain versions"), (e, "blocked_impl=einsum"),
+                        (s, "edge_block=0 (scatter)")):
+        errs, perr = update_distance(k, other)
+        worst = sorted(perr.items(), key=lambda kv: -kv[1])
+        print(f"blocked first update, kernels vs {name}: losses "
+              f"{errs['loss_with_mmd']:.3e} / {errs['loss']:.3e}, gradient "
+              f"norm {errs['grad norm']:.3e}, max abs / max "
+              f"{errs['grad']:.3e}, l2 {errs['grad l2']:.3e} (tol "
+              f"{TOL_TRAIN:.0e}); worst parameters: " + ", ".join(
+                  f"{nm} {v:.3e}" for nm, v in worst[:4])
+              + f" (tol {SCATTER_PARAM:.3e})")
+        check(all(errs[key] <= TOL_TRAIN for key in
+                  ("loss_with_mmd", "loss", "grad norm", "grad"))
+              and worst[0][1] <= SCATTER_PARAM,
+              f"blocked first update: the kernels disagree with the {name}")
+    med = step_times("blocked ", k, n_real)
+    med_e = step_times("blocked einsum ", e, n_real)
+    med_s = step_times("plain scatter (edge_block 0) ", s, n_real)
+    return dict(launches=n, rows=rows, ms=med, einsum_ms=med_e,
+                scatter_ms=med_s)
+
+
 def profile_phase(eng, g, reps=5):
     """``--profile``: where one request's time goes, for the largest scene.
     Host clock around each stage (each ended by a synchronise), then
@@ -1705,12 +2341,13 @@ def main():
     from distegnn_tpu_torch.ops.graph import _round_up
     from distegnn_tpu_torch.serve import engine_with_params_from_config
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     print(f"card: {smi}")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     t0 = time.perf_counter()
     reports = build_all(["fused_edge_fwd", "fused_edge_bwd", "prefix_scan",
-                         "fused_stack_fwd"])
+                         "fused_stack_fwd", "blocked_onehot"])
     print(f"built {len(reports)} kernel source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
@@ -1749,10 +2386,12 @@ def main():
     serve_scans, _ = plain_serve_phase(root, dev, scenes)
     serve_stacks, serve_stack_row, _, _ = stack_serve_phase(root, dev,
                                                             profile)
+    rollout = rollout_serve_phase(root, dev, profile)
     train_fwd, train_bwd, flagship = train_phase(root, dev, clouds,
                                                  profile=profile)
     plain = plain_train_phase(root, dev, clouds, e_train, profile=profile)
     stack = stack_train_phase(root, dev, stack_clouds, profile=profile)
+    blocked = blocked_train_phase(root, dev, clouds, profile=profile)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
           f"backward), fused_edge_bwd {train_bwd} (train) + "
@@ -1760,7 +2399,11 @@ def main():
           f"{serve_scans} (serve cumsum) + "
           f"{sum(plain['widths'].values())} (plain train), suffix "
           f"{plain['suffix']}, fused_stack_fwd {serve_stacks} (serve) + "
-          f"{stack['launches'][0]} (stack train)")
+          f"{stack['launches'][0]} (stack train), blocked_seg_sum "
+          f"{rollout['launches'][0][0]} + {rollout['launches'][1][0]} "
+          f"(rollout, rollout_batch) + {blocked['launches'][0]} (blocked "
+          f"train), blocked_gather {rollout['launches'][0][1]} + "
+          f"{rollout['launches'][1][1]} + {blocked['launches'][1]}")
 
     # one row per kernel and path, with the numbers of the dtype and shape
     # that path launches the kernel at: serving f32 at phase 2's shape,
@@ -1813,6 +2456,17 @@ def main():
         row("fused_stack_fwd", f"train {stack['row']['dtype']} "
             f"{stack['row']['shape']}", stack["row"], STACK_TPU,
             stack["launches"][0])]
+    ro = rollout["launches"]
+    for i, name in enumerate(("blocked_seg_sum", "blocked_gather")):
+        rr, tr = rollout["rows"][name], blocked["rows"][name]
+        kernels += [
+            row(name, f"rollout serve {rr['shape']}", rr, BLOCKED_TPU[name],
+                ro[0][i] + ro[1][i], source="blocked_onehot"),
+            row(name, f"blocked train {tr['shape']}", tr, BLOCKED_TPU[name],
+                blocked["launches"][i], source="blocked_onehot")]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s, the kernels' build "
+          f"included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -63,7 +63,7 @@ _DEFAULTS: dict = {
         # recompute each layer's activations in the backward pass
         "remat": False,
         # the plain path's knobs (models/fast_egnn.py): the blocked
-        # lowering (port slice 5), the hoisted edge MLP, the aggregation
+        # lowering ('einsum' | 'pallas'), the hoisted edge MLP, the aggregation
         # lowering ('scatter' | 'cumsum' | 'ell'), one packed aggregation
         # per layer, and its stream dtype (None = f32, 'bf16')
         "blocked_impl": "einsum",
@@ -113,6 +113,9 @@ _DEFAULTS: dict = {
         "max_nodes": 65536,
         "max_edges": 1 << 20,
         "max_batch": 8,
+        # optional K-step rollout serving (rollout.make_rollout_fn kwargs);
+        # null disables rollouts
+        "rollout": None,
     },
 }
 
@@ -228,6 +231,21 @@ def validate_config(cfg: ConfigDict) -> None:
         raise ValueError("serve.growth must be > 1")
     if int(s.max_batch) < 1:
         raise ValueError("serve.max_batch must be >= 1")
+    r = s.get("rollout")
+    if r is not None:
+        if not isinstance(r, Mapping):
+            raise ValueError("serve.rollout must be null or a mapping of "
+                             "make_rollout_fn kwargs (radius, max_degree, ...)")
+        if float(r.get("radius", 0.0)) <= 0:
+            raise ValueError("serve.rollout.radius must be > 0")
+        if int(r.get("max_degree", 0)) < 1:
+            raise ValueError("serve.rollout.max_degree must be >= 1")
+        if int(r.get("max_per_cell", 16)) < 1:
+            raise ValueError("serve.rollout.max_per_cell must be >= 1")
+        if (int(r.get("max_degree", 0))
+                * int(r.get("edge_block", 256))) % 512:
+            raise ValueError("serve.rollout: max_degree * edge_block must be "
+                             "a multiple of 512 (the kernel edge tile)")
 
 
 # Command-line flags of the trainer: name -> (dotted config path, type), the

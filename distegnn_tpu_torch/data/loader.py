@@ -8,8 +8,9 @@ a run has one shape. The permutation of an epoch is numpy's
 ``default_rng([seed, epoch])``, so the batches are bitwise those of the JAX
 loader. Two layouts: the plain row-sorted one (``edge_block`` 0, the
 ``edge_impl='plain'`` path; optionally with the reverse-edge pairing and
-``max_in_degree`` of the scatter-free lowerings) and the blocked
-``split_remote`` one of the fused edge kernel.
+``max_in_degree`` of the scatter-free lowerings) and the blocked one (the
+one-hot kernels of the plain path, with the pairing when the dataset is
+symmetric; with ``split_remote`` the fused edge kernel's).
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
-from distegnn_tpu_torch.ops.blocked import (max_block_degree,
-                                            prepare_blocked_graph)
+from distegnn_tpu_torch.ops.blocked import (prepare_blocked_graph,
+                                            scan_dataset_for_blocking)
 from distegnn_tpu_torch.ops.edge_pipeline import count_remote_edges
 from distegnn_tpu_torch.ops.graph import _round_up, pad_graphs
 from distegnn_tpu_torch.ops.order import morton_perm, reorder_graph
@@ -66,9 +67,11 @@ class GraphLoader:
     ``pairing=True`` attaches the reverse-edge pairing to every batch with a
     dataset-stable ``max_in_degree`` (the cumsum and ELL lowerings use
     them). ``edge_block`` > 0: the blocked layout of ``edge_block`` nodes per
-    block with the compact remote list of the fused edge kernel: one
-    ``max_nodes`` (at least 3 blocks), one ``edges_per_block`` and one
-    ``remote_pad``; the blockified graphs are cached across epochs while
+    block, with one ``max_nodes`` and one ``edges_per_block``; ``pairing``
+    ``None`` decides by a symmetry scan of the dataset (the blocked column
+    gathers' backward uses the pairing). ``split_remote`` adds the compact
+    remote list of the fused edge kernel, with one ``remote_pad``, and then
+    at least 3 blocks. The blockified graphs are cached across epochs while
     they fit ``CACHE_BYTES``."""
 
     EDGE_TILE = 512
@@ -76,21 +79,26 @@ class GraphLoader:
 
     def __init__(self, dataset: GraphDataset, batch_size: int,
                  shuffle: bool = False, seed: int = 0, edge_block: int = 0,
-                 pairing: bool = False, node_bucket: int = 8,
-                 edge_bucket: int = 128):
+                 pairing: Optional[bool] = None, node_bucket: int = 8,
+                 edge_bucket: int = 128, split_remote: bool = False):
+        if split_remote and not edge_block:
+            raise ValueError("GraphLoader: split_remote requires edge_block "
+                             "> 0 (the fused pipeline's window is defined on "
+                             "the blocked layout)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
         self.edge_block = edge_block
-        self.pairing = bool(pairing) and not edge_block
+        self.split_remote = bool(split_remote)
         self._prepared_cache = None
         if len(self) == 0:
             raise ValueError(f"batch_size {batch_size} > dataset size "
                              f"{len(dataset)}: drop_last leaves zero batches")
         n, e = dataset.size_maxima()
         if not edge_block:
+            self.pairing = bool(pairing)
             self.max_nodes = _round_up(max(n, 1), node_bucket)
             self.max_edges = _round_up(max(e, 1), edge_bucket)
             self.max_in_degree = None
@@ -101,20 +109,25 @@ class GraphLoader:
                           for i in range(len(dataset)))
                 self.max_in_degree = _round_up(max(deg, 1), 8)
             return
-        # the fused kernel's 3-block window needs nb >= 3; small graphs pay
-        # all-padding blocks rather than failing
-        self.max_nodes = max(_round_up(max(n, 1), edge_block), 3 * edge_block)
-        deg = max([1] + [max_block_degree(np.sort(dataset[i]["edge_index"][0]),
-                                          self.max_nodes, edge_block)
-                         for i in range(len(dataset))])
+        self.max_nodes = _round_up(max(n, 1), edge_block)
+        if split_remote:
+            # the fused kernel's 3-block window needs nb >= 3; small graphs
+            # pay all-padding blocks rather than failing
+            self.max_nodes = max(self.max_nodes, 3 * edge_block)
+        deg, sym = scan_dataset_for_blocking(dataset, self.max_nodes,
+                                             edge_block)
+        self.pairing = sym if pairing is None else bool(pairing)
         self.edges_per_block = _round_up(deg, self.EDGE_TILE)
         self.max_edges = (self.max_nodes // edge_block) * self.edges_per_block
-        # blockify never adds out-of-window edges (its padding slots sit in
-        # their own block): scan the raw lists, pad to 128 lanes
-        er = max(count_remote_edges(dataset[i]["edge_index"], block=edge_block,
-                                    n_nodes=self.max_nodes)
-                 for i in range(len(dataset)))
-        self.remote_pad = max(_round_up(er, 128), 128)
+        self.remote_pad = None
+        if split_remote:
+            # blockify never adds out-of-window edges (its padding slots sit
+            # in their own block): scan the raw lists, pad to 128 lanes
+            er = max(count_remote_edges(dataset[i]["edge_index"],
+                                        block=edge_block,
+                                        n_nodes=self.max_nodes)
+                     for i in range(len(dataset)))
+            self.remote_pad = max(_round_up(er, 128), 128)
         d0 = dataset[0].get("edge_attr")
         per = self.max_edges * (8 + 4 + 8 + (d0.shape[1] * 4
                                              if d0 is not None else 0))
@@ -129,7 +142,8 @@ class GraphLoader:
                         max_in_degree=self.max_in_degree)
         return dict(edge_block=self.edge_block, edge_tile=self.EDGE_TILE,
                     edges_per_block=self.edges_per_block,
-                    max_nodes=self.max_nodes, split_remote=True,
+                    max_nodes=self.max_nodes, compute_pair=self.pairing,
+                    split_remote=self.split_remote,
                     remote_pad=self.remote_pad)
 
     def _graph(self, i: int) -> dict:
@@ -139,7 +153,8 @@ class GraphLoader:
         if cache is not None and i in cache:
             return cache[i]
         g = prepare_blocked_graph(self.dataset[i], self.max_nodes,
-                                  self.edges_per_block, self.edge_block)
+                                  self.edges_per_block, self.edge_block,
+                                  compute_pair=self.pairing)
         if cache is not None:
             cache[i] = g
         return g

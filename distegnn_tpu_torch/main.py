@@ -53,18 +53,23 @@ def _require_single_device(config) -> None:
 
 
 def make_loaders(config, ds_train, ds_valid, ds_test):
+    """The train / valid / test loaders, as the JAX package's ``main.py``
+    builds them: the compact remote list only for the fused lowerings; the
+    reverse-edge pairing forced on for the scatter-free lowerings of a plain
+    batch, and decided by the dataset's symmetry scan (``None``) on a
+    blocked one."""
     d = config.data
     edge_block = int(d.edge_block)
-    # the scatter-free lowerings of a plain batch want the reverse-edge
-    # pairing (gather-only column backwards) and the ELL degree
-    pairing = (not edge_block and config.model.get("segment_impl")
-               in ("cumsum", "ell"))
+    pairing = (True if (not edge_block and config.model.get("segment_impl")
+                        in ("cumsum", "ell")) else None)
 
     def mk(ds, shuffle):
         return GraphLoader(ds, d.batch_size, shuffle=shuffle, seed=config.seed,
                            edge_block=edge_block, pairing=pairing,
                            node_bucket=int(d.node_bucket),
-                           edge_bucket=int(d.edge_bucket))
+                           edge_bucket=int(d.edge_bucket),
+                           split_remote=(config.model.get("edge_impl")
+                                         in ("fused", "fused_stack")))
 
     return mk(ds_train, True), mk(ds_valid, False), mk(ds_test, False)
 

@@ -5,11 +5,15 @@ Two lowerings of each layer's real edges, as in the JAX package
 (``edge_impl``):
 
   plain  (the default) per-edge streams through ``EdgeOps``
-         (ops/blocked.py) on a plain row-sorted batch: gathers, the edge MLP
-         phi_e (hoisted to the node axis, or the reference concat MLP), the
-         coordinate head phi_x, optional attention gate, and one packed
-         aggregation per layer lowered as ``scatter`` (``index_add_``),
-         ``cumsum`` (the CUDA prefix-scan kernel on the card) or ``ell``;
+         (ops/blocked.py): gathers, the edge MLP phi_e (hoisted to the node
+         axis, or the reference concat MLP), the coordinate head phi_x,
+         optional attention gate, and the aggregations. On a plain
+         row-sorted batch one packed aggregation per layer, lowered as
+         ``scatter`` (``index_add_``), ``cumsum`` (the CUDA prefix-scan
+         kernel on the card) or ``ell``; on a blocked batch (``edge_block``
+         > 0) the blocked one-hot ops, lowered by ``blocked_impl`` as
+         ``pallas`` (the CUDA kernels ``csrc/blocked_onehot.cu`` on the
+         card) or ``einsum`` (plain PyTorch contractions);
   fused  in-window edges through ``fused_edge_layer`` (the CUDA kernels on
          the card) over a blocked ``split_remote`` batch, the remote tail as
          plain tensor code plus ``index_add_``.
@@ -42,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from distegnn_tpu_torch.models.common import (MLP, CoordMLP, HoistedEdgeMLP,
                                               TorchDense, gather_nodes,
                                               resolve_dtype, uniform_)
-from distegnn_tpu_torch.ops.blocked import EdgeOps
+from distegnn_tpu_torch.ops.blocked import EdgeOps, blocked_slot_inv_deg
 from distegnn_tpu_torch.ops.edge_pipeline import (EdgeWeights,
                                                   build_edge_blocks,
                                                   fused_edge_layer)
@@ -190,9 +194,11 @@ class EGCLVel(nn.Module):
         agg = trans_sum / cnt if self.coords_agg == "mean" else trans_sum
         return agg, ef_sum / cnt
 
-    def _plain_edges(self, h, x, g: GraphBatch):
-        """Per-edge streams through EdgeOps -> (agg, agg_h)."""
-        ops = EdgeOps(g, self.seg_impl, self.blocked_impl)
+    def _plain_edges(self, h, x, g: GraphBatch, blocked):
+        """Per-edge streams through EdgeOps -> (agg, agg_h). ``blocked`` is
+        FastEGNN's once-per-forward (slot, inv_deg, oh) of a blocked
+        batch, or Nones."""
+        ops = EdgeOps(g, *blocked, seg_impl=self.seg_impl)
         coord_diff = ops.gather_rows(x) - ops.gather_cols(x)   # [B, E, 3]
         radial = torch.sum(coord_diff ** 2, dim=-1, keepdim=True)
         if self.normalize:
@@ -222,16 +228,18 @@ class EGCLVel(nn.Module):
         return agg, ops.agg_rows_mean(edge_feat)
 
     def forward(self, h, x, v, X, Hv, g: GraphBatch, fused_arrs=None,
-                gravity=None):
+                gravity=None, slot=None, inv_deg=None, oh=None):
         """h [B,N,H], x/v [B,N,3], X [B,3,C], Hv [B,H,C], gravity [3] (with
-        ``has_gravity``) -> (h, x, Hv, X)."""
+        ``has_gravity``), and on a blocked batch the layer-invariant slot
+        ids [B,E], 1/in-degree [B,N,1] and einsum one-hot (or None) ->
+        (h, x, Hv, X)."""
         H, C = self.hidden_nf, self.virtual_channels
         node_mask = g.node_mask
         nm = node_mask[..., None]
         if self.edge_impl == "fused":
             agg, agg_h = self._fused_edges(h, x, g, fused_arrs)
         else:
-            agg, agg_h = self._plain_edges(h, x, g)
+            agg, agg_h = self._plain_edges(h, x, g, (slot, inv_deg, oh))
 
         # virtual-edge geometry: every node sees all C virtual nodes
         vcd = X[:, None, :, :] - x[..., None]                  # [B, N, 3, C]
@@ -286,8 +294,8 @@ class FastEGNN(nn.Module):
     0), ``'fused'`` and ``'fused_stack'`` a blocked ``split_remote`` batch.
     The arguments are the JAX package's; ``segment_impl`` ('scatter',
     'cumsum', 'ell'), ``fuse_agg``, ``agg_dtype`` and ``hoist_edge_mlp``
-    shape the plain path. ``blocked_impl`` is accepted for the blocked plain
-    lowerings, which come with port slice 5. ``gravity`` (a 3-vector or
+    shape the plain path, and ``blocked_impl`` ('einsum', 'pallas') its
+    blocked lowering, taken when the batch is blocked. ``gravity`` (a 3-vector or
     None) adds each layer's gravity head. ``stack_vmem_budget`` (bytes, 0 =
     the 16 MiB default) bounds the ``fused_stack`` residency estimate;
     ``remat`` does not apply to ``fused_stack``, whose backward reruns each
@@ -313,7 +321,7 @@ class FastEGNN(nn.Module):
         self.hidden_nf, self.virtual_channels = H, C
         self.n_layers = n_layers
         self.residual = residual
-        self.edge_impl = edge_impl
+        self.edge_impl, self.blocked_impl = edge_impl, blocked_impl
         self.remat = bool(remat)
         self.compute_dtype = resolve_dtype(compute_dtype)
         self.stack_vmem_budget = int(stack_vmem_budget)
@@ -395,14 +403,19 @@ class FastEGNN(nn.Module):
         if self.edge_impl == "fused_stack":
             return self._fused_stack_forward(g, h, x, v, X, Hv, gravity,
                                              fused_arrs)
+        # blocked layout: slot ids + in-degree reciprocal (+ the einsum
+        # one-hot), shared by all layers
+        blocked = (blocked_slot_inv_deg(g, self.blocked_impl)
+                   if self.edge_impl == "plain" else (None, None, None))
         for layer in self.gcl:
             if self.remat and torch.is_grad_enabled():
                 # keep only the layer's inputs; the backward reruns it
                 h, x, Hv, X = checkpoint(layer, h, x, v, X, Hv, g,
-                                         fused_arrs, gravity,
+                                         fused_arrs, gravity, *blocked,
                                          use_reentrant=False)
             else:
-                h, x, Hv, X = layer(h, x, v, X, Hv, g, fused_arrs, gravity)
+                h, x, Hv, X = layer(h, x, v, X, Hv, g, fused_arrs, gravity,
+                                    *blocked)
         return x, X
 
     def stack_config(self, g: GraphBatch) -> StackConfig:

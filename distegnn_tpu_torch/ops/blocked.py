@@ -1,5 +1,5 @@
-"""Blocked edge layout, host half — copy of the numpy layout builder in
-``distegnn_tpu/ops/blocked.py``.
+"""Blocked edge layout and its aggregation kernels (port of
+``distegnn_tpu/ops/blocked.py``).
 
 Edge lists are sorted by receiver row and padded so that every node block of
 ``block`` nodes owns a fixed slice of ``epb`` edge slots:
@@ -8,18 +8,48 @@ Edge lists are sorted by receiver row and padded so that every node block of
     row lies in node block [b*block, (b+1)*block), padded with masked slots.
 
 Padding slots carry row = col = (their block's last node), so the whole edge
-list stays row-sorted. The fused edge kernel (ops/edge_pipeline.py) reads
-this layout.
+list stays row-sorted. The fused edge kernel (ops/edge_pipeline.py) and the
+blocked ``EdgeOps`` branches below read this layout.
+
+Host half (numpy): ``blockify`` / ``prepare_blocked_graph`` /
+``pairing_perm`` / ``scan_dataset_for_blocking``.
+
+Device half: ``slot_ids`` turns (row, edge_mask) into block-local receiver
+ids with the sentinel ``block`` for masked slots, and two ops compute the
+blocked aggregation and its adjoint:
+
+  blocked_segment_sum  [B, E, F] -> [B, N, F] f32: out[b*block + k] = sum of
+                       the slots of block b with slot == k (sentinels add
+                       nothing);
+  blocked_gather       [B, N, F] -> [B, E, F] in h's type: out[e] =
+                       h[b*block + slot[e]], 0 at a sentinel.
+
+On a CUDA tensor each call launches the hand-written kernel
+``csrc/blocked_onehot.cu`` once for the whole batch; on a CPU tensor it runs
+the plain version (``blocked_segment_sum_ref`` / ``blocked_gather_ref``),
+which follows the TPU kernels step by step (a [tile, block] one-hot per edge
+tile, an f32 product with exact 0/1 factors, accumulated tile by tile).
+Any other device is refused: there is no fallback. The two ops are each
+other's VJP (``torch.autograd.Function``s), as in the JAX package, and
+``paired_col_gather`` is a plain column take whose backward is the
+reverse-edge permutation followed by the segment sum. Launch counts:
+``blocked_segment_sum.launches`` / ``blocked_gather.launches``, and
+``.launch_widths`` by (F, input type).
+
+The ``einsum`` lowering (``blocked_impl='einsum'``, the JAX default) is
+plain PyTorch: the one-hot incidence is materialised once per forward as a
+bf16 ``[B, nb, epb, block]`` tensor and each op is a batched contraction of
+its bf16 terms, taken in f32 (exact: 0/1 times a bf16-valued term).
 
 ``EdgeOps`` is the edge-op dispatch of the plain (``edge_impl='plain'``)
-path: row/column gathers and per-destination aggregations of a plain
-row-sorted batch, lowered as ``scatter``, ``cumsum`` or ``ell``
-(ops/segment.py). Its blocked branches (the one-hot kernels) come with port
-slice 5.
+path: the blocked branches above when the batch is blocked, else the
+``scatter`` / ``cumsum`` / ``ell`` lowerings of ops/segment.py.
 """
 
 from __future__ import annotations
 
+import collections
+import ctypes
 from typing import Optional
 
 import numpy as np
@@ -27,8 +57,13 @@ import torch
 
 from distegnn_tpu_torch.ops import segment as S
 
-_SLICE_BLOCKED = "port slice 5 (the blocked one-hot kernels)"
+DEFAULT_BLOCK = 256       # nodes per block
+DEFAULT_EDGE_TILE = 512   # edge slots per tile of the TPU kernels
 
+
+# ---------------------------------------------------------------------------
+# Host-side layout builder
+# ---------------------------------------------------------------------------
 
 def _blockify_plan(edge_index: np.ndarray, n_nodes_padded: int, epb: int,
                    block: int):
@@ -63,6 +98,19 @@ def _blockify_plan(edge_index: np.ndarray, n_nodes_padded: int, epb: int,
     return src, dst, new_index, new_mask
 
 
+def blockify_edges(edge_index: np.ndarray, edge_attr: Optional[np.ndarray],
+                   n_nodes_padded: int, epb: int, block: int = DEFAULT_BLOCK):
+    """Re-lay one graph's edge list into per-block padded slices: returns
+    (edge_index' [2, NB*epb], edge_attr' [NB*epb, D], edge_mask' [NB*epb])."""
+    src, dst, new_index, new_mask = _blockify_plan(
+        edge_index, n_nodes_padded, epb, block)
+    D = edge_attr.shape[1] if edge_attr is not None else 0
+    new_attr = np.zeros((new_mask.shape[0], D), np.float32)
+    if D:
+        new_attr[dst] = edge_attr[src]
+    return new_index, new_attr, new_mask
+
+
 def max_block_degree(rows_sorted: np.ndarray, n_nodes_padded: int,
                      block: int) -> int:
     """Max number of edges landing in any single node block (sorted rows)."""
@@ -72,38 +120,44 @@ def max_block_degree(rows_sorted: np.ndarray, n_nodes_padded: int,
 
 
 def prepare_blocked_graph(g: dict, n_nodes_padded: int, epb: int,
-                          block: int) -> dict:
-    """Blockify one graph dict (returns a copy): row-sort if needed, then
-    re-lay the edges per block. The copy carries ``_edge_mask`` (real slots)
+                          block: int, compute_pair: bool = True) -> dict:
+    """Blockify one graph dict (returns a copy): row-sort if needed, re-lay
+    the edges per block, and attach the reverse-edge pairing of the blocked
+    edge list (``_edge_pair``, None when the list is not symmetric or
+    ``compute_pair`` is off). The copy carries ``_edge_mask`` (real slots)
     and the ``_blockified`` stamp; a dict already stamped with the same
-    layout is returned unchanged."""
+    layout is returned unchanged. A dict blocked under other parameters is
+    re-packed from its real edges (those of ``_edge_mask``)."""
     stamp = (n_nodes_padded, epb, block)
     if g.get("_blockified") == stamp:
         return g
-    if g.get("_blockified") is not None:
-        raise ValueError("prepare_blocked_graph: graph already blocked under "
-                         f"{g['_blockified']}, requested {stamp}")
     g = dict(g)
+    if g.get("_blockified") is not None and g.get("_edge_mask") is not None:
+        # padding slots must not become edges: keep the real ones only
+        keep = g["_edge_mask"] > 0
+        g["edge_index"] = g["edge_index"][:, keep]
+        if g.get("edge_attr") is not None:
+            g["edge_attr"] = g["edge_attr"][keep]
+        for k in ("_edge_pair", "_edge_mask", "_blockified", "_remote_sel"):
+            g.pop(k, None)
     if np.any(np.diff(g["edge_index"][0]) < 0):
         order = np.argsort(g["edge_index"][0], kind="stable")
         g["edge_index"] = g["edge_index"][:, order]
         if g.get("edge_attr") is not None:
             g["edge_attr"] = g["edge_attr"][order]
-    src, dst, ei, em = _blockify_plan(g["edge_index"].astype(np.int64),
-                                      n_nodes_padded, epb, block)
-    ea_in = g.get("edge_attr")
-    D = ea_in.shape[1] if ea_in is not None else 0
-    ea = np.zeros((em.shape[0], D), np.float32)
-    if D:
-        ea[dst] = ea_in[src]
+    ei, ea, em = blockify_edges(g["edge_index"].astype(np.int64),
+                                g.get("edge_attr"), n_nodes_padded, epb,
+                                block)
     g["edge_index"], g["edge_attr"], g["_edge_mask"] = ei, ea, em
+    g["_edge_pair"] = pairing_perm_fast(ei) if compute_pair else None
     g["_blockified"] = stamp
     return g
 
 
 def pairing_perm(edge_index: np.ndarray) -> Optional[np.ndarray]:
     """Reverse-edge involution P with edge_index[:, P[e]] == (col[e],
-    row[e]), or None when the edge list is not symmetric."""
+    row[e]), or None when the edge list is not symmetric. Works on blocked
+    layouts too: padding slots carry row == col and pair among themselves."""
     r, c = edge_index[0], edge_index[1]
     by_rc = np.lexsort((c, r))
     by_cr = np.lexsort((r, c))
@@ -134,38 +188,434 @@ def scan_dataset_for_blocking(dataset, n_nodes_padded: int, block: int):
     return deg, symmetric
 
 
+# ---------------------------------------------------------------------------
+# Device half: slot ids, the kernels and their plain versions
+# ---------------------------------------------------------------------------
+
+def slot_ids(row: torch.Tensor, edge_mask: torch.Tensor, block: int,
+             epb: int) -> torch.Tensor:
+    """Block-local receiver ids with a sentinel for padding: row/edge_mask
+    [..., E] in the blocked layout -> int32 [..., E]; a real edge at
+    position k gets ``row - (k // epb) * block`` in [0, block), a masked slot
+    ``block``, which no node of the block matches."""
+    E = row.shape[-1]
+    blk = (torch.arange(E, dtype=torch.int32, device=row.device) // epb) \
+        * block
+    local = row.to(torch.int32) - blk
+    return torch.where(edge_mask > 0, local,
+                       torch.full_like(local, block))
+
+
+def _layout(E: int, n_nodes: int, block: int, tile: int):
+    """(node blocks, tiles per block), with the JAX package's checks."""
+    nb, rem = divmod(n_nodes, block)
+    if rem:
+        raise ValueError(f"n_nodes {n_nodes} not a multiple of block {block}")
+    epb, rem = divmod(E, nb)
+    if rem:
+        raise ValueError(f"E {E} not a multiple of num_blocks {nb}")
+    ept, rem = divmod(epb, tile)
+    if rem:
+        raise ValueError(f"edges/block {epb} not a multiple of tile {tile}")
+    return nb, ept
+
+
+def _tile_onehots(slot: torch.Tensor, nb: int, ept: int, tile: int,
+                  block: int):
+    """The [B, nb, tile, block] f32 one-hot of each edge tile, in order (an
+    iota compare, as in the TPU kernels)."""
+    s = slot.reshape(slot.shape[0], nb, ept, tile)
+    iota = torch.arange(block, dtype=torch.int32, device=slot.device)
+    for t in range(ept):
+        yield t, (s[:, :, t, :, None] == iota).to(torch.float32)
+
+
+def blocked_segment_sum_ref(data: torch.Tensor, slot: torch.Tensor,
+                            num_segments: int, block: int = DEFAULT_BLOCK,
+                            tile: int = DEFAULT_EDGE_TILE) -> torch.Tensor:
+    """Plain PyTorch version of the segment-sum kernel, step by step after
+    ``_seg_sum_kernel``: per edge tile, out[block b] += onehot[tile,
+    block]^T @ data[tile, F] in f32 (exact 0/1 factors; bf16 data widened
+    exactly), tiles accumulated in order. [B, E, F] -> [B, N, F] f32."""
+    B, E, F = data.shape
+    nb, ept = _layout(E, num_segments, block, tile)
+    d = data.to(torch.float32).reshape(B, nb, ept, tile, F)
+    out = torch.zeros((B, nb, block, F), dtype=torch.float32,
+                      device=data.device)
+    for t, oh in _tile_onehots(slot, nb, ept, tile, block):
+        out = out + oh.transpose(-1, -2) @ d[:, :, t]
+    return out.reshape(B, num_segments, F)
+
+
+def blocked_gather_ref(h: torch.Tensor, slot: torch.Tensor,
+                       block: int = DEFAULT_BLOCK,
+                       tile: int = DEFAULT_EDGE_TILE) -> torch.Tensor:
+    """Plain PyTorch version of the gather kernel, after ``_gather_kernel``:
+    per edge tile, onehot[tile, block] @ h[block b] in f32, cast to h's
+    type. [B, N, F] -> [B, E, F]."""
+    B, N, F = h.shape
+    E = slot.shape[-1]
+    nb, ept = _layout(E, N, block, tile)
+    hb = h.to(torch.float32).reshape(B, nb, block, F)
+    parts = [oh @ hb for _, oh in _tile_onehots(slot, nb, ept, tile, block)]
+    out = torch.stack(parts, dim=2)                  # [B, nb, ept, tile, F]
+    return out.reshape(B, E, F).to(h.dtype)
+
+
+def _lib_fn(name: str):
+    from distegnn_tpu_torch.ops.build import LIBRARIES
+
+    fn = getattr(LIBRARIES.get("blocked_onehot"), name)
+    if fn.argtypes is None:
+        # pointers (and the stream) as c_void_p: ctypes would pass a bare
+        # Python int as a 32-bit int and cut the pointer
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel_args(x: torch.Tensor, slot: torch.Tensor, E: int, what: str):
+    """Checks before a launch; E is the slot count the kernel will read."""
+    if (x.ndim != 3 or slot.ndim != 2 or slot.shape[0] != x.shape[0]
+            or slot.shape[1] != E):
+        raise ValueError(f"{what} takes [B, *, F] and slots [B, E] with "
+                         f"E = {E}, got {tuple(x.shape)} and "
+                         f"{tuple(slot.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what} takes f32 or bf16, got {x.dtype}")
+    if slot.device != x.device:
+        raise ValueError(f"{what}: slots on {slot.device}, data on "
+                         f"{x.device}")
+    if x.shape[0] > 65535 or x.shape[-1] > 65535 * 32:
+        raise ValueError(f"{what}: B <= 65535 and F <= {65535 * 32}, got "
+                         f"{tuple(x.shape)}")
+    return x.contiguous(), slot.to(torch.int32).contiguous()
+
+
+def _seg_sum_cuda(data: torch.Tensor, slot: torch.Tensor, num_segments: int,
+                  block: int, tile: int) -> torch.Tensor:
+    """Launch ``csrc/blocked_onehot.cu`` ``blocked_seg_sum`` once for the
+    batch; counted once."""
+    B, E, F = data.shape
+    nb, _ = _layout(E, num_segments, block, tile)
+    if block > 1024:
+        raise ValueError(f"blocked_seg_sum takes block <= 1024, got {block}")
+    data, slot = _kernel_args(data, slot, E, "blocked_segment_sum")
+    out = torch.empty((B, num_segments, F), dtype=torch.float32,
+                      device=data.device)
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    bf16 = data.dtype == torch.bfloat16
+    err = _lib_fn("blocked_seg_sum")(data.data_ptr(), slot.data_ptr(),
+                                     out.data_ptr(), B, nb, E // nb, F,
+                                     block, int(bf16), stream)
+    if err != 0:
+        raise RuntimeError(f"blocked_seg_sum launch failed: CUDA error {err}")
+    blocked_segment_sum.launches += 1
+    blocked_segment_sum.launch_widths[(F, "bf16" if bf16 else "f32")] += 1
+    return out
+
+
+def _gather_cuda(h: torch.Tensor, slot: torch.Tensor, block: int,
+                 tile: int) -> torch.Tensor:
+    """Launch ``csrc/blocked_onehot.cu`` ``blocked_gather`` once for the
+    batch; counted once."""
+    B, N, F = h.shape
+    E = slot.shape[-1]
+    nb, _ = _layout(E, N, block, tile)
+    if max(E, N) * F >= 2 ** 30:
+        raise ValueError(f"blocked_gather takes E*F and N*F < 2^30 per graph, "
+                         f"got E={E} N={N} F={F}")
+    h, slot = _kernel_args(h, slot, E, "blocked_gather")
+    out = torch.empty((B, E, F), dtype=h.dtype, device=h.device)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    err = _lib_fn("blocked_gather")(h.data_ptr(), slot.data_ptr(),
+                                    out.data_ptr(), B, nb, E // nb, F, block,
+                                    h.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(f"blocked_gather launch failed: CUDA error {err}")
+    blocked_gather.launches += 1
+    blocked_gather.launch_widths[
+        (F, "bf16" if h.dtype == torch.bfloat16 else "f32")] += 1
+    return out
+
+
+def _seg_sum_impl(data, slot, num_segments, block, tile):
+    """CUDA tensors take the kernel, CPU tensors the plain version."""
+    if data.device.type == "cuda":
+        return _seg_sum_cuda(data, slot, num_segments, block, tile)
+    if data.device.type == "cpu":
+        return blocked_segment_sum_ref(data, slot, num_segments, block, tile)
+    raise ValueError(f"blocked_segment_sum: unsupported device {data.device}")
+
+
+def _gather_impl(h, slot, block, tile):
+    if h.device.type == "cuda":
+        return _gather_cuda(h, slot, block, tile)
+    if h.device.type == "cpu":
+        return blocked_gather_ref(h, slot, block, tile)
+    raise ValueError(f"blocked_gather: unsupported device {h.device}")
+
+
+class _SegSum(torch.autograd.Function):
+    # the VJP of the aggregation is the gather of the cotangent, in the
+    # data's type
+    @staticmethod
+    def forward(ctx, data, slot, num_segments, block, tile):
+        ctx.save_for_backward(slot)
+        ctx.cfg, ctx.dtype = (block, tile), data.dtype
+        return _seg_sum_impl(data, slot, num_segments, block, tile)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        return (_gather_impl(g.to(ctx.dtype), slot, *ctx.cfg),
+                None, None, None, None)
+
+
+class _Gather(torch.autograd.Function):
+    # the VJP of the gather is the aggregation of the cotangent, cast to h's
+    # type
+    @staticmethod
+    def forward(ctx, h, slot, block, tile):
+        ctx.save_for_backward(slot)
+        ctx.cfg, ctx.n, ctx.dtype = (block, tile), h.shape[1], h.dtype
+        return _gather_impl(h, slot, block, tile)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        return (_seg_sum_impl(g, slot, ctx.n, *ctx.cfg).to(ctx.dtype),
+                None, None, None)
+
+
+class _PairedGather(torch.autograd.Function):
+    # h[col]: the transpose of a symmetric graph's column incidence is the
+    # edge permutation ``pair``, so grad_h = seg_sum(g[pair], slot)
+    @staticmethod
+    def forward(ctx, h, col, pair, slot, block, tile):
+        ctx.save_for_backward(pair, slot)
+        ctx.cfg, ctx.n, ctx.dtype = (block, tile), h.shape[1], h.dtype
+        return S.take_rows(h, col)
+
+    @staticmethod
+    def backward(ctx, g):
+        pair, slot = ctx.saved_tensors
+        grad_h = _seg_sum_impl(S.take_rows(g, pair), slot, ctx.n, *ctx.cfg)
+        return grad_h.to(ctx.dtype), None, None, None, None, None
+
+
+def blocked_segment_sum(data, slot, num_segments: int,
+                        block: int = DEFAULT_BLOCK,
+                        tile: int = DEFAULT_EDGE_TILE):
+    """Batched [B, E, F] -> [B, N, F] f32. ``slot`` from :func:`slot_ids`
+    (masked slots carry the sentinel and contribute nothing)."""
+    return _SegSum.apply(data, slot, num_segments, block, tile)
+
+
+def blocked_gather(h, slot, block: int = DEFAULT_BLOCK,
+                   tile: int = DEFAULT_EDGE_TILE):
+    """Batched [B, N, F] -> [B, E, F]; rows fetched block-locally (masked
+    slots read as 0). Adjoint of :func:`blocked_segment_sum`."""
+    return _Gather.apply(h, slot, block, tile)
+
+
+def paired_col_gather(h, col, pair, slot, block: int = DEFAULT_BLOCK,
+                      tile: int = DEFAULT_EDGE_TILE):
+    """Batched h[b, col[b, e]] whose backward is the reverse-edge
+    permutation plus the blocked segment sum (no scatter)."""
+    return _PairedGather.apply(h, col, pair, slot, block, tile)
+
+
+blocked_segment_sum.launches = 0
+blocked_segment_sum.launch_widths = collections.Counter()
+blocked_gather.launches = 0
+blocked_gather.launch_widths = collections.Counter()
+
+
+# ---------------------------------------------------------------------------
+# The einsum lowering (blocked_impl='einsum'): plain PyTorch
+# ---------------------------------------------------------------------------
+
+def onehot_blocks(slot: torch.Tensor, epb: int, block: int) -> torch.Tensor:
+    """[..., E] slot ids -> [..., nb, epb, block] bf16 one-hot incidence.
+    Sentinel slots (== block) match no column and vanish."""
+    E = slot.shape[-1]
+    s = slot.reshape(tuple(slot.shape[:-1]) + (E // epb, epb))
+    iota = torch.arange(block, dtype=torch.int32, device=slot.device)
+    return (s[..., None] == iota).to(torch.bfloat16)
+
+
+_BF16_TERMS = 3
+
+
+def _bf16_terms(x: torch.Tensor):
+    """Split x into _BF16_TERMS bf16 terms summing to x up to ~2^-24
+    relative error; bf16 input passes through unsplit."""
+    if x.dtype == torch.bfloat16:
+        return [x]
+    terms = []
+    rem = x.to(torch.float32)
+    for _ in range(_BF16_TERMS - 1):
+        t = rem.to(torch.bfloat16)
+        terms.append(t)
+        rem = rem - t.to(torch.float32)
+    terms.append(rem.to(torch.bfloat16))
+    return terms
+
+
+def _ein_seg_sum_raw(data: torch.Tensor, oh: torch.Tensor) -> torch.Tensor:
+    """[..., E, F] x [..., nb, epb, block] -> [..., nb*block, F] f32. Each
+    bf16 term is contracted in f32: exact products, f32 sums."""
+    *lead, E, F = data.shape
+    nb, epb, block = oh.shape[-3:]
+    d = data.reshape(*lead, nb, epb, F)
+    ohf = oh.to(torch.float32)
+    out = None
+    for t in _bf16_terms(d):
+        part = torch.einsum("...bek,...bef->...bkf", ohf, t.to(torch.float32))
+        out = part if out is None else out + part
+    return out.reshape(*lead, nb * block, F)
+
+
+def _ein_gather_raw(h: torch.Tensor, oh: torch.Tensor) -> torch.Tensor:
+    """[..., N, F] x [..., nb, epb, block] -> [..., E, F] f32 (sentinel
+    slots read as 0)."""
+    *lead, N, F = h.shape
+    nb, epb, block = oh.shape[-3:]
+    hh = h.reshape(*lead, nb, block, F)
+    ohf = oh.to(torch.float32)
+    out = None
+    for t in _bf16_terms(hh):
+        part = torch.einsum("...bek,...bkf->...bef", ohf, t.to(torch.float32))
+        out = part if out is None else out + part
+    return out.reshape(*lead, nb * epb, F)
+
+
+# The raw forms are exact adjoints, but differentiating through the bf16
+# term split would round the cotangent to bf16; these backwards split the
+# cotangent itself instead, as the JAX package's custom VJPs do.
+
+class _EinSegSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, oh):
+        ctx.save_for_backward(oh)
+        ctx.dtype = data.dtype
+        return _ein_seg_sum_raw(data, oh)
+
+    @staticmethod
+    def backward(ctx, g):
+        (oh,) = ctx.saved_tensors
+        return _ein_gather_raw(g, oh).to(ctx.dtype), None
+
+
+class _EinGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, oh):
+        ctx.save_for_backward(oh)
+        ctx.dtype = h.dtype
+        return _ein_gather_raw(h, oh).to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (oh,) = ctx.saved_tensors
+        return _ein_seg_sum_raw(g, oh).to(ctx.dtype), None
+
+
+class _PairedGatherEin(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, col, pair, oh):
+        ctx.save_for_backward(pair, oh)
+        ctx.dtype = h.dtype
+        return S.take_rows(h, col)
+
+    @staticmethod
+    def backward(ctx, g):
+        pair, oh = ctx.saved_tensors
+        grad_h = _ein_seg_sum_raw(S.take_rows(g, pair), oh)
+        return grad_h.to(ctx.dtype), None, None, None
+
+
+def einsum_segment_sum(data, oh):
+    """[..., E, F] -> [..., N, F] f32 through the materialised one-hot."""
+    return _EinSegSum.apply(data, oh)
+
+
+def einsum_gather(h, oh):
+    """[..., N, F] -> [..., E, F] in h's type (0 at sentinel slots)."""
+    return _EinGather.apply(h, oh)
+
+
+def paired_gather_ein(h, col, pair, oh):
+    """Batched h[b, col[b, e]] whose backward is the reverse-edge
+    permutation plus the einsum segment sum."""
+    return _PairedGatherEin.apply(h, col, pair, oh)
+
+
+def blocked_slot_inv_deg(g, impl: str = "einsum"):
+    """(slot ids, 1/max(in-degree, 1) [B, N, 1], one-hot incidence or None)
+    for a blocked GraphBatch, or (None, None, None) when g is not blocked.
+    Computed once per forward: row and edge_mask are the same for every
+    layer. ``impl``: 'pallas' (the kernels; the degree is the segment sum of
+    the mask) or 'einsum' (the one-hot materialised; the degree is its
+    column sum)."""
+    if g.edge_block <= 0:
+        return None, None, None
+    slot = slot_ids(g.row, g.edge_mask, g.edge_block, g.edges_per_block)
+    if impl == "einsum":
+        oh = onehot_blocks(slot, g.edges_per_block, g.edge_block)
+        deg = torch.sum(oh, dim=-2, dtype=torch.float32).reshape(
+            oh.shape[0], g.max_nodes, 1)
+    elif impl == "pallas":
+        oh = None
+        deg = blocked_segment_sum(g.edge_mask[..., None], slot, g.max_nodes,
+                                  g.edge_block, g.edge_tile)
+    else:
+        raise ValueError(f"unknown blocked impl {impl!r}")
+    return slot, 1.0 / torch.clamp(deg, min=1.0), oh
+
+
+# ---------------------------------------------------------------------------
+# EdgeOps
+# ---------------------------------------------------------------------------
+
 class EdgeOps:
     """Row/column gathers and per-destination aggregations of one batch
     (port of the JAX package's ``EdgeOps``), lowered as
 
-      cumsum   ``seg_impl='cumsum'`` on a row-sorted batch: prefix-sum
-               differences (the CUDA scan kernel on the card) with
-               gather-only backwards, and the column gathers' backward
-               through the reverse-edge pairing when the batch carries it;
-      ell      ``seg_impl='ell'`` on a row-sorted batch carrying
+      blocked  the batch carries the blocked layout: the kernels above
+               (``oh is None``) or the einsum lowering (``oh`` given), with
+               the reverse-edge pairing backward of the column gathers when
+               the batch carries ``edge_pair``;
+      cumsum   ``seg_impl='cumsum'`` on a plain row-sorted batch:
+               prefix-sum differences (the CUDA scan kernel on the card)
+               with gather-only backwards;
+      ell      ``seg_impl='ell'`` on a plain row-sorted batch carrying
                ``max_in_degree``: fixed-degree chained gathers (exact);
       scatter  ``index_add_`` otherwise (the exact reference lowering).
 
-    As in the JAX package, a lowering the batch cannot support (unsorted
-    rows, no ``max_in_degree``) falls to ``scatter``. The blocked one-hot
-    lowerings of the JAX package's ``EdgeOps`` (``blocked_impl`` einsum /
-    pallas, for batches with ``edge_block > 0``) come with port slice 5."""
+    ``slot``/``inv_deg``/``oh`` come from :func:`blocked_slot_inv_deg`,
+    computed once per forward. As in the JAX package, a lowering the batch
+    cannot support (a blocked batch, unsorted rows, no ``max_in_degree``)
+    is not taken."""
 
-    def __init__(self, g, seg_impl: str = "scatter",
-                 blocked_impl: str = "einsum"):
+    def __init__(self, g, slot=None, inv_deg=None, oh=None,
+                 seg_impl: str = "scatter"):
         if seg_impl not in ("scatter", "cumsum", "ell"):
             raise ValueError(f"unknown seg_impl {seg_impl!r}")
-        if g.edge_block > 0:
-            raise NotImplementedError(
-                f"EdgeOps over a blocked batch (edge_block={g.edge_block}, "
-                f"blocked_impl={blocked_impl!r}) comes with {_SLICE_BLOCKED}; "
-                "the plain path takes data.edge_block: 0")
-        self.g = g
-        self.cumsum = seg_impl == "cumsum" and g.edges_sorted
-        self.ell = (seg_impl == "ell" and g.edges_sorted
-                    and g.max_in_degree > 0)
+        self.g, self.slot, self.inv_deg, self.oh = g, slot, inv_deg, oh
+        self.blocked = slot is not None
+        self.cumsum = (seg_impl == "cumsum" and not self.blocked
+                       and g.edges_sorted)
+        self.ell = (seg_impl == "ell" and not self.blocked
+                    and g.edges_sorted and g.max_in_degree > 0)
 
     def gather_rows(self, data):
+        if self.blocked:
+            if self.oh is not None:
+                return einsum_gather(data, self.oh)
+            return blocked_gather(data, self.slot, self.g.edge_block,
+                                  self.g.edge_tile)
         if self.cumsum:
             return S.gather_rows_cs(data, self.g.row)
         if self.ell:
@@ -174,6 +624,11 @@ class EdgeOps:
 
     def gather_cols(self, data):
         g = self.g
+        if self.blocked and g.edge_pair is not None:
+            if self.oh is not None:
+                return paired_gather_ein(data, g.col, g.edge_pair, self.oh)
+            return paired_col_gather(data, g.col, g.edge_pair, self.slot,
+                                     g.edge_block, g.edge_tile)
         if self.cumsum and g.edge_pair is not None:
             return S.paired_gather_cols_cs(data, g.col, g.edge_pair, g.row,
                                            g.edge_mask)
@@ -185,6 +640,15 @@ class EdgeOps:
     def _agg(self, data, mean: bool):
         g = self.g
         N = g.max_nodes
+        if self.blocked:
+            if self.oh is not None:
+                out = einsum_segment_sum(data, self.oh)
+            else:
+                out = blocked_segment_sum(data, self.slot, N, g.edge_block,
+                                          g.edge_tile)
+            if mean:
+                out = out * self.inv_deg
+            return out.to(data.dtype)
         if self.cumsum:
             fn = S.segment_mean_cs if mean else S.segment_sum_cs
             return fn(data, g.row, N, mask=g.edge_mask)
@@ -202,21 +666,27 @@ class EdgeOps:
         return self._agg(data, mean=False)
 
     def agg_rows_pair(self, a, b, a_mean: bool, agg_dtype=None):
-        """Aggregate TWO edge streams in ONE pass: returns
-        (sum or mean of ``a``, mean of ``b``), both f32. ``a`` [B, E, Sa],
-        ``b`` [B, E, Sb] and the count ride one packed [B, E, Sa + Sb + 1]
-        stream (one prefix scan per layer on the cumsum lowering).
+        """Aggregate TWO edge streams: returns (sum or mean of ``a``, mean
+        of ``b``), both f32. On a plain batch ``a`` [B, E, Sa], ``b`` [B, E,
+        Sb] and the count ride one packed [B, E, Sa + Sb + 1] stream (one
+        prefix scan per layer on the cumsum lowering); a blocked batch takes
+        two calls (the mean is a multiply by ``inv_deg`` there).
 
-        ``agg_dtype='bf16'`` casts the packed stream to bf16 first (half the
+        ``agg_dtype='bf16'`` casts the stream(s) to bf16 first (half the
         bytes; the sums still accumulate in f32, and the coordinate
         translations in ``a`` are rounded — equivariance becomes
         approximate)."""
+        bf16 = agg_dtype in ("bf16", "bfloat16", torch.bfloat16)
+        if self.blocked:
+            if bf16:
+                a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+            out_a = self.agg_rows_mean(a) if a_mean else self.agg_rows_sum(a)
+            return (out_a.to(torch.float32),
+                    self.agg_rows_mean(b).to(torch.float32))
         g = self.g
         B, E = b.shape[0], b.shape[1]
         sa = a.shape[-1]
-        dt = (torch.bfloat16 if agg_dtype in ("bf16", "bfloat16",
-                                              torch.bfloat16)
-              else torch.float32)
+        dt = torch.bfloat16 if bf16 else torch.float32
         em = g.edge_mask[..., None].to(dt)
         packed = torch.cat([a.to(dt), b.to(dt),
                             a.new_ones((B, E, 1), dtype=dt)], dim=-1) * em

@@ -39,9 +39,10 @@ class GraphBatch:
       remote_edge_index [B, 2, R] int32, remote_edge_attr [B, R, D],
       remote_edge_mask [B, R] — the compact out-of-window edge list of the
       fused edge kernel (present only with ``split_remote=True``).
-      edge_pair [B, E] int32 — the reverse-edge involution of a plain
-      symmetric batch (``compute_pair=True``): edge_index[:, pair[e]] ==
-      (col[e], row[e]); padded slots pair with themselves.
+      edge_pair [B, E] int32 — the reverse-edge involution of a symmetric
+      batch (``compute_pair``): edge_index[:, pair[e]] == (col[e], row[e]);
+      padded slots pair with themselves (plain layout) or among themselves
+      (blocked layout, where they carry row == col).
 
     ``edges_sorted``: every graph's rows ascend, the padded tail included.
     ``edge_block`` is 0 or the node-block size of the blocked layout.
@@ -90,6 +91,13 @@ class GraphBatch:
         return self.edge_index.shape[2]
 
     @property
+    def edges_per_block(self) -> int:
+        """Edge slots per node block (blocked layout only)."""
+        if self.edge_block <= 0:
+            raise ValueError("edges_per_block: not a blocked layout")
+        return self.max_edges // (self.max_nodes // self.edge_block)
+
+    @property
     def row(self) -> torch.Tensor:
         return self.edge_index[:, 0, :]
 
@@ -130,20 +138,25 @@ def pad_graphs(
     ``remote_edge_*`` arrays, padded to ``remote_pad`` (auto: the batch max
     rounded to 128). The arrays are those of the JAX package's pad_graphs.
 
-    ``compute_pair`` (plain layout; ``None`` = off) attaches the reverse-edge
-    pairing ``edge_pair`` when every graph is symmetric, and with it
-    ``max_in_degree`` (auto: the batch's max in-degree rounded up to 8;
-    loaders pass a dataset-stable value, which is validated). Each graph's
-    pairing is cached on its dict as ``_plain_pair``. The blocked layout
-    carries no pairing: its lowerings come with port slice 5.
+    ``compute_pair`` attaches the reverse-edge pairing ``edge_pair`` when
+    every graph is symmetric (all or nothing across the batch). ``None``
+    (auto) is on for blocked batches and off for plain ones, as in the JAX
+    package. Blocked: each graph's pairing of its blocked edge list
+    (``prepare_blocked_graph``). Plain: with it ``max_in_degree`` (auto: the
+    batch's max in-degree rounded up to 8; loaders pass a dataset-stable
+    value, which is validated); each graph's pairing is cached on its dict
+    as ``_plain_pair``.
     """
     bsz = len(graphs)
     n_max = max(g["loc"].shape[0] for g in graphs)
+    if compute_pair is None:
+        compute_pair = edge_block > 0
     if split_remote and not edge_block:
         raise ValueError("pad_graphs: split_remote requires edge_block > 0 "
                          "(the remote/in-window partition is defined by the "
                          "blocked layout)")
     remote = None
+    edge_pair = None
     if edge_block:
         if max_nodes is not None and max_nodes < n_max:
             raise ValueError(
@@ -159,8 +172,12 @@ def pad_graphs(
             deg = max(max_block_degree(np.sort(g["edge_index"][0]), N,
                                        edge_block) for g in graphs)
             edges_per_block = _round_up(max(deg, 1), edge_tile)
-        graphs = [prepare_blocked_graph(g, N, edges_per_block, edge_block)
+        graphs = [prepare_blocked_graph(g, N, edges_per_block, edge_block,
+                                        compute_pair=compute_pair)
                   for g in graphs]
+        pairs = [g["_edge_pair"] for g in graphs]
+        if all(p is not None for p in pairs):
+            edge_pair = np.stack(pairs).astype(np.int32)
         E = (N // edge_block) * edges_per_block
         if split_remote:
             # classify each graph's REAL blockified edges (padding slots
@@ -231,7 +248,6 @@ def pad_graphs(
             edge_attr[b, :e] = g["edge_attr"]
         edge_mask[b, :e] = g["_edge_mask"] if edge_block else 1.0
 
-    edge_pair = None
     if edge_block or not (compute_pair and edges_sorted):
         max_in_degree = 0
     else:

@@ -1,6 +1,6 @@
-"""distegnn_tpu_torch.serve — bucketed one-step inference (port of the
-engine half of ``distegnn_tpu/serve``; the request queue, HTTP transport and
-worker processes are later slices)."""
+"""distegnn_tpu_torch.serve — bucketed one-step inference and K-step
+rollouts (port of the engine half of ``distegnn_tpu/serve``; the request
+queue, HTTP transport and worker processes are later slices)."""
 
 from __future__ import annotations
 
@@ -12,10 +12,13 @@ from distegnn_tpu_torch import resolve_device
 from distegnn_tpu_torch.serve.buckets import (Bucket, BucketLadder,
                                               BucketOverflowError,
                                               synthetic_graph)
-from distegnn_tpu_torch.serve.engine import InferenceEngine
+from distegnn_tpu_torch.serve.engine import (InferenceEngine,
+                                             MixedRolloutStepsError,
+                                             RolloutOverflowError)
 
 __all__ = ["Bucket", "BucketLadder", "BucketOverflowError", "synthetic_graph",
-           "InferenceEngine", "engine_from_config",
+           "InferenceEngine", "MixedRolloutStepsError",
+           "RolloutOverflowError", "engine_from_config",
            "engine_with_params_from_config"]
 
 
@@ -31,8 +34,10 @@ def engine_from_config(cfg, model: torch.nn.Module,
     if cfg.model.get("edge_impl") in ("fused", "fused_stack"):
         # fused models only consume blocked split_remote batches
         layout = dict(edge_block=int(cfg.data.edge_block), split_remote=True)
+    rollout = s.get("rollout")
     return InferenceEngine(model, resolve_device(device), ladder=ladder,
-                           max_batch=s.max_batch, layout_opts=layout)
+                           max_batch=s.max_batch, layout_opts=layout,
+                           rollout_opts=dict(rollout) if rollout else None)
 
 
 def engine_with_params_from_config(cfg, device=None,

@@ -120,7 +120,7 @@ class BucketLadder:
                 nb = max(nb, 3)  # fused kernel's VMEM window spans 3 blocks
             batch = pad_graphs(filled, max_nodes=nb * edge_block,
                                edge_block=edge_block, edge_tile=edge_tile,
-                               split_remote=split_remote)
+                               compute_pair=False, split_remote=split_remote)
         else:
             batch = pad_graphs(filled, max_nodes=bucket.n, max_edges=bucket.e,
                                node_bucket=1, edge_bucket=1)

@@ -99,21 +99,33 @@ def test_converted_state_dict_covers_every_parameter():
         assert sd[k].shape == own[k].shape, k
 
 
-@pytest.mark.parametrize("kw, match", [
+@pytest.mark.parametrize("kw, ported_in", [
     ({"edge_impl": "plain"}, "slice 5"),
     ({"hoist_edge_mlp": False}, "slice 5"),
     ({"blocked_impl": "pallas"}, "slice 5"),
     ({"segment_impl": "cumsum"}, "slice 5"),
     ({"segment_impl": "ell", "attention": True}, "slice 5"),
 ])
-def test_unported_options_raise_and_name_their_slice(kw, match):
-    """A plain model (every lowering, either edge MLP) refuses a blocked
-    batch, whose one-hot lowerings are later work."""
-    pb = pad_graphs([blocked_test_graph(0, n_real=BLOCK)], edge_block=BLOCK)
-    with pytest.raises(NotImplementedError, match=match):
-        pm = FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=16,
-                      virtual_channels=2, n_layers=1, **kw)
-        pm(pb)
+def test_unported_options_raise_and_name_their_slice(kw, ported_in):
+    """A plain model (every lowering, either edge MLP) on a blocked batch:
+    refused until port slice 5 brought the blocked one-hot lowerings; now it
+    answers what the same model answers on the plain layout (1e-5, the
+    model parity bound; the blocked sums run in another order)."""
+    g = blocked_test_graph(0, n_real=BLOCK)
+    pb = pad_graphs([g], edge_block=BLOCK)
+    plain = pad_graphs([g])
+    pm = FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=16,
+                  virtual_channels=2, n_layers=1,
+                  generator=torch.Generator().manual_seed(1), **kw)
+    with torch.no_grad():
+        xb, Xb = pm(pb)
+        xp, Xp = pm(plain)
+    n = plain.max_nodes
+    mask = plain.node_mask.numpy() > 0
+    np.testing.assert_allclose(xb[:, :n].numpy()[mask], xp.numpy()[mask],
+                               rtol=0, atol=ATOL, err_msg=ported_in)
+    np.testing.assert_allclose(Xb.numpy(), Xp.numpy(), rtol=0, atol=ATOL,
+                               err_msg=ported_in)
 
 
 @pytest.mark.parametrize("head", ["attention", "normalize", "tanh"])

@@ -346,3 +346,209 @@ def test_fused_stack_budget_error_before_any_launch_on_card():
     with pytest.raises(LP.StackVmemBudgetError):
         LP.fused_egnn_stack(cfg._replace(vmem_budget=1024), *ops, w)
     assert LP.fused_egnn_stack.launches == before
+
+
+# ------------------------------------------------- the blocked one-hot ops
+
+def blocked_slots(rng, B, nb, epb, block=256, fill=0.7, empty_block=True,
+                  shuffle=False):
+    """[B, nb*epb] int32 slots of the blocked layout: in each node block
+    ``fill`` of the slots hold sorted block-local receivers, the rest the
+    sentinel ``block``; with ``empty_block`` the last block of graph 0 is
+    all sentinels; ``shuffle`` mixes the slot order within each block."""
+    s = np.full((B, nb, epb), block, np.int32)
+    for b in range(B):
+        for k in range(nb):
+            if empty_block and b == 0 and k == nb - 1:
+                continue
+            n = int(fill * epb)
+            s[b, k, :n] = np.sort(rng.integers(0, block, n))
+            if shuffle:
+                s[b, k] = rng.permutation(s[b, k])
+    return torch.from_numpy(s.reshape(B, nb * epb))
+
+
+def _seg_sum_f64(data, slot, n_nodes, block):
+    """The exact segment sum in f64 ([B, N, F]) and each column's scale."""
+    B, E, F = data.shape
+    nb = n_nodes // block
+    epb = E // nb
+    blk = (torch.arange(E, device=slot.device) // epb) * block
+    valid = (slot >= 0) & (slot < block)
+    idx = torch.where(valid, slot.long() + blk, torch.zeros_like(blk))
+    out = torch.zeros((B, n_nodes, F), dtype=torch.float64,
+                      device=data.device)
+    d = data.double() * valid[..., None]
+    out.scatter_add_(1, idx[..., None].expand(B, E, F), d)
+    mag = torch.zeros_like(out).scatter_add_(
+        1, idx[..., None].expand(B, E, F), d.abs())
+    return out, mag.amax(dim=1, keepdim=True).clamp(min=1e-30)
+
+
+# (B, nb, epb, F): the paths' widths (1, 3, 64), epb == tile, a batch of 4,
+# a block size of 64 with a tile of 128
+BLOCKED_CASES = [(1, 6, 1024, 64, 256, 512), (1, 6, 512, 3, 256, 512),
+                 (1, 5, 512, 1, 256, 512), (4, 4, 1536, 64, 256, 512),
+                 (2, 5, 256, 17, 64, 128), (1, 3, 512, 128, 256, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, nb, epb, F, block, tile", BLOCKED_CASES)
+def test_blocked_seg_sum_kernel_matches_f64_and_plain_on_card(
+        B, nb, epb, F, block, tile, dtype, shuffle):
+    """The segment-sum kernel against the exact sum (f64) and against its
+    plain version: max error <= 1e-6 of each column's max |sum| (f32
+    accumulation in another order); repeated launches are bitwise equal."""
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(B * 1000 + F)
+    slot = blocked_slots(rng, B, nb, epb, block, shuffle=shuffle).to(dev)
+    data = torch.from_numpy(rng.normal(size=(B, nb * epb, F)).astype(
+        np.float32)).to(dev).to(dtype)
+    n = nb * block
+    before = BL.blocked_segment_sum.launches
+    out = BL._seg_sum_cuda(data, slot, n, block, tile)
+    torch.cuda.synchronize()
+    assert BL.blocked_segment_sum.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, n, F)
+    ref, scale = _seg_sum_f64(data, slot, n, block)
+    assert float(((out.double() - ref).abs() / scale).max()) <= 1e-6
+    plain = BL.blocked_segment_sum_ref(data, slot, n, block, tile)
+    assert float(((out - plain).double().abs() / scale).max()) <= 1e-6
+    assert torch.equal(BL._seg_sum_cuda(data, slot, n, block, tile), out)
+    if B == 1 and nb > 1:
+        # the empty (all-sentinel) last block sums to exact zeros
+        assert (out[0, (nb - 1) * block:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, nb, epb, F, block, tile", BLOCKED_CASES)
+def test_blocked_gather_kernel_matches_plain_bitwise_on_card(
+        B, nb, epb, F, block, tile, dtype):
+    """The gather kernel is a bit copy: equal to its plain version, and
+    exactly zero at every sentinel slot."""
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(B * 7 + F)
+    slot = blocked_slots(rng, B, nb, epb, block, shuffle=True).to(dev)
+    h = torch.from_numpy(rng.normal(size=(B, nb * block, F)).astype(
+        np.float32)).to(dev).to(dtype)
+    before = BL.blocked_gather.launches
+    out = BL._gather_cuda(h, slot, block, tile)
+    torch.cuda.synchronize()
+    assert BL.blocked_gather.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, nb * epb, F)
+    assert torch.equal(out, BL.blocked_gather_ref(h, slot, block, tile))
+    sentinel = slot == block
+    assert sentinel.any()
+    assert (out[sentinel] == 0).all()
+    assert not torch.signbit(out[sentinel].float()).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("short", [1, 512])
+def test_blocked_seg_sum_rejects_short_slots_before_launch(short):
+    """Slots shorter than the edge axis raise before any launch (the kernel
+    would read past their end)."""
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    B, nb, epb, F, block = 1, 4, 1024, 64, 256
+    slot = blocked_slots(rng, B, nb, epb, block).to(dev)
+    data = torch.randn((B, nb * epb, F), device=dev)
+    before = BL.blocked_segment_sum.launches
+    with pytest.raises(ValueError, match="slots"):
+        BL._seg_sum_cuda(data, slot[:, :-short], nb * block, block, 512)
+    assert BL.blocked_segment_sum.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_gather_misaligned_view_on_card(dtype, offset):
+    """A contiguous h that starts a few elements into its storage (not 16-
+    or 8-byte aligned) takes a narrower vector and still copies bitwise."""
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(offset)
+    B, nb, epb, F, block = 2, 3, 512, 64, 256
+    slot = blocked_slots(rng, B, nb, epb, block, shuffle=True).to(dev)
+    flat = torch.from_numpy(rng.normal(size=B * nb * block * F + 8).astype(
+        np.float32)).to(dev).to(dtype)
+    h = flat[offset:offset + B * nb * block * F].view(B, nb * block, F)
+    assert h.is_contiguous() and h.data_ptr() % 16
+    out = BL._gather_cuda(h, slot, block, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(out, BL.blocked_gather_ref(h, slot, block, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_op_backwards_on_card(dtype):
+    """The autograd Functions on the card: seg_sum's backward is the gather
+    kernel, the gather's and the paired column gather's the seg_sum kernel
+    (one launch each), equal to the same Functions on the plain versions."""
+    from unittest import mock
+
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    B, nb, epb, F, block = 2, 4, 1024, 64, 256
+    slot = blocked_slots(rng, B, nb, epb, block).to(dev)
+    E, n = nb * epb, nb * block
+    data = torch.from_numpy(rng.normal(size=(B, E, F)).astype(
+        np.float32)).to(dev).to(dtype)
+    h = torch.from_numpy(rng.normal(size=(B, n, F)).astype(
+        np.float32)).to(dev).to(dtype)
+    col = torch.from_numpy(rng.integers(0, n, (B, E)).astype(
+        np.int32)).to(dev)
+    pair = torch.stack([torch.randperm(E, device=dev) for _ in range(B)])
+    cot_n = torch.randn((B, n, F), device=dev)
+    cot_e = torch.randn((B, E, F), device=dev).to(dtype)
+
+    def grads():
+        d = data.clone().requires_grad_()
+        hh = h.clone().requires_grad_()
+        (gd,) = torch.autograd.grad(BL.blocked_segment_sum(d, slot, n),
+                                    d, cot_n)
+        (gh,) = torch.autograd.grad(BL.blocked_gather(hh, slot), hh, cot_e)
+        (gp,) = torch.autograd.grad(
+            BL.paired_col_gather(hh, col, pair, slot), hh, cot_e)
+        return gd, gh, gp
+
+    counts = (lambda: (BL.blocked_segment_sum.launches,
+                       BL.blocked_gather.launches))
+    before = counts()
+    got = grads()
+    torch.cuda.synchronize()
+    # forwards: 1 seg_sum + 1 gather; backwards: 1 gather + 2 seg_sums
+    assert counts() == (before[0] + 3, before[1] + 2)
+    with mock.patch.object(BL, "_seg_sum_cuda",
+                           BL.blocked_segment_sum_ref), \
+            mock.patch.object(BL, "_gather_cuda", BL.blocked_gather_ref):
+        want = grads()
+    assert counts() == (before[0] + 3, before[1] + 2)
+    assert got[0].dtype == dtype and torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == dtype
+        scale = float(b.float().abs().max())
+        tol = 1e-6 if dtype == torch.float32 else 2 ** -8
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale

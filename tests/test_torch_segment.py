@@ -371,7 +371,15 @@ def test_row_and_paired_col_gathers_backward_match_jax_vjp(kind):
 
 
 def test_edgeops_refuses_a_blocked_batch_and_names_slice_5():
+    """Refused until port slice 5; now a blocked batch takes the blocked
+    branches (as in the JAX package the cumsum and ELL lowerings stay off
+    there), whose row gather is h[row] with 0 at the padding slots."""
     pb = pgraph.pad_graphs([blocked_test_graph(0, n_real=BLOCK)],
                            edge_block=BLOCK)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pblocked.EdgeOps(pb, seg_impl="cumsum", blocked_impl="pallas")
+    slot, inv_deg, oh = pblocked.blocked_slot_inv_deg(pb, "pallas")
+    ops = pblocked.EdgeOps(pb, slot, inv_deg, oh, seg_impl="cumsum")
+    assert ops.blocked and not ops.cumsum and not ops.ell
+    h = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, pb.max_nodes, 4)).astype(np.float32))
+    want = pseg.take_rows(h, pb.row) * pb.edge_mask[..., None]
+    assert torch.equal(ops.gather_rows(h), want)

@@ -123,7 +123,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "need = {'distegnn_tpu_torch.' + m for m in ('main', 'train.loss', "
         "'train.step', 'train.checkpoint', 'train.trainer', 'data.loader', "
         "'data.nbody', 'data.fluid113k', 'utils.seed', 'ops.cumsum', "
-        "'ops.segment', 'ops.blocked', 'ops.layer_pipeline')}\n"
+        "'ops.segment', 'ops.blocked', 'ops.layer_pipeline', "
+        "'ops.radius_dev', 'rollout', 'serve.engine')}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

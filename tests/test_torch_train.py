@@ -299,8 +299,9 @@ def _datasets(node_order):
 @pytest.mark.parametrize("node_order", ["none", "morton"])
 def test_graph_loader_batches_are_bitwise_the_jax_loaders(node_order):
     jd, pd = _datasets(node_order)
-    kw = dict(batch_size=2, shuffle=True, seed=43, edge_block=BLOCK)
-    jl, pl = JaxGraphLoader(jd, split_remote=True, **kw), GraphLoader(pd, **kw)
+    kw = dict(batch_size=2, shuffle=True, seed=43, edge_block=BLOCK,
+              split_remote=True)
+    jl, pl = JaxGraphLoader(jd, **kw), GraphLoader(pd, **kw)
     assert (pl.max_nodes, pl.edges_per_block, pl.remote_pad) == (
         jl.max_nodes, jl.edges_per_block, jl.remote_pad)
     assert len(pl) == len(jl) == 2
