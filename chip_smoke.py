@@ -80,7 +80,8 @@ or of the JAX package. Phases (any failure exits nonzero):
      64) and, with phase 8, at the train batch's (113152 nodes in 442
      blocks of 256; F = 1, 3, 64, f32 and bf16); each path shape timed
      beside its plain version, index_add_ / index_select, the einsum
-     lowering and its bound.
+     lowering and its bound. Rows of at most 16 bytes take the gather's
+     one-thread-per-row form.
   3d. rollout serving: configs/nbody_serve.yaml + serve.rollout (radius of
      mean degree ~20, max_degree 48, max_per_cell 32, edge_block 256) +
      model.blocked_impl=pallas; engine.rollout of a 4000-node scene and
@@ -112,6 +113,13 @@ With ``--profile`` it then breaks one request of the largest scene into host
 stages and profiles it with torch.profiler (device time by kernel, the
 device's idle share), and profiles one train micro-step of each train path
 the same way.
+
+Every kernel's ``ms`` is its time launched eagerly, as a user's path
+launches it (CUDA events around back-to-back launches; the small kernels,
+the one-hot kernels and their library calls, as the median of 5 batches of
+200 launches). Where an eager call of a few microseconds measures the host
+rather than the card, ``graph_ms`` (and ``library_graph_ms``) is the same
+work replayed from a CUDA graph: the card's time.
 
 Output: timing lines, then one JSON line ``{"kernels": [...]}``, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -242,6 +250,47 @@ def cuda_ms(fn, reps=20, warm=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_batches(fn, launches=200, batches=5, warm=3, graph=True):
+    """Per-launch ms of a small kernel: the median over ``batches`` batches
+    of ``launches`` back-to-back launches, each batch timed with CUDA
+    events (at 10-25 us a launch, a few dozen launches cannot resolve a 2x
+    difference between two such kernels). With ``graph`` the launches are
+    captured once in a CUDA graph and each batch replays it, so the time is
+    the device's: launched eagerly, a call of a few microseconds on the card
+    measures the host's Python and dispatch time instead (``graph=False``
+    gives that time)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(launches):
+                fn()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(launches):
+                fn()
+    per = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        per.append(start.elapsed_time(end) / launches)
+    return sorted(per)[len(per) // 2]
 
 
 def bound(nbytes, flops, dname):
@@ -717,15 +766,21 @@ def flagship_kernel_phase(model, batch, dev):
                           flat(plain(*args)))
             del out
             ms = cuda_ms(lambda: kern(*args), reps=10)
+            # the card's time: 20 launches replayed from a CUDA graph (at
+            # the stack's small batch an eager call is mostly host time)
+            graph_ms = cuda_ms_batches(lambda: kern(*args), launches=20,
+                                       batches=3)
             plain_ms = cuda_ms(lambda: plain(*args), reps=3, warm=1)
             nbytes, flops = work(N, E, active, H, hr.element_size())
             b_ms, b_by = bound(nbytes, flops, dname)
             f32_ms, _ = bound(nbytes, flops, "f32")
-            res[name] = dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=b_ms,
-                             bound_by=b_by, dtype=dname,
+            res[name] = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                             err=err, bound_ms=b_ms, bound_by=b_by,
+                             dtype=dname,
                              shape=f"N={N} E_slots={E} in_window={active} "
                                    f"H={H}")
-            print(f"flagship {name} {dname}: {ms:.4f} ms/launch, plain "
+            print(f"flagship {name} {dname}: {ms:.4f} ms/launch eagerly "
+                  f"({graph_ms:.4f} as CUDA-graph replays), plain "
                   f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} "
                   f"B, {flops} flop), {b_ms / ms:.4f} of bound; f32 FMA bound "
                   f"{f32_ms:.4f} ms, {f32_ms / ms:.3f} of it")
@@ -1751,13 +1806,15 @@ def seg_ref64(data, slot, n_nodes, block):
     return out, mag.amax(dim=1, keepdim=True).clamp(min=1e-30)
 
 
-def blocked_case(label, slot, n_nodes, F, dtype, gen, dev, timed=False,
-                 reps=20):
+def blocked_case(label, slot, n_nodes, F, dtype, gen, dev, timed=False):
     """Both kernels at one shape: held against f64 / their plain versions,
-    and with ``timed`` timed (CUDA events) beside their plain versions, the
-    library call (``index_add_`` into a zeroed output / ``index_select``
-    from h with a zero row for the sentinels), the einsum lowering and the
-    bound. Returns {kernel name: result}."""
+    and with ``timed`` timed beside their plain versions, the library call
+    (``index_add_`` into a zeroed output / ``index_select`` from h with a
+    zero row for the sentinels), the einsum lowering and the bound: the
+    kernels and the library calls as the median of batches of 200 launches
+    (:func:`cuda_ms_batches`), eagerly and as CUDA-graph replays, the plain
+    versions and the einsum lowering over 3 calls. Returns {kernel name:
+    result}."""
     import torch
 
     from distegnn_tpu_torch.ops import blocked as BL
@@ -1807,36 +1864,41 @@ def blocked_case(label, slot, n_nodes, F, dtype, gen, dev, timed=False,
     h_ext = torch.cat([h, torch.zeros((B, 1, F), dtype=dtype, device=dev)],
                       dim=1).reshape(B * (n_nodes + 1), F)
     oh = BL.onehot_blocks(slot, epb, block)
-    ms_s = cuda_ms(lambda: BL._seg_sum_cuda(data, slot, n_nodes, block,
-                                            tile), reps=reps)
+    def both(fn):
+        # eagerly (host and card, as a path calls it) and as CUDA-graph
+        # replays (the card's time)
+        return (cuda_ms_batches(fn, graph=False), cuda_ms_batches(fn))
+
+    ms_s = both(lambda: BL._seg_sum_cuda(data, slot, n_nodes, block, tile))
     pl_s = cuda_ms(lambda: BL.blocked_segment_sum_ref(data, slot, n_nodes,
                                                       block, tile),
                    reps=3, warm=1)
-    lib_s = cuda_ms(lambda: torch.zeros((B * (n_nodes + 1), F),
-                                        device=dev).index_add_(0, idx, src),
-                    reps=reps)
+    lib_s = both(lambda: torch.zeros((B * (n_nodes + 1), F),
+                                     device=dev).index_add_(0, idx, src))
     ein_s = cuda_ms(lambda: BL._ein_seg_sum_raw(data, oh), reps=3, warm=1)
-    ms_g = cuda_ms(lambda: BL._gather_cuda(h, slot, block, tile), reps=reps)
+    ms_g = both(lambda: BL._gather_cuda(h, slot, block, tile))
     pl_g = cuda_ms(lambda: BL.blocked_gather_ref(h, slot, block, tile),
                    reps=3, warm=1)
-    lib_g = cuda_ms(lambda: torch.index_select(h_ext, 0, idx), reps=reps)
+    lib_g = both(lambda: torch.index_select(h_ext, 0, idx))
     ein_g = cuda_ms(lambda: BL._ein_gather_raw(h, oh).to(dtype), reps=3,
                     warm=1)
     del oh
     nodes = B * n_nodes
-    for name, ms, pl, lib, ein, nbytes, flops in (
+    for name, (ms, g_ms), pl, (lib, g_lib), ein, nbytes, flops in (
             ("blocked_seg_sum", ms_s, pl_s, lib_s, ein_s,
              B * E * (F * elt + 4) + nodes * F * 4, real * F),
             ("blocked_gather", ms_g, pl_g, lib_g, ein_g,
              nodes * F * elt + B * E * (4 + F * elt), 0)):
         b_ms, b_by = bound(nbytes, flops, "f32")
-        res[name].update(ms=ms, plain_ms=pl, library_ms=lib, einsum_ms=ein,
+        res[name].update(ms=ms, graph_ms=g_ms, plain_ms=pl, library_ms=lib,
+                         library_graph_ms=g_lib, einsum_ms=ein,
                          bound_ms=b_ms, bound_by=b_by, shape=shape)
-        print(f"2e {label} {name} {shape}: {ms:.4f} ms/launch, plain "
-              f"{pl:.4f} ms, library {lib:.4f} ms "
-              f"({'index_add_' if 'seg' in name else 'index_select'}), "
-              f"einsum lowering {ein:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-              f"{nbytes} B), {b_ms / ms:.4f} of bound")
+        print(f"2e {label} {name} {shape}: {ms:.4f} ms/launch eagerly, "
+              f"{g_ms:.4f} as CUDA-graph replays; plain {pl:.4f} ms, library "
+              f"({'index_add_' if 'seg' in name else 'index_select'}) "
+              f"{lib:.4f} eagerly, {g_lib:.4f} as replays; einsum lowering "
+              f"{ein:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B), "
+              f"{b_ms / g_ms:.4f} of bound (replays)")
     return res
 
 
@@ -1870,13 +1932,9 @@ def blocked_kernel_phase(dev, rollout_slot):
             ("bf16 F=128", synthetic(2, 3, 512), 3, 128, torch.bfloat16)):
         blocked_case(label, slot, nb * RB_BLOCK, F, dtype, gen, dev)
     n = rollout_slot.shape[1] // (ROLLOUT_OPTS["max_degree"])
-    rows = {}
-    for F in (1, 3, HIDDEN):
-        r = blocked_case("rollout", rollout_slot, n, F, torch.float32, gen,
-                         dev, timed=True)
-        if F == HIDDEN:
-            rows = r
-    return rows
+    return {(F, "f32"): blocked_case("rollout", rollout_slot, n, F,
+                                     torch.float32, gen, dev, timed=True)
+            for F in (1, 3, HIDDEN)}
 
 
 def rollout_scene(n, seed, r0):
@@ -2057,7 +2115,8 @@ def rollout_serve_phase(root, dev, profile=False):
     if profile:
         rollout_profile(eng, reqs)
     rows = blocked_kernel_phase(dev, rollout_slots(eng, many, dev))
-    return dict(launches=(single[0], batched[0]), rows=rows,
+    return dict(launches=(single[0], batched[0]),
+                widths=(single[1], batched[1]), rows=rows,
                 ms=(t1[2], tb[2]), errs=errs)
 
 
@@ -2200,9 +2259,9 @@ def _blocked_train_phase(root, dev, clouds, log_dir, profile):
                             (HIDDEN, torch.bfloat16, True),
                             (HIDDEN, torch.float32, False)):
         r = blocked_case("train", slot, b0.max_nodes, F, dtype, gen, dev,
-                         timed=timed, reps=10)
-        if F == HIDDEN and dtype == torch.bfloat16:
-            rows = r
+                         timed=timed)
+        if timed:
+            rows[(F, "bf16" if dtype == torch.bfloat16 else "f32")] = r
     del slot
 
     # the first optimizer update again: the kernels, their plain versions,
@@ -2248,8 +2307,8 @@ def _blocked_train_phase(root, dev, clouds, log_dir, profile):
     med = step_times("blocked ", k, n_real)
     med_e = step_times("blocked einsum ", e, n_real)
     med_s = step_times("plain scatter (edge_block 0) ", s, n_real)
-    return dict(launches=n, rows=rows, ms=med, einsum_ms=med_e,
-                scatter_ms=med_s)
+    return dict(launches=n, widths=widths, rows=rows, ms=med,
+                einsum_ms=med_e, scatter_ms=med_s)
 
 
 def profile_phase(eng, g, reps=5):
@@ -2414,7 +2473,9 @@ def main():
                 "replaces": replaces, "launches": n, "max_abs_err": k["err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                "library_ms": k.get("library_ms"), "path": path}
+                "library_ms": k.get("library_ms"),
+                "graph_ms": k.get("graph_ms"),
+                "library_graph_ms": k.get("library_graph_ms"), "path": path}
 
     fwd_tpu = "distegnn_tpu/ops/edge_pipeline.py:288"
     H = HIDDEN
@@ -2456,14 +2517,19 @@ def main():
         row("fused_stack_fwd", f"train {stack['row']['dtype']} "
             f"{stack['row']['shape']}", stack["row"], STACK_TPU,
             stack["launches"][0])]
-    ro = rollout["launches"]
+    # the one-hot kernels: a row per path and launched width (F, type);
+    # the gather's rows of at most 16 bytes are its narrow form
     for i, name in enumerate(("blocked_seg_sum", "blocked_gather")):
-        rr, tr = rollout["rows"][name], blocked["rows"][name]
-        kernels += [
-            row(name, f"rollout serve {rr['shape']}", rr, BLOCKED_TPU[name],
-                ro[0][i] + ro[1][i], source="blocked_onehot"),
-            row(name, f"blocked train {tr['shape']}", tr, BLOCKED_TPU[name],
-                blocked["launches"][i], source="blocked_onehot")]
+        for path, rows, widths in (
+                ("rollout serve", rollout["rows"],
+                 [w[i] for w in rollout["widths"]]),
+                ("blocked train", blocked["rows"], [blocked["widths"][i]])):
+            for key, r in sorted(rows.items()):
+                n = sum(w.get(key, 0) for w in widths)
+                if n:
+                    kernels.append(row(
+                        name, f"{path} {r[name]['shape']}", r[name],
+                        BLOCKED_TPU[name], n, source="blocked_onehot"))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s, the kernels' build "
           f"included")

@@ -3,10 +3,16 @@ the serving and training paths read: YAML merged over defaults, overrides,
 the ``model``/``data``/``train``/``log``/``serve`` checks, the trainer's
 command-line flags and its derived run name (pure Python, no jax).
 
-Sections the port does not read yet (obs, parallel, promote, ...) are carried
-through from the YAML unchanged; keys of the read sections that the port
-does not use yet (``train.resume``, ``data.split_mode``, ...) keep their
-YAML values unchecked.
+Sections the port does not read yet (obs, promote, ...) are carried through
+from the YAML unchanged. The keys that the JAX package acts on and the port
+does not port yet (``train.resume``, ``train.checkpoint_interval_s``,
+``train.scan_epochs``, ``train.divergence_retries`` /
+``divergence_lr_decay``, ``parallel.mesh``, ``log.wandb.enable``) must keep
+their JAX defaults: any other value raises ``NotImplementedError`` naming the
+key and the ROADMAP item that will port it, rather than run another program
+without a word. At their defaults the port runs the JAX program, except that
+a non-finite epoch stops the run where the JAX package rolls it back
+(``divergence_retries: 2``; ROADMAP queue 1, item 3.1).
 """
 
 from __future__ import annotations
@@ -99,10 +105,22 @@ _DEFAULTS: dict = {
         "accumulation_steps": 1,
         "warmup_epochs": 0,
         "scheduler": "None",
+        # acted on by the JAX package, not ported yet: only their defaults
+        # are accepted (see _UNPORTED)
+        "scan_epochs": "auto",
+        "resume": None,
+        "checkpoint_interval_s": 0,
+        "divergence_retries": 2,
+        "divergence_lr_decay": 0.5,
     },
     "log": {
         "log_dir": "./logs",
         "test_interval": 2,
+        "wandb": {"enable": False, "offline": True, "api_key": "",
+                  "project": "", "entity": ""},
+    },
+    "parallel": {
+        "mesh": {"data": None, "graph": None, "tensor": 1},
     },
     "serve": {
         "node_floor": 64,
@@ -161,13 +179,63 @@ def apply_overrides(cfg: ConfigDict, overrides: Mapping) -> None:
         node[key] = value
 
 
+# Keys the JAX package acts on that the port does not port yet: (dotted
+# path, the values that run the JAX program on the port too, what ports it)
+_UNPORTED = (
+    ("train.resume", (None,),
+     "the resume scan, ROADMAP.md queue 1 item 3.2"),
+    ("train.checkpoint_interval_s", (0,),
+     "the cadence saves, ROADMAP.md queue 1 item 3.2"),
+    ("train.scan_epochs", ("auto",),
+     "the epoch as one device program, ROADMAP.md queue 1 item 3.4; the "
+     "port's eager loop is its only mode"),
+    ("train.divergence_retries", (2,),
+     "divergence rollback, ROADMAP.md queue 1 item 3.1"),
+    ("train.divergence_lr_decay", (0.5,),
+     "divergence rollback, ROADMAP.md queue 1 item 3.1"),
+    ("parallel.mesh.data", (None, 1),
+     "the distributed slice, ROADMAP.md queue 1 item 2; the port trains on "
+     "one device"),
+    ("parallel.mesh.graph", (None, 1),
+     "the distributed slice, ROADMAP.md queue 1 item 2; the port trains on "
+     "one device"),
+    ("parallel.mesh.tensor", (1, None),
+     "tensor parallelism, ROADMAP.md queue 1 item 6"),
+    ("log.wandb.enable", (False,),
+     "wandb logging, ROADMAP.md queue 1 item 3.6; wandb is not installed"),
+)
+
+
+def _get(cfg: Mapping, path: str):
+    node = cfg
+    for p in path.split("."):
+        if not isinstance(node, Mapping) or p not in node:
+            return None
+        node = node[p]
+    return node
+
+
+def _check_unported(cfg: ConfigDict) -> None:
+    for path, ok, what in _UNPORTED:
+        v = _get(cfg, path)
+        # bool is an int: True must not pass for 1 (nor False for 0)
+        if not any(v is a or (a is not None and v is not None
+                              and isinstance(v, bool) == isinstance(a, bool)
+                              and v == a) for a in ok):
+            raise NotImplementedError(
+                f"{path}={v!r}: the port does not act on this key yet "
+                f"({what}); leave it at {ok[0]!r}")
+
+
 _VALID_ACCEL_MODES = ("cutoff_edges", "distribute")
 _VALID_NODE_ORDERS = ("none", "morton")
 
 
 def validate_config(cfg: ConfigDict) -> None:
     """The model/data/train/log/serve checks of the JAX package's
-    validate_config, for the keys the port reads."""
+    validate_config, for the keys the port reads, and the refusal of the
+    keys it does not port yet (``_UNPORTED``)."""
+    _check_unported(cfg)
     d = cfg.data
     if d.accelerate_mode not in _VALID_ACCEL_MODES:
         raise ValueError(

@@ -40,13 +40,19 @@
 // order, so the result is bitwise repeatable run to run. Both the slots and
 // the edge array are read once per feature chunk (twice at F = 64).
 //
-// gather design. One output per (slot, vector of 16, 8, 4 or 2 bytes of the
-// row): the widest vector that divides the row's bytes and to which both h
-// and out are aligned (a view that starts mid-row takes a narrower one),
-// a plain load from h
-// (or zero at a sentinel), one store; each thread takes GU outputs and
-// issues their loads together; graphs on the grid's y axis, so each
-// thread's index arithmetic is 32-bit.
+// gather design, by row width (the wrapper chooses by the row's bytes).
+// Rows over 16 bytes (F = 64): one output per (slot, vector of 16, 8, 4 or
+// 2 bytes of the row), the widest vector that divides the row's bytes and
+// to which both h and out are aligned (a view that starts mid-row takes a
+// narrower one), a plain load from h (or zero at a sentinel), one store;
+// each thread takes GU outputs and issues their loads together. Rows of at
+// most 16 bytes (F <= 4 f32, F <= 8 bf16: the coordinates' F = 3) would
+// give a 12-byte row three threads, three divisions and three reads of the
+// same slot, so one thread takes one row (gather_rows_kernel): one slot
+// read, one bounds test and one division, the row's words loaded together,
+// GU rows in flight; a warp's 32 rows are one contiguous stretch of out,
+// staged in shared memory and stored as 16-byte vectors. Graphs on the
+// grid's y axis, so each thread's index arithmetic is 32-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -226,6 +232,111 @@ cudaError_t launch_gather(const void* h, const int* slot, void* out, int B,
   return cudaGetLastError();
 }
 
+// Narrow rows (at most 16 bytes: F <= 4 f32, F <= 8 bf16). One thread per
+// slot row: one read of slot[b, e], one bounds test and one division, then
+// the row's K words of V (the widest of 16, 8, 4 or 2 bytes that divides the
+// row and to which h and out are aligned) as independent loads; GU rows a
+// thread in flight. A warp's 32 rows are 32 * row_bytes contiguous bytes of
+// out: they are staged in shared memory and written as 16-byte vectors,
+// where out's chunk is 16-byte aligned (vec), else word by word.
+template <typename V, int K>
+__global__ void __launch_bounds__(GT)
+    gather_rows_kernel(const V* __restrict__ h, const int* __restrict__ slot,
+                       V* __restrict__ out, int nb, int epb, int block,
+                       int vec) {
+  constexpr int CHUNK_V = 32 * K;   // V words of one warp's 32 rows
+  static_assert(K * sizeof(V) <= 16, "narrow rows only");
+  __shared__ __align__(16) V stage[GT / 32][GU][CHUNK_V];
+  const int b = blockIdx.y;
+  const int n = nb * epb;   // slot rows of a graph
+  const V* hb = h + (int64_t)b * nb * block * K;
+  const int* sb = slot + (int64_t)b * n;
+  V* ob = out + (int64_t)b * n * K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r0 = blockIdx.x * GT * GU; r0 < n; r0 += gridDim.x * GT * GU) {
+    int src[GU];
+#pragma unroll
+    for (int u = 0; u < GU; ++u) {
+      const int r = r0 + u * GT + threadIdx.x;
+      src[u] = -1;
+      if (r < n) {
+        const int s = sb[r];
+        if ((unsigned)s < (unsigned)block) src[u] = ((r / epb) * block + s) * K;
+      }
+    }
+    V v[GU][K];
+#pragma unroll
+    for (int u = 0; u < GU; ++u)
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        v[u][k] = src[u] >= 0 ? hb[src[u] + k] : zero_v<V>();
+#pragma unroll
+    for (int u = 0; u < GU; ++u) {
+      const int w0 = r0 + u * GT + warp * 32;   // this warp's first row
+      const int r = w0 + lane;
+      if (vec && w0 + 32 <= n) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) stage[warp][u][lane * K + k] = v[u][k];
+      } else if (r < n) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) ob[r * K + k] = v[u][k];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < GU; ++u) {
+      const int w0 = r0 + u * GT + warp * 32;
+      if (vec && w0 + 32 <= n) {
+        constexpr int NV = CHUNK_V * (int)sizeof(V) / 16;
+        const uint4* sv = reinterpret_cast<const uint4*>(stage[warp][u]);
+        uint4* ov = reinterpret_cast<uint4*>(ob + w0 * K);
+        for (int q = lane; q < NV; q += 32) ov[q] = sv[q];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <typename V, int K>
+cudaError_t launch_gather_rows(const void* h, const int* slot, void* out,
+                               int B, int nb, int epb, int block, int vec,
+                               cudaStream_t stream) {
+  const int64_t rows = (int64_t)nb * epb;
+  int64_t blocks = (rows + GT * GU - 1) / (GT * GU);
+  if (blocks > (1 << 20)) blocks = 1 << 20;   // the loop strides the rest
+  const dim3 grid((unsigned)blocks, B);
+  gather_rows_kernel<V, K><<<grid, GT, 0, stream>>>(
+      static_cast<const V*>(h), slot, static_cast<V*>(out), nb, epb, block,
+      vec);
+  return cudaGetLastError();
+}
+
+template <typename V>
+cudaError_t gather_rows_k(const void* h, const int* slot, void* out, int B,
+                          int nb, int epb, int k, int block, int vec,
+                          cudaStream_t stream) {
+  switch (k) {
+#define ROWS_CASE(KK)                                                     \
+  case KK:                                                                \
+    if constexpr (KK * sizeof(V) <= 16)                                   \
+      return launch_gather_rows<V, KK>(h, slot, out, B, nb, epb, block,   \
+                                       vec, stream);                      \
+    break;
+    ROWS_CASE(1)
+    ROWS_CASE(2)
+    ROWS_CASE(3)
+    ROWS_CASE(4)
+    ROWS_CASE(5)
+    ROWS_CASE(6)
+    ROWS_CASE(7)
+    ROWS_CASE(8)
+#undef ROWS_CASE
+    default:
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success).
@@ -296,4 +407,38 @@ extern "C" int blocked_gather(const void* h, const void* slot, void* out,
                                         block, s);
   return (int)launch_gather<uint16_t>(h, sl, out, B, nb, epb, row_bytes,
                                       block, s);
+}
+
+// The same function for rows of at most 16 bytes (F * elt_bytes <= 16), one
+// thread per row; returns the cudaError_t of the launch (0 = success).
+extern "C" int blocked_gather_rows(const void* h, const void* slot,
+                                   void* out, int B, int nb, int epb, int F,
+                                   int block, int elt_bytes, void* stream) {
+  const int row_bytes = F * elt_bytes;
+  if (B < 1 || nb < 1 || epb < 1 || F < 1 || block < 1 || B > 65535 ||
+      (elt_bytes != 2 && elt_bytes != 4) || row_bytes > 16 ||
+      (int64_t)nb * epb * F >= ((int64_t)1 << 30) ||
+      (int64_t)nb * block * F >= ((int64_t)1 << 30))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sl = static_cast<const int*>(slot);
+  // every word access is aligned to its width: the row's bytes and both
+  // base addresses must be multiples of it
+  const uintptr_t align = (uintptr_t)row_bytes | (uintptr_t)h |
+                          (uintptr_t)out;
+  // the 16-byte stores of a warp's 32 rows: out and every graph's slice of
+  // it 16-byte aligned (32 rows of an even byte count are 64-byte multiples)
+  const int vec = (uintptr_t)out % 16 == 0 &&
+                  ((int64_t)nb * epb * row_bytes) % 16 == 0;
+  if (align % 16 == 0)
+    return (int)gather_rows_k<uint4>(h, sl, out, B, nb, epb, row_bytes / 16,
+                                     block, vec, s);
+  if (align % 8 == 0)
+    return (int)gather_rows_k<uint2>(h, sl, out, B, nb, epb, row_bytes / 8,
+                                     block, vec, s);
+  if (align % 4 == 0)
+    return (int)gather_rows_k<uint32_t>(h, sl, out, B, nb, epb,
+                                        row_bytes / 4, block, vec, s);
+  return (int)gather_rows_k<uint16_t>(h, sl, out, B, nb, epb, row_bytes / 2,
+                                      block, vec, s);
 }

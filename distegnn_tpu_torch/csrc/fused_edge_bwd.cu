@@ -24,42 +24,74 @@
 // rounded to bf16 where _bwd_kernel rounds it, and the weight-gradient
 // products take the bf16 operands with f32 accumulation.
 //
-// What bounds it on the H100: six H x H tile products per edge (the two of
-// the recomputed forward, the two transposed products of the chain, the two
-// weight-gradient products), 12*H*H = 49 Kflop per edge at H=64, run as f32
-// FMAs from shared memory (as in the forward kernel: exact f32 parity; bf16
-// operands are exact in f32), so the f32 CUDA-core rate (67 TFLOP/s) and not
-// the 3.35 TB/s memory bounds it. Tensor cores are a later step.
+// Two kernels compute it. The bf16 path (the flagship's) runs
+// fused_edge_bwd_tc_kernel, the f32 path fused_edge_bwd_kernel.
 //
-// Design, against the TPU kernel:
-//  - Persistent blocks take TE=64-edge tiles of the receiver-sorted layout
-//    with a grid stride, rebuild global (row, col) from row_t/col_l/kblk and
-//    the window start clip(b-1, 0, nb-3) exactly as _global_edges and the
-//    forward kernel do, and process an edge iff scal[e, 2] is set: the edge
-//    set is the forward's, so nothing is double-counted against the remote
-//    tail.
-//  - Four [TE, H+1] tile buffers hold t1, t3/d_t3, t2/d_t2 and ef/y1; the
-//    chain overwrites them in place (y1 is recomputed from t1 instead of
-//    kept), so two blocks fit on an SM at H=64 (~106 KB each).
-//  - Row side: edges are sorted by row, so each output column is reduced by
-//    one thread walking the tile in order, with one f32 atomicAdd per row
-//    segment, as in the forward.
+// What bounds it on the H100. Per edge six H x H tile products (the two of
+// the recomputed forward, the two transposed products of the chain, the two
+// weight-gradient products), 12*H*H = 49 Kflop at H=64, plus ~30 H of
+// elementwise work with three sigmoids and some twenty bf16 roundings per
+// element. On the tensor cores (989 TFLOP/s bf16) the products are not the
+// limit: at the flagship shape (113k nodes, 1.43 M in-window edges) the
+// bound is 0.07 ms and the kernel takes ~2.1 ms, and what it spends is the
+// elementwise epilogues of the products (the sigmoid's expf and IEEE
+// division, the roundings), the hr/hc gathers of the recomputed t1, and the
+// per-edge f32 atomics of the column side (PERF.md has the measured split).
+// The f32 path keeps its products as f32 FMAs from shared memory: on the
+// tensor cores f32 operands would be rounded to TF32, which breaks the f32
+// parity the tests hold; its bound is the 67 TFLOP/s f32 rate.
+//
+// Design of the bf16 kernel (fused_edge_bwd_tc_kernel), against the TPU
+// kernel and the FMA kernel it replaced on this path:
+//  - Persistent blocks (2 an SM: ~100 KB of shared memory and 128
+//    registers a thread) take TE=64-edge tiles of the receiver-sorted
+//    layout with a grid stride, and rebuild global (row, col) from
+//    row_t/col_l/kblk and the window start clip(b-1, 0, nb-3) as
+//    _global_edges does; an edge is processed iff scal[e, 2] is set.
+//  - The six products run as mma.sync m16n8k16 (bf16 in, f32 accumulate)
+//    from bf16 tiles in shared memory read by ldmatrix, rows padded to H+8
+//    so the eight rows of one ldmatrix phase fall in distinct banks; the
+//    weights are staged once a block and read plainly or transposed by
+//    ldmatrix, so W and W^T come from one copy. Every operand is a bf16
+//    value in _bwd_kernel's bf16 path, so each product term is exact; only
+//    the f32 summation order differs. The weight-gradient products keep
+//    their f32 accumulators in registers across all of a block's tiles.
+//  - Each sigmoid is computed once and kept (sigmoid(t1), sigmoid(t2) in
+//    bf16 tiles); the gate g and d_radial are reduced by warp shuffles
+//    inside the product epilogues (the FMA kernel walked them per edge).
+//  - While a tile's last phases run, warps 0-1 stage the next tile: its
+//    indices, geometry and d_g into the other of two per-edge buffers, and
+//    its hr[row] / hc[col] rows by cp.async into two tiles that are dead by
+//    then (Hopper's TMA cannot gather rows by index).
+//  - Row side: the payload [hi(d_cd), lo(d_cd), 0, 0, d_t1] of each edge
+//    is summed by row segment as a tensor-core product, a 0/1 one-hot
+//    [segment, edge] times the payload tile, then one f32 atomicAdd per
+//    (segment, column) into out_row.
+// Both kernels:
 //  - Column side: the TPU wrote 3-slot window partials per node block and
 //    combined them in XLA because its grid steps may not race. Here every
 //    active edge adds its payload straight into the zeroed out_col with
 //    float4 atomics. The column sums are therefore NOT bitwise
 //    deterministic: their f32 summation order changes from run to run.
-//  - Weight gradients: each block accumulates its share in registers (the
-//    H x H products per thread, the vectors per column) across all its
-//    tiles and writes one f32 partial per block; a second kernel
-//    (reduce_partials) sums the partials over the blocks in a fixed order, so
-//    the weight gradients are deterministic for a given grid.
+//  - Weight gradients: each block accumulates its share in registers
+//    across all its tiles and writes one f32 partial per block; a second
+//    kernel (reduce_partials) sums the partials over the blocks in a fixed
+//    order, so the weight gradients are deterministic for a given grid. The
+//    grid (every resident block, at most one per tile) is what
+//    fused_edge_bwd_grid reports, and the caller sizes the partials by it.
 //  - H must be 16, 32 or 64 (the column passes give THREADS / H threads to
 //    each column). No allocation, no synchronisation; both kernels run on
 //    the caller's stream.
+//
+// Design of the f32 kernel (fused_edge_bwd_kernel): four [TE, H+1] f32
+// tile buffers (t1, t3/d_t3, t2/d_t2, ef/y1, the chain overwriting them in
+// place), the products as f32 FMAs per thread of a 16 x 16 grid, and the
+// row side as one thread per output column walking the tile in edge order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -125,15 +157,15 @@ __device__ __forceinline__ void tile_wgrad(const float* A, const float* B,
   }
 }
 
-template <int H, bool BF16>
+template <int H>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_edge_bwd_kernel(const int* __restrict__ row_t,
                       const int* __restrict__ col_l,
                       const int* __restrict__ kblk,
                       const float* __restrict__ scal,
                       const float* __restrict__ x,
-                      const std::conditional_t<BF16, __nv_bfloat16, float>* __restrict__ hr,
-                      const std::conditional_t<BF16, __nv_bfloat16, float>* __restrict__ hc,
+                      const float* __restrict__ hr,
+                      const float* __restrict__ hc,
                       const float* __restrict__ ws, const float* __restrict__ b1,
                       const float* __restrict__ w2, const float* __restrict__ b2,
                       const float* __restrict__ w3, const float* __restrict__ b3,
@@ -179,14 +211,14 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
 
   for (int i = tid; i < H * H; i += THREADS) {
     const int k = i / H, j = i % H;
-    sW2[k * LDW + j] = rnd<BF16>(w2[i]);
-    sW3[k * LDW + j] = rnd<BF16>(w3[i]);
+    sW2[k * LDW + j] = w2[i];
+    sW3[k * LDW + j] = w3[i];
   }
-  for (int i = tid; i < 3 * H; i += THREADS) sWs[i] = rnd<BF16>(ws[i]);
+  for (int i = tid; i < 3 * H; i += THREADS) sWs[i] = ws[i];
   for (int i = tid; i < H; i += THREADS) {
-    sB1[i] = rnd<BF16>(b1[i]);
-    sB2[i] = rnd<BF16>(b2[i]);
-    sB3[i] = rnd<BF16>(b3[i]);
+    sB1[i] = b1[i];
+    sB2[i] = b2[i];
+    sB3[i] = b3[i];
     sW4[i] = w4[i];
   }
 
@@ -230,9 +262,9 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
           const float radial = __fadd_rn(
               __fadd_rn(__fmul_rn(cd[0], cd[0]), __fmul_rn(cd[1], cd[1])),
               __fmul_rn(cd[2], cd[2]));
-          sf[0] = rnd<BF16>(radial);
-          sf[1] = rnd<BF16>(scal[(size_t)e * XL + 0]);
-          sf[2] = rnd<BF16>(scal[(size_t)e * XL + 1]);
+          sf[0] = radial;
+          sf[1] = scal[(size_t)e * XL + 0];
+          sf[2] = scal[(size_t)e * XL + 1];
           active = 1;
         }
       }
@@ -253,15 +285,14 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
       const int row = sRow[el];
       float t = 0.f;
       if (row >= 0) {
-        const float hrc = rnd<BF16>(load(hr, (size_t)row * H + j) +
-                                    load(hc, (size_t)sCol[el] * H + j));
-        const float sw = rnd<BF16>(
+        const float hrc = hr[(size_t)row * H + j] + hc[(size_t)sCol[el] * H + j];
+        const float sw =
             fmaf(sSf[3 * el + 2], sWs[2 * H + j],
-                 fmaf(sSf[3 * el + 1], sWs[H + j], sSf[3 * el] * sWs[j])));
-        t = dense_pre<BF16>(hrc + sw, sB1[j]);
+                 fmaf(sSf[3 * el + 1], sWs[H + j], sSf[3 * el] * sWs[j]));
+        t = dense_pre<false>(hrc + sw, sB1[j]);
       }
       sP[el * LDA + j] = t;
-      sQ[el * LDA + j] = silu<BF16>(t);
+      sQ[el * LDA + j] = silu<false>(t);
     }
     __syncthreads();
 
@@ -274,9 +305,9 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           const int e = ty + 16 * r, j = tx + 16 * c;
-          const float t = dense_pre<BF16>(acc[r][c], sB2[j]);
+          const float t = dense_pre<false>(acc[r][c], sB2[j]);
           sR[e * LDA + j] = t;
-          sS[e * LDA + j] = silu<BF16>(t);
+          sS[e * LDA + j] = silu<false>(t);
         }
     }
     __syncthreads();
@@ -290,7 +321,7 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           const int e = ty + 16 * r, j = tx + 16 * c;
-          sQ[e * LDA + j] = dense_pre<BF16>(acc[r][c], sB3[j]);
+          sQ[e * LDA + j] = dense_pre<false>(acc[r][c], sB3[j]);
         }
     }
     __syncthreads();
@@ -300,7 +331,7 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
       float g = 0.f, dg = 0.f;
       if (sRow[tid] >= 0) {
         for (int j = 0; j < H; ++j)
-          g = __fadd_rn(g, __fmul_rn(silu<BF16>(sQ[tid * LDA + j]), sW4[j]));
+          g = __fadd_rn(g, __fmul_rn(silu<false>(sQ[tid * LDA + j]), sW4[j]));
         const float* c3 = sCd + 3 * tid;
         const float* t3 = sDt + 3 * tid;
         dg = __fadd_rn(__fadd_rn(__fmul_rn(c3[0], t3[0]),
@@ -318,9 +349,9 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
       const int el = cg + G * m;
       const float t3 = sQ[el * LDA + cj];
       const float dg = sDg[el];
-      const float d_y2 = rnd<BF16>(__fmul_rn(dg, sW4[cj]));
-      const float d_t3 = rnd<BF16>(__fmul_rn(d_y2, dsilu<BF16>(t3)));
-      a_dw4 = fmaf(silu<BF16>(t3), dg, a_dw4);
+      const float d_y2 = __fmul_rn(dg, sW4[cj]);
+      const float d_t3 = __fmul_rn(d_y2, dsilu<false>(t3));
+      a_dw4 = fmaf(silu<false>(t3), dg, a_dw4);
       a_db3 += d_t3;
       sQ[el * LDA + cj] = d_t3;
     }
@@ -340,9 +371,9 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
         for (int c = 0; c < CPT; ++c) {
           const int i = tx + 16 * c;
           const float up = row >= 0 ? gp[(size_t)row * F + 8 + i] : 0.f;
-          const float d_ef = rnd<BF16>(rnd<BF16>(up) + rnd<BF16>(acc[r][c]));
+          const float d_ef = up + acc[r][c];
           const float t2 = sR[e * LDA + i];
-          sR[e * LDA + i] = rnd<BF16>(__fmul_rn(d_ef, dsilu<BF16>(t2)));
+          sR[e * LDA + i] = __fmul_rn(d_ef, dsilu<false>(t2));
         }
       }
     }
@@ -352,7 +383,7 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
 #pragma unroll 4
     for (int m = 0; m < EPG; ++m) {
       const int el = cg + G * m;
-      sS[el * LDA + cj] = silu<BF16>(sP[el * LDA + cj]);
+      sS[el * LDA + cj] = silu<false>(sP[el * LDA + cj]);
       a_db2 += sR[el * LDA + cj];
     }
     __syncthreads();
@@ -369,7 +400,7 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
           const int e = ty + 16 * r, i = tx + 16 * c;
           const float t1 = sP[e * LDA + i];
           sP[e * LDA + i] =
-              rnd<BF16>(__fmul_rn(rnd<BF16>(acc[r][c]), dsilu<BF16>(t1)));
+              __fmul_rn(acc[r][c], dsilu<false>(t1));
         }
     }
     __syncthreads();
@@ -389,7 +420,7 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
       if (sRow[tid] >= 0) {
         float ds = 0.f;
         for (int j = 0; j < H; ++j) ds = fmaf(sP[tid * LDA + j], sWs[j], ds);
-        const float d_radial = rnd<BF16>(ds);
+        const float d_radial = ds;
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           dcd[k] = __fadd_rn(
@@ -478,6 +509,727 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
   }
 }
 
+// ------------------------------------------------ the bf16 tensor-core path
+//
+// The bf16 instantiation runs the six H x H tile products on the tensor
+// cores (mma.sync m16n8k16, bf16 operands from shared memory through
+// ldmatrix, f32 accumulation). Every operand of those products is already a
+// bf16 value in _bwd_kernel's bf16 path (y1, ef, d_t3, d_t2 and the weights
+// are rounded to bf16 before they are multiplied), so the per-edge tiles are
+// held in bf16 and each product is exact term by term; only the f32
+// summation order inside a product differs from the FMA path.
+
+// bf16 tile rows: H + 8 elements (16 bytes of padding), so the eight
+// 16-byte rows one ldmatrix phase reads fall into distinct bank groups
+template <int H>
+struct TcLayout {
+  static constexpr int LDS = H + 8;
+  static constexpr int TILE = TE * LDS;   // bf16 elements of one edge tile
+  static constexpr int WT = H * LDS;      // bf16 elements of one weight
+  static constexpr int NTILES = 7;        // s1, y1, t2, s2, ef, d_t3, y2
+  // the row-side payload tile [TE, F]: [hi(d_cd), lo(d_cd), 0, 0, t1 then
+  // d_t1], rows of H + 24 (an odd number of 16-byte units)
+  static constexpr int LDP = H + 24;
+  static constexpr int PAY = TE * LDP;
+  // the row side's one-hot [16 segments, TE edges] (in y1's tile)
+  static constexpr int LDO = TE + 8;
+  // per edge and staging buffer: row, col; cd, sfeat, d_trans [3], d_g
+  static constexpr int EDGE = 2 + 3 + 3 + 3 + 1;
+  // f32: ws [3H], b1, b2, b3, w4 [H]; per edge the two column halves'
+  // partial sums of g and of d_radial
+  static constexpr int F32 = 7 * H + TE * 4;
+  // the ballots (4 + 2 words) and the row of each segment [TE]
+  static constexpr size_t kBytes =
+      (size_t)(2 * WT + PAY + NTILES * TILE) * 2 + (size_t)F32 * 4 +
+      (size_t)2 * TE * EDGE * 4 + 6 * 4 + TE * 4;
+  // the weight-gradient products' warp tiling: NTW n8 tiles of one m16
+  // tile a warp, the K = TE edges split over KSPLIT warps
+  static constexpr int NTW = H >= 32 ? 4 : 1;
+  static constexpr int NUNITS = (H / 16) * (H / 8 / NTW);
+  static constexpr int KSPLIT = 8 / NUNITS;
+  static constexpr int KPW = (TE / 16) / KSPLIT;   // k16 steps a warp
+  // the main products: warp w takes the m16 tile w % 4 and the column half
+  // w / 4, NTM n8 tiles
+  static constexpr int NTM = H / 16;
+  static_assert(16 * LDO <= TILE, "the one-hot fits in a tile");
+  static_assert(TE * H <= TILE, "a staged hr / hc tile fits in a tile");
+};
+
+// One staging buffer of a tile's per-edge data (two alternate: a tile's is
+// loaded while the one before it finishes).
+struct EdgeBuf {
+  int* row;      // [TE], -1 = inactive
+  int* col;      // [TE]
+  float* cd;     // [TE, 3] x[row] - x[col] (f32)
+  float* sf;     // [TE, 3] sfeat = [radial, a0, a1], bf16 values
+  float* dt;     // [TE, 3] d_trans = gp[row, 0:3]
+  float* dg;     // [TE] d_g = cd . d_trans
+  unsigned* act; // [2] ballots of the active edges (0-31, 32-63)
+  // the buffer's 12 words per edge from p, its ballots at a
+  __device__ EdgeBuf(int* p, unsigned* a)
+      : row(p),
+        col(p + TE),
+        cd(reinterpret_cast<float*>(p + 2 * TE)),
+        sf(cd + 3 * TE),
+        dt(cd + 6 * TE),
+        dg(cd + 9 * TE),
+        act(a) {}
+};
+
+// 16 bytes global -> shared without a register round trip; wait_all
+// completes every copy this thread issued
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four (x4) or two (x2) 8x8 b16 matrices from shared memory; with T the
+// transposed matrices
+template <bool T>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (T) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p))
+        : "memory");
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p))
+        : "memory");
+  }
+}
+
+template <bool T>
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        const void* p) {
+  if constexpr (T) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"
+                 : "=r"(r0), "=r"(r1)
+                 : "r"(smem_addr(p))
+                 : "memory");
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];"
+                 : "=r"(r0), "=r"(r1)
+                 : "r"(smem_addr(p))
+                 : "memory");
+  }
+}
+
+// d += a b: one m16n8k16 product, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The B operand [K, N] of a product, as a bf16 matrix in shared memory with
+// row stride LDB: KN stored as B[k][n] (read transposed by ldmatrix), or
+// not KN: stored as its transpose, Bt[n][k].
+// acc[t] (t < NT n8 tiles from column n0) += A[m0:m0+16, :K] B[:K, n0 + 8t]
+// where A (row stride LDA) is stored as A[m][k] (AT = false) or as
+// A^T[k][m] (AT = true); k runs over the k16 steps [ks0, ks0 + KS).
+template <int LDA, int LDB, int NT, bool AT, bool KN>
+__device__ __forceinline__ void warp_mm(const __nv_bfloat16* A,
+                                        const __nv_bfloat16* B, int m0,
+                                        int n0, int ks0, int KS,
+                                        float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31;
+  for (int ks = ks0; ks < ks0 + KS; ++ks) {
+    const int k0 = 16 * ks;
+    uint32_t a[4];
+    if constexpr (AT) {
+      ldsm_x4<true>(a, A + (k0 + (lane & 7) + (lane >> 4) * 8) * LDA + m0 +
+                           ((lane >> 3) & 1) * 8);
+    } else {
+      ldsm_x4<false>(a, A + (m0 + (lane & 15)) * LDA + k0 + (lane >> 4) * 8);
+    }
+    if constexpr (NT == 1) {
+      uint32_t b0, b1;
+      if constexpr (KN) {
+        ldsm_x2<true>(b0, b1, B + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                      LDB + n0);
+      } else {
+        ldsm_x2<false>(b0, b1, B + (n0 + (lane & 7)) * LDB + k0 +
+                                   ((lane >> 3) & 1) * 8);
+      }
+      mma_bf16(acc[0], a, b0, b1);
+    } else {
+#pragma unroll
+      for (int t = 0; t < NT; t += 2) {
+        uint32_t b[4];
+        if constexpr (KN) {
+          ldsm_x4<true>(b, B + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   LDB + n0 + 8 * t + (lane >> 4) * 8);
+        } else {
+          ldsm_x4<false>(b, B + (n0 + 8 * t + (lane & 7) + (lane >> 4) * 8) *
+                                    LDB + k0 + ((lane >> 3) & 1) * 8);
+        }
+        mma_bf16(acc[t], a, b[0], b[1]);
+        mma_bf16(acc[t + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// the sigmoid of silu / dsilu, rounded to bf16 (computed once per element
+// and kept: silu and silu' of the same t share it)
+__device__ __forceinline__ float sig_bf16(float t) {
+  return round_bf16(1.0f / (1.0f + expf(-t)));
+}
+
+// silu(t) and silu'(t) from t and its rounded sigmoid s, with the roundings
+// of fused_edge_common.cuh's silu<true> / dsilu<true>
+__device__ __forceinline__ float silu_s(float t, float s) {
+  return round_bf16(t * s);
+}
+
+__device__ __forceinline__ float dsilu_s(float t, float s) {
+  const float a = round_bf16(__fsub_rn(1.0f, s));
+  const float b = round_bf16(__fmul_rn(t, a));
+  const float c = round_bf16(__fadd_rn(1.0f, b));
+  return round_bf16(__fmul_rn(s, c));
+}
+
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Threads tid < TE (warps 0 and 1): tile `tile`'s edges into buffer b, as
+// the FMA kernel's setup computes them, and its hr[row] / hc[col] rows
+// into the staging tiles (cp.async, completed by cp_async_wait_all before
+// the next __syncthreads)
+template <int H>
+__device__ __forceinline__ void tc_stage_edges(
+    const EdgeBuf& b, __nv_bfloat16* sHr, __nv_bfloat16* sHc, int tile,
+    const int* __restrict__ row_t, const int* __restrict__ col_l,
+    const int* __restrict__ kblk, const float* __restrict__ scal,
+    const float* __restrict__ x, const __nv_bfloat16* __restrict__ hr,
+    const __nv_bfloat16* __restrict__ hc, const float* __restrict__ gp,
+    int n_edges, int T, int epb, int smax) {
+  constexpr int F = H + 8;
+  const int tid = threadIdx.x;
+  const int e = tile * TE + tid;
+  int row = -1, col = 0;
+  float cd[3] = {0.f, 0.f, 0.f}, sf[3] = {0.f, 0.f, 0.f};
+  float dt[3] = {0.f, 0.f, 0.f};
+  float dg = 0.f;
+  if (e < n_edges) {
+    const float m = scal[(size_t)e * XL + 2];
+    const int rl = row_t[e];
+    if (m > 0.f && rl < T) {
+      const int bl = e / epb;
+      const int s = min(max(bl - 1, 0), smax);
+      row = bl * T + rl;
+      col = (s + kblk[e]) * T + col_l[e];
+#pragma unroll
+      for (int q = 0; q < H / 8; ++q) {
+        cp_async16(sHr + tid * H + 8 * q, hr + (size_t)row * H + 8 * q);
+        cp_async16(sHc + tid * H + 8 * q, hc + (size_t)col * H + 8 * q);
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        cd[k] = x[3 * (size_t)row + k] - x[3 * (size_t)col + k];
+        dt[k] = gp[(size_t)row * F + k];
+      }
+      // no FMA contraction: |cd|^2 and d_g rounded as the FMA kernel sums
+      const float radial = __fadd_rn(
+          __fadd_rn(__fmul_rn(cd[0], cd[0]), __fmul_rn(cd[1], cd[1])),
+          __fmul_rn(cd[2], cd[2]));
+      sf[0] = round_bf16(radial);
+      sf[1] = round_bf16(scal[(size_t)e * XL + 0]);
+      sf[2] = round_bf16(scal[(size_t)e * XL + 1]);
+      dg = __fadd_rn(__fadd_rn(__fmul_rn(cd[0], dt[0]),
+                               __fmul_rn(cd[1], dt[1])),
+                     __fmul_rn(cd[2], dt[2]));
+    }
+  }
+  b.row[tid] = row;
+  b.col[tid] = col;
+  b.dg[tid] = dg;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b.cd[3 * tid + k] = cd[k];
+    b.sf[3 * tid + k] = sf[k];
+    b.dt[3 * tid + k] = dt[k];
+  }
+  const unsigned am = __ballot_sync(0xffffffffu, row >= 0);
+  if ((tid & 31) == 0) b.act[tid >> 5] = am;
+}
+
+template <int H>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
+                         const int* __restrict__ col_l,
+                         const int* __restrict__ kblk,
+                         const float* __restrict__ scal,
+                         const float* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ hr,
+                         const __nv_bfloat16* __restrict__ hc,
+                         const float* __restrict__ ws,
+                         const float* __restrict__ b1,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         const float* __restrict__ w3,
+                         const float* __restrict__ b3,
+                         const float* __restrict__ w4,
+                         const float* __restrict__ gp,
+                         float* __restrict__ out_row,
+                         float* __restrict__ out_col,
+                         float* __restrict__ part, int n_nodes, int n_edges,
+                         int block) {
+  using L = TcLayout<H>;
+  constexpr int LDS = L::LDS;
+  constexpr int F = H + 8;
+  constexpr int G = THREADS / H;   // edge groups of the column passes
+  constexpr int EPG = TE / G;      // edges of one group per tile
+  constexpr int Q4 = 2 + H / 4;    // float4 lanes of one column-side payload
+  constexpr int NTM = L::NTM;
+  constexpr int NTW = L::NTW;
+  static_assert(THREADS == 256 && TE == 64, "8 warps over 64-edge tiles");
+  static_assert(THREADS % H == 0 && TE % G == 0, "H must divide THREADS");
+  static_assert(NTM == 1 || NTM % 2 == 0, "n8 tiles in pairs");
+  static_assert(2 * L::KSPLIT * H * H + 7 * THREADS <=
+                    (L::PAY + L::NTILES * L::TILE) / 2,
+                "the end-of-block reductions fit in the tile buffers");
+  static_assert(L::EDGE == 12, "EdgeBuf's layout");
+  using W = WOff<H>;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sW2 = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [k][j]
+  __nv_bfloat16* sW3 = sW2 + L::WT;
+  __nv_bfloat16* tP = sW3 + L::WT;       // [TE, LDP] payload; t1, d_t1 at 8
+  __nv_bfloat16* tS1 = tP + L::PAY;      // sigmoid(t1)
+  __nv_bfloat16* tY1 = tS1 + L::TILE;    // y1, then the row side's one-hot
+  __nv_bfloat16* tT2 = tY1 + L::TILE;    // t2, then d_t2
+  __nv_bfloat16* tS2 = tT2 + L::TILE;    // sigmoid(t2)
+  __nv_bfloat16* tEF = tS2 + L::TILE;    // ef
+  __nv_bfloat16* tD3 = tEF + L::TILE;    // d_t3
+  __nv_bfloat16* tY2 = tD3 + L::TILE;    // y2 = silu(t3)
+  // the next tile's hr[row] / hc[col] rows [TE, H], staged while this
+  // tile's last phases run, in ef's and sigmoid(t2)'s tiles (dead by then;
+  // the next tile rewrites them only after its t1 phase has read these)
+  __nv_bfloat16* sHr = tEF;
+  __nv_bfloat16* sHc = tS2;
+  __nv_bfloat16* tT1 = tP + 8;           // t1 / d_t1 [TE, LDP] from column 8
+  float* sWs = reinterpret_cast<float*>(tY2 + L::TILE);   // [3, H]
+  float* sB1 = sWs + 3 * H;
+  float* sB2 = sB1 + H;
+  float* sB3 = sB2 + H;
+  float* sW4 = sB3 + H;
+  float* sGp = sW4 + H;        // [2, TE] the column halves' sums of g
+  float* sRp = sGp + 2 * TE;   // [2, TE] ... of d_t1 . ws[0]
+  // the two per-edge staging buffers (12 words an edge each), their
+  // ballots, and the first edge of each row segment of the tile (two
+  // 32-bit ballots)
+  int* sEdge = reinterpret_cast<int*>(sRp + 2 * TE);
+  unsigned* sAct = reinterpret_cast<unsigned*>(sEdge + 2 * L::EDGE * TE);
+  unsigned* sStart = sAct + 4;
+  int* sSegRow = reinterpret_cast<int*>(sStart + 2);   // [TE] segment -> row
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int cj = tid % H, cg = tid / H;   // column passes: column, group
+  // the main products: rows m0.., columns n0.. of the [TE, H] result
+  const int m0 = 16 * (warp & 3), half = warp >> 2, n0 = half * (H / 2);
+  // this thread's accumulator rows and the column of its first element
+  const int er0 = m0 + (lane >> 2), er1 = er0 + 8;
+  const int jc = n0 + 2 * (lane & 3);
+  // the weight-gradient products: unit (m16 tile, NTW n8 tiles), k slice
+  const int wu = warp % L::NUNITS, wk = warp / L::NUNITS;
+  const int wm0 = 16 * (wu % (H / 16)), wn0 = 8 * NTW * (wu / (H / 16));
+
+  for (int i = tid; i < H * H; i += THREADS) {
+    const int k = i / H, j = i % H;
+    sW2[k * LDS + j] = __float2bfloat16_rn(w2[i]);
+    sW3[k * LDS + j] = __float2bfloat16_rn(w3[i]);
+  }
+  for (int i = tid; i < 3 * H; i += THREADS) sWs[i] = round_bf16(ws[i]);
+  for (int i = tid; i < H; i += THREADS) {
+    sB1[i] = round_bf16(b1[i]);
+    sB2[i] = round_bf16(b2[i]);
+    sB3[i] = round_bf16(b3[i]);
+    sW4[i] = w4[i];
+  }
+
+  float acc_dw2[NTW][4], acc_dw3[NTW][4];
+#pragma unroll
+  for (int t = 0; t < NTW; ++t)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_dw2[t][c] = acc_dw3[t][c] = 0.f;
+  float a_db1 = 0.f, a_db2 = 0.f, a_db3 = 0.f, a_dw4 = 0.f;
+  float a_dws0 = 0.f, a_dws1 = 0.f, a_dws2 = 0.f;
+
+  const int T = block;
+  const int nb = n_nodes / T;
+  const int epb = n_edges / nb;
+  const int smax = nb - 3 > 0 ? nb - 3 : 0;
+  const int n_tiles = (n_edges + TE - 1) / TE;
+
+  if (tid < TE)
+    tc_stage_edges<H>(EdgeBuf(sEdge, sAct), sHr, sHc, blockIdx.x, row_t,
+                      col_l, kblk, scal, x, hr, hc, gp, n_edges, T, epb,
+                      smax);
+  cp_async_wait_all();
+
+  int cur = 0;
+  for (int tile = blockIdx.x; tile < n_tiles;
+       tile += gridDim.x, cur ^= 1) {
+    __syncthreads();  // this tile staged, the previous one fully consumed
+    const EdgeBuf E(sEdge + cur * L::EDGE * TE, sAct + 2 * cur);
+    const EdgeBuf next(sEdge + (cur ^ 1) * L::EDGE * TE,
+                       sAct + 2 * (cur ^ 1));
+    if (!(E.act[0] | E.act[1])) {   // all-padding tile
+      if (tid < TE)
+        tc_stage_edges<H>(next, sHr, sHc, tile + gridDim.x, row_t, col_l,
+                          kblk, scal, x, hr, hc, gp, n_edges, T, epb, smax);
+      cp_async_wait_all();
+      continue;
+    }
+
+    // ---- forward: t1, sigmoid(t1), y1 (eight columns a thread per item)
+    for (int i = tid; i < TE * (H / 8); i += THREADS) {
+      const int el = i / (H / 8), j0 = 8 * (i % (H / 8));
+      float t[8], s[8], y[8];
+      if (E.row[el] >= 0) {
+        const uint4 ur = *reinterpret_cast<const uint4*>(sHr + el * H + j0);
+        const uint4 uc = *reinterpret_cast<const uint4*>(sHc + el * H + j0);
+        const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&ur);
+        const __nv_bfloat162* pc = reinterpret_cast<const __nv_bfloat162*>(&uc);
+        const float f0 = E.sf[3 * el], f1 = E.sf[3 * el + 1],
+                    f2 = E.sf[3 * el + 2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 a = __bfloat1622float2(pr[q]);
+          const float2 c = __bfloat1622float2(pc[q]);
+          const float hv[2] = {a.x + c.x, a.y + c.y};
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int j = j0 + 2 * q + u;
+            const float hrc = round_bf16(hv[u]);
+            const float sw = round_bf16(
+                fmaf(f2, sWs[2 * H + j], fmaf(f1, sWs[H + j], f0 * sWs[j])));
+            t[2 * q + u] = dense_pre<true>(hrc + sw, sB1[j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) t[q] = 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        s[q] = sig_bf16(t[q]);
+        y[q] = silu_s(t[q], s[q]);
+      }
+      // one 16-byte store per tile row piece (a quarter warp writes one
+      // 128-byte row: no bank conflict)
+      uint4 pt, ps, py;
+      __nv_bfloat162* qt = reinterpret_cast<__nv_bfloat162*>(&pt);
+      __nv_bfloat162* qs = reinterpret_cast<__nv_bfloat162*>(&ps);
+      __nv_bfloat162* qy = reinterpret_cast<__nv_bfloat162*>(&py);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        qt[q] = __floats2bfloat162_rn(t[2 * q], t[2 * q + 1]);
+        qs[q] = __floats2bfloat162_rn(s[2 * q], s[2 * q + 1]);
+        qy[q] = __floats2bfloat162_rn(y[2 * q], y[2 * q + 1]);
+      }
+      const int o = el * LDS + j0;
+      *reinterpret_cast<uint4*>(tT1 + el * L::LDP + j0) = pt;
+      *reinterpret_cast<uint4*>(tS1 + o) = ps;
+      *reinterpret_cast<uint4*>(tY1 + o) = py;
+    }
+    __syncthreads();
+
+    // ---- forward: t2 = y1 w2 + b2 -> t2, sigmoid(t2), ef
+    {
+      float acc[NTM][4] = {};
+      warp_mm<LDS, LDS, NTM, false, true>(tY1, sW2, m0, n0, 0, H / 16, acc);
+#pragma unroll
+      for (int t = 0; t < NTM; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = h ? er1 : er0, j = jc + 8 * t;
+          const float t0 = dense_pre<true>(acc[t][2 * h], sB2[j]);
+          const float t1 = dense_pre<true>(acc[t][2 * h + 1], sB2[j + 1]);
+          const float s0 = sig_bf16(t0), s1 = sig_bf16(t1);
+          st2(tT2 + e * LDS + j, t0, t1);
+          st2(tS2 + e * LDS + j, s0, s1);
+          st2(tEF + e * LDS + j, silu_s(t0, s0), silu_s(t1, s1));
+        }
+    }
+    __syncthreads();
+
+    // ---- forward: t3 = ef w3 + b3; y2 = silu(t3), the gate's partial sums;
+    //      d_y2 = d_g w4, d_t3 = d_y2 silu'(t3)
+    {
+      float acc[NTM][4] = {};
+      warp_mm<LDS, LDS, NTM, false, true>(tEF, sW3, m0, n0, 0, H / 16, acc);
+      float gsum[2] = {0.f, 0.f};
+      const float dg[2] = {E.dg[er0], E.dg[er1]};
+#pragma unroll
+      for (int t = 0; t < NTM; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = h ? er1 : er0, j = jc + 8 * t;
+          float y[2], d[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float t3 = dense_pre<true>(acc[t][2 * h + u], sB3[j + u]);
+            const float s3 = sig_bf16(t3);
+            y[u] = silu_s(t3, s3);
+            gsum[h] = __fadd_rn(gsum[h], __fmul_rn(y[u], sW4[j + u]));
+            const float d_y2 = round_bf16(__fmul_rn(dg[h], sW4[j + u]));
+            d[u] = round_bf16(__fmul_rn(d_y2, dsilu_s(t3, s3)));
+          }
+          st2(tY2 + e * LDS + j, y[0], y[1]);
+          st2(tD3 + e * LDS + j, d[0], d[1]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        gsum[h] += __shfl_xor_sync(0xffffffffu, gsum[h], 1);
+        gsum[h] += __shfl_xor_sync(0xffffffffu, gsum[h], 2);
+      }
+      if ((lane & 3) == 0) {
+        sGp[half * TE + er0] = gsum[0];
+        sGp[half * TE + er1] = gsum[1];
+      }
+    }
+    __syncthreads();
+
+    // ---- dw3 += ef^T d_t3; d_ef = g_ef[row] + d_t3 w3^T;
+    //      d_t2 = d_ef silu'(t2) in place of t2
+    warp_mm<LDS, LDS, NTW, true, true>(tEF, tD3, wm0, wn0, wk * L::KPW, L::KPW,
+                                  acc_dw3);
+    {
+      float acc[NTM][4] = {};
+      warp_mm<LDS, LDS, NTM, false, false>(tD3, sW3, m0, n0, 0, H / 16, acc);
+      const int rows[2] = {E.row[er0], E.row[er1]};
+#pragma unroll
+      for (int t = 0; t < NTM; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = h ? er1 : er0, i = jc + 8 * t;
+          const float2 up =
+              rows[h] >= 0
+                  ? *reinterpret_cast<const float2*>(gp + (size_t)rows[h] * F +
+                                                     8 + i)
+                  : make_float2(0.f, 0.f);
+          const float2 t2 = ld2(tT2 + e * LDS + i);
+          const float2 s2 = ld2(tS2 + e * LDS + i);
+          const float d0 = round_bf16(round_bf16(up.x) +
+                                      round_bf16(acc[t][2 * h]));
+          const float d1 = round_bf16(round_bf16(up.y) +
+                                      round_bf16(acc[t][2 * h + 1]));
+          st2(tT2 + e * LDS + i, __fmul_rn(d0, dsilu_s(t2.x, s2.x)),
+              __fmul_rn(d1, dsilu_s(t2.y, s2.y)));
+        }
+    }
+    __syncthreads();
+
+    // ---- dw2 += y1^T d_t2; d_t1 = (d_t2 w2^T) silu'(t1) in place of t1;
+    //      the partial sums of d_radial = d_t1 . ws[0]
+    warp_mm<LDS, LDS, NTW, true, true>(tY1, tT2, wm0, wn0, wk * L::KPW, L::KPW,
+                                  acc_dw2);
+    {
+      float acc[NTM][4] = {};
+      warp_mm<LDS, LDS, NTM, false, false>(tT2, sW2, m0, n0, 0, H / 16, acc);
+      float rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < NTM; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = h ? er1 : er0, i = jc + 8 * t;
+          const float2 t1 = ld2(tT1 + e * L::LDP + i);
+          const float2 s1 = ld2(tS1 + e * LDS + i);
+          const float d0 = round_bf16(
+              __fmul_rn(round_bf16(acc[t][2 * h]), dsilu_s(t1.x, s1.x)));
+          const float d1 = round_bf16(
+              __fmul_rn(round_bf16(acc[t][2 * h + 1]), dsilu_s(t1.y, s1.y)));
+          rsum[h] = fmaf(d1, sWs[i + 1], fmaf(d0, sWs[i], rsum[h]));
+          st2(tT1 + e * L::LDP + i, d0, d1);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+        rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+      }
+      if ((lane & 3) == 0) {
+        sRp[half * TE + er0] = rsum[0];
+        sRp[half * TE + er1] = rsum[1];
+      }
+    }
+    __syncthreads();
+
+    // ---- per edge: g, d_radial, d_cd; whether the edge starts a row
+    //      segment (its row differs from the previous active edge's)
+    if (tid < TE) {
+      float dcd[3] = {0.f, 0.f, 0.f};
+      const int row = E.row[tid];
+      const unsigned long long act =
+          ((unsigned long long)E.act[1] << 32) | E.act[0];
+      const unsigned long long below = act & ((1ull << tid) - 1ull);
+      const int prev = below ? 63 - __clzll((long long)below) : -1;
+      const unsigned sm = __ballot_sync(
+          0xffffffffu, row >= 0 && (prev < 0 || E.row[prev] != row));
+      if (lane == 0) sStart[warp] = sm;
+      if (row >= 0) {
+        const float g = sGp[tid] + sGp[TE + tid];
+        const float d_radial = round_bf16(sRp[tid] + sRp[TE + tid]);
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          dcd[k] = __fadd_rn(
+              __fmul_rn(__fmul_rn(2.0f, E.cd[3 * tid + k]), d_radial),
+              __fmul_rn(E.dt[3 * tid + k], g));
+      }
+      // the payload's first 8 lanes: [hi(d_cd), lo(d_cd), 0, 0]
+      float hl[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        hl[k] = round_bf16(dcd[k]);
+        hl[3 + k] = round_bf16(dcd[k] - hl[k]);
+      }
+      uint4 ph;
+      __nv_bfloat162* qh = reinterpret_cast<__nv_bfloat162*>(&ph);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        qh[q] = __floats2bfloat162_rn(hl[2 * q], hl[2 * q + 1]);
+      *reinterpret_cast<uint4*>(tP + tid * L::LDP) = ph;
+    }
+    __syncthreads();
+
+    // ---- warps 0-1 stage the next tile (its global loads overlap the rest
+    //      of this one)
+    if (tid < TE)
+      tc_stage_edges<H>(next, sHr, sHc, tile + gridDim.x, row_t, col_l, kblk,
+                        scal, x, hr, hc, gp, n_edges, T, epb, smax);
+
+    // ---- the column sums of the tile: db1, dws, db2, db3, dw4
+#pragma unroll 4
+    for (int m = 0; m < EPG; ++m) {
+      const int el = cg + G * m;
+      const int o = el * LDS + cj;
+      const float d1 = __bfloat162float(tT1[el * L::LDP + cj]);
+      a_db1 += d1;
+      a_dws0 = fmaf(E.sf[3 * el + 0], d1, a_dws0);
+      a_dws1 = fmaf(E.sf[3 * el + 1], d1, a_dws1);
+      a_dws2 = fmaf(E.sf[3 * el + 2], d1, a_dws2);
+      a_db2 += __bfloat162float(tT2[o]);
+      a_db3 += __bfloat162float(tD3[o]);
+      a_dw4 = fmaf(__bfloat162float(tY2[o]), E.dg[el], a_dw4);
+    }
+
+    // ---- row side: the payload [hi(d_cd), lo(d_cd), 0, 0, d_t1] summed
+    //      by row segment as a tensor-core product, onehot[segment, edge]
+    //      (exact 0/1, inactive edges 0) x payload[edge, F], 16 segments
+    //      at a time, f32 accumulation; one f32 atomic per (segment,
+    //      column), as the FMA kernel's walk adds one per segment end
+    {
+      const unsigned long long starts =
+          ((unsigned long long)sStart[1] << 32) | sStart[0];
+      const int nseg = __popcll(starts);
+      __nv_bfloat16* oh = tY1;   // [16, LDO], y1 is dead
+      for (int s0 = 0; s0 < nseg; s0 += 16) {
+        for (int i = tid; i < 16 * TE; i += THREADS) {
+          const int sg = i / TE, el = i % TE;
+          // the segment of edge el: the starts at or before it, less one
+          const int seg = __popcll(starts & (~0ull >> (63 - el))) - 1;
+          const bool on = E.row[el] >= 0 && seg == s0 + sg;
+          oh[sg * L::LDO + el] = __float2bfloat16_rn(on ? 1.f : 0.f);
+        }
+        if (s0 == 0 && tid < TE && ((starts >> tid) & 1ull))
+          sSegRow[__popcll(starts & (~0ull >> (63 - tid))) - 1] = E.row[tid];
+        __syncthreads();
+        for (int nt = warp; nt < F / 8; nt += THREADS / 32) {
+          float acc[1][4] = {};
+          warp_mm<L::LDO, L::LDP, 1, false, true>(oh, tP, 0, 8 * nt, 0,
+                                                  TE / 16, acc);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int seg = s0 + (lane >> 2) + 8 * (q >> 1);
+            const int c = 8 * nt + 2 * (lane & 3) + (q & 1);
+            if (seg < nseg && c != 6 && c != 7)
+              atomicAdd(&out_row[(size_t)sSegRow[seg] * F + c], acc[0][q]);
+          }
+        }
+        __syncthreads();   // the one-hot is rewritten for the next 16
+      }
+    }
+
+    // ---- column side: [hi(-d_cd), lo(-d_cd), 0, 0, d_t1] at col, one
+    //      float4 atomic per 4 lanes (order-dependent f32 sums)
+    for (int i = tid; i < TE * Q4; i += THREADS) {
+      const int el = i / Q4, q = i % Q4;
+      if (E.row[el] < 0) continue;
+      const __nv_bfloat16* p = tP + el * L::LDP + 4 * q;
+      const float2 a = ld2(p), b = ld2(p + 2);
+      // lanes 0-5 are the row side's hi / lo negated, 6-7 zero
+      const float4 v = q == 0   ? make_float4(-a.x, -a.y, -b.x, -b.y)
+                       : q == 1 ? make_float4(-a.x, -a.y, 0.f, 0.f)
+                                : make_float4(a.x, a.y, b.x, b.y);
+      red_add4(out_col + (size_t)E.col[el] * F + 4 * q, v);
+    }
+    cp_async_wait_all();   // the next tile's rows have landed
+  }
+
+  // ---- this block's weight-gradient partial: the k slices' fragments
+  //      summed in slice order, then the column accumulators over groups
+  __syncthreads();  // the tile buffers are free
+  float* red = reinterpret_cast<float*>(tP);    // [2, KSPLIT, H, H]
+  float* redc = red + 2 * L::KSPLIT * H * H;    // [7, G, H]
+#pragma unroll
+  for (int t = 0; t < NTW; ++t)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = wm0 + (lane >> 2) + 8 * (c >> 1);
+      const int j = wn0 + 8 * t + 2 * (lane & 3) + (c & 1);
+      red[(0 * L::KSPLIT + wk) * H * H + i * H + j] = acc_dw2[t][c];
+      red[(1 * L::KSPLIT + wk) * H * H + i * H + j] = acc_dw3[t][c];
+    }
+  const float vals[7] = {a_dws0, a_dws1, a_dws2, a_db1, a_db2, a_db3, a_dw4};
+#pragma unroll
+  for (int q = 0; q < 7; ++q) redc[(q * G + cg) * H + cj] = vals[q];
+  __syncthreads();
+  float* pb = part + (size_t)blockIdx.x * W::total;
+  for (int i = tid; i < H * H; i += THREADS) {
+    float s2 = 0.f, s3 = 0.f;
+    for (int k = 0; k < L::KSPLIT; ++k) {
+      s2 += red[(0 * L::KSPLIT + k) * H * H + i];
+      s3 += red[(1 * L::KSPLIT + k) * H * H + i];
+    }
+    pb[W::dw2 + i] = s2;
+    pb[W::dw3 + i] = s3;
+  }
+  if (tid < H) {
+    const int off[7] = {W::dws, W::dws + H, W::dws + 2 * H, W::db1,
+                        W::db2, W::db3,     W::dw4};
+#pragma unroll
+    for (int q = 0; q < 7; ++q) {
+      float s = 0.f;
+      for (int g = 0; g < G; ++g) s += redc[(q * G + g) * H + tid];
+      pb[off[q] + tid] = s;
+    }
+  }
+}
+
 // out[k] = sum over the n_blocks partials of part[b, k], in block order
 __global__ void reduce_partials(const float* __restrict__ part,
                                 float* __restrict__ out, int n_blocks,
@@ -487,6 +1239,83 @@ __global__ void reduce_partials(const float* __restrict__ part,
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += part[(size_t)b * total + k];
   out[k] = s;
+}
+
+// The kernel a launch of (H, bf16) runs, its dynamic shared memory and how
+// many of its blocks an SM holds (0: the launch would be refused). bf16 runs
+// the tensor-core kernel, f32 the FMA kernel (tensor cores would round f32
+// operands to TF32).
+template <bool BF16>
+using BwdKernel = void (*)(const int*, const int*, const int*, const float*,
+                           const float*,
+                           const std::conditional_t<BF16, __nv_bfloat16,
+                                                    float>*,
+                           const std::conditional_t<BF16, __nv_bfloat16,
+                                                    float>*,
+                           const float*, const float*, const float*,
+                           const float*, const float*, const float*,
+                           const float*, const float*, float*, float*, float*,
+                           int, int, int);
+
+template <bool BF16>
+struct Pick {
+  BwdKernel<BF16> kern;
+  size_t smem;
+  int per_sm;
+};
+
+template <int H, bool BF16>
+cudaError_t pick_uncached(Pick<BF16>& p) {
+  if constexpr (BF16) {
+    p.kern = fused_edge_bwd_tc_kernel<H>;
+    p.smem = TcLayout<H>::kBytes;
+  } else {
+    p.kern = fused_edge_bwd_kernel<H>;
+    p.smem = smem_bytes<H>();
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      p.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return err;
+  p.per_sm = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, p.kern,
+                                                       THREADS, p.smem);
+}
+
+// pick_uncached once per device: the attribute and the occupancy query cost
+// host time per launch
+template <int H, bool BF16>
+cudaError_t pick(Pick<BF16>& p) {
+  constexpr int kDevices = 64;
+  static Pick<BF16> cache[kDevices];
+  static bool ready[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kDevices) return pick_uncached<H, BF16>(p);
+  if (!ready[dev]) {
+    err = pick_uncached<H, BF16>(cache[dev]);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  p = cache[dev];
+  return cudaSuccess;
+}
+
+// persistent blocks: every resident block, at most one per tile
+inline int grid_of(int per_sm, int n_sm, int n_edges) {
+  const int n_tiles = (n_edges + TE - 1) / TE;
+  const int grid = per_sm * n_sm;
+  return grid < n_tiles ? grid : n_tiles;
+}
+
+template <int H, bool BF16>
+cudaError_t grid_for(int n_sm, int n_edges, int* grid) {
+  Pick<BF16> p;
+  cudaError_t err = pick<H, BF16>(p);
+  if (err != cudaSuccess) return err;
+  if (p.per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = grid_of(p.per_sm, n_sm, n_edges);
+  return cudaSuccess;
 }
 
 template <int H, bool BF16>
@@ -499,21 +1328,15 @@ cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
                    int n_nodes, int n_edges, int block, int n_sm,
                    int max_grid, cudaStream_t stream) {
   using Act = std::conditional_t<BF16, __nv_bfloat16, float>;
-  constexpr size_t smem = smem_bytes<H>();
-  auto kern = fused_edge_bwd_kernel<H, BF16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  Pick<BF16> p;
+  cudaError_t err = pick<H, BF16>(p);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (n_edges + TE - 1) / TE;
-  int grid = (per_sm > 0 ? per_sm : 1) * n_sm;
-  if (grid > n_tiles) grid = n_tiles;
-  if (grid > max_grid) grid = max_grid;
+  if (p.per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = grid_of(p.per_sm, n_sm, n_edges);
+  // part holds max_grid partials (fused_edge_bwd_grid sizes it)
+  if (grid > max_grid) return cudaErrorInvalidValue;
   if (grid >= 1) {
-    kern<<<grid, THREADS, smem, stream>>>(
+    p.kern<<<grid, THREADS, p.smem, stream>>>(
         static_cast<const int*>(row_t), static_cast<const int*>(col_l),
         static_cast<const int*>(kblk), static_cast<const float*>(scal),
         static_cast<const float*>(x), static_cast<const Act*>(hr),
@@ -536,10 +1359,31 @@ cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
 
 }  // namespace
 
+// The grid a launch of (H, bf16) over n_edges edge slots on n_sm SMs uses,
+// into *grid: the wrapper sizes the weight-gradient partials with it.
+// Returns the cudaError_t of the occupancy query; cudaErrorInvalidConfiguration
+// when no block of the kernel fits on an SM.
+extern "C" int fused_edge_bwd_grid(int H, int bf16, int n_sm, int n_edges,
+                                   int* grid) {
+  switch (H) {
+    case 16:
+      return bf16 ? (int)grid_for<16, true>(n_sm, n_edges, grid)
+                  : (int)grid_for<16, false>(n_sm, n_edges, grid);
+    case 32:
+      return bf16 ? (int)grid_for<32, true>(n_sm, n_edges, grid)
+                  : (int)grid_for<32, false>(n_sm, n_edges, grid);
+    case 64:
+      return bf16 ? (int)grid_for<64, true>(n_sm, n_edges, grid)
+                  : (int)grid_for<64, false>(n_sm, n_edges, grid);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 // Returns the cudaError_t of the launches (0 = success). gp [N, H+8] f32 is
 // the packed cotangent; out_row/out_col [N, H+8] f32 must be zeroed by the
-// caller; part is scratch for max_grid weight-gradient partials of
-// 7H + 2H^2 floats each; dw [7H + 2H^2] f32 receives the reduced weight
+// caller; part is scratch for max_grid >= fused_edge_bwd_grid's
+// weight-gradient partials of 7H + 2H^2 floats each; dw [7H + 2H^2] f32 receives the reduced weight
 // gradients. hr/hc are f32 (bf16 == 0) or bf16 (bf16 == 1).
 extern "C" int fused_edge_bwd(const void* row_t, const void* col_l,
                               const void* kblk, const void* scal,

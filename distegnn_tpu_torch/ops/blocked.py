@@ -290,7 +290,11 @@ def _kernel_args(x: torch.Tensor, slot: torch.Tensor, E: int, what: str):
     if x.shape[0] > 65535 or x.shape[-1] > 65535 * 32:
         raise ValueError(f"{what}: B <= 65535 and F <= {65535 * 32}, got "
                          f"{tuple(x.shape)}")
-    return x.contiguous(), slot.to(torch.int32).contiguous()
+    # .to() costs host time even when it has nothing to do: these wrappers
+    # run dozens of times a rollout step
+    if slot.dtype != torch.int32:
+        slot = slot.to(torch.int32)
+    return x.contiguous(), slot.contiguous()
 
 
 def _seg_sum_cuda(data: torch.Tensor, slot: torch.Tensor, num_segments: int,
@@ -318,8 +322,9 @@ def _seg_sum_cuda(data: torch.Tensor, slot: torch.Tensor, num_segments: int,
 
 def _gather_cuda(h: torch.Tensor, slot: torch.Tensor, block: int,
                  tile: int) -> torch.Tensor:
-    """Launch ``csrc/blocked_onehot.cu`` ``blocked_gather`` once for the
-    batch; counted once."""
+    """Launch ``csrc/blocked_onehot.cu`` ``blocked_gather`` (or, for rows
+    of at most 16 bytes, ``blocked_gather_rows``) once for the batch;
+    counted once."""
     B, N, F = h.shape
     E = slot.shape[-1]
     nb, _ = _layout(E, N, block, tile)
@@ -329,11 +334,13 @@ def _gather_cuda(h: torch.Tensor, slot: torch.Tensor, block: int,
     h, slot = _kernel_args(h, slot, E, "blocked_gather")
     out = torch.empty((B, E, F), dtype=h.dtype, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    err = _lib_fn("blocked_gather")(h.data_ptr(), slot.data_ptr(),
-                                    out.data_ptr(), B, nb, E // nb, F, block,
-                                    h.element_size(), stream)
+    # rows of at most 16 bytes take the one-thread-per-row form
+    name = ("blocked_gather_rows" if F * h.element_size() <= 16
+            else "blocked_gather")
+    err = _lib_fn(name)(h.data_ptr(), slot.data_ptr(), out.data_ptr(), B, nb,
+                        E // nb, F, block, h.element_size(), stream)
     if err != 0:
-        raise RuntimeError(f"blocked_gather launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     blocked_gather.launches += 1
     blocked_gather.launch_widths[
         (F, "bf16" if h.dtype == torch.bfloat16 else "f32")] += 1

@@ -339,6 +339,17 @@ def _lib_fn(name: str, n_ptr: int, n_int: int):
     return fn
 
 
+def _grid_fn():
+    from distegnn_tpu_torch.ops.build import LIBRARIES
+
+    fn = LIBRARIES.get("fused_edge_bwd").fused_edge_bwd_grid
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
@@ -368,8 +379,9 @@ def _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights: EdgeWeights,
     dt = _DTYPES[dtype_name]
     f32, i32 = torch.float32, torch.int32
     # the kernels read the activations in the compute dtype, as the TPU
-    # kernels' packed [hr || hc] array
-    hr, hc = hr.to(dt).contiguous(), hc.to(dt).contiguous()
+    # kernels' packed [hr || hc] array, in 16-byte vectors
+    hr, hc = (a if a.data_ptr() % 16 == 0 else a.clone()
+              for a in (hr.to(dt).contiguous(), hc.to(dt).contiguous()))
     w = weights
     flat = [w.ws.contiguous()] + [a.reshape(-1).contiguous() if a.shape[0] == 1
                                   else a.contiguous()
@@ -425,19 +437,25 @@ def _fused_edge_bwd_cuda(x, hr, hc, row_t, col_l, kblk, scal,
     g_pack = torch.cat([g_trans.to(f32),
                         torch.zeros((n_nodes, XL - 3), dtype=f32, device=dev),
                         g_ef.to(f32)], dim=1).contiguous()     # [N, H+8]
-    drow = torch.zeros((n_nodes, H + 8), dtype=f32, device=dev)
-    dcol = torch.zeros_like(drow)
+    drow, dcol = torch.zeros((2, n_nodes, H + 8), dtype=f32, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    max_grid = 2 * n_sm            # the kernel's residency: 2 blocks per SM
+    bf16 = int(dtype_name == "bf16")
+    # the persistent grid the launch will use (every resident block), so
+    # that part holds one partial per block
+    grid = ctypes.c_int(0)
+    err = _grid_fn()(H, bf16, n_sm, E, ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"fused_edge_bwd: no launch of H={H} "
+                           f"{dtype_name} fits an SM: CUDA error {err}")
+    max_grid = max(grid.value, 1)
     n_w = 7 * H + 2 * H * H        # one weight-gradient vector
-    part = torch.empty((max_grid, n_w), dtype=f32, device=dev)
-    dw = torch.empty((n_w,), dtype=f32, device=dev)
+    scratch = torch.empty(((max_grid + 1) * n_w,), dtype=f32, device=dev)
+    part, dw = scratch[:max_grid * n_w], scratch[max_grid * n_w:]
     fn = _lib_fn("fused_edge_bwd", 19, 7)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*(a.data_ptr() for a in args), g_pack.data_ptr(),
              drow.data_ptr(), dcol.data_ptr(), part.data_ptr(), dw.data_ptr(),
-             n_nodes, E, block, H, int(dtype_name == "bf16"), n_sm, max_grid,
-             stream)
+             n_nodes, E, block, H, bf16, n_sm, max_grid, stream)
     if err != 0:
         raise RuntimeError(f"fused_edge_bwd launch failed: CUDA error {err}")
     fused_edge_layer.bwd_launches += 1

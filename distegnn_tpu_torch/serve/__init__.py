@@ -44,12 +44,13 @@ def engine_with_params_from_config(cfg, device=None,
                                    checkpoint: Optional[str] = None):
     """The deterministic model + engine recipe: parameters drawn from a
     ``torch.Generator`` seeded with ``cfg.seed``, then an optional
-    checkpoint (a ``state_dict`` file written with ``torch.save``, e.g. of
-    ``convert.params_from_jax``). ``checkpoint`` overrides
+    checkpoint, a trainer checkpoint or a bare ``state_dict`` file (see
+    ``train.checkpoint.load_params``). ``checkpoint`` overrides
     ``cfg.model.checkpoint``. ``device`` defaults to CUDA and raises when no
     card is available; pass ``device="cpu"`` for the plain path.
     Returns ``(model, engine)``."""
     from distegnn_tpu_torch.models.registry import get_model
+    from distegnn_tpu_torch.train.checkpoint import load_params
 
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(cfg.get("seed", 0) or 0))
@@ -57,7 +58,6 @@ def engine_with_params_from_config(cfg, device=None,
     ckpt = checkpoint if checkpoint is not None else cfg.model.get(
         "checkpoint")
     if ckpt:
-        model.load_state_dict(torch.load(str(ckpt), map_location="cpu",
-                                         weights_only=True))
+        load_params(str(ckpt), model)
     engine = engine_from_config(cfg, model, dev)
     return model, engine

@@ -1,5 +1,7 @@
 """Durable checkpoint save/restore (port of the save/restore contract of
-``distegnn_tpu/train/checkpoint.py``).
+``distegnn_tpu/train/checkpoint.py``): :func:`restore_checkpoint` resumes a
+run (model and optimizer), :func:`restore_params` loads only the model's
+parameters for evaluation and serving.
 
 A checkpoint holds {epoch, model state_dict, optimizer state, step,
 step_in_epoch, seed, losses, config}, serialised with ``torch.save`` (plain
@@ -152,3 +154,60 @@ def restore_checkpoint(path: str, state) -> Tuple[object, int, dict]:
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"]), payload.get("losses") or {}
+
+
+def _with_config_hint(payload: dict, e: Exception) -> ValueError:
+    saved_cfg = payload.get("config") or {}
+    model_cfg = saved_cfg.get("model") if isinstance(saved_cfg, dict) else None
+    hint = (f"; the checkpoint was written with model config {model_cfg}"
+            if model_cfg else "")
+    return ValueError(f"{e}{hint}")
+
+
+def _check_fits(model: torch.nn.Module, sd: dict) -> None:
+    """Raise ValueError, before any parameter is touched, unless ``sd`` has
+    exactly the model's keys and shapes."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    shapes = sorted(k for k in set(own) & set(sd)
+                    if tuple(own[k].shape) != tuple(sd[k].shape))
+    if missing or unexpected or shapes:
+        raise ValueError(
+            f"the checkpoint's parameters do not fit the model: missing "
+            f"{missing}, unexpected {unexpected}, other shapes {shapes}")
+
+
+def restore_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Params-only restore for evaluation and serving (the JAX package's
+    ``restore_params``): verify the file, then load its ``model`` state
+    into ``model``, ignoring the saved optimizer state. A corrupted file
+    raises :class:`CheckpointCorruptError`; a checkpoint of another
+    architecture raises ValueError naming the model config it was written
+    with. Either way ``model`` is left as it was. Returns ``model``."""
+    payload = verify_checkpoint(path)
+    try:
+        _check_fits(model, payload["model"])
+    except ValueError as e:
+        raise _with_config_hint(payload, e) from None
+    model.load_state_dict(payload["model"])
+    return model
+
+
+def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a checkpoint's parameters into ``model`` for serving, told
+    apart by the file's content: a trainer checkpoint (the payload of
+    :func:`save_checkpoint`) through :func:`restore_params`, which verifies
+    it first; a bare ``state_dict`` (e.g. of ``convert.params_from_jax``,
+    written with ``torch.save``) as it is. A file that does not load at all
+    is read as a damaged trainer checkpoint: :class:`CheckpointCorruptError`.
+    Returns ``model``."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except _LOAD_ERRORS:
+        obj = None
+    if obj is None or (isinstance(obj, dict)
+                       and all(k in obj for k in _REQUIRED_KEYS)):
+        return restore_params(path, model)
+    model.load_state_dict(obj)
+    return model

@@ -121,6 +121,59 @@ def test_fused_edge_bwd_kernel_matches_plain_version_on_card(dtype_name):
         assert float((a - b).abs().max()) <= 2 ** -7 * scale
 
 
+def _bwd_case(Hn, seed):
+    """A blocked graph at hidden width Hn for the bf16 backward kernel:
+    block 0's first 100 edges share one receiver (whole tiles of a single
+    row segment), each block's slice ends in padding (a ragged tile, then
+    fully inactive tiles) and the last block has no edges at all; bf16
+    hr / hc, f32 weights and cotangents."""
+    rng = np.random.default_rng(seed)
+    row, col, ea, em, n = _blocked_graph(rng, nb=5, fill=0.55)
+    row[:100] = row[0]
+    x = rng.uniform(0, 1, size=(n, 3)).astype(np.float32)
+    hr = (rng.normal(size=(n, Hn)) * 0.5).astype(np.float32)
+    hc = (rng.normal(size=(n, Hn)) * 0.5).astype(np.float32)
+    s = 0.3 / np.sqrt(Hn)
+    w = [(rng.normal(size=shape) * s).astype(np.float32)
+         for shape in ((3, Hn), (1, Hn), (Hn, Hn), (1, Hn), (Hn, Hn),
+                       (1, Hn), (1, Hn))]
+    gt = rng.normal(size=(n, 3)).astype(np.float32)
+    ge = rng.normal(size=(n, Hn)).astype(np.float32)
+    return row, col, ea, em, n, x, hr, hc, w, gt, ge
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hn", [16, 32, 64])
+def test_fused_edge_bwd_tensor_core_kernel_on_card(Hn):
+    """The bf16 backward (the tensor-core kernel) against
+    fused_edge_layer_bwd_ref at every width the wrapper takes, over a ragged
+    last tile, fully inactive tiles and tiles of one receiver: all ten
+    outputs within 2^-7 of their scale (the bf16 bound above), one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    row, col, ea, em, n, x, hr, hc, w, gt, ge = _bwd_case(Hn, 40 + Hn)
+    dev = torch.device("cuda")
+    pa = [a.to(dev) for a in P.build_edge_blocks(*_t(row, col, ea, em),
+                                                  block=T, n_nodes=n)]
+    scal = pa[3]
+    tiles = scal[:, 2].reshape(-1, 64) > 0
+    assert (~tiles.any(1)).any() and (tiles.any(1) & ~tiles.all(1)).any()
+    xd, hrd, hcd, gtd, ged = (a.to(dev) for a in _t(x, hr, hc, gt, ge))
+    hrd, hcd = hrd.to(torch.bfloat16), hcd.to(torch.bfloat16)
+    wt = P.EdgeWeights(*[a.to(dev) for a in _t(*w)])
+    args = (xd, hrd, hcd, *pa, wt, gtd, ged, T, "bf16")
+    before = P.fused_edge_layer.bwd_launches
+    out = P._fused_edge_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert P.fused_edge_layer.bwd_launches == before + 1
+    ref = P.fused_edge_layer_bwd_ref(*args)
+    for a, b in zip((*out[:3], *out[3]), (*ref[:3], *ref[3])):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert float((a - b).abs().max()) <= 2 ** -7 * scale
+
+
 # ------------------------------------------------------------ prefix scan
 
 def _scan_f64(x, reverse):
@@ -495,6 +548,44 @@ def test_blocked_gather_misaligned_view_on_card(dtype, offset):
     out = BL._gather_cuda(h, slot, block, 512)
     torch.cuda.synchronize()
     assert torch.equal(out, BL.blocked_gather_ref(h, slot, block, 512))
+
+
+# rows of at most 16 bytes (the one-thread-per-row gather): 4, 8, 12, 16
+# bytes in f32 and 2, 4, 6, 8, 12, 16 in bf16
+NARROW_ROWS = ([(torch.float32, F) for F in (1, 2, 3, 4)]
+               + [(torch.bfloat16, F) for F in (1, 2, 3, 4, 6, 8)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype, F", NARROW_ROWS)
+def test_blocked_gather_narrow_rows_on_card(dtype, F, offset):
+    """Narrow rows, a batch of 4 with an all-sentinel block, h aligned or a
+    view that starts one element into its storage (mid-row): a bit copy,
+    equal to the plain version, zero at every sentinel, one launch."""
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(100 * F + offset)
+    B, nb, epb, block = 4, 3, 1536, 256
+    slot = blocked_slots(rng, B, nb, epb, block, shuffle=True).to(dev)
+    assert (slot[0, (nb - 1) * epb:] == block).all()
+    size = B * nb * block * F
+    flat = torch.from_numpy(rng.normal(size=size + 8).astype(
+        np.float32)).to(dev).to(dtype)
+    h = flat[offset:offset + size].view(B, nb * block, F)
+    assert h.is_contiguous() and (h.data_ptr() % 16 == 0) == (offset == 0)
+    before = BL.blocked_gather.launches
+    out = BL._gather_cuda(h, slot, block, 512)
+    torch.cuda.synchronize()
+    assert BL.blocked_gather.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, nb * epb, F)
+    assert torch.equal(out, BL.blocked_gather_ref(h, slot, block, 512))
+    sentinel = slot == block
+    assert (out[sentinel] == 0).all()
+    assert not torch.signbit(out[sentinel].float()).any()
 
 
 @pytest.mark.cuda
