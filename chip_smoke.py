@@ -13,7 +13,8 @@ or of the JAX package. Phases (any failure exits nonzero):
      nvcc (sm_90a), one nvcc per source, all started together.
   2. hold the forward kernel against its plain PyTorch version on the card
      (N=8192 = 16 blocks of 512, H=64, a Morton-ordered radius graph of mean
-     degree ~20), in f32 and bf16.
+     degree ~20), in f32 and bf16: bf16 at H=64 runs the tensor-core
+     kernel (fused_edge_layer.tc_launches counts it), f32 the FMA kernel.
   2b. the same for the backward kernel, with random cotangents: all ten
      outputs (d_x, d_hr, d_hc and the seven weight gradients).
   2d. the fused-stack megakernel (csrc/fused_stack_fwd.cu) against its
@@ -33,7 +34,8 @@ or of the JAX package. Phases (any failure exits nonzero):
      max_batch 4, random weights from the config's seed); answer four
      Morton-ordered scenes of ~1500/3000/6000/10000 nodes with every launch
      count set to 0 just before and read just after; check finiteness, the
-     exact launch count, equivariance under a random rotation + translation,
+     exact launch count (none on the tensor-core forward: f32 serving runs
+     the FMA kernel), equivariance under a random rotation + translation,
      and agreement with the same model run through the plain version.
   3b. serve configs/nbody_serve.yaml as published (edge_impl plain,
      segment_impl scatter: no kernel), then with model.segment_impl=cumsum
@@ -58,9 +60,10 @@ or of the JAX package. Phases (any failure exits nonzero):
      nodes, 2 epochs; both launch counts set to 0 just before and checked
      exactly just after; finite losses, parameters moved; both kernels held
      against their plain versions at the train batch's shape and dtype (all
-     3 forward and 10 backward outputs) and timed there; then the first
-     optimizer update again with the kernels and with their plain versions
-     (losses, gradient norm, and each parameter's gradient must agree),
+     3 forward and 10 backward outputs) and timed there (the forward on
+     the tensor-core kernel, as every bf16 forward of the run); then the
+     first optimizer update again with the kernels and with their plain
+     versions (losses, gradient norm, and each parameter's gradient must agree),
      micro-step ms, nodes/s and peak device memory.
   6. train the plain path: the same run with only
      data.accelerate_mode=cutoff_edges and model.segment_impl=cumsum on the
@@ -95,7 +98,8 @@ or of the JAX package. Phases (any failure exits nonzero):
      main.run over 4 train + 1 valid + 1 test synthetic fluid clouds of
      1536 nodes at phase 5's density, 2 epochs; exact launches (per
      micro-step 1 stack + L fused_edge_fwd + L fused_edge_bwd, 1 stack per
-     eval forward); finite losses, parameters moved; the three kernels at
+     eval forward; every fused_edge_fwd on the tensor-core kernel); finite
+     losses, parameters moved; the three kernels at
      the train batch's shape; the first optimizer update again through the
      plain stack and with edge_impl=fused, at phase 5's bounds; micro-step
      ms, nodes/s and peak device memory.
@@ -409,8 +413,14 @@ def edge_kernel_phase(model, dev):
             hr = (h.to(dt) @ p.w1[:H].to(dt)).contiguous()
             hc = (h.to(dt) @ p.w1[H:2 * H].to(dt)).contiguous()
             args = (x, hr, hc, *arrs, w, BLOCK, dname)
+            before = fwd_counts()
             out = ep.fused_edge_layer(*args)
             torch.cuda.synchronize()
+            # bf16 at H=64 runs the tensor-core kernel, f32 the FMA kernel
+            want = (before[0] + 1, before[1] + (dname == "bf16"))
+            check(fwd_counts() == want,
+                  f"kernel {dname}: (launches, tc_launches) "
+                  f"{fwd_counts()} != {want}")
             err = compare("kernel", dname, FWD_NAMES, out,
                           ep.fused_edge_layer_ref(*args))
             ms = cuda_ms(lambda: ep.fused_edge_layer(*args))
@@ -453,8 +463,12 @@ def edge_bwd_kernel_phase(model, dev):
             hr = (h.to(dt) @ p.w1[:H].to(dt)).contiguous()
             hc = (h.to(dt) @ p.w1[H:2 * H].to(dt)).contiguous()
             args = (x, hr, hc, *arrs, w, g_trans, g_ef, BLOCK, dname)
+            before = fwd_counts()
             out = ep._fused_edge_bwd_cuda(*args)
             torch.cuda.synchronize()
+            # the backward recomputes the forward inside its own kernel
+            check(fwd_counts() == before,
+                  f"bwd kernel {dname}: a forward launch was counted")
             err = compare("bwd kernel", dname, BWD_NAMES, bwd_outputs(out),
                           bwd_outputs(ep.fused_edge_layer_bwd_ref(*args)))
             ms = cuda_ms(lambda: ep._fused_edge_bwd_cuda(*args))
@@ -495,15 +509,19 @@ def serve_phase(cfg, model, eng, dev, scenes):
 
     # the main path: counts 0 just before, read just after
     ep.fused_edge_layer.launches = 0
+    ep.fused_edge_layer.tc_launches = 0
     t0 = time.perf_counter()
     outs = [eng.predict(g) for g in scenes]
     first_ms = (time.perf_counter() - t0) * 1e3 / len(scenes)
-    launches = ep.fused_edge_layer.launches
+    launches, tc = fwd_counts()
     want = cfg.model.n_layers * eng.max_batch * len(scenes)
     print(f"served {len(scenes)} requests: fused_edge_fwd launches="
           f"{launches} (expected {cfg.model.n_layers} layers x "
-          f"{eng.max_batch} graphs x {len(scenes)} requests = {want})")
+          f"{eng.max_batch} graphs x {len(scenes)} requests = {want}), "
+          f"{tc} of them on the tensor-core kernel (expected 0: f32 serving "
+          f"runs the FMA kernel)")
     check(launches == want, f"launch count {launches} != {want}")
+    check(tc == 0, f"f32 serving launched the tensor-core forward {tc} times")
     for g, o in zip(scenes, outs):
         check(o.shape == (g["loc"].shape[0], 3), f"bad output {o.shape}")
         check(np.isfinite(o).all(), "non-finite served output")
@@ -592,6 +610,13 @@ def fused_counts():
     from distegnn_tpu_torch.ops import edge_pipeline as ep
 
     return ep.fused_edge_layer.launches, ep.fused_edge_layer.bwd_launches
+
+
+def fwd_counts():
+    """The forward's launches and those of them on the tensor-core kernel."""
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+
+    return ep.fused_edge_layer.launches, ep.fused_edge_layer.tc_launches
 
 
 def fused_plain_patches():
@@ -729,7 +754,9 @@ def flagship_kernel_phase(model, batch, dev):
     dtype, with layer 0's weights, random node features and cotangents:
     each held against its plain version (all 3 forward and 10 backward
     outputs), then timed (CUDA events) beside its plain version and the
-    bound of that shape. Returns {kernel name: result}."""
+    bound of that shape. Returns {kernel name: result}; the forward's
+    ``kernel`` names the kernel that runs it (``fused_edge_fwd_tc`` on the
+    tensor cores, or ``fused_edge_fwd``)."""
     import torch
 
     from distegnn_tpu_torch.ops import edge_pipeline as ep
@@ -784,6 +811,9 @@ def flagship_kernel_phase(model, batch, dev):
                   f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} "
                   f"B, {flops} flop), {b_ms / ms:.4f} of bound; f32 FMA bound "
                   f"{f32_ms:.4f} ms, {f32_ms / ms:.3f} of it")
+    res["fused_edge_fwd"]["kernel"] = (
+        "fused_edge_fwd_tc" if ep.fwd_uses_tensor_cores(H, dname)
+        else "fused_edge_fwd")
     return res
 
 
@@ -943,18 +973,22 @@ def _train_phase(root, dev, clouds, log_dir, profile):
 
     def reset():
         ep.fused_edge_layer.launches = 0
+        ep.fused_edge_layer.tc_launches = 0
         ep.fused_edge_layer.bwd_launches = 0
 
     # the main path: counts 0 just before, read just after
-    init_sd, state, (fwd, bwd), micro, evals = drive_train(
-        cfg, ds, dev, reset, fused_counts, "")
+    init_sd, state, (fwd, bwd, tc), micro, evals = drive_train(
+        cfg, ds, dev, reset,
+        lambda: fused_counts() + (ep.fused_edge_layer.tc_launches,), "")
     L = m.n_layers
     want_fwd, want_bwd = L * micro * 2 + L * evals, L * micro
     print(f"fused_edge_fwd launches={fwd} (expected {L} layers x {micro} "
-          f"micro-steps x 2 (remat) + {L} x {evals} = {want_fwd}), "
-          f"fused_edge_bwd launches={bwd} (expected {L} x {micro} = "
-          f"{want_bwd})")
+          f"micro-steps x 2 (remat) + {L} x {evals} = {want_fwd}), {tc} of "
+          f"them on the tensor-core kernel (expected all: bf16 at H="
+          f"{m.hidden_nf}), fused_edge_bwd launches={bwd} (expected {L} x "
+          f"{micro} = {want_bwd})")
     check(fwd == want_fwd, f"fwd launch count {fwd} != {want_fwd}")
+    check(tc == fwd, f"tensor-core fwd launches {tc} != {fwd}")
     check(bwd == want_bwd, f"bwd launch count {bwd} != {want_bwd}")
 
     _, batches = host_batches(cfg, ds, dev, "")
@@ -1334,6 +1368,7 @@ def reset_stack_counts():
 
     lp.fused_egnn_stack.launches = 0
     ep.fused_edge_layer.launches = 0
+    ep.fused_edge_layer.tc_launches = 0
     ep.fused_edge_layer.bwd_launches = 0
 
 
@@ -1639,16 +1674,19 @@ def _stack_train_phase(root, dev, clouds, log_dir, profile):
     ds = fluid_datasets(clouds, d.node_order)
 
     # the main path: counts 0 just before, read just after
-    init_sd, state, (stack, fwd, bwd), micro, evals = drive_train(
-        cfg, ds, dev, reset_stack_counts, stack_counts, "stack ")
+    init_sd, state, (stack, fwd, bwd, tc), micro, evals = drive_train(
+        cfg, ds, dev, reset_stack_counts,
+        lambda: stack_counts() + (fwd_counts()[1],), "stack ")
     L = m.n_layers
     want = (micro + evals, L * micro, L * micro)
     print(f"stack train launches: fused_stack_fwd={stack}, fused_edge_fwd="
           f"{fwd}, fused_edge_bwd={bwd} (expected {want}: {micro} micro-steps "
           f"x (1 stack + {L} fwd + {L} bwd) + {evals} eval forwards x 1 "
-          f"stack)")
+          f"stack); {tc} of the fused_edge_fwd on the tensor-core kernel "
+          f"(expected all: bf16 at H={m.hidden_nf})")
     check((stack, fwd, bwd) == want,
           f"stack train: launches {(stack, fwd, bwd)} != {want}")
+    check(tc == fwd, f"stack train: tensor-core fwd launches {tc} != {fwd}")
 
     loader, batches = host_batches(cfg, ds, dev, "stack ")
     b0 = batches[0]
@@ -2411,7 +2449,8 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line or "error" in line):
                 print(f"  {name}: {line.strip()}")
 
     dev = torch.device(DEVICE)
@@ -2494,9 +2533,11 @@ def main():
     kernels = [
         row("fused_edge_fwd", "serve f32 N=8192", kres["f32"], fwd_tpu,
             launches),
-        row("fused_edge_fwd", f"train {flagship['fused_edge_fwd']['dtype']} "
+        row(flagship["fused_edge_fwd"]["kernel"],
+            f"train {flagship['fused_edge_fwd']['dtype']} "
             f"{flagship['fused_edge_fwd']['shape']}",
-            flagship["fused_edge_fwd"], fwd_tpu, train_fwd),
+            flagship["fused_edge_fwd"], fwd_tpu, train_fwd,
+            source="fused_edge_fwd"),
         row("fused_edge_bwd", f"train {flagship['fused_edge_bwd']['dtype']} "
             f"{flagship['fused_edge_bwd']['shape']}",
             flagship["fused_edge_bwd"],
@@ -2507,8 +2548,9 @@ def main():
     ef, eb = stack["edge_rows"]["fused_edge_fwd"], \
         stack["edge_rows"]["fused_edge_bwd"]
     kernels += [
-        row("fused_edge_fwd", f"stack train backward {ef['dtype']} "
-            f"{ef['shape']}", ef, fwd_tpu, stack["launches"][1]),
+        row(ef["kernel"], f"stack train backward {ef['dtype']} "
+            f"{ef['shape']}", ef, fwd_tpu, stack["launches"][1],
+            source="fused_edge_fwd"),
         row("fused_edge_bwd", f"stack train backward {eb['dtype']} "
             f"{eb['shape']}", eb, "distegnn_tpu/ops/edge_pipeline.py:314",
             stack["launches"][2]),

@@ -6,13 +6,12 @@ command-line flags and its derived run name (pure Python, no jax).
 Sections the port does not read yet (obs, promote, ...) are carried through
 from the YAML unchanged. The keys that the JAX package acts on and the port
 does not port yet (``train.resume``, ``train.checkpoint_interval_s``,
-``train.scan_epochs``, ``train.divergence_retries`` /
-``divergence_lr_decay``, ``parallel.mesh``, ``log.wandb.enable``) must keep
+``train.scan_epochs``, ``parallel.mesh``, ``log.wandb.enable``) must keep
 their JAX defaults: any other value raises ``NotImplementedError`` naming the
 key and the ROADMAP item that will port it, rather than run another program
-without a word. At their defaults the port runs the JAX program, except that
-a non-finite epoch stops the run where the JAX package rolls it back
-(``divergence_retries: 2``; ROADMAP queue 1, item 3.1).
+without a word. At their defaults the port runs the JAX program.
+``train.divergence_retries`` / ``divergence_lr_decay`` are ported (the
+trainer's rollback) and take any value.
 """
 
 from __future__ import annotations
@@ -105,13 +104,14 @@ _DEFAULTS: dict = {
         "accumulation_steps": 1,
         "warmup_epochs": 0,
         "scheduler": "None",
+        # the divergence rollback (train/trainer.py)
+        "divergence_retries": 2,
+        "divergence_lr_decay": 0.5,
         # acted on by the JAX package, not ported yet: only their defaults
         # are accepted (see _UNPORTED)
         "scan_epochs": "auto",
         "resume": None,
         "checkpoint_interval_s": 0,
-        "divergence_retries": 2,
-        "divergence_lr_decay": 0.5,
     },
     "log": {
         "log_dir": "./logs",
@@ -189,10 +189,6 @@ _UNPORTED = (
     ("train.scan_epochs", ("auto",),
      "the epoch as one device program, ROADMAP.md queue 1 item 3.4; the "
      "port's eager loop is its only mode"),
-    ("train.divergence_retries", (2,),
-     "divergence rollback, ROADMAP.md queue 1 item 3.1"),
-    ("train.divergence_lr_decay", (0.5,),
-     "divergence rollback, ROADMAP.md queue 1 item 3.1"),
     ("parallel.mesh.data", (None, 1),
      "the distributed slice, ROADMAP.md queue 1 item 2; the port trains on "
      "one device"),

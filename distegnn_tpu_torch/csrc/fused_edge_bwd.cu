@@ -67,6 +67,9 @@
 //    is summed by row segment as a tensor-core product, a 0/1 one-hot
 //    [segment, edge] times the payload tile, then one f32 atomicAdd per
 //    (segment, column) into out_row.
+// The tensor-core building blocks (ldmatrix / mma.sync, the edge staging,
+// the one-hot row side) are fused_edge_tc.cuh's, shared with the forward's
+// tensor-core kernel (fused_edge_fwd.cu).
 // Both kernels:
 //  - Column side: the TPU wrote 3-slot window partials per node block and
 //    combined them in XLA because its grid steps may not race. Here every
@@ -96,6 +99,7 @@
 #include <type_traits>
 
 #include "fused_edge_common.cuh"
+#include "fused_edge_tc.cuh"
 
 namespace {
 
@@ -519,28 +523,20 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
 // held in bf16 and each product is exact term by term; only the f32
 // summation order inside a product differs from the FMA path.
 
-// bf16 tile rows: H + 8 elements (16 bytes of padding), so the eight
-// 16-byte rows one ldmatrix phase reads fall into distinct bank groups
+// The backward's shared-memory plan on top of the generic tile strides of
+// fused_edge_tc.cuh
 template <int H>
-struct TcLayout {
-  static constexpr int LDS = H + 8;
-  static constexpr int TILE = TE * LDS;   // bf16 elements of one edge tile
-  static constexpr int WT = H * LDS;      // bf16 elements of one weight
+struct TcLayout : TcTiles<H> {
+  using B = TcTiles<H>;
   static constexpr int NTILES = 7;        // s1, y1, t2, s2, ef, d_t3, y2
-  // the row-side payload tile [TE, F]: [hi(d_cd), lo(d_cd), 0, 0, t1 then
-  // d_t1], rows of H + 24 (an odd number of 16-byte units)
-  static constexpr int LDP = H + 24;
-  static constexpr int PAY = TE * LDP;
-  // the row side's one-hot [16 segments, TE edges] (in y1's tile)
-  static constexpr int LDO = TE + 8;
   // per edge and staging buffer: row, col; cd, sfeat, d_trans [3], d_g
-  static constexpr int EDGE = 2 + 3 + 3 + 3 + 1;
+  static constexpr int EDGE = EdgeBuf::kWords(true);
   // f32: ws [3H], b1, b2, b3, w4 [H]; per edge the two column halves'
   // partial sums of g and of d_radial
   static constexpr int F32 = 7 * H + TE * 4;
   // the ballots (4 + 2 words) and the row of each segment [TE]
   static constexpr size_t kBytes =
-      (size_t)(2 * WT + PAY + NTILES * TILE) * 2 + (size_t)F32 * 4 +
+      (size_t)(2 * B::WT + B::PAY + NTILES * B::TILE) * 2 + (size_t)F32 * 4 +
       (size_t)2 * TE * EDGE * 4 + 6 * 4 + TE * 4;
   // the weight-gradient products' warp tiling: NTW n8 tiles of one m16
   // tile a warp, the K = TE edges split over KSPLIT warps
@@ -548,233 +544,7 @@ struct TcLayout {
   static constexpr int NUNITS = (H / 16) * (H / 8 / NTW);
   static constexpr int KSPLIT = 8 / NUNITS;
   static constexpr int KPW = (TE / 16) / KSPLIT;   // k16 steps a warp
-  // the main products: warp w takes the m16 tile w % 4 and the column half
-  // w / 4, NTM n8 tiles
-  static constexpr int NTM = H / 16;
-  static_assert(16 * LDO <= TILE, "the one-hot fits in a tile");
-  static_assert(TE * H <= TILE, "a staged hr / hc tile fits in a tile");
 };
-
-// One staging buffer of a tile's per-edge data (two alternate: a tile's is
-// loaded while the one before it finishes).
-struct EdgeBuf {
-  int* row;      // [TE], -1 = inactive
-  int* col;      // [TE]
-  float* cd;     // [TE, 3] x[row] - x[col] (f32)
-  float* sf;     // [TE, 3] sfeat = [radial, a0, a1], bf16 values
-  float* dt;     // [TE, 3] d_trans = gp[row, 0:3]
-  float* dg;     // [TE] d_g = cd . d_trans
-  unsigned* act; // [2] ballots of the active edges (0-31, 32-63)
-  // the buffer's 12 words per edge from p, its ballots at a
-  __device__ EdgeBuf(int* p, unsigned* a)
-      : row(p),
-        col(p + TE),
-        cd(reinterpret_cast<float*>(p + 2 * TE)),
-        sf(cd + 3 * TE),
-        dt(cd + 6 * TE),
-        dg(cd + 9 * TE),
-        act(a) {}
-};
-
-// 16 bytes global -> shared without a register round trip; wait_all
-// completes every copy this thread issued
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// four (x4) or two (x2) 8x8 b16 matrices from shared memory; with T the
-// transposed matrices
-template <bool T>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  if constexpr (T) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p))
-        : "memory");
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p))
-        : "memory");
-  }
-}
-
-template <bool T>
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
-                                        const void* p) {
-  if constexpr (T) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"
-                 : "=r"(r0), "=r"(r1)
-                 : "r"(smem_addr(p))
-                 : "memory");
-  } else {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];"
-                 : "=r"(r0), "=r"(r1)
-                 : "r"(smem_addr(p))
-                 : "memory");
-  }
-}
-
-// d += a b: one m16n8k16 product, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B operand [K, N] of a product, as a bf16 matrix in shared memory with
-// row stride LDB: KN stored as B[k][n] (read transposed by ldmatrix), or
-// not KN: stored as its transpose, Bt[n][k].
-// acc[t] (t < NT n8 tiles from column n0) += A[m0:m0+16, :K] B[:K, n0 + 8t]
-// where A (row stride LDA) is stored as A[m][k] (AT = false) or as
-// A^T[k][m] (AT = true); k runs over the k16 steps [ks0, ks0 + KS).
-template <int LDA, int LDB, int NT, bool AT, bool KN>
-__device__ __forceinline__ void warp_mm(const __nv_bfloat16* A,
-                                        const __nv_bfloat16* B, int m0,
-                                        int n0, int ks0, int KS,
-                                        float (&acc)[NT][4]) {
-  const int lane = threadIdx.x & 31;
-  for (int ks = ks0; ks < ks0 + KS; ++ks) {
-    const int k0 = 16 * ks;
-    uint32_t a[4];
-    if constexpr (AT) {
-      ldsm_x4<true>(a, A + (k0 + (lane & 7) + (lane >> 4) * 8) * LDA + m0 +
-                           ((lane >> 3) & 1) * 8);
-    } else {
-      ldsm_x4<false>(a, A + (m0 + (lane & 15)) * LDA + k0 + (lane >> 4) * 8);
-    }
-    if constexpr (NT == 1) {
-      uint32_t b0, b1;
-      if constexpr (KN) {
-        ldsm_x2<true>(b0, b1, B + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                      LDB + n0);
-      } else {
-        ldsm_x2<false>(b0, b1, B + (n0 + (lane & 7)) * LDB + k0 +
-                                   ((lane >> 3) & 1) * 8);
-      }
-      mma_bf16(acc[0], a, b0, b1);
-    } else {
-#pragma unroll
-      for (int t = 0; t < NT; t += 2) {
-        uint32_t b[4];
-        if constexpr (KN) {
-          ldsm_x4<true>(b, B + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   LDB + n0 + 8 * t + (lane >> 4) * 8);
-        } else {
-          ldsm_x4<false>(b, B + (n0 + 8 * t + (lane & 7) + (lane >> 4) * 8) *
-                                    LDB + k0 + ((lane >> 3) & 1) * 8);
-        }
-        mma_bf16(acc[t], a, b[0], b[1]);
-        mma_bf16(acc[t + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// the sigmoid of silu / dsilu, rounded to bf16 (computed once per element
-// and kept: silu and silu' of the same t share it)
-__device__ __forceinline__ float sig_bf16(float t) {
-  return round_bf16(1.0f / (1.0f + expf(-t)));
-}
-
-// silu(t) and silu'(t) from t and its rounded sigmoid s, with the roundings
-// of fused_edge_common.cuh's silu<true> / dsilu<true>
-__device__ __forceinline__ float silu_s(float t, float s) {
-  return round_bf16(t * s);
-}
-
-__device__ __forceinline__ float dsilu_s(float t, float s) {
-  const float a = round_bf16(__fsub_rn(1.0f, s));
-  const float b = round_bf16(__fmul_rn(t, a));
-  const float c = round_bf16(__fadd_rn(1.0f, b));
-  return round_bf16(__fmul_rn(s, c));
-}
-
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Threads tid < TE (warps 0 and 1): tile `tile`'s edges into buffer b, as
-// the FMA kernel's setup computes them, and its hr[row] / hc[col] rows
-// into the staging tiles (cp.async, completed by cp_async_wait_all before
-// the next __syncthreads)
-template <int H>
-__device__ __forceinline__ void tc_stage_edges(
-    const EdgeBuf& b, __nv_bfloat16* sHr, __nv_bfloat16* sHc, int tile,
-    const int* __restrict__ row_t, const int* __restrict__ col_l,
-    const int* __restrict__ kblk, const float* __restrict__ scal,
-    const float* __restrict__ x, const __nv_bfloat16* __restrict__ hr,
-    const __nv_bfloat16* __restrict__ hc, const float* __restrict__ gp,
-    int n_edges, int T, int epb, int smax) {
-  constexpr int F = H + 8;
-  const int tid = threadIdx.x;
-  const int e = tile * TE + tid;
-  int row = -1, col = 0;
-  float cd[3] = {0.f, 0.f, 0.f}, sf[3] = {0.f, 0.f, 0.f};
-  float dt[3] = {0.f, 0.f, 0.f};
-  float dg = 0.f;
-  if (e < n_edges) {
-    const float m = scal[(size_t)e * XL + 2];
-    const int rl = row_t[e];
-    if (m > 0.f && rl < T) {
-      const int bl = e / epb;
-      const int s = min(max(bl - 1, 0), smax);
-      row = bl * T + rl;
-      col = (s + kblk[e]) * T + col_l[e];
-#pragma unroll
-      for (int q = 0; q < H / 8; ++q) {
-        cp_async16(sHr + tid * H + 8 * q, hr + (size_t)row * H + 8 * q);
-        cp_async16(sHc + tid * H + 8 * q, hc + (size_t)col * H + 8 * q);
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        cd[k] = x[3 * (size_t)row + k] - x[3 * (size_t)col + k];
-        dt[k] = gp[(size_t)row * F + k];
-      }
-      // no FMA contraction: |cd|^2 and d_g rounded as the FMA kernel sums
-      const float radial = __fadd_rn(
-          __fadd_rn(__fmul_rn(cd[0], cd[0]), __fmul_rn(cd[1], cd[1])),
-          __fmul_rn(cd[2], cd[2]));
-      sf[0] = round_bf16(radial);
-      sf[1] = round_bf16(scal[(size_t)e * XL + 0]);
-      sf[2] = round_bf16(scal[(size_t)e * XL + 1]);
-      dg = __fadd_rn(__fadd_rn(__fmul_rn(cd[0], dt[0]),
-                               __fmul_rn(cd[1], dt[1])),
-                     __fmul_rn(cd[2], dt[2]));
-    }
-  }
-  b.row[tid] = row;
-  b.col[tid] = col;
-  b.dg[tid] = dg;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    b.cd[3 * tid + k] = cd[k];
-    b.sf[3 * tid + k] = sf[k];
-    b.dt[3 * tid + k] = dt[k];
-  }
-  const unsigned am = __ballot_sync(0xffffffffu, row >= 0);
-  if ((tid & 31) == 0) b.act[tid >> 5] = am;
-}
 
 template <int H>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -886,9 +656,9 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
   const int n_tiles = (n_edges + TE - 1) / TE;
 
   if (tid < TE)
-    tc_stage_edges<H>(EdgeBuf(sEdge, sAct), sHr, sHc, blockIdx.x, row_t,
-                      col_l, kblk, scal, x, hr, hc, gp, n_edges, T, epb,
-                      smax);
+    tc_stage_edges<H, true>(EdgeBuf(sEdge, sAct), sHr, sHc, blockIdx.x, tid,
+                            row_t, col_l, kblk, scal, x, hr, hc, gp, n_edges,
+                            T, epb, smax);
   cp_async_wait_all();
 
   int cur = 0;
@@ -900,8 +670,9 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
                        sAct + 2 * (cur ^ 1));
     if (!(E.act[0] | E.act[1])) {   // all-padding tile
       if (tid < TE)
-        tc_stage_edges<H>(next, sHr, sHc, tile + gridDim.x, row_t, col_l,
-                          kblk, scal, x, hr, hc, gp, n_edges, T, epb, smax);
+        tc_stage_edges<H, true>(next, sHr, sHc, tile + gridDim.x, tid, row_t,
+                                col_l, kblk, scal, x, hr, hc, gp, n_edges, T,
+                                epb, smax);
       cp_async_wait_all();
       continue;
     }
@@ -1084,13 +855,7 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
     if (tid < TE) {
       float dcd[3] = {0.f, 0.f, 0.f};
       const int row = E.row[tid];
-      const unsigned long long act =
-          ((unsigned long long)E.act[1] << 32) | E.act[0];
-      const unsigned long long below = act & ((1ull << tid) - 1ull);
-      const int prev = below ? 63 - __clzll((long long)below) : -1;
-      const unsigned sm = __ballot_sync(
-          0xffffffffu, row >= 0 && (prev < 0 || E.row[prev] != row));
-      if (lane == 0) sStart[warp] = sm;
+      tc_mark_segment_starts(E, sStart);
       if (row >= 0) {
         const float g = sGp[tid] + sGp[TE + tid];
         const float d_radial = round_bf16(sRp[tid] + sRp[TE + tid]);
@@ -1119,8 +884,9 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
     // ---- warps 0-1 stage the next tile (its global loads overlap the rest
     //      of this one)
     if (tid < TE)
-      tc_stage_edges<H>(next, sHr, sHc, tile + gridDim.x, row_t, col_l, kblk,
-                        scal, x, hr, hc, gp, n_edges, T, epb, smax);
+      tc_stage_edges<H, true>(next, sHr, sHc, tile + gridDim.x, tid, row_t,
+                              col_l, kblk, scal, x, hr, hc, gp, n_edges, T,
+                              epb, smax);
 
     // ---- the column sums of the tile: db1, dws, db2, db3, dw4
 #pragma unroll 4
@@ -1142,37 +908,7 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
     //      (exact 0/1, inactive edges 0) x payload[edge, F], 16 segments
     //      at a time, f32 accumulation; one f32 atomic per (segment,
     //      column), as the FMA kernel's walk adds one per segment end
-    {
-      const unsigned long long starts =
-          ((unsigned long long)sStart[1] << 32) | sStart[0];
-      const int nseg = __popcll(starts);
-      __nv_bfloat16* oh = tY1;   // [16, LDO], y1 is dead
-      for (int s0 = 0; s0 < nseg; s0 += 16) {
-        for (int i = tid; i < 16 * TE; i += THREADS) {
-          const int sg = i / TE, el = i % TE;
-          // the segment of edge el: the starts at or before it, less one
-          const int seg = __popcll(starts & (~0ull >> (63 - el))) - 1;
-          const bool on = E.row[el] >= 0 && seg == s0 + sg;
-          oh[sg * L::LDO + el] = __float2bfloat16_rn(on ? 1.f : 0.f);
-        }
-        if (s0 == 0 && tid < TE && ((starts >> tid) & 1ull))
-          sSegRow[__popcll(starts & (~0ull >> (63 - tid))) - 1] = E.row[tid];
-        __syncthreads();
-        for (int nt = warp; nt < F / 8; nt += THREADS / 32) {
-          float acc[1][4] = {};
-          warp_mm<L::LDO, L::LDP, 1, false, true>(oh, tP, 0, 8 * nt, 0,
-                                                  TE / 16, acc);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int seg = s0 + (lane >> 2) + 8 * (q >> 1);
-            const int c = 8 * nt + 2 * (lane & 3) + (q & 1);
-            if (seg < nseg && c != 6 && c != 7)
-              atomicAdd(&out_row[(size_t)sSegRow[seg] * F + c], acc[0][q]);
-          }
-        }
-        __syncthreads();   // the one-hot is rewritten for the next 16
-      }
-    }
+    tc_row_side<H, false>(E, sStart, sSegRow, tY1, tP, out_row);
 
     // ---- column side: [hi(-d_cd), lo(-d_cd), 0, 0, d_t1] at col, one
     //      float4 atomic per 4 lanes (order-dependent f32 sums)

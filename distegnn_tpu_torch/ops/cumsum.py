@@ -8,7 +8,9 @@ edge axis: ``x`` is ``[E, F]`` or ``[B, E, F]`` (one scan per graph of a
 batch, in one call), in f32 or bf16, and the result is always f32.
 
 On a CUDA tensor every call launches the hand-written kernel
-``csrc/prefix_scan.cu`` (prefix or suffix direction), at any E: the JAX
+``csrc/prefix_scan.cu`` (prefix or suffix direction; a single pass that
+reads the input once, with a carry summed in a fixed order, so the result is
+bitwise repeatable run to run), at any E: the JAX
 package routes axes shorter than 32768 rows to XLA's cumsum because a Pallas
 dispatch cost more than it saved on the TPU; here that route would be a
 library call on the path, so there is none. On a CPU tensor it runs
@@ -31,10 +33,11 @@ import ctypes
 import torch
 
 TILE = 4096          # rows per tile of the TPU kernels (and of the plain version)
-# rows per CUDA block of the kernel; the block walks them in shared-memory
-# chunks of at most SCAN_SMEM_ELEMS values
-SCAN_BLOCK_ROWS = 4096
-SCAN_SMEM_ELEMS = 8192
+# the CUDA kernel's tiles: a block holds max(1, SCAN_TILE_BYTES // (F *
+# input bytes)) rows of F input values in shared memory (96 KB: two blocks
+# an SM); F is at most SCAN_MAX_F
+SCAN_TILE_BYTES = 98304
+SCAN_MAX_F = 8192
 
 
 def _lead(x: torch.Tensor) -> torch.Tensor:
@@ -81,45 +84,51 @@ def prefix_sum_ref(x: torch.Tensor, reverse: bool = False,
     return out if x.ndim == 3 else out[0]
 
 
-def _lib_fn():
+def _lib_fns():
+    """The kernel's C entry points ``(prefix_scan,
+    prefix_scan_scratch_bytes)``."""
     from distegnn_tpu_torch.ops.build import LIBRARIES
 
-    fn = LIBRARIES.get("prefix_scan").prefix_scan
+    lib = LIBRARIES.get("prefix_scan")
+    fn, scratch = lib.prefix_scan, lib.prefix_scan_scratch_bytes
     if fn.argtypes is None:
         # pointers (and the stream) as c_void_p: ctypes would pass a bare
         # Python int as a 32-bit int and cut the pointer
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        scratch.argtypes = [i] * 4
+        scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
 def _scan_cuda(x: torch.Tensor, reverse: bool) -> torch.Tensor:
     """Launch ``csrc/prefix_scan.cu`` on a CUDA tensor: one call of the C
-    entry point (three kernels: tile sums, scan of the tile sums, tile
-    rescan) per wrapper call, counted once."""
+    entry point (a flag reset and the single-pass scan kernel) per wrapper
+    call, counted once."""
     xb = _lead(x)
     if xb.dtype not in (torch.float32, torch.bfloat16):
         xb = xb.to(torch.float32)
     xb = xb.contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()    # the kernel reads x in 16-byte vectors
     B, E, F = xb.shape
-    if F < 1 or F > SCAN_SMEM_ELEMS:
-        raise ValueError(
-            f"prefix_scan takes 1 <= F <= {SCAN_SMEM_ELEMS}, got {F}")
+    if F < 1 or F > SCAN_MAX_F:
+        raise ValueError(f"prefix_scan takes 1 <= F <= {SCAN_MAX_F}, got {F}")
     if E >= 2 ** 31 or B > 65535:
         raise ValueError(f"prefix_scan takes E < 2^31 and B <= 65535, got "
                          f"B={B} E={E}")
     out = torch.empty((B, E, F), dtype=torch.float32, device=xb.device)
     if E == 0:
         return out if x.ndim == 3 else out[0]
-    n_blk = -(-E // SCAN_BLOCK_ROWS)
-    # the block sums and their exclusive carries
-    scratch = torch.empty((2, B, n_blk, F), dtype=torch.float32,
+    R = max(1, SCAN_TILE_BYTES // (F * xb.element_size()))
+    fn, scratch_bytes = _lib_fns()
+    # the tiles' aggregates, the carry tree's sums, the flags
+    scratch = torch.empty((scratch_bytes(B, E, F, R),), dtype=torch.uint8,
                           device=xb.device)
     stream = torch.cuda.current_stream(xb.device).cuda_stream
-    err = _lib_fn()(xb.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, E,
-                    F, SCAN_BLOCK_ROWS, SCAN_SMEM_ELEMS,
-                    int(xb.dtype == torch.bfloat16), int(reverse), stream)
+    err = fn(xb.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, E, F, R,
+             int(xb.dtype == torch.bfloat16), int(reverse), stream)
     if err != 0:
         raise RuntimeError(f"prefix_scan launch failed: CUDA error {err}")
     if reverse:

@@ -13,10 +13,12 @@ for the receiver's block ``b``; ``build_edge_blocks`` masks the rest, and
 ``split_remote_edges`` routes those (the remote tail) to plain tensor code.
 
 ``fused_edge_layer`` is the ``torch.autograd.Function`` ``FusedEdgeLayer``.
-Its forward runs the hand-written CUDA kernel ``csrc/fused_edge_fwd.cu`` on
-CUDA tensors and the plain PyTorch version ``fused_edge_layer_ref`` on CPU
-tensors; its backward runs ``csrc/fused_edge_bwd.cu`` (which recomputes the
-per-edge forward: no ``[E, H]`` residual is kept) or the plain
+Its forward runs the hand-written CUDA kernels of ``csrc/fused_edge_fwd.cu``
+on CUDA tensors (bf16 at H in 16 / 32 / 64 on the tensor cores, every other
+case on the FMA kernel) and the plain PyTorch version
+``fused_edge_layer_ref`` on CPU tensors; its backward runs
+``csrc/fused_edge_bwd.cu`` (which recomputes the per-edge forward: no
+``[E, H]`` residual is kept) or the plain
 ``fused_edge_layer_bwd_ref``. The roundings are those of the TPU kernels, in
 f32 mode too: the aggregated translation and its cotangent are split into
 two bf16 terms (hi + lo), and the edge features and the per-edge ``d_t1``
@@ -326,10 +328,11 @@ def fused_edge_layer_bwd_ref(x, hr, hc, row_t, col_l, kblk, scal,
 
 # ---------------------------------------------------------------- kernel
 
-def _lib_fn(name: str, n_ptr: int, n_int: int):
+def _lib_fn(name: str, n_ptr: int, n_int: int, lib: Optional[str] = None):
+    """The C entry point ``name`` of ``csrc/<lib or name>.cu``."""
     from distegnn_tpu_torch.ops.build import LIBRARIES
 
-    fn = getattr(LIBRARIES.get(name), name)
+    fn = getattr(LIBRARIES.get(lib or name), name)
     if fn.argtypes is None:
         # every pointer (and the stream) as c_void_p: ctypes would pass a
         # bare Python int as a 32-bit int and cut the pointer
@@ -403,6 +406,15 @@ def _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights: EdgeWeights,
 
 _FWD_SIZES = frozenset(range(16, 129, 16))
 _BWD_SIZES = frozenset((16, 32, 64))
+# bf16 at these H runs the forward's tensor-core kernel, every other case
+# its FMA kernel (f32 on the tensor cores would be rounded to TF32)
+_FWD_TC_SIZES = frozenset((16, 32, 64))
+
+
+def fwd_uses_tensor_cores(H: int, dtype_name: str) -> bool:
+    """Whether a forward launch of width ``H`` in ``dtype_name`` runs
+    ``fused_edge_fwd_tc_kernel`` (else ``fused_edge_fwd_kernel``)."""
+    return dtype_name == "bf16" and H in _FWD_TC_SIZES
 
 
 def _fused_edge_layer_cuda(x, hr, hc, row_t, col_l, kblk, scal,
@@ -412,14 +424,22 @@ def _fused_edge_layer_cuda(x, hr, hc, row_t, col_l, kblk, scal,
     n_nodes, H = hr.shape
     dev = x.device
     out = torch.zeros((n_nodes, H + 8), dtype=torch.float32, device=dev)
-    fn = _lib_fn("fused_edge_fwd", 15, 6)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*(a.data_ptr() for a in args), out.data_ptr(),
-             n_nodes, E, block, H, int(dtype_name == "bf16"), n_sm, stream)
+    ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
+    tc = fwd_uses_tensor_cores(H, dtype_name)
+    if tc:
+        fn = _lib_fn("fused_edge_fwd_tc", 15, 5, lib="fused_edge_fwd")
+        err = fn(*ptrs, n_nodes, E, block, H, n_sm, stream)
+    else:
+        fn = _lib_fn("fused_edge_fwd", 15, 6)
+        err = fn(*ptrs, n_nodes, E, block, H, int(dtype_name == "bf16"),
+                 n_sm, stream)
     if err != 0:
-        raise RuntimeError(f"fused_edge_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_edge_fwd{'_tc' if tc else ''} launch "
+                           f"failed: CUDA error {err}")
     fused_edge_layer.launches += 1
+    fused_edge_layer.tc_launches += tc
     return out[:, 0:3] + out[:, 3:6], out[:, 6], out[:, 8:]
 
 
@@ -535,11 +555,14 @@ def fused_edge_layer(x, hr, hc, row_t, col_l, kblk, scal,
     is no fallback); CPU tensors run :func:`fused_edge_layer_ref` and
     :func:`fused_edge_layer_bwd_ref`. ``fused_edge_layer.launches`` and
     ``fused_edge_layer.bwd_launches`` count the forward and backward kernel
-    launches.
+    launches; ``fused_edge_layer.tc_launches`` the forward launches that ran
+    the tensor-core kernel (bf16 at H in 16 / 32 / 64,
+    :func:`fwd_uses_tensor_cores`).
     """
     return FusedEdgeLayer.apply(x, hr, hc, row_t, col_l, kblk, scal,
                                 *weights, block, dtype_name)
 
 
 fused_edge_layer.launches = 0
+fused_edge_layer.tc_launches = 0
 fused_edge_layer.bwd_launches = 0

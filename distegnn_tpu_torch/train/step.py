@@ -47,7 +47,11 @@ class Optimizer:
     Call :meth:`micro_step` after each micro-step's backward; it returns
     True on the micro-steps that update the parameters. ``updates`` counts
     the parameter updates, ``last_grad_norm`` is the global norm of the
-    accumulated gradient at the last update (before clipping)."""
+    accumulated gradient at the last update (before clipping). ``lr_scale``
+    multiplies the learning rate, schedule included: the trainer's
+    divergence rollback lowers it, as the JAX package's ``build_tx(lr_scale)``
+    rebuilds its optimizer at ``learning_rate * lr_scale``; it is not part of
+    :meth:`state_dict`, so the Adam state carries over unchanged."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  learning_rate: float, weight_decay: float = 0.0,
@@ -67,15 +71,17 @@ class Optimizer:
                                      weight_decay=float(weight_decay))
         self.micro = 0          # micro-steps since the last update
         self.updates = 0
+        self.lr_scale = 1.0
         self.last_grad_norm: Optional[torch.Tensor] = None
 
     def lr_at(self, count: int) -> float:
         """optax.cosine_decay_schedule(lr, total_steps) at update ``count``
-        (0-based), or the constant rate."""
+        (0-based), or the constant rate; lr = learning_rate * lr_scale."""
+        lr = self.learning_rate * self.lr_scale
         if self.scheduler != "cosine":
-            return self.learning_rate
+            return lr
         t = min(count, self.total_steps) / self.total_steps
-        return self.learning_rate * 0.5 * (1.0 + math.cos(math.pi * t))
+        return lr * 0.5 * (1.0 + math.cos(math.pi * t))
 
     def micro_step(self) -> bool:
         self.micro += 1

@@ -1,16 +1,19 @@
 """The epoch loop (port of ``distegnn_tpu/train/trainer.py``, single
 device): epochs of micro-steps, evaluation every ``log.test_interval``
-epochs, best/last checkpoints, early stopping, a stop on a non-finite epoch
-loss, and ``log.json`` with the JAX package's three-element layout
+epochs, best/last checkpoints, early stopping, the divergence rollback (a
+non-finite epoch loss restores the last finite state and retries at a
+decayed learning rate, ``train.divergence_retries`` times, then stops),
+and ``log.json`` with the JAX package's three-element layout
 ``[best, log_dict, config]``.
 
 Not ported yet (ROADMAP.md): preemption handling, cadence checkpoints and
-the resume scan, divergence rollback, the obs event stream, the promotion
-publisher, wandb and the on-device epoch scan.
+the resume scan, the obs event stream, the promotion publisher, wandb and
+the on-device epoch scan.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -29,6 +32,32 @@ def _fmt(loss: float) -> str:
 
 def _log(msg: str) -> None:
     print(f"[train] {msg}", flush=True)
+
+
+def snapshot_state(state) -> dict:
+    """Copies of everything a divergence rollback restores, as the JAX
+    package rolls back its whole ``TrainState``: the model's parameters and
+    buffers, the optimizer's Adam moments, ``updates`` and ``micro``, the
+    gradient accumulated since the last update (``p.grad``; the JAX package
+    keeps it in the optax MultiSteps state) and the micro-step count."""
+    opt = state.optimizer
+    return {"model": {k: v.detach().clone()
+                      for k, v in state.model.state_dict().items()},
+            "optimizer": copy.deepcopy(opt.state_dict()),
+            "grads": [None if p.grad is None else p.grad.detach().clone()
+                      for p in opt.params],
+            "step": state.step}
+
+
+def restore_state(state, snap: dict) -> None:
+    """Load a :func:`snapshot_state` into ``state`` in place (the snapshot
+    stays intact: a second rollback to it restores the same values)."""
+    state.model.load_state_dict(snap["model"])
+    opt = state.optimizer
+    opt.load_state_dict(copy.deepcopy(snap["optimizer"]))
+    for p, g in zip(opt.params, snap["grads"]):
+        p.grad = None if g is None else g.clone()
+    state.step = snap["step"]
 
 
 def run_epoch_train(train_step: Callable, state, loader, seed: int,
@@ -72,8 +101,7 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
     validation loss."""
     train_cfg, log_cfg = config.train, config.log
     seed = config.seed
-    # the layout of the JAX package's log.json (divergence events stay empty:
-    # rollback is not ported, a non-finite loss stops the run)
+    # the layout of the JAX package's log.json
     log_dict = {"epochs": [], "loss": [], "loss_train": [], "epoch_time": [],
                 "start_epoch": start_epoch, "divergence_events": []}
     best = {"epoch_index": start_epoch, "loss_valid": 1e8, "loss_test": 1e8,
@@ -102,6 +130,14 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
             json.dump([best, _sanitize_nonfinite(log_dict), cfg], f,
                       indent=4)
 
+    retries_left = int(train_cfg.get("divergence_retries", 0) or 0)
+    lr_decay = float(train_cfg.get("divergence_lr_decay", 0.5) or 0.5)
+    lr_scale = 1.0
+    # the last finite-loss state and the log lengths at that point, so that
+    # a rollback also rewinds the curves (loss_train[i] is the absolute epoch
+    # start_epoch + 1 + i: a retried epoch must not append twice)
+    finite_snap = (snapshot_state(state), start_epoch, 0, 0)
+
     epoch = start_epoch    # the last completed epoch
     while epoch < train_cfg.epochs:
         epoch += 1
@@ -112,12 +148,36 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
         log_dict["loss_train"].append(loss_train)
         log_dict["epoch_time"].append(round(dt_epoch, 4))
         if not np.isfinite(loss_train):
+            if retries_left > 0:
+                # roll back to the last finite state and retry from there at
+                # a decayed learning rate (the Adam state carries over)
+                retries_left -= 1
+                snap, snap_epoch, n_tr, n_ev = finite_snap
+                restore_state(state, snap)
+                lr_scale *= lr_decay
+                state.optimizer.lr_scale = lr_scale
+                del log_dict["loss_train"][n_tr:]
+                del log_dict["epoch_time"][n_tr:]
+                del log_dict["epochs"][n_ev:], log_dict["loss"][n_ev:]
+                log_dict["divergence_events"].append(
+                    {"epoch": epoch, "loss_train": repr(loss_train),
+                     "rolled_back_to": snap_epoch, "lr_scale": lr_scale,
+                     "retries_left": retries_left})
+                _log(f"DIVERGED at epoch {epoch}: train loss {loss_train}; "
+                     f"rolling back to epoch {snap_epoch} state, "
+                     f"lr_scale={lr_scale:g} ({retries_left} retries left)")
+                epoch = snap_epoch
+                continue
             best["diverged"] = {"epoch": epoch, "loss_train": repr(loss_train),
-                                "retries_exhausted": 0}
+                                "retries_exhausted": int(train_cfg.get(
+                                    "divergence_retries", 0) or 0)}
             _log(f"DIVERGED at epoch {epoch}: train loss {loss_train}; "
-                 "stopping")
+                 "stopping (divergence retries exhausted — resume from the "
+                 "last checkpoint with a lower lr)")
             write_log()
             break
+        finite_snap = (snapshot_state(state), epoch,
+                       len(log_dict["loss_train"]), len(log_dict["epochs"]))
 
         if epoch % log_cfg.test_interval == 0:
             loss_valid = run_epoch_eval(eval_step, loader_valid, device)

@@ -23,8 +23,6 @@ UNPORTED = [("train.resume", "auto"),
             ("train.checkpoint_interval_s", 600),
             ("train.scan_epochs", True),
             ("train.scan_epochs", False),
-            ("train.divergence_retries", 0),
-            ("train.divergence_lr_decay", 0.25),
             ("parallel.mesh.data", 2),
             ("parallel.mesh.graph", 4),
             ("parallel.mesh.tensor", 2),
@@ -41,6 +39,19 @@ def test_every_published_config_validates(path):
         assert cfg.train[key] == jcfg.train[key], key
     assert cfg.parallel.mesh == dict(jcfg.parallel.mesh)
     assert cfg.log.wandb.enable == jcfg.log.wandb.enable
+
+
+# the divergence rollback is ported: any value loads and reaches cfg.train
+DIVERGENCE = [("train.divergence_retries", 0),
+              ("train.divergence_retries", 5),
+              ("train.divergence_lr_decay", 0.25),
+              ("train.divergence_lr_decay", 0.9)]
+
+
+@pytest.mark.parametrize("key, value", DIVERGENCE)
+def test_divergence_keys_load_and_land_in_train(key, value):
+    cfg = load_config(SERVE, {key: value})
+    assert cfg.train[key.split(".")[1]] == value
 
 
 @pytest.mark.parametrize("key, value", UNPORTED)

@@ -121,14 +121,14 @@ def test_fused_edge_bwd_kernel_matches_plain_version_on_card(dtype_name):
         assert float((a - b).abs().max()) <= 2 ** -7 * scale
 
 
-def _bwd_case(Hn, seed):
-    """A blocked graph at hidden width Hn for the bf16 backward kernel:
-    block 0's first 100 edges share one receiver (whole tiles of a single
-    row segment), each block's slice ends in padding (a ragged tile, then
-    fully inactive tiles) and the last block has no edges at all; bf16
-    hr / hc, f32 weights and cotangents."""
+def _bwd_case(Hn, seed, nb=5):
+    """A blocked graph of nb node blocks at hidden width Hn for the bf16
+    backward kernel: block 0's first 100 edges share one receiver (whole
+    tiles of a single row segment), each block's slice ends in padding (a
+    ragged tile, then fully inactive tiles) and the last block has no edges
+    at all; bf16 hr / hc, f32 weights and cotangents."""
     rng = np.random.default_rng(seed)
-    row, col, ea, em, n = _blocked_graph(rng, nb=5, fill=0.55)
+    row, col, ea, em, n = _blocked_graph(rng, nb=nb, fill=0.55)
     row[:100] = row[0]
     x = rng.uniform(0, 1, size=(n, 3)).astype(np.float32)
     hr = (rng.normal(size=(n, Hn)) * 0.5).astype(np.float32)
@@ -172,6 +172,105 @@ def test_fused_edge_bwd_tensor_core_kernel_on_card(Hn):
         scale = float(b.abs().max())
         assert scale > 0
         assert float((a - b).abs().max()) <= 2 ** -7 * scale
+
+
+def _fwd_tc_case(Hn, seed, nb):
+    """As _bwd_case without cotangents, over nb node blocks (nb = 3: the
+    window is the whole graph): padding and all-padding tiles, a tile of
+    one receiver, a last block with no edges."""
+    row, col, ea, em, n, x, hr, hc, w, _, _ = _bwd_case(Hn, seed, nb)
+    col[:100] %= 3 * T   # block 0's window: the one-row tiles all active
+    return row, col, ea, em, n, x, hr, hc, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [5, 3])
+@pytest.mark.parametrize("Hn", [16, 32, 64])
+def test_fused_edge_fwd_tensor_core_kernel_on_card(Hn, nb):
+    """The bf16 forward at H = 16 / 32 / 64 runs the tensor-core kernel (one
+    launch, counted in tc_launches too) and agrees with fused_edge_layer_ref
+    within 2^-7 of each output's scale (the bf16 bound above), over
+    all-padding tiles, a tile whose 64 edges share one row, and a graph of
+    exactly 3 node blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    row, col, ea, em, n, x, hr, hc, w = _fwd_tc_case(Hn, 60 + Hn + nb, nb)
+    assert (row[:64] == row[0]).all()
+    dev = torch.device("cuda")
+    pa = [a.to(dev) for a in P.build_edge_blocks(*_t(row, col, ea, em),
+                                                  block=T, n_nodes=n)]
+    tiles = pa[3][:, 2].reshape(-1, 64) > 0
+    assert (~tiles.any(1)).any() and tiles[0].all()
+    xd, hrd, hcd = (a.to(dev) for a in _t(x, hr, hc))
+    hrd, hcd = hrd.to(torch.bfloat16), hcd.to(torch.bfloat16)
+    wt = P.EdgeWeights(*[a.to(dev) for a in _t(*w)])
+    assert P.fwd_uses_tensor_cores(Hn, "bf16")
+    before = (P.fused_edge_layer.launches, P.fused_edge_layer.tc_launches)
+    out = P.fused_edge_layer(xd, hrd, hcd, *pa, wt, T, "bf16")
+    torch.cuda.synchronize()
+    assert (P.fused_edge_layer.launches, P.fused_edge_layer.tc_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = P.fused_edge_layer_ref(xd, hrd, hcd, *pa, wt, T, "bf16")
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert float((a - b).abs().max()) <= 2 ** -7 * scale
+    # the edge count is exact: a sum of ones
+    assert torch.equal(out[1], ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hn, dtype_name", [(48, "bf16"), (16, "f32"),
+                                            (64, "f32")])
+def test_fused_edge_fwd_fma_kernel_cases_on_card(Hn, dtype_name):
+    """bf16 at an H the tensor-core kernel does not take, and f32 at any H,
+    run the FMA kernel: one launch, tc_launches unchanged, within 2^-7 of
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    row, col, ea, em, n, x, hr, hc, w = _fwd_tc_case(Hn, 80 + Hn, 5)
+    dev = torch.device("cuda")
+    pa = [a.to(dev) for a in P.build_edge_blocks(*_t(row, col, ea, em),
+                                                  block=T, n_nodes=n)]
+    args = [a.to(dev) for a in _t(x, hr, hc)]
+    wt = P.EdgeWeights(*[a.to(dev) for a in _t(*w)])
+    assert not P.fwd_uses_tensor_cores(Hn, dtype_name)
+    before = (P.fused_edge_layer.launches, P.fused_edge_layer.tc_launches)
+    out = P.fused_edge_layer(*args, *pa, wt, T, dtype_name)
+    torch.cuda.synchronize()
+    assert (P.fused_edge_layer.launches, P.fused_edge_layer.tc_launches) == (
+        before[0] + 1, before[1])
+    ref = P.fused_edge_layer_ref(*args, *pa, wt, T, dtype_name)
+    for a, b in zip(out, ref):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2 ** -7 * scale
+
+
+@pytest.mark.cuda
+def test_fused_edge_fwd_tc_kernel_is_built_on_hmma_on_card():
+    """The built library's SASS of fused_edge_fwd_tc_kernel<64> holds HMMA
+    (tensor-core) instructions."""
+    import os
+    import shutil
+    import subprocess
+
+    from distegnn_tpu_torch.ops import build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                     "cuobjdump")
+    lib = build._build("fused_edge_fwd")[0]
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    # one section per kernel, headed by its mangled name
+    tc = [f for f in sass.split("Function : ")[1:]
+          if "fused_edge_fwd_tc_kernelILi64E" in f.split()[0]]
+    assert len(tc) == 1
+    assert "HMMA" in tc[0]
 
 
 # ------------------------------------------------------------ prefix scan
@@ -250,6 +349,41 @@ def test_prefix_scan_kernel_rounds_no_worse_than_the_tpu_algorithm():
     err = float(((CS._scan(x, False).double() - ref).abs() / scale).max())
     perr = float(((CS.prefix_sum_ref(x).double() - ref).abs() / scale).max())
     assert err <= 2 * perr + 1e-9
+
+
+# (F, type): the paths' widths, the narrowest and the widest F
+SCAN_REPEAT_CASES = [(F, dt) for F in (1, 3, 64, 68, 8192)
+                     for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("F, dtype", SCAN_REPEAT_CASES)
+def test_prefix_scan_single_pass_is_bitwise_repeatable_on_card(F, dtype,
+                                                               reverse):
+    """The single pass at B = 4 and an E of 300 tiles and 7 rows (a ragged
+    last tile, two super-groups of 256 tiles of the carry's tree): two
+    launches agree bit for bit (the carry is summed in a fixed order), and
+    each is within 1e-5 of each column's max |prefix| of f64."""
+    from distegnn_tpu_torch.ops import cumsum as CS
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    R = max(1, CS.SCAN_TILE_BYTES // (F * (2 if dtype == torch.bfloat16
+                                           else 4)))
+    E = 300 * R + 7
+    assert (R == 1 or E % R) and -(-E // R) > 256
+    gen = torch.Generator(device="cuda").manual_seed(F)
+    x = torch.randn((4, E, F), generator=gen, device="cuda").to(dtype)
+    before = (CS.prefix_sum.launches, CS.prefix_sum.suffix_launches)
+    a = CS._scan(x, reverse)
+    b = CS._scan(x, reverse)
+    torch.cuda.synchronize()
+    after = (CS.prefix_sum.launches, CS.prefix_sum.suffix_launches)
+    assert after == (before[0] + 2 * (not reverse), before[1] + 2 * reverse)
+    assert torch.equal(a, b)
+    ref, scale = _scan_f64(x, reverse)
+    assert float(((a.double() - ref).abs() / scale).max()) <= 1e-5
 
 
 # ------------------------------------------------------ fused-stack megakernel
