@@ -14,7 +14,8 @@ or of the JAX package. Phases (any failure exits nonzero):
   2. hold the forward kernel against its plain PyTorch version on the card
      (N=8192 = 16 blocks of 512, H=64, a Morton-ordered radius graph of mean
      degree ~20), in f32 and bf16: bf16 at H=64 runs the tensor-core
-     kernel (fused_edge_layer.tc_launches counts it), f32 the FMA kernel.
+     kernel (fused_edge_layer.tc_launches counts it), f32 the f32 FMA
+     kernel (fused_edge_layer.f32_launches counts it).
   2b. the same for the backward kernel, with random cotangents: all ten
      outputs (d_x, d_hr, d_hc and the seven weight gradients).
   2d. the fused-stack megakernel (csrc/fused_stack_fwd.cu) against its
@@ -34,8 +35,8 @@ or of the JAX package. Phases (any failure exits nonzero):
      max_batch 4, random weights from the config's seed); answer four
      Morton-ordered scenes of ~1500/3000/6000/10000 nodes with every launch
      count set to 0 just before and read just after; check finiteness, the
-     exact launch count (none on the tensor-core forward: f32 serving runs
-     the FMA kernel), equivariance under a random rotation + translation,
+     exact launch count (every one on the f32 FMA kernel, none on the
+     tensor-core forward), equivariance under a random rotation + translation,
      and agreement with the same model run through the plain version.
   3b. serve configs/nbody_serve.yaml as published (edge_impl plain,
      segment_impl scatter: no kernel), then with model.segment_impl=cumsum
@@ -75,24 +76,28 @@ or of the JAX package. Phases (any failure exits nonzero):
      version's distance from the exact scatter lowering compared;
      micro-step ms, nodes/s and peak device memory.
 
-  2e. the blocked one-hot kernels (csrc/blocked_onehot.cu: the segment sum
-     and the row gather of the blocked layout) against f64 and their plain
-     versions (the gather bitwise) at edge cases (an all-sentinel block,
-     epb == tile, F = 1, a batch of 4, bf16, F = 128), at the rollout
-     batch's shape ([4, 4096] nodes, 48 x 256 slots per block; F = 1, 3,
-     64) and, with phase 8, at the train batch's (113152 nodes in 442
-     blocks of 256; F = 1, 3, 64, f32 and bf16); each path shape timed
-     beside its plain version, index_add_ / index_select, the einsum
+  2e. the blocked one-hot kernels (csrc/blocked_onehot.cu: the slots' CSR
+     plan, the segment sum through it and the row gather of the blocked
+     layout): the plan equal to its plain version, the segment sum equal
+     to the edge-order sum through the plan bit for bit and within 1e-6
+     of f64 and of its plain version, bitwise repeatable, the gather
+     bitwise, at edge cases (an all-sentinel block, epb == tile, F = 1, a
+     batch of 4, bf16, F = 128), at the rollout batch's shape ([4, 4096]
+     nodes, 48 x 256 slots per block; F = 1, 3, 64) and, with phase 8, at
+     the train batch's (113152 nodes in 442 blocks of 256; F = 1, 3, 64,
+     f32 and bf16); each path shape timed beside its plain version,
+     index_add_ / index_select (the plan: a stable argsort), the einsum
      lowering and its bound. Rows of at most 16 bytes take the gather's
-     one-thread-per-row form.
+     and the segment sum's one-thread-per-row forms.
   3d. rollout serving: configs/nbody_serve.yaml + serve.rollout (radius of
      mean degree ~20, max_degree 48, max_per_cell 32, edge_block 256) +
      model.blocked_impl=pallas; engine.rollout of a 4000-node scene and
      engine.rollout_batch of 4 scenes of 1000-4000 nodes (rung 4096), K=8
      steps, with the counts set to 0 just before and checked exactly just
-     after each (per step 2L+1 seg_sum and 2L gather launches); finite, no
-     overflow, first-step equivariance, the trajectory against the plain
-     versions and against blocked_impl=einsum; ms per request and step.
+     after each (per step 1 plan, 2L seg_sum and 2L gather launches);
+     finite, no overflow, first-step equivariance, the trajectory against
+     the plain versions and against blocked_impl=einsum; ms per request and
+     step.
   7. train configs/fluid_fused_stack.yaml as published (H=64, L=4, C=3, bf16,
      edge_block 512, MSE + MMD, Adam with 4-step accumulation) through
      main.run over 4 train + 1 valid + 1 test synthetic fluid clouds of
@@ -106,8 +111,9 @@ or of the JAX package. Phases (any failure exits nonzero):
   8. train configs/largefluid_distegnn.yaml + data.edge_block=256,
      data.accelerate_mode=cutoff_edges, model.blocked_impl=pallas (the
      blocked layout with the pairing, no remote tail) over phase 5's clouds,
-     2 epochs, with exact launch counts by width (the remat reruns and the
-     backward roles of both kernels derived from the code); finite losses,
+     2 epochs, with exact launch counts by width (one plan per forward, the
+     remat reruns and the backward roles of both kernels derived from the
+     code); finite losses,
      parameters moved; the first optimizer update again with the plain
      versions, with blocked_impl=einsum and with edge_block=0 (scatter), at
      phase 5's aggregate bounds and phase 6's per-tensor bound; micro-step ms,
@@ -116,7 +122,8 @@ or of the JAX package. Phases (any failure exits nonzero):
 With ``--profile`` it then breaks one request of the largest scene into host
 stages and profiles it with torch.profiler (device time by kernel, the
 device's idle share), and profiles one train micro-step of each train path
-the same way.
+and one batched rollout the same way (with the segment sum's and the plan's
+device time where they run).
 
 Every kernel's ``ms`` is its time launched eagerly, as a user's path
 launches it (CUDA events around back-to-back launches; the small kernels,
@@ -414,25 +421,34 @@ def edge_kernel_phase(model, dev):
             hc = (h.to(dt) @ p.w1[H:2 * H].to(dt)).contiguous()
             args = (x, hr, hc, *arrs, w, BLOCK, dname)
             before = fwd_counts()
+            f32_before = ep.fused_edge_layer.f32_launches
             out = ep.fused_edge_layer(*args)
             torch.cuda.synchronize()
-            # bf16 at H=64 runs the tensor-core kernel, f32 the FMA kernel
+            # bf16 at H=64 runs the tensor-core kernel, f32 the f32 FMA
+            # kernel
             want = (before[0] + 1, before[1] + (dname == "bf16"))
-            check(fwd_counts() == want,
+            f32 = ep.fused_edge_layer.f32_launches - f32_before
+            check(fwd_counts() == want and f32 == (dname == "f32"),
                   f"kernel {dname}: (launches, tc_launches) "
-                  f"{fwd_counts()} != {want}")
+                  f"{fwd_counts()} != {want} or f32_launches +{f32}")
             err = compare("kernel", dname, FWD_NAMES, out,
                           ep.fused_edge_layer_ref(*args))
             ms = cuda_ms(lambda: ep.fused_edge_layer(*args))
+            # the card's time: 20 launches replayed from a CUDA graph (at
+            # ~0.1 ms an eager call measures part host time)
+            graph_ms = cuda_ms_batches(lambda: ep.fused_edge_layer(*args),
+                                       launches=20, batches=3)
             plain_ms = cuda_ms(lambda: ep.fused_edge_layer_ref(*args), reps=5)
             nbytes, flops = fwd_work(N, E, active, H, hr.element_size())
             b_ms, b_by = bound(nbytes, flops, dname)
-            res[dname] = dict(ms=ms, plain_ms=plain_ms, err=err,
-                              bound_ms=b_ms, bound_by=b_by)
-            print(f"kernel time {dname}: {ms:.4f} ms/launch, plain "
+            res[dname] = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                              err=err, bound_ms=b_ms, bound_by=b_by)
+            print(f"kernel time {dname}: {ms:.4f} ms/launch eagerly, "
+                  f"{graph_ms:.4f} as CUDA-graph replays, plain "
                   f"{plain_ms:.4f} ms, bound {res[dname]['bound_ms']:.4f} ms "
                   f"({res[dname]['bound_by']}: {nbytes} B, {flops} flop), "
-                  f"{res[dname]['bound_ms'] / ms:.3f} of bound")
+                  f"{res[dname]['bound_ms'] / graph_ms:.3f} of bound "
+                  f"(replays)")
     return res
 
 
@@ -510,18 +526,22 @@ def serve_phase(cfg, model, eng, dev, scenes):
     # the main path: counts 0 just before, read just after
     ep.fused_edge_layer.launches = 0
     ep.fused_edge_layer.tc_launches = 0
+    ep.fused_edge_layer.f32_launches = 0
     t0 = time.perf_counter()
     outs = [eng.predict(g) for g in scenes]
     first_ms = (time.perf_counter() - t0) * 1e3 / len(scenes)
     launches, tc = fwd_counts()
+    f32 = ep.fused_edge_layer.f32_launches
     want = cfg.model.n_layers * eng.max_batch * len(scenes)
     print(f"served {len(scenes)} requests: fused_edge_fwd launches="
           f"{launches} (expected {cfg.model.n_layers} layers x "
           f"{eng.max_batch} graphs x {len(scenes)} requests = {want}), "
-          f"{tc} of them on the tensor-core kernel (expected 0: f32 serving "
-          f"runs the FMA kernel)")
+          f"{f32} of them on the f32 kernel (expected all), {tc} on the "
+          f"tensor-core kernel (expected 0)")
     check(launches == want, f"launch count {launches} != {want}")
     check(tc == 0, f"f32 serving launched the tensor-core forward {tc} times")
+    check(f32 == launches, f"{launches - f32} f32 forward launches did not "
+          f"run fused_edge_fwd_f32_kernel")
     for g, o in zip(scenes, outs):
         check(o.shape == (g["loc"].shape[0], 3), f"bad output {o.shape}")
         check(np.isfinite(o).all(), "non-finite served output")
@@ -817,6 +837,20 @@ def flagship_kernel_phase(model, batch, dev):
     return res
 
 
+def print_blocked_device_time(label, rows):
+    """``--profile``: the one-hot segment sum's device time in a profiled
+    run, ``blocked_seg_sum`` and ``blocked_plan`` (the plan kernel), each
+    with its launches and together."""
+    seg = [(ms, n) for key, ms, n in rows if "seg_sum" in key]
+    plan = [(ms, n) for key, ms, n in rows if "plan_kernel" in key]
+    if not seg and not plan:
+        return
+    s_ms, s_n = sum(r[0] for r in seg), sum(r[1] for r in seg)
+    p_ms, p_n = sum(r[0] for r in plan), sum(r[1] for r in plan)
+    print(f"profile {label}: blocked_seg_sum {s_ms:.3f} ms x{s_n}, "
+          f"blocked_plan {p_ms:.3f} ms x{p_n}, together {s_ms + p_ms:.3f} ms")
+
+
 def profile_step(fn):
     """``--profile``: torch.profiler over one train micro-step: device time
     by kernel and the device's idle share of the step's wall time."""
@@ -842,6 +876,7 @@ def profile_step(fn):
           f"{1 - busy / wall_ms:.4f}, {sum(r[2] for r in rows)} device ops")
     for key, ms, n in rows[:15]:
         print(f"profile train kernel: {ms:.3f} ms  x{n}  {key[:90]}")
+    print_blocked_device_time("train micro-step", rows)
 
 
 def train_phase(root, dev, clouds, profile=False):
@@ -1766,9 +1801,11 @@ TOL_ROLLOUT_TRAJ = 5e-4
 
 
 def blocked_counts():
+    """(blocked_seg_sum, blocked_gather, blocked_plan) launches."""
     from distegnn_tpu_torch.ops import blocked as BL
 
-    return BL.blocked_segment_sum.launches, BL.blocked_gather.launches
+    return (BL.blocked_segment_sum.launches, BL.blocked_gather.launches,
+            BL.blocked_plan.launches)
 
 
 def blocked_widths():
@@ -1784,46 +1821,48 @@ def reset_blocked_counts():
     for f in (BL.blocked_segment_sum, BL.blocked_gather):
         f.launches = 0
         f.launch_widths.clear()
+    BL.blocked_plan.launches = 0
 
 
 def blocked_plain_patches():
-    """The two kernels' wrappers pointed at their plain versions."""
+    """The three kernels' wrappers pointed at their plain versions."""
     from distegnn_tpu_torch.ops import blocked as BL
 
     return (mock.patch.object(BL, "_seg_sum_cuda",
                               BL.blocked_segment_sum_ref),
-            mock.patch.object(BL, "_gather_cuda", BL.blocked_gather_ref))
+            mock.patch.object(BL, "_gather_cuda", BL.blocked_gather_ref),
+            mock.patch.object(BL, "_plan_cuda", BL.blocked_plan_ref))
 
 
 def blocked_want(L, steps=0, micro=0, evals=0):
-    """Launches by (F, type) from the code: per forward (hoist_edge_mlp,
-    fuse_agg, no pairing on the f32 rollout path) 1 seg_sum of the [E, 1]
-    mask (inv_deg) and per layer a gather of x [E, 3] and of the hoisted
-    h @ W [E, H], and a seg_sum of the translations [E, 3] and of the edge
-    features [E, H]. Training (bf16 message MLPs, remat, the pairing
-    attached) adds per micro-step the remat rerun of each layer (not of
-    inv_deg) and the backward: a gather of each seg_sum's cotangent (but
-    the last layer's edge-feature mean, which reaches only that layer's h,
-    unused by the loss), a seg_sum for the row gather and the paired column
-    gather of h @ W in every layer and of x in layers 1..L-1 (layer 0's x
-    is the batch's)."""
+    """Launches by (F, type) from the code, and the plan's: per forward
+    (hoist_edge_mlp, fuse_agg, no pairing on the f32 rollout path) 1
+    blocked_plan of the slots (inv_deg is its degree; every segment sum of
+    the forward and its backward reads it) and per layer a gather of x
+    [E, 3] and of the hoisted h @ W [E, H], and a seg_sum of the
+    translations [E, 3] and of the edge features [E, H]. Training (bf16
+    message MLPs, remat, the pairing attached) adds per micro-step the
+    remat rerun of each layer (not of the plan, built before the layers)
+    and the backward: a gather of each seg_sum's cotangent (but the last
+    layer's edge-feature mean, which reaches only that layer's h, unused by
+    the loss), a seg_sum for the row gather and the paired column gather of
+    h @ W in every layer and of x in layers 1..L-1 (layer 0's x is the
+    batch's). Returns (seg_sum widths, gather widths, plan launches)."""
     H = HIDDEN
     seg = collections.Counter()
     gat = collections.Counter()
     if steps:
-        seg[(1, "f32")] += steps
         seg[(3, "f32")] += steps * L
         seg[(H, "f32")] += steps * L
         gat[(3, "f32")] += steps * L
         gat[(H, "f32")] += steps * L
     n_fwd = micro + evals
     if n_fwd:
-        seg[(1, "f32")] += n_fwd
         seg[(3, "f32")] += L * (2 * micro + evals) + 2 * (L - 1) * micro
         seg[(H, "bf16")] += L * (2 * micro + evals) + 2 * L * micro
         gat[(3, "f32")] += L * (2 * micro + evals) + L * micro
         gat[(H, "bf16")] += L * (2 * micro + evals) + (L - 1) * micro
-    return dict(seg), dict(gat)
+    return dict(seg), dict(gat), steps + n_fwd
 
 
 def seg_ref64(data, slot, n_nodes, block):
@@ -1845,11 +1884,16 @@ def seg_ref64(data, slot, n_nodes, block):
 
 
 def blocked_case(label, slot, n_nodes, F, dtype, gen, dev, timed=False):
-    """Both kernels at one shape: held against f64 / their plain versions,
-    and with ``timed`` timed beside their plain versions, the library call
+    """The three kernels at one shape: the plan against its plain version
+    (torch.equal); the segment sum through it against the edge-order
+    reference (torch.equal), f64 and its plain version (TOL_BLOCKED of each
+    column's max), bitwise repeatable; the gather bitwise. With ``timed``
+    each is timed beside its plain version, the library call
     (``index_add_`` into a zeroed output / ``index_select`` from h with a
-    zero row for the sentinels), the einsum lowering and the bound: the
-    kernels and the library calls as the median of batches of 200 launches
+    zero row for the sentinels; the plan has none: a stable
+    ``torch.argsort`` of the slots, its largest part, is timed as
+    ``sort_ms``), the einsum lowering and the bound: the kernels and the
+    library calls as the median of batches of 200 launches
     (:func:`cuda_ms_batches`), eagerly and as CUDA-graph replays, the plain
     versions and the einsum lowering over 3 calls. Returns {kernel name:
     result}."""
@@ -1859,40 +1903,51 @@ def blocked_case(label, slot, n_nodes, F, dtype, gen, dev, timed=False):
 
     B, E = slot.shape
     block, tile = RB_BLOCK, RB_TILE
+    nb = n_nodes // block
     dname = "bf16" if dtype == torch.bfloat16 else "f32"
     elt = 2 if dname == "bf16" else 4
     data = torch.randn((B, E, F), generator=gen, device=dev).to(dtype)
     h = torch.randn((B, n_nodes, F), generator=gen, device=dev).to(dtype)
     real = int((slot < block).sum())
-    out = BL._seg_sum_cuda(data, slot, n_nodes, block, tile)
+    plan = BL._plan_cuda(slot, n_nodes, block)
     torch.cuda.synchronize()
+    plan_ok = all(torch.equal(a, b) for a, b in zip(
+        plan, BL.blocked_plan_ref(slot, n_nodes, block)))
+    out = BL._seg_sum_cuda(data, slot, n_nodes, block, tile, plan)
+    torch.cuda.synchronize()
+    inorder = torch.equal(out, BL.blocked_segment_sum_inorder(data, plan,
+                                                              block))
     ref, scale = seg_ref64(data, slot, n_nodes, block)
     err64 = float(((out.double() - ref).abs() / scale).max())
     plain = BL.blocked_segment_sum_ref(data, slot, n_nodes, block, tile)
     errp = float(((out - plain).double().abs() / scale).max())
-    again = torch.equal(BL._seg_sum_cuda(data, slot, n_nodes, block, tile),
-                        out)
+    again = torch.equal(BL._seg_sum_cuda(data, slot, n_nodes, block, tile,
+                                         plan), out)
     g = BL._gather_cuda(h, slot, block, tile)
     torch.cuda.synchronize()
     gp = BL.blocked_gather_ref(h, slot, block, tile)
     sentinel = slot >= block
     g_ok = (torch.equal(g, gp) and g.dtype == dtype
             and bool((g[sentinel] == 0).all()))
-    print(f"2e {label} B={B} N={n_nodes} E={E} F={F} {dname}: seg_sum vs "
-          f"f64 {err64:.3e}, vs plain {errp:.3e} (tol {TOL_BLOCKED:.0e} of "
-          f"each column's max), repeat bitwise {again}; gather vs plain "
-          f"bitwise {g_ok}; {real} real slots")
-    check(err64 <= TOL_BLOCKED and errp <= TOL_BLOCKED and again,
+    print(f"2e {label} B={B} N={n_nodes} E={E} F={F} {dname}: plan vs plain "
+          f"equal {plan_ok}; seg_sum vs the edge-order sum bitwise "
+          f"{inorder}, vs f64 {err64:.3e}, vs plain {errp:.3e} (tol "
+          f"{TOL_BLOCKED:.0e} of each column's max), repeat bitwise {again}; "
+          f"gather vs plain bitwise {g_ok}; {real} real slots")
+    check(plan_ok, f"2e {label}: the plan kernel disagrees")
+    check(inorder and err64 <= TOL_BLOCKED and errp <= TOL_BLOCKED and again,
           f"2e {label}: the seg_sum kernel disagrees")
     check(g_ok, f"2e {label}: the gather kernel disagrees")
     res = {"blocked_seg_sum": dict(err=float((out - plain).abs().max())),
            "blocked_gather": dict(err=float((g.float() - gp.float()).abs()
-                                            .max()))}
+                                            .max())),
+           "blocked_plan": dict(err=0.0)}
     if not timed:
         return res
     shape = f"B={B} N={n_nodes} E={E} F={F} {dname}"
+    plan_shape = f"B={B} N={n_nodes} E={E}"
     # the library calls and the einsum lowering on the same inputs
-    epb = E // (n_nodes // block)
+    epb = E // nb
     blk = (torch.arange(E, device=dev) // epb) * block
     bofs = (torch.arange(B, device=dev) * (n_nodes + 1))[:, None]
     idx = torch.where(sentinel, torch.full_like(blk, n_nodes),
@@ -1902,18 +1957,26 @@ def blocked_case(label, slot, n_nodes, F, dtype, gen, dev, timed=False):
     h_ext = torch.cat([h, torch.zeros((B, 1, F), dtype=dtype, device=dev)],
                       dim=1).reshape(B * (n_nodes + 1), F)
     oh = BL.onehot_blocks(slot, epb, block)
+    key = torch.where(sentinel, torch.full_like(slot, block),
+                      slot).reshape(B, nb, epb)
+
     def both(fn):
         # eagerly (host and card, as a path calls it) and as CUDA-graph
         # replays (the card's time)
         return (cuda_ms_batches(fn, graph=False), cuda_ms_batches(fn))
 
-    ms_s = both(lambda: BL._seg_sum_cuda(data, slot, n_nodes, block, tile))
+    ms_s = both(lambda: BL._seg_sum_cuda(data, slot, n_nodes, block, tile,
+                                         plan))
     pl_s = cuda_ms(lambda: BL.blocked_segment_sum_ref(data, slot, n_nodes,
                                                       block, tile),
                    reps=3, warm=1)
     lib_s = both(lambda: torch.zeros((B * (n_nodes + 1), F),
                                      device=dev).index_add_(0, idx, src))
     ein_s = cuda_ms(lambda: BL._ein_seg_sum_raw(data, oh), reps=3, warm=1)
+    ms_p = both(lambda: BL._plan_cuda(slot, n_nodes, block))
+    pl_p = cuda_ms(lambda: BL.blocked_plan_ref(slot, n_nodes, block),
+                   reps=3, warm=1)
+    sort_p = both(lambda: torch.argsort(key, dim=-1, stable=True))
     ms_g = both(lambda: BL._gather_cuda(h, slot, block, tile))
     pl_g = cuda_ms(lambda: BL.blocked_gather_ref(h, slot, block, tile),
                    reps=3, warm=1)
@@ -1922,21 +1985,35 @@ def blocked_case(label, slot, n_nodes, F, dtype, gen, dev, timed=False):
                     warm=1)
     del oh
     nodes = B * n_nodes
+    offs = B * nb * (block + 1) * 4
+    # seg_sum: the real slots' rows and their perm entries, the offsets, the
+    # f32 output; the plan: the slots, then perm, off and the degree
     for name, (ms, g_ms), pl, (lib, g_lib), ein, nbytes, flops in (
             ("blocked_seg_sum", ms_s, pl_s, lib_s, ein_s,
-             B * E * (F * elt + 4) + nodes * F * 4, real * F),
+             real * (F * elt + 4) + offs + nodes * F * 4, real * F),
+            ("blocked_plan", ms_p, pl_p, (None, None), None,
+             2 * B * E * 4 + offs + nodes * 4, 0),
             ("blocked_gather", ms_g, pl_g, lib_g, ein_g,
              nodes * F * elt + B * E * (4 + F * elt), 0)):
         b_ms, b_by = bound(nbytes, flops, "f32")
         res[name].update(ms=ms, graph_ms=g_ms, plain_ms=pl, library_ms=lib,
                          library_graph_ms=g_lib, einsum_ms=ein,
-                         bound_ms=b_ms, bound_by=b_by, shape=shape)
-        print(f"2e {label} {name} {shape}: {ms:.4f} ms/launch eagerly, "
-              f"{g_ms:.4f} as CUDA-graph replays; plain {pl:.4f} ms, library "
-              f"({'index_add_' if 'seg' in name else 'index_select'}) "
-              f"{lib:.4f} eagerly, {g_lib:.4f} as replays; einsum lowering "
-              f"{ein:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B), "
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=plan_shape if name == "blocked_plan"
+                         else shape)
+        lib_name = {"blocked_seg_sum": "index_add_",
+                    "blocked_gather": "index_select"}.get(name)
+        libs = (f"library ({lib_name}) {lib:.4f} eagerly, {g_lib:.4f} as "
+                f"replays" if lib_name else
+                f"no library call (stable argsort {sort_p[0]:.4f} eagerly, "
+                f"{sort_p[1]:.4f} as replays)")
+        eins = f"einsum lowering {ein:.4f} ms, " if ein is not None else ""
+        print(f"2e {label} {name} {res[name]['shape']}: {ms:.4f} "
+              f"ms/launch eagerly, "
+              f"{g_ms:.4f} as CUDA-graph replays; plain {pl:.4f} ms, {libs}; "
+              f"{eins}bound {b_ms:.4f} ms ({b_by}: {nbytes} B), "
               f"{b_ms / g_ms:.4f} of bound (replays)")
+    res["blocked_plan"].update(sort_ms=sort_p[0], sort_graph_ms=sort_p[1])
     return res
 
 
@@ -2075,9 +2152,9 @@ def rollout_serve_phase(root, dev, profile=False):
     want = blocked_want(L, steps=K)
     for name, (n, w) in (("rollout", single), ("rollout_batch", batched)):
         print(f"{name} (K={K}): blocked_seg_sum launches {n[0]} {w[0]}, "
-              f"blocked_gather {n[1]} {w[1]} (expected per step 2L+1 = "
-              f"{2 * L + 1} and 2L = {2 * L}: {want})")
-        check(w == want and n == (K * (2 * L + 1), K * 2 * L),
+              f"blocked_gather {n[1]} {w[1]}, blocked_plan {n[2]} (expected "
+              f"per step 2L = {2 * L}, 2L = {2 * L} and 1: {want})")
+        check(w == want[:2] and n == (K * 2 * L, K * 2 * L, K),
               f"{name}: launch counts {n} {w} != {want}")
     check(traj.shape == (K, ROLLOUT_N, 3) and np.isfinite(traj).all(),
           "rollout: bad or non-finite trajectory")
@@ -2110,7 +2187,8 @@ def rollout_serve_phase(root, dev, profile=False):
             stack.enter_context(pt)
         reset_blocked_counts()
         traj_p = eng.rollout(one["loc"], one["vel"], K)
-        check(blocked_counts() == (0, 0), "plain versions launched kernels")
+        check(blocked_counts() == (0, 0, 0),
+              "plain versions launched kernels")
     cfg_e = load_config(path, {"model.blocked_impl": "einsum",
                                "serve.rollout": opts})
     model_e, eng_e = engine_with_params_from_config(cfg_e)
@@ -2119,7 +2197,8 @@ def rollout_serve_phase(root, dev, profile=False):
           "the einsum engine drew other weights")
     reset_blocked_counts()
     traj_e = eng_e.rollout(one["loc"], one["vel"], K)
-    check(blocked_counts() == (0, 0), "the einsum lowering launched kernels")
+    check(blocked_counts() == (0, 0, 0),
+          "the einsum lowering launched kernels")
     errs = {}
     for name, other in (("plain versions", traj_p), ("einsum", traj_e)):
         a1 = float(np.abs(traj[0] - other[0]).max())
@@ -2225,6 +2304,7 @@ def rollout_profile(eng, reqs, reps=5):
           f"{1 - busy / wall_ms:.4f}, {sum(r[2] for r in rows)} device ops")
     for key, ms, n in rows[:12]:
         print(f"profile rollout kernel: {ms:.3f} ms  x{n}  {key[:90]}")
+    print_blocked_device_time("rollout_batch", rows)
 
 
 def blocked_train_phase(root, dev, clouds, profile=False):
@@ -2270,10 +2350,10 @@ def _blocked_train_phase(root, dev, clouds, log_dir, profile):
     L = m.n_layers
     want = blocked_want(L, micro=micro, evals=evals)
     print(f"blocked train launches: blocked_seg_sum {n[0]} {widths[0]}, "
-          f"blocked_gather {n[1]} {widths[1]} (expected {want}: {micro} "
-          f"micro-steps, {evals} eval forwards)")
-    check(widths == want and n == (sum(want[0].values()),
-                                   sum(want[1].values())),
+          f"blocked_gather {n[1]} {widths[1]}, blocked_plan {n[2]} "
+          f"(expected {want}: {micro} micro-steps, {evals} eval forwards)")
+    check(widths == want[:2] and n == (sum(want[0].values()),
+                                       sum(want[1].values()), want[2]),
           f"blocked train: launch counts {n} {widths} != {want}")
 
     loader, batches = host_batches(cfg, ds, dev, "blocked ")
@@ -2322,8 +2402,9 @@ def _blocked_train_phase(root, dev, clouds, log_dir, profile):
                      counts=blocked_counts, time_extra=TRAIN_TIMED)
     del plain_batches
     per = blocked_want(L, micro=n_micro)
-    check(k["launches"] == (sum(per[0].values()), sum(per[1].values()))
-          and p["launches"] == e["launches"] == s["launches"] == (0, 0),
+    check(k["launches"] == (sum(per[0].values()), sum(per[1].values()),
+                            per[2])
+          and p["launches"] == e["launches"] == s["launches"] == (0, 0, 0),
           f"blocked first update launches: kernels {k['launches']}, plain "
           f"{p['launches']}, einsum {e['launches']}, scatter "
           f"{s['launches']}")
@@ -2501,7 +2582,9 @@ def main():
           f"{rollout['launches'][0][0]} + {rollout['launches'][1][0]} "
           f"(rollout, rollout_batch) + {blocked['launches'][0]} (blocked "
           f"train), blocked_gather {rollout['launches'][0][1]} + "
-          f"{rollout['launches'][1][1]} + {blocked['launches'][1]}")
+          f"{rollout['launches'][1][1]} + {blocked['launches'][1]}, "
+          f"blocked_plan {rollout['launches'][0][2]} + "
+          f"{rollout['launches'][1][2]} + {blocked['launches'][2]}")
 
     # one row per kernel and path, with the numbers of the dtype and shape
     # that path launches the kernel at: serving f32 at phase 2's shape,
@@ -2531,8 +2614,8 @@ def main():
         ("suffix_scan", "suffix f32", plain["suffix"],
          "distegnn_tpu/ops/cumsum.py:62"))
     kernels = [
-        row("fused_edge_fwd", "serve f32 N=8192", kres["f32"], fwd_tpu,
-            launches),
+        row("fused_edge_fwd_f32", "serve f32 N=8192", kres["f32"], fwd_tpu,
+            launches, source="fused_edge_fwd"),
         row(flagship["fused_edge_fwd"]["kernel"],
             f"train {flagship['fused_edge_fwd']['dtype']} "
             f"{flagship['fused_edge_fwd']['shape']}",
@@ -2560,7 +2643,8 @@ def main():
             f"{stack['row']['shape']}", stack["row"], STACK_TPU,
             stack["launches"][0])]
     # the one-hot kernels: a row per path and launched width (F, type);
-    # the gather's rows of at most 16 bytes are its narrow form
+    # the gather's rows of at most 16 bytes are its narrow form; the plan
+    # (part of the segment sum's port) a row per path
     for i, name in enumerate(("blocked_seg_sum", "blocked_gather")):
         for path, rows, widths in (
                 ("rollout serve", rollout["rows"],
@@ -2572,6 +2656,14 @@ def main():
                     kernels.append(row(
                         name, f"{path} {r[name]['shape']}", r[name],
                         BLOCKED_TPU[name], n, source="blocked_onehot"))
+    for path, rows, n in (
+            ("rollout serve", rollout["rows"],
+             sum(c[2] for c in rollout["launches"])),
+            ("blocked train", blocked["rows"], blocked["launches"][2])):
+        r = rows[min(rows)]["blocked_plan"]
+        kernels.append(row("blocked_plan", f"{path} {r['shape']}", r,
+                           BLOCKED_TPU["blocked_seg_sum"], n,
+                           source="blocked_onehot"))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s, the kernels' build "
           f"included")

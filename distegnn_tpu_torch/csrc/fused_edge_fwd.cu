@@ -13,12 +13,14 @@
 // in f32 — the TPU kernel's roundings, kept even in f32 mode so that the two
 // agree to summation order.
 //
-// Two kernels compute it, and the wrapper picks one by dtype and H:
+// Three kernels compute it, and the wrapper picks one by dtype and H:
 //  - fused_edge_fwd_tc_kernel<H>, bf16 at H in {16, 32, 64} (the flagship's
 //    path): the two H x H products on the tensor cores;
-//  - fused_edge_fwd_kernel<H, BF16>, every other case: f32 (on the tensor
-//    cores f32 operands would be rounded to TF32, which breaks the f32
-//    parity the tests hold) and the other H.
+//  - fused_edge_fwd_f32_kernel<H>, f32 at every H (serving's path): the two
+//    products as register-blocked FMAs (on the tensor cores f32 operands
+//    would be rounded to TF32, which breaks the f32 parity the tests hold);
+//  - fused_edge_fwd_kernel<H, true>, bf16 at the other H: the FMA tile of
+//    fused_edge_common.cuh.
 //
 // What bounds it on the H100: the two H x H products per edge, 4*H*H =
 // 16 Kflop at H=64, against ~44 bytes of edge stream plus two gathered node
@@ -30,7 +32,7 @@
 // IEEE division, and the bf16 roundings) and the hr / hc gathers (PERF.md
 // has the measured split).
 //
-// Design of the FMA kernel, against the TPU kernel:
+// Design of the FMA kernels, against the TPU kernel:
 //  - The TPU gathers the sender rows from a 3-block VMEM window and sums with
 //    one-hot MXU products over a sequential (nb, nt) grid. Here each block
 //    takes tiles of TE=64 consecutive row-sorted edges, rebuilds global
@@ -54,9 +56,11 @@
 //    (fused_edge_bwd.cu), which recomputes this forward with the same
 //    roundings, and with the fused-stack megakernel (fused_stack_fwd.cu),
 //    whose in-window pass is this tile.
-// The tensor-core kernel's design is at its definition below; its building
-// blocks (ldmatrix / mma.sync, the edge staging, the one-hot row side) are
-// fused_edge_tc.cuh's, shared with the backward's tensor-core kernel.
+// The tensor-core and f32 kernels' designs are at their definitions below;
+// the tensor-core building blocks (ldmatrix / mma.sync, the edge staging,
+// the one-hot row side) are fused_edge_tc.cuh's, shared with the backward's
+// tensor-core kernel; the f32 ones (the register-blocked tile, its staging
+// and row walk) fused_edge_f32.cuh's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +68,7 @@
 #include <type_traits>
 
 #include "fused_edge_common.cuh"
+#include "fused_edge_f32.cuh"
 #include "fused_edge_tc.cuh"
 
 namespace {
@@ -370,6 +375,229 @@ fused_edge_fwd_tc_kernel(const int* __restrict__ row_t,
   }
 }
 
+// ---------------------------------------------------- the f32 FMA path
+//
+// fused_edge_fwd_f32_kernel<H>: the FMA tile redesigned for f32 (any H in
+// 16..128). The function is the FMA tile's (rnd<false> is the identity) and
+// each product sums over k in order with one fmaf per term; the sigmoid
+// runs on the special-function unit (f32_silu, a few ulps from the exact
+// form), and the summation order of the gate g and of the row segments'
+// atomics across tiles can differ. The f32 checks against the plain version
+// hold at their tolerances. Persistent blocks of F32_THREADS = 128
+// threads walk 64-edge tiles with a grid stride; w2 and w3 are staged once a
+// block (the columns permuted, fused_edge_f32.cuh). At H = 64 a block takes
+// ~57 KB of shared memory and 157 registers a thread, so three blocks share
+// an SM and one's barriers and serial steps overlap the others' work. Per
+// tile:
+//   1. t1 = hr[row] + hc[col] + sfeat @ ws + b1 and y1 = silu(t1), one edge
+//      and H/8 column quads a thread (consecutive threads on consecutive
+//      edges), its hr / hc row loads issued together, into the k-major tile
+//      [H][LDT];
+//   2. y1 @ w2, 8 edges x H/16 columns a thread (f32_tile_mm); once every
+//      thread has read y1, epilogue ef = silu(. + b2) into the same tile (0
+//      at inactive slots);
+//   3. ef @ w3; epilogue y2 = silu(. + b3) and the gate's partial sums
+//      y2 * w4, reduced over the 16 column groups by shuffles; from the
+//      gate g the payload's lanes [hi(trans), lo(trans), 1] of each edge;
+//   4. the row side: one task per (payload column, row segment), each
+//      segment summed in edge order, one f32 atomicAdd per segment and
+//      column (f32_row_side).
+// The next tile's per-edge data is staged while this one computes, as the
+// tensor-core kernel stages it (threads 0-63, one edge slot each): its
+// layout fields are loaded at the top of the tile, its x rows after phase 1,
+// and its edge data stored into the other of two edge buffers after phase 2.
+
+template <int H>
+__global__ void __launch_bounds__(F32_THREADS)
+fused_edge_fwd_f32_kernel(const int* __restrict__ row_t,
+                          const int* __restrict__ col_l,
+                          const int* __restrict__ kblk,
+                          const float* __restrict__ scal,
+                          const float* __restrict__ x,
+                          const float* __restrict__ hr,
+                          const float* __restrict__ hc,
+                          const float* __restrict__ ws,
+                          const float* __restrict__ b1,
+                          const float* __restrict__ w2,
+                          const float* __restrict__ b2,
+                          const float* __restrict__ w3,
+                          const float* __restrict__ b3,
+                          const float* __restrict__ w4,
+                          float* __restrict__ out, int n_nodes, int n_edges,
+                          int block) {
+  using L = F32Layout<H>;
+  constexpr int CW = L::CW;
+  constexpr int EDGE = L::EDGE;
+  static_assert(F32_THREADS == 128 && TE == 64,
+                "8 x 16 threads over 64-edge tiles");
+
+  extern __shared__ __align__(16) float fsm[];
+  float* sW2 = fsm;                       // [H][H], columns permuted
+  float* sW3 = sW2 + H * H;
+  float* sT = sW3 + H * H;                // [H][LDT] y1, then ef, k-major
+  float* sWs = sT + H * F32_LDT;          // ws [3H], b1, b2, b3, w4
+  const float* sB1 = sWs + 3 * H;
+  const float* sB2 = sWs + 4 * H;
+  const float* sB3 = sWs + 5 * H;
+  const float* sW4 = sWs + 6 * H;
+  float* sP = sWs + 7 * H;                // [7][TE] the payload's lanes 0-6
+  int* sEdge = reinterpret_cast<int*>(sP + 7 * TE);
+  unsigned* sAct = reinterpret_cast<unsigned*>(sEdge + 2 * EDGE * TE);
+  unsigned* sStart = sAct + 4;            // [2] the row segment starts
+
+  const int tid = threadIdx.x;
+  const int te = tid >> 4, tc = tid & 15;
+  const bool stager = tid < TE;
+
+  f32_load_weights<H>(sW2, sW3, sWs, ws, b1, w2, b2, w3, b3, w4);
+
+  const int T = block;
+  const int nb = n_nodes / T;
+  const int epb = n_edges / nb;
+  const int smax = nb - 3 > 0 ? nb - 3 : 0;
+  const int n_tiles = (n_edges + TE - 1) / TE;
+
+  if (stager) {
+    EdgeFetch f;
+    tc_fetch_fields(f, blockIdx.x, tid, row_t, col_l, kblk, scal, n_edges);
+    f32_fetch_rows(f, x, n_edges, T, epb, smax);
+    f32_store_edge(EdgeBuf(sEdge, sAct), f, tid);
+  }
+
+  int cur = 0;
+  for (int tile = blockIdx.x; tile < n_tiles;
+       tile += gridDim.x, cur ^= 1) {
+    __syncthreads();  // this tile staged, the previous one fully consumed
+    const EdgeBuf E(sEdge + cur * EDGE * TE, sAct + 2 * cur);
+    const EdgeBuf next(sEdge + (cur ^ 1) * EDGE * TE, sAct + 2 * (cur ^ 1));
+    if (!(E.act[0] | E.act[1])) {   // all-padding tile
+      if (stager) {
+        EdgeFetch f;
+        tc_fetch_fields(f, tile + gridDim.x, tid, row_t, col_l, kblk, scal,
+                        n_edges);
+        f32_fetch_rows(f, x, n_edges, T, epb, smax);
+        f32_store_edge(next, f, tid);
+      }
+      continue;
+    }
+    // the next tile's layout fields now, its x rows after phase 1, its
+    // per-edge data after phase 2; this tile's segment starts for phase 4
+    EdgeFetch nf;
+    if (stager) {
+      tc_fetch_fields(nf, tile + gridDim.x, tid, row_t, col_l, kblk, scal,
+                      n_edges);
+      tc_mark_segment_starts(E, sStart);
+    }
+
+    // ---- 1. t1 and y1 = silu(t1). Thread tid takes edge tid % TE and the
+    //      column quads 4 (tid / TE + 2 m): consecutive threads on
+    //      consecutive edges; a batch of its hr / hc row loads is issued
+    //      before any is used
+    {
+      constexpr int NI = H / 8;               // column quads a thread
+      constexpr int PB = NI <= 8 ? NI : NI / 2;   // quads loaded together
+      const int el = tid % TE, q0 = tid / TE;
+      const int row = E.row[el];
+      const float* hrr = hr + (size_t)(row >= 0 ? row : 0) * H;
+      const float* hcr = hc + (size_t)E.col[el] * H;
+      const float f0 = E.sf[3 * el], f1 = E.sf[3 * el + 1],
+                  f2 = E.sf[3 * el + 2];
+#pragma unroll
+      for (int m0 = 0; m0 < NI; m0 += PB) {
+        float4 a[PB], b[PB];
+#pragma unroll
+        for (int u = 0; u < PB; ++u) {
+          const int j0 = 4 * (q0 + 2 * (m0 + u));
+          if (row >= 0) {
+            a[u] = *reinterpret_cast<const float4*>(hrr + j0);
+            b[u] = *reinterpret_cast<const float4*>(hcr + j0);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < PB; ++u) {
+          const int j0 = 4 * (q0 + 2 * (m0 + u));
+          float y[4] = {0.f, 0.f, 0.f, 0.f};
+          if (row >= 0) {
+            const float4 w0 = *reinterpret_cast<const float4*>(sWs + j0);
+            const float4 w1 = *reinterpret_cast<const float4*>(sWs + H + j0);
+            const float4 w2v =
+                *reinterpret_cast<const float4*>(sWs + 2 * H + j0);
+            const float4 bb = *reinterpret_cast<const float4*>(sB1 + j0);
+            const float hv[4] = {a[u].x + b[u].x, a[u].y + b[u].y,
+                                 a[u].z + b[u].z, a[u].w + b[u].w};
+            const float u0[4] = {w0.x, w0.y, w0.z, w0.w};
+            const float u1[4] = {w1.x, w1.y, w1.z, w1.w};
+            const float u2[4] = {w2v.x, w2v.y, w2v.z, w2v.w};
+            const float ub[4] = {bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float sw = fmaf(f2, u2[q], fmaf(f1, u1[q], f0 * u0[q]));
+              y[q] = f32_silu((hv[q] + sw) + ub[q]);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sT[(j0 + q) * F32_LDT + el] = y[q];
+        }
+      }
+    }
+    if (stager) f32_fetch_rows(nf, x, n_edges, T, epb, smax);
+    __syncthreads();
+
+    // ---- 2. ef = silu(y1 w2 + b2), into the tile once all have read y1
+    {
+      float acc[8][CW];
+      f32_tile_mm<H>(sT, sW2, acc);
+      __syncthreads();
+      bool on[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) on[r] = E.row[8 * te + r] >= 0;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int j = tc + 16 * c;
+        float v[8];
+        // 0 at an inactive slot: the row side sums segments as ranges
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          v[r] = on[r] ? f32_silu(acc[r][c] + sB2[j]) : 0.f;
+        float* p = sT + j * F32_LDT + 8 * te;
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(p + 4) =
+            make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+    if (stager) f32_store_edge(next, nf, tid);
+    __syncthreads();
+
+    // ---- 3. y2 = silu(ef w3 + b3); g = sum_j y2 * w4, the 16 column
+    //      groups' partial sums reduced by shuffles within the half-warp
+    {
+      float acc[8][CW];
+      f32_tile_mm<H>(sT, sW3, acc);
+      float gs[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        gs[r] = 0.f;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const int j = tc + 16 * c;
+          const float y2 = f32_silu(acc[r][c] + sB3[j]);
+          gs[r] = __fadd_rn(gs[r], __fmul_rn(y2, sW4[j]));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int d = 8; d >= 1; d >>= 1)
+          gs[r] = __fadd_rn(gs[r], __shfl_xor_sync(0xffffffffu, gs[r], d));
+      if (tc == 0) f32_store_payload(E, gs, te, sP);
+    }
+    __syncthreads();
+
+    // ---- 4. the row side: [hi, lo, 1, 0, ef] summed by row segment
+    f32_row_side<H>(E, sStart, sP, sT, out);
+  }
+}
+
 template <int H, bool BF16>
 cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
                    const void* scal, const void* x, const void* hr,
@@ -396,6 +624,55 @@ cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
       static_cast<const int*>(kblk), static_cast<const float*>(scal),
       static_cast<const float*>(x), static_cast<const Act*>(hr),
       static_cast<const Act*>(hc), static_cast<const float*>(ws),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(w3),
+      static_cast<const float*>(b3), static_cast<const float*>(w4),
+      static_cast<float*>(out), n_nodes, n_edges, block);
+  return cudaGetLastError();
+}
+
+template <int H>
+cudaError_t launch_f32(const void* row_t, const void* col_l,
+                       const void* kblk, const void* scal, const void* x,
+                       const void* hr, const void* hc, const void* ws,
+                       const void* b1, const void* w2, const void* b2,
+                       const void* w3, const void* b3, const void* w4,
+                       void* out, int n_nodes, int n_edges, int block,
+                       int n_sm, cudaStream_t stream) {
+  constexpr size_t smem = F32Layout<H>::kBytes;
+  auto kern = fused_edge_fwd_f32_kernel<H>;
+  // the attribute and the occupancy query once per device: they cost host
+  // time per launch
+  constexpr int kDevices = 64;
+  static int per_sm_of[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int per_sm = dev >= 0 && dev < kDevices ? per_sm_of[dev] : 0;
+  if (per_sm == 0) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    // the largest shared-memory carveout: three ~57 KB blocks at H = 64
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        F32_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    if (dev >= 0 && dev < kDevices) per_sm_of[dev] = per_sm;
+  }
+  const int n_tiles = (n_edges + TE - 1) / TE;
+  int grid = per_sm * n_sm;
+  if (grid > n_tiles) grid = n_tiles;
+  if (grid < 1) return cudaSuccess;
+  kern<<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const int*>(row_t), static_cast<const int*>(col_l),
+      static_cast<const int*>(kblk), static_cast<const float*>(scal),
+      static_cast<const float*>(x), static_cast<const float*>(hr),
+      static_cast<const float*>(hc), static_cast<const float*>(ws),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),
       static_cast<const float*>(b3), static_cast<const float*>(w4),
@@ -458,15 +735,17 @@ cudaError_t dispatch_dtype(int bf16, const void* row_t, const void* col_l,
     return launch<H, true>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2,
                            b2, w3, b3, w4, out, n_nodes, n_edges, block, n_sm,
                            stream);
-  return launch<H, false>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2, b2,
-                          w3, b3, w4, out, n_nodes, n_edges, block, n_sm,
-                          stream);
+  return launch_f32<H>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2, b2,
+                       w3, b3, w4, out, n_nodes, n_edges, block, n_sm,
+                       stream);
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success). out [N, H+8] f32 must
-// be zeroed by the caller; hr/hc are f32 (bf16 == 0) or bf16 (bf16 == 1).
+// be zeroed by the caller; hr/hc are f32 (bf16 == 0: the f32 kernel) or
+// bf16 (bf16 == 1: the bf16 FMA kernel; fused_edge_fwd_tc takes bf16 at H in
+// {16, 32, 64}).
 extern "C" int fused_edge_fwd(const void* row_t, const void* col_l,
                               const void* kblk, const void* scal,
                               const void* x, const void* hr, const void* hc,

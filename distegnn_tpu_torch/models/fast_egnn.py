@@ -196,7 +196,7 @@ class EGCLVel(nn.Module):
 
     def _plain_edges(self, h, x, g: GraphBatch, blocked):
         """Per-edge streams through EdgeOps -> (agg, agg_h). ``blocked`` is
-        FastEGNN's once-per-forward (slot, inv_deg, oh) of a blocked
+        FastEGNN's once-per-forward (slot, inv_deg, oh, plan) of a blocked
         batch, or Nones."""
         ops = EdgeOps(g, *blocked, seg_impl=self.seg_impl)
         coord_diff = ops.gather_rows(x) - ops.gather_cols(x)   # [B, E, 3]
@@ -228,18 +228,19 @@ class EGCLVel(nn.Module):
         return agg, ops.agg_rows_mean(edge_feat)
 
     def forward(self, h, x, v, X, Hv, g: GraphBatch, fused_arrs=None,
-                gravity=None, slot=None, inv_deg=None, oh=None):
+                gravity=None, slot=None, inv_deg=None, oh=None, plan=None):
         """h [B,N,H], x/v [B,N,3], X [B,3,C], Hv [B,H,C], gravity [3] (with
         ``has_gravity``), and on a blocked batch the layer-invariant slot
-        ids [B,E], 1/in-degree [B,N,1] and einsum one-hot (or None) ->
-        (h, x, Hv, X)."""
+        ids [B,E], 1/in-degree [B,N,1], einsum one-hot (or None) and the
+        slots' plan (or None) -> (h, x, Hv, X)."""
         H, C = self.hidden_nf, self.virtual_channels
         node_mask = g.node_mask
         nm = node_mask[..., None]
         if self.edge_impl == "fused":
             agg, agg_h = self._fused_edges(h, x, g, fused_arrs)
         else:
-            agg, agg_h = self._plain_edges(h, x, g, (slot, inv_deg, oh))
+            agg, agg_h = self._plain_edges(h, x, g,
+                                           (slot, inv_deg, oh, plan))
 
         # virtual-edge geometry: every node sees all C virtual nodes
         vcd = X[:, None, :, :] - x[..., None]                  # [B, N, 3, C]
@@ -404,9 +405,10 @@ class FastEGNN(nn.Module):
             return self._fused_stack_forward(g, h, x, v, X, Hv, gravity,
                                              fused_arrs)
         # blocked layout: slot ids + in-degree reciprocal (+ the einsum
-        # one-hot), shared by all layers
+        # one-hot, or the kernels' plan), shared by all layers and their
+        # backward
         blocked = (blocked_slot_inv_deg(g, self.blocked_impl)
-                   if self.edge_impl == "plain" else (None, None, None))
+                   if self.edge_impl == "plain" else (None,) * 4)
         for layer in self.gcl:
             if self.remat and torch.is_grad_enabled():
                 # keep only the layer's inputs; the backward reruns it

@@ -15,26 +15,32 @@ Host half (numpy): ``blockify`` / ``prepare_blocked_graph`` /
 ``pairing_perm`` / ``scan_dataset_for_blocking``.
 
 Device half: ``slot_ids`` turns (row, edge_mask) into block-local receiver
-ids with the sentinel ``block`` for masked slots, and two ops compute the
-blocked aggregation and its adjoint:
+ids with the sentinel ``block`` for masked slots, ``blocked_plan`` turns
+slot ids into their CSR (``BlockedPlan``: each node block's slot positions
+stably sorted by slot, each node's range, the in-degree), and two ops
+compute the blocked aggregation and its adjoint:
 
   blocked_segment_sum  [B, E, F] -> [B, N, F] f32: out[b*block + k] = sum of
-                       the slots of block b with slot == k (sentinels add
-                       nothing);
+                       the slots of block b with slot == k, in edge order
+                       (sentinels add nothing);
   blocked_gather       [B, N, F] -> [B, E, F] in h's type: out[e] =
                        h[b*block + slot[e]], 0 at a sentinel.
 
-On a CUDA tensor each call launches the hand-written kernel
-``csrc/blocked_onehot.cu`` once for the whole batch; on a CPU tensor it runs
-the plain version (``blocked_segment_sum_ref`` / ``blocked_gather_ref``),
-which follows the TPU kernels step by step (a [tile, block] one-hot per edge
-tile, an f32 product with exact 0/1 factors, accumulated tile by tile).
-Any other device is refused: there is no fallback. The two ops are each
-other's VJP (``torch.autograd.Function``s), as in the JAX package, and
-``paired_col_gather`` is a plain column take whose backward is the
-reverse-edge permutation followed by the segment sum. Launch counts:
-``blocked_segment_sum.launches`` / ``blocked_gather.launches``, and
-``.launch_widths`` by (F, input type).
+A forward's slots are the same for every layer, so ``blocked_slot_inv_deg``
+builds the plan once per forward (its degree gives ``inv_deg``) and every
+segment sum of that forward and its backward reads it. On a CUDA tensor
+each call launches the hand-written kernel ``csrc/blocked_onehot.cu`` once
+for the whole batch (a segment sum called without a plan launches
+``blocked_plan`` first); on a CPU tensor it runs the plain version
+(``blocked_plan_ref``; ``blocked_segment_sum_ref`` / ``blocked_gather_ref``,
+which follow the TPU kernels step by step: a [tile, block] one-hot per edge
+tile, an f32 product with exact 0/1 factors, accumulated tile by tile, and
+need no plan). Any other device is refused: there is no fallback. The two
+ops are each other's VJP (``torch.autograd.Function``s), as in the JAX
+package, and ``paired_col_gather`` is a plain column take whose backward is
+the reverse-edge permutation followed by the segment sum. Launch counts:
+``blocked_plan.launches``, ``blocked_segment_sum.launches`` /
+``blocked_gather.launches``, and ``.launch_widths`` by (F, input type).
 
 The ``einsum`` lowering (``blocked_impl='einsum'``, the JAX default) is
 plain PyTorch: the one-hot incidence is materialised once per forward as a
@@ -50,7 +56,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -206,18 +212,64 @@ def slot_ids(row: torch.Tensor, edge_mask: torch.Tensor, block: int,
                        torch.full_like(local, block))
 
 
-def _layout(E: int, n_nodes: int, block: int, tile: int):
-    """(node blocks, tiles per block), with the JAX package's checks."""
+def _plan_layout(E: int, n_nodes: int, block: int):
+    """(node blocks, slots per block), with the JAX package's checks."""
     nb, rem = divmod(n_nodes, block)
-    if rem:
+    if rem or nb < 1:
         raise ValueError(f"n_nodes {n_nodes} not a multiple of block {block}")
     epb, rem = divmod(E, nb)
     if rem:
         raise ValueError(f"E {E} not a multiple of num_blocks {nb}")
+    return nb, epb
+
+
+def _layout(E: int, n_nodes: int, block: int, tile: int):
+    """(node blocks, tiles per block), with the JAX package's checks."""
+    nb, epb = _plan_layout(E, n_nodes, block)
     ept, rem = divmod(epb, tile)
     if rem:
         raise ValueError(f"edges/block {epb} not a multiple of tile {tile}")
     return nb, ept
+
+
+class BlockedPlan(NamedTuple):
+    """The CSR of one slot tensor [B, E] over node blocks of ``block``
+    nodes and ``epb`` slots (:func:`blocked_plan`):
+
+      perm [B, E] int32            each node block's block-local slot
+                                   positions (0..epb-1) stably sorted by
+                                   slot, the sentinels last;
+      off  [B, nb, block + 1] int32  node k of block bi owns
+                                   perm[b, bi*epb + off[b, bi, k] :
+                                   bi*epb + off[b, bi, k + 1]];
+      deg  [B, N, 1] f32           the in-degree off[k + 1] - off[k]
+                                   (an integer count, exact in f32)."""
+    perm: torch.Tensor
+    off: torch.Tensor
+    deg: torch.Tensor
+
+
+def blocked_plan_ref(slot: torch.Tensor, num_segments: int,
+                     block: int = DEFAULT_BLOCK) -> BlockedPlan:
+    """Plain PyTorch version of the plan kernel: a stable argsort of each
+    node block's slots (sentinels, any value outside [0, block), as
+    ``block``), the per-node counts by ``bincount`` and their exclusive
+    ``cumsum``."""
+    B, E = slot.shape
+    nb, epb = _plan_layout(E, num_segments, block)
+    s = slot.reshape(B, nb, epb)
+    key = torch.where((s >= 0) & (s < block), s, torch.full_like(s, block))
+    perm = torch.argsort(key, dim=-1, stable=True).to(torch.int32)
+    bucket = key.long() + (block + 1) * torch.arange(
+        B * nb, device=slot.device).reshape(B, nb, 1)
+    counts = torch.bincount(bucket.reshape(-1),
+                            minlength=B * nb * (block + 1)).reshape(
+        B, nb, block + 1)[..., :block]
+    off = torch.zeros((B, nb, block + 1), dtype=torch.int32,
+                      device=slot.device)
+    off[..., 1:] = torch.cumsum(counts, dim=-1)
+    deg = counts.to(torch.float32).reshape(B, num_segments, 1)
+    return BlockedPlan(perm.reshape(B, E), off, deg)
 
 
 def _tile_onehots(slot: torch.Tensor, nb: int, ept: int, tile: int,
@@ -232,11 +284,14 @@ def _tile_onehots(slot: torch.Tensor, nb: int, ept: int, tile: int,
 
 def blocked_segment_sum_ref(data: torch.Tensor, slot: torch.Tensor,
                             num_segments: int, block: int = DEFAULT_BLOCK,
-                            tile: int = DEFAULT_EDGE_TILE) -> torch.Tensor:
+                            tile: int = DEFAULT_EDGE_TILE,
+                            plan: Optional[BlockedPlan] = None
+                            ) -> torch.Tensor:
     """Plain PyTorch version of the segment-sum kernel, step by step after
     ``_seg_sum_kernel``: per edge tile, out[block b] += onehot[tile,
     block]^T @ data[tile, F] in f32 (exact 0/1 factors; bf16 data widened
-    exactly), tiles accumulated in order. [B, E, F] -> [B, N, F] f32."""
+    exactly), tiles accumulated in order. [B, E, F] -> [B, N, F] f32.
+    ``plan`` is accepted for the kernel's signature and not needed."""
     B, E, F = data.shape
     nb, ept = _layout(E, num_segments, block, tile)
     d = data.to(torch.float32).reshape(B, nb, ept, tile, F)
@@ -262,7 +317,35 @@ def blocked_gather_ref(h: torch.Tensor, slot: torch.Tensor,
     return out.reshape(B, E, F).to(h.dtype)
 
 
-def _lib_fn(name: str):
+def blocked_segment_sum_inorder(data: torch.Tensor, plan: BlockedPlan,
+                                block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """The in-order f32 segment sum through a plan: a dense [B, N, max
+    degree, F] gather of each node's rows (zeros past its degree), summed
+    over the degree axis one step at a time from 0. The CUDA segment sum
+    adds each node's rows in the same order, so it equals this bit for
+    bit. [B, E, F] -> [B, N, F] f32."""
+    B, E, F = data.shape
+    nb = plan.off.shape[1]
+    epb = E // nb
+    N = nb * block
+    start = plan.off[..., :block].reshape(B, N).long()
+    deg = plan.deg.reshape(B, N).long()
+    width = int(deg.max()) if deg.numel() else 0
+    base = (torch.arange(N, device=data.device) // block) * epb
+    out = torch.zeros((B, N, F), dtype=torch.float32, device=data.device)
+    for d in range(width):
+        live = d < deg
+        j = torch.where(live, base + start + d, torch.zeros_like(start))
+        rows = torch.gather(plan.perm.long(), 1, j) + base
+        step = torch.gather(data, 1, rows[..., None].expand(B, N, F))
+        out = out + torch.where(live[..., None], step.to(torch.float32),
+                                torch.zeros((), device=data.device))
+    return out
+
+
+def _lib_fn(name: str, n_ptr: int, n_int: int):
+    """The C entry point ``name``: ``n_ptr`` pointers, ``n_int`` ints, the
+    stream."""
     from distegnn_tpu_torch.ops.build import LIBRARIES
 
     fn = getattr(LIBRARIES.get("blocked_onehot"), name)
@@ -270,7 +353,7 @@ def _lib_fn(name: str):
         # pointers (and the stream) as c_void_p: ctypes would pass a bare
         # Python int as a 32-bit int and cut the pointer
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -297,22 +380,64 @@ def _kernel_args(x: torch.Tensor, slot: torch.Tensor, E: int, what: str):
     return x.contiguous(), slot.contiguous()
 
 
-def _seg_sum_cuda(data: torch.Tensor, slot: torch.Tensor, num_segments: int,
-                  block: int, tile: int) -> torch.Tensor:
-    """Launch ``csrc/blocked_onehot.cu`` ``blocked_seg_sum`` once for the
+def _plan_cuda(slot: torch.Tensor, num_segments: int,
+               block: int) -> BlockedPlan:
+    """Launch ``csrc/blocked_onehot.cu`` ``blocked_plan`` once for the
     batch; counted once."""
+    if slot.ndim != 2:
+        raise ValueError(f"blocked_plan takes slots [B, E], got "
+                         f"{tuple(slot.shape)}")
+    B, E = slot.shape
+    nb, epb = _plan_layout(E, num_segments, block)
+    if block > 1024 or B > 65535 or nb > 65535:
+        raise ValueError(f"blocked_plan takes block <= 1024 and B, nb <= "
+                         f"65535, got block={block} B={B} nb={nb}")
+    if slot.dtype != torch.int32:
+        slot = slot.to(torch.int32)
+    slot = slot.contiguous()
+    dev = slot.device
+    perm = torch.empty((B, E), dtype=torch.int32, device=dev)
+    off = torch.empty((B, nb, block + 1), dtype=torch.int32, device=dev)
+    deg = torch.empty((B, num_segments, 1), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib_fn("blocked_plan", 4, 4)(slot.data_ptr(), perm.data_ptr(),
+                                        off.data_ptr(), deg.data_ptr(), B,
+                                        nb, epb, block, stream)
+    if err != 0:
+        raise RuntimeError(f"blocked_plan launch failed: CUDA error {err}")
+    blocked_plan.launches += 1
+    return BlockedPlan(perm, off, deg)
+
+
+def _seg_sum_cuda(data: torch.Tensor, slot: torch.Tensor, num_segments: int,
+                  block: int, tile: int,
+                  plan: Optional[BlockedPlan] = None) -> torch.Tensor:
+    """Launch ``csrc/blocked_onehot.cu`` ``blocked_seg_sum`` once for the
+    batch, reading the slots through ``plan`` (built first, one counted
+    ``blocked_plan`` launch, when none is given); counted once."""
     B, E, F = data.shape
     nb, _ = _layout(E, num_segments, block, tile)
     if block > 1024:
         raise ValueError(f"blocked_seg_sum takes block <= 1024, got {block}")
     data, slot = _kernel_args(data, slot, E, "blocked_segment_sum")
+    if plan is None:
+        plan = _plan_cuda(slot, num_segments, block)
+    elif (tuple(plan.perm.shape) != (B, E)
+          or tuple(plan.off.shape) != (B, nb, block + 1)
+          or plan.perm.dtype != torch.int32 or plan.off.dtype != torch.int32
+          or plan.perm.device != data.device
+          or plan.off.device != data.device):
+        raise ValueError(f"blocked_segment_sum: a plan of perm "
+                         f"{tuple(plan.perm.shape)} / off "
+                         f"{tuple(plan.off.shape)} does not fit slots "
+                         f"{(B, E)} over {nb} blocks of {block}")
     out = torch.empty((B, num_segments, F), dtype=torch.float32,
                       device=data.device)
     stream = torch.cuda.current_stream(data.device).cuda_stream
     bf16 = data.dtype == torch.bfloat16
-    err = _lib_fn("blocked_seg_sum")(data.data_ptr(), slot.data_ptr(),
-                                     out.data_ptr(), B, nb, E // nb, F,
-                                     block, int(bf16), stream)
+    err = _lib_fn("blocked_seg_sum", 4, 6)(
+        data.data_ptr(), plan.perm.data_ptr(), plan.off.data_ptr(),
+        out.data_ptr(), B, nb, E // nb, F, block, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"blocked_seg_sum launch failed: CUDA error {err}")
     blocked_segment_sum.launches += 1
@@ -337,8 +462,9 @@ def _gather_cuda(h: torch.Tensor, slot: torch.Tensor, block: int,
     # rows of at most 16 bytes take the one-thread-per-row form
     name = ("blocked_gather_rows" if F * h.element_size() <= 16
             else "blocked_gather")
-    err = _lib_fn(name)(h.data_ptr(), slot.data_ptr(), out.data_ptr(), B, nb,
-                        E // nb, F, block, h.element_size(), stream)
+    err = _lib_fn(name, 3, 6)(h.data_ptr(), slot.data_ptr(), out.data_ptr(),
+                              B, nb, E // nb, F, block, h.element_size(),
+                              stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     blocked_gather.launches += 1
@@ -347,12 +473,22 @@ def _gather_cuda(h: torch.Tensor, slot: torch.Tensor, block: int,
     return out
 
 
-def _seg_sum_impl(data, slot, num_segments, block, tile):
+def _plan_impl(slot, num_segments, block):
+    """CUDA tensors take the kernel, CPU tensors the plain version."""
+    if slot.device.type == "cuda":
+        return _plan_cuda(slot, num_segments, block)
+    if slot.device.type == "cpu":
+        return blocked_plan_ref(slot, num_segments, block)
+    raise ValueError(f"blocked_plan: unsupported device {slot.device}")
+
+
+def _seg_sum_impl(data, slot, num_segments, block, tile, plan=None):
     """CUDA tensors take the kernel, CPU tensors the plain version."""
     if data.device.type == "cuda":
-        return _seg_sum_cuda(data, slot, num_segments, block, tile)
+        return _seg_sum_cuda(data, slot, num_segments, block, tile, plan)
     if data.device.type == "cpu":
-        return blocked_segment_sum_ref(data, slot, num_segments, block, tile)
+        return blocked_segment_sum_ref(data, slot, num_segments, block, tile,
+                                       plan)
     raise ValueError(f"blocked_segment_sum: unsupported device {data.device}")
 
 
@@ -364,76 +500,105 @@ def _gather_impl(h, slot, block, tile):
     raise ValueError(f"blocked_gather: unsupported device {h.device}")
 
 
+def _save_plan(ctx, plan, *tensors):
+    """Save ``tensors`` and the plan's tensors (if any) for the backward."""
+    ctx.has_plan = plan is not None
+    ctx.save_for_backward(*tensors, *((plan.perm, plan.off, plan.deg)
+                                      if plan is not None else ()))
+
+
+def _saved(ctx, n):
+    """The ``n`` saved tensors and the saved plan (or None)."""
+    saved = ctx.saved_tensors
+    return saved[:n], BlockedPlan(*saved[n:]) if ctx.has_plan else None
+
+
 class _SegSum(torch.autograd.Function):
     # the VJP of the aggregation is the gather of the cotangent, in the
     # data's type
     @staticmethod
-    def forward(ctx, data, slot, num_segments, block, tile):
+    def forward(ctx, data, slot, num_segments, block, tile, plan):
         ctx.save_for_backward(slot)
         ctx.cfg, ctx.dtype = (block, tile), data.dtype
-        return _seg_sum_impl(data, slot, num_segments, block, tile)
+        return _seg_sum_impl(data, slot, num_segments, block, tile, plan)
 
     @staticmethod
     def backward(ctx, g):
         (slot,) = ctx.saved_tensors
         return (_gather_impl(g.to(ctx.dtype), slot, *ctx.cfg),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 class _Gather(torch.autograd.Function):
     # the VJP of the gather is the aggregation of the cotangent, cast to h's
-    # type
+    # type, through the forward's plan
     @staticmethod
-    def forward(ctx, h, slot, block, tile):
-        ctx.save_for_backward(slot)
+    def forward(ctx, h, slot, block, tile, plan):
+        _save_plan(ctx, plan, slot)
         ctx.cfg, ctx.n, ctx.dtype = (block, tile), h.shape[1], h.dtype
         return _gather_impl(h, slot, block, tile)
 
     @staticmethod
     def backward(ctx, g):
-        (slot,) = ctx.saved_tensors
-        return (_seg_sum_impl(g, slot, ctx.n, *ctx.cfg).to(ctx.dtype),
-                None, None, None)
+        (slot,), plan = _saved(ctx, 1)
+        return (_seg_sum_impl(g, slot, ctx.n, *ctx.cfg, plan).to(ctx.dtype),
+                None, None, None, None)
 
 
 class _PairedGather(torch.autograd.Function):
     # h[col]: the transpose of a symmetric graph's column incidence is the
     # edge permutation ``pair``, so grad_h = seg_sum(g[pair], slot)
     @staticmethod
-    def forward(ctx, h, col, pair, slot, block, tile):
-        ctx.save_for_backward(pair, slot)
+    def forward(ctx, h, col, pair, slot, block, tile, plan):
+        _save_plan(ctx, plan, pair, slot)
         ctx.cfg, ctx.n, ctx.dtype = (block, tile), h.shape[1], h.dtype
         return S.take_rows(h, col)
 
     @staticmethod
     def backward(ctx, g):
-        pair, slot = ctx.saved_tensors
-        grad_h = _seg_sum_impl(S.take_rows(g, pair), slot, ctx.n, *ctx.cfg)
-        return grad_h.to(ctx.dtype), None, None, None, None, None
+        (pair, slot), plan = _saved(ctx, 2)
+        grad_h = _seg_sum_impl(S.take_rows(g, pair), slot, ctx.n, *ctx.cfg,
+                               plan)
+        return grad_h.to(ctx.dtype), None, None, None, None, None, None
+
+
+def blocked_plan(slot, num_segments: int, block: int = DEFAULT_BLOCK
+                 ) -> BlockedPlan:
+    """The CSR of ``slot`` [B, E] (from :func:`slot_ids`) over node blocks
+    of ``block`` nodes: a :class:`BlockedPlan`, built once per slot tensor
+    and read by every segment sum over it."""
+    return _plan_impl(slot, num_segments, block)
 
 
 def blocked_segment_sum(data, slot, num_segments: int,
                         block: int = DEFAULT_BLOCK,
-                        tile: int = DEFAULT_EDGE_TILE):
+                        tile: int = DEFAULT_EDGE_TILE,
+                        plan: Optional[BlockedPlan] = None):
     """Batched [B, E, F] -> [B, N, F] f32. ``slot`` from :func:`slot_ids`
-    (masked slots carry the sentinel and contribute nothing)."""
-    return _SegSum.apply(data, slot, num_segments, block, tile)
+    (masked slots carry the sentinel and contribute nothing); ``plan`` its
+    :func:`blocked_plan` (on the card a call without one builds it)."""
+    return _SegSum.apply(data, slot, num_segments, block, tile, plan)
 
 
 def blocked_gather(h, slot, block: int = DEFAULT_BLOCK,
-                   tile: int = DEFAULT_EDGE_TILE):
+                   tile: int = DEFAULT_EDGE_TILE,
+                   plan: Optional[BlockedPlan] = None):
     """Batched [B, N, F] -> [B, E, F]; rows fetched block-locally (masked
-    slots read as 0). Adjoint of :func:`blocked_segment_sum`."""
-    return _Gather.apply(h, slot, block, tile)
+    slots read as 0). Adjoint of :func:`blocked_segment_sum`, whose
+    backward segment sum reads ``plan``."""
+    return _Gather.apply(h, slot, block, tile, plan)
 
 
 def paired_col_gather(h, col, pair, slot, block: int = DEFAULT_BLOCK,
-                      tile: int = DEFAULT_EDGE_TILE):
+                      tile: int = DEFAULT_EDGE_TILE,
+                      plan: Optional[BlockedPlan] = None):
     """Batched h[b, col[b, e]] whose backward is the reverse-edge
-    permutation plus the blocked segment sum (no scatter)."""
-    return _PairedGather.apply(h, col, pair, slot, block, tile)
+    permutation plus the blocked segment sum (no scatter) through
+    ``plan``."""
+    return _PairedGather.apply(h, col, pair, slot, block, tile, plan)
 
 
+blocked_plan.launches = 0
 blocked_segment_sum.launches = 0
 blocked_segment_sum.launch_widths = collections.Counter()
 blocked_gather.launches = 0
@@ -560,26 +725,28 @@ def paired_gather_ein(h, col, pair, oh):
 
 
 def blocked_slot_inv_deg(g, impl: str = "einsum"):
-    """(slot ids, 1/max(in-degree, 1) [B, N, 1], one-hot incidence or None)
-    for a blocked GraphBatch, or (None, None, None) when g is not blocked.
-    Computed once per forward: row and edge_mask are the same for every
-    layer. ``impl``: 'pallas' (the kernels; the degree is the segment sum of
-    the mask) or 'einsum' (the one-hot materialised; the degree is its
-    column sum)."""
+    """(slot ids, 1/max(in-degree, 1) [B, N, 1], one-hot incidence or None,
+    plan or None) for a blocked GraphBatch, or four Nones when g is not
+    blocked. Computed once per forward: row and edge_mask are the same for
+    every layer. ``impl``: 'pallas' (the kernels; the slots' plan, built
+    once here and read by every segment sum of the forward and its
+    backward, and the degree its node counts) or 'einsum' (the one-hot
+    materialised; the degree is its column sum)."""
     if g.edge_block <= 0:
-        return None, None, None
+        return None, None, None, None
     slot = slot_ids(g.row, g.edge_mask, g.edge_block, g.edges_per_block)
     if impl == "einsum":
+        plan = None
         oh = onehot_blocks(slot, g.edges_per_block, g.edge_block)
         deg = torch.sum(oh, dim=-2, dtype=torch.float32).reshape(
             oh.shape[0], g.max_nodes, 1)
     elif impl == "pallas":
         oh = None
-        deg = blocked_segment_sum(g.edge_mask[..., None], slot, g.max_nodes,
-                                  g.edge_block, g.edge_tile)
+        plan = blocked_plan(slot, g.max_nodes, g.edge_block)
+        deg = plan.deg
     else:
         raise ValueError(f"unknown blocked impl {impl!r}")
-    return slot, 1.0 / torch.clamp(deg, min=1.0), oh
+    return slot, 1.0 / torch.clamp(deg, min=1.0), oh, plan
 
 
 # ---------------------------------------------------------------------------
@@ -601,16 +768,17 @@ class EdgeOps:
                ``max_in_degree``: fixed-degree chained gathers (exact);
       scatter  ``index_add_`` otherwise (the exact reference lowering).
 
-    ``slot``/``inv_deg``/``oh`` come from :func:`blocked_slot_inv_deg`,
-    computed once per forward. As in the JAX package, a lowering the batch
+    ``slot``/``inv_deg``/``oh``/``plan`` come from
+    :func:`blocked_slot_inv_deg`, computed once per forward. As in the JAX package, a lowering the batch
     cannot support (a blocked batch, unsorted rows, no ``max_in_degree``)
     is not taken."""
 
-    def __init__(self, g, slot=None, inv_deg=None, oh=None,
+    def __init__(self, g, slot=None, inv_deg=None, oh=None, plan=None,
                  seg_impl: str = "scatter"):
         if seg_impl not in ("scatter", "cumsum", "ell"):
             raise ValueError(f"unknown seg_impl {seg_impl!r}")
         self.g, self.slot, self.inv_deg, self.oh = g, slot, inv_deg, oh
+        self.plan = plan
         self.blocked = slot is not None
         self.cumsum = (seg_impl == "cumsum" and not self.blocked
                        and g.edges_sorted)
@@ -622,7 +790,7 @@ class EdgeOps:
             if self.oh is not None:
                 return einsum_gather(data, self.oh)
             return blocked_gather(data, self.slot, self.g.edge_block,
-                                  self.g.edge_tile)
+                                  self.g.edge_tile, self.plan)
         if self.cumsum:
             return S.gather_rows_cs(data, self.g.row)
         if self.ell:
@@ -635,7 +803,7 @@ class EdgeOps:
             if self.oh is not None:
                 return paired_gather_ein(data, g.col, g.edge_pair, self.oh)
             return paired_col_gather(data, g.col, g.edge_pair, self.slot,
-                                     g.edge_block, g.edge_tile)
+                                     g.edge_block, g.edge_tile, self.plan)
         if self.cumsum and g.edge_pair is not None:
             return S.paired_gather_cols_cs(data, g.col, g.edge_pair, g.row,
                                            g.edge_mask)
@@ -652,7 +820,7 @@ class EdgeOps:
                 out = einsum_segment_sum(data, self.oh)
             else:
                 out = blocked_segment_sum(data, self.slot, N, g.edge_block,
-                                          g.edge_tile)
+                                          g.edge_tile, self.plan)
             if mean:
                 out = out * self.inv_deg
             return out.to(data.dtype)

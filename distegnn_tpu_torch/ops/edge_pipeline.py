@@ -14,8 +14,9 @@ for the receiver's block ``b``; ``build_edge_blocks`` masks the rest, and
 
 ``fused_edge_layer`` is the ``torch.autograd.Function`` ``FusedEdgeLayer``.
 Its forward runs the hand-written CUDA kernels of ``csrc/fused_edge_fwd.cu``
-on CUDA tensors (bf16 at H in 16 / 32 / 64 on the tensor cores, every other
-case on the FMA kernel) and the plain PyTorch version
+on CUDA tensors (bf16 at H in 16 / 32 / 64 on the tensor cores, f32 on the
+register-blocked f32 FMA kernel, bf16 at other H on the FMA tile) and the
+plain PyTorch version
 ``fused_edge_layer_ref`` on CPU tensors; its backward runs
 ``csrc/fused_edge_bwd.cu`` (which recomputes the per-edge forward: no
 ``[E, H]`` residual is kept) or the plain
@@ -406,15 +407,23 @@ def _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights: EdgeWeights,
 
 _FWD_SIZES = frozenset(range(16, 129, 16))
 _BWD_SIZES = frozenset((16, 32, 64))
-# bf16 at these H runs the forward's tensor-core kernel, every other case
-# its FMA kernel (f32 on the tensor cores would be rounded to TF32)
+# bf16 at these H runs the forward's tensor-core kernel, bf16 at the other
+# H its bf16 FMA kernel, f32 at every H its f32 FMA kernel (f32 on the
+# tensor cores would be rounded to TF32)
 _FWD_TC_SIZES = frozenset((16, 32, 64))
 
 
 def fwd_uses_tensor_cores(H: int, dtype_name: str) -> bool:
     """Whether a forward launch of width ``H`` in ``dtype_name`` runs
-    ``fused_edge_fwd_tc_kernel`` (else ``fused_edge_fwd_kernel``)."""
+    ``fused_edge_fwd_tc_kernel`` (else an FMA kernel)."""
     return dtype_name == "bf16" and H in _FWD_TC_SIZES
+
+
+def fwd_uses_f32_kernel(H: int, dtype_name: str) -> bool:
+    """Whether a forward launch of width ``H`` in ``dtype_name`` runs
+    ``fused_edge_fwd_f32_kernel`` (f32 at every H; bf16 outside the
+    tensor-core sizes runs ``fused_edge_fwd_kernel``)."""
+    return dtype_name == "f32"
 
 
 def _fused_edge_layer_cuda(x, hr, hc, row_t, col_l, kblk, scal,
@@ -440,6 +449,7 @@ def _fused_edge_layer_cuda(x, hr, hc, row_t, col_l, kblk, scal,
                            f"failed: CUDA error {err}")
     fused_edge_layer.launches += 1
     fused_edge_layer.tc_launches += tc
+    fused_edge_layer.f32_launches += fwd_uses_f32_kernel(H, dtype_name)
     return out[:, 0:3] + out[:, 3:6], out[:, 6], out[:, 8:]
 
 
@@ -557,7 +567,8 @@ def fused_edge_layer(x, hr, hc, row_t, col_l, kblk, scal,
     ``fused_edge_layer.bwd_launches`` count the forward and backward kernel
     launches; ``fused_edge_layer.tc_launches`` the forward launches that ran
     the tensor-core kernel (bf16 at H in 16 / 32 / 64,
-    :func:`fwd_uses_tensor_cores`).
+    :func:`fwd_uses_tensor_cores`) and ``fused_edge_layer.f32_launches``
+    those that ran the f32 FMA kernel (:func:`fwd_uses_f32_kernel`).
     """
     return FusedEdgeLayer.apply(x, hr, hc, row_t, col_l, kblk, scal,
                                 *weights, block, dtype_name)
@@ -565,4 +576,5 @@ def fused_edge_layer(x, hr, hc, row_t, col_l, kblk, scal,
 
 fused_edge_layer.launches = 0
 fused_edge_layer.tc_launches = 0
+fused_edge_layer.f32_launches = 0
 fused_edge_layer.bwd_launches = 0

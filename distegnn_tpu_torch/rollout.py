@@ -5,7 +5,9 @@ device (ops/radius_dev.py, fixed shapes) and runs the next model step. The
 rebuilt edge list is already in the blocked layout that the blocked
 aggregation ops read (``max_degree * edge_block`` slots per node block), so
 a plain model takes its blocked lowering (``blocked_impl``: the CUDA kernels
-``csrc/blocked_onehot.cu`` on the card, or the einsum contraction).
+``csrc/blocked_onehot.cu`` on the card, or the einsum contraction). The
+slots change every step, so each step's forward builds their plan once
+(``blocked_slot_inv_deg``: one ``blocked_plan`` launch) for all its layers.
 
 The JAX package runs the K steps inside one ``lax.scan``; here they are a
 Python loop of device work that never reads a value back: the per-step

@@ -9,6 +9,9 @@ Tolerances:
               test's rtol 2e-2 against the f32 sum of the unrounded data.
   gathers     bitwise: one nonzero product per output, exact.
   layout      bitwise (index, mask, pairing, edges per block).
+  plan        bitwise: a stable sort, integer offsets, and a degree that is
+              an integer count in f32, equal to the JAX package's segment
+              sum of the edge mask.
   FastEGNN    f32 1e-5 absolute on coordinates, gradients 1e-5 of the
               largest |JAX gradient|; bf16 2^-9 / 2^-7 (the port's stated
               bf16 bound, tests/test_torch_plain_egnn.py).
@@ -101,6 +104,83 @@ def test_segment_sum_ref_matches_jax(case, dtype):
         np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=2e-2,
                                    atol=2e-1)
         _close_cols(got.numpy(), want, TOL_SUM)
+
+
+def _shuffled(slots, epb, seed):
+    """The slots with each node block's order permuted (the plan's sort
+    must then move every slot, and keep equal slots in edge order)."""
+    rng = np.random.default_rng(seed)
+    s = slots.reshape(slots.shape[0], -1, epb).copy()
+    for b in range(s.shape[0]):
+        for k in range(s.shape[1]):
+            s[b, k] = s[b, k][rng.permutation(epb)]
+    return s.reshape(slots.shape)
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_blocked_plan_ref_is_a_stable_sort_with_jax_degree(case, shuffle):
+    """blocked_plan_ref: perm is a stable argsort of each node block's slots
+    (sentinels last), off the per-node ranges, and deg equals the JAX
+    package's blocked_segment_sum of the edge mask (its in-degree, run in
+    interpret mode) bitwise; both cases end in nodes without edges, the
+    second in an all-sentinel block."""
+    n, e, block, tile = case
+    _, em, epb, slots, _, _ = _case(12, n, e, block, tile)
+    if shuffle:
+        perm_e = _shuffled(np.arange(slots.shape[1])[None], epb, 13)[0]
+        slots, em = slots[:, perm_e], em[perm_e]
+    nb = n // block
+    if not shuffle and block == 64:
+        assert (slots.reshape(nb, epb)[-1] == block).all()
+    plan = pb.blocked_plan_ref(_t(slots), n, block)
+    assert plan.perm.dtype == plan.off.dtype == torch.int32
+    assert plan.deg.dtype == torch.float32 and plan.deg.shape == (1, n, 1)
+    perm = plan.perm.numpy().reshape(nb, epb)
+    off = plan.off.numpy().reshape(nb, block + 1)
+    s = slots.reshape(nb, epb)
+    key = np.where((s >= 0) & (s < block), s, block)
+    for k in range(nb):
+        np.testing.assert_array_equal(perm[k],
+                                      np.argsort(key[k], kind="stable"))
+        np.testing.assert_array_equal(
+            off[k], np.searchsorted(key[k][perm[k]], np.arange(block + 1)))
+    want = jb.blocked_segment_sum(jnp.asarray(em)[None, :, None],
+                                  jnp.asarray(slots), n, block, tile)
+    np.testing.assert_array_equal(plan.deg.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        plan.deg.numpy()[0, :, 0],
+        (off[:, 1:] - off[:, :-1]).reshape(-1).astype(np.float32))
+    # the dispatch runs the plain version on a CPU tensor
+    again = pb.blocked_plan(_t(slots), n, block)
+    for a, b in zip(again, plan):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_segment_sum_inorder_matches_jax(case, dtype):
+    """The edge-order reference through the plan (the CUDA segment sum's
+    summation order, which the card tests hold it to bit for bit) against
+    the JAX package's segment sum: 1e-6 of each column's max, shuffled
+    slots included; the CPU dispatch with a plan is the plain version."""
+    n, e, block, tile = case
+    _, _, epb, slots, data, _ = _case(14, n, e, block, tile)
+    perm_e = _shuffled(np.arange(slots.shape[1])[None], epb, 15)[0]
+    slots, data = slots[:, perm_e], data[perm_e]
+    jd, pd = jnp.asarray(data), _t(data)
+    if dtype == "bf16":
+        jd, pd = jd.astype(jnp.bfloat16), pd.to(torch.bfloat16)
+    want = jb.blocked_segment_sum(jd[None], jnp.asarray(slots), n, block,
+                                  tile)[0]
+    plan = pb.blocked_plan(_t(slots), n, block)
+    got = pb.blocked_segment_sum_inorder(pd[None], plan, block)[0]
+    assert got.dtype == torch.float32
+    _close_cols(got.numpy(), want, TOL_SUM)
+    with_plan = pb.blocked_segment_sum(pd[None], _t(slots), n, block, tile,
+                                       plan)
+    assert torch.equal(with_plan, pb.blocked_segment_sum_ref(
+        pd[None], _t(slots), n, block, tile))
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -235,10 +315,15 @@ def test_blocked_slot_inv_deg_matches_jax(impl):
     jbatch = jgraph.pad_graphs([dict(g) for g in graphs], edge_block=256)
     pbatch = pgraph.pad_graphs([dict(g) for g in graphs], edge_block=256)
     js, jd, joh = jb.blocked_slot_inv_deg(jbatch, impl)
-    ps, pd, poh = pb.blocked_slot_inv_deg(pbatch, impl)
+    ps, pd, poh, plan = pb.blocked_slot_inv_deg(pbatch, impl)
     np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
     np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
     assert (poh is None) == (joh is None) == (impl == "pallas")
+    # the kernels' path takes its degree from the slots' plan
+    assert (plan is not None) == (impl == "pallas")
+    if plan is not None:
+        np.testing.assert_array_equal(
+            (1.0 / torch.clamp(plan.deg, min=1.0)).numpy(), np.asarray(jd))
     if poh is not None:
         np.testing.assert_array_equal(poh.float().numpy(),
                                       np.asarray(joh, np.float32))
@@ -394,6 +479,65 @@ def test_fastegnn_blocked_matches_jax(impl, dtype):
     loss = _loss_port(pm, pbatch)
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), jl,
+                               rtol=1e-5 if dtype is None else 2 ** -7)
+    got = {k: torch.zeros_like(p) if p.grad is None else p.grad
+           for k, p in pm.named_parameters()}
+    assert want.keys() == got.keys()
+    scale = max(float(np.abs(g.numpy()).max()) for g in want.values())
+    for k in want:
+        err = float(np.abs(want[k].numpy() - got[k].numpy()).max())
+        assert err <= gtol * scale, f"{k}: {err:.3e} > {gtol * scale:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+def test_fastegnn_blocked_remat_threads_one_plan(dtype):
+    """blocked_impl='pallas' with remat (each layer checkpointed): one plan
+    per forward, built before the layers and passed through checkpoint to
+    every segment sum of the forward, its reruns and its backward; outputs
+    and gradients match the JAX model's (remat too) at the tolerances of
+    test_fastegnn_blocked_matches_jax."""
+    from unittest import mock
+
+    jm, jbatch, params, _, pbatch = _blocked_models(
+        dict(blocked_impl="pallas", compute_dtype=dtype, remat=True))
+    pm = FastEGNN(node_feat_nf=2, edge_attr_nf=2, hidden_nf=H,
+                  virtual_channels=C, n_layers=L, blocked_impl="pallas",
+                  compute_dtype=dtype, remat=True)
+    pm.load_state_dict(params_from_jax(params))
+    jx, jX = (np.asarray(a) for a in jax.jit(jm.apply)(params, jbatch))
+    jl, jg = jax.jit(jax.value_and_grad(_loss_jax(jm, jbatch)))(params)
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jg))
+    atol, gtol = (ATOL, GRAD_TOL) if dtype is None else (BF16_ATOL,
+                                                         BF16_GRAD_TOL)
+    plans, seg_plans = [], []
+    plan_of, seg = pb._plan_impl, pb._seg_sum_impl
+
+    def counted_plan(*a):
+        plans.append(plan_of(*a))
+        return plans[-1]
+
+    def counted_seg(data, slot, n, block, tile, plan=None):
+        seg_plans.append(plan)
+        return seg(data, slot, n, block, tile, plan)
+
+    with mock.patch.object(pb, "_plan_impl", counted_plan), \
+            mock.patch.object(pb, "_seg_sum_impl", counted_seg):
+        pm.zero_grad(set_to_none=True)
+        x, X = pm(pbatch)
+        loss = (torch.sum((x - pbatch.target) ** 2
+                          * pbatch.node_mask[..., None])
+                + 0.1 * torch.sum(X ** 2))
+        loss.backward()
+    assert len(plans) == 1
+    # per layer 2 in the forward, 2 in its rerun, and the backward's
+    assert len(seg_plans) > 4 * L
+    assert all(p is plans[0] or (p is not None and all(
+        torch.equal(a, b) for a, b in zip(p, plans[0]))) for p in seg_plans)
+    mask = np.asarray(jbatch.node_mask) > 0
+    np.testing.assert_allclose(x.detach().numpy()[mask], jx[mask], rtol=0,
+                               atol=atol)
+    np.testing.assert_allclose(X.detach().numpy(), jX, rtol=0, atol=atol)
+    np.testing.assert_allclose(float(loss.detach()), float(jl),
                                rtol=1e-5 if dtype is None else 2 ** -7)
     got = {k: torch.zeros_like(p) if p.grad is None else p.grad
            for k, p in pm.named_parameters()}

@@ -222,11 +222,13 @@ def test_fused_edge_fwd_tensor_core_kernel_on_card(Hn, nb):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Hn, dtype_name", [(48, "bf16"), (16, "f32"),
-                                            (64, "f32")])
+                                            (64, "f32"), (32, "f32"),
+                                            (48, "f32"), (128, "f32")])
 def test_fused_edge_fwd_fma_kernel_cases_on_card(Hn, dtype_name):
-    """bf16 at an H the tensor-core kernel does not take, and f32 at any H,
-    run the FMA kernel: one launch, tc_launches unchanged, within 2^-7 of
-    the plain version."""
+    """bf16 at an H the tensor-core kernel does not take runs the bf16 FMA
+    kernel, f32 at any H the f32 FMA kernel (f32_launches counts it; H =
+    128 fits one block an SM): one launch, tc_launches unchanged, within
+    2^-7 of the plain version, the edge count exact."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     row, col, ea, em, n, x, hr, hc, w = _fwd_tc_case(Hn, 80 + Hn, 5)
@@ -236,15 +238,21 @@ def test_fused_edge_fwd_fma_kernel_cases_on_card(Hn, dtype_name):
     args = [a.to(dev) for a in _t(x, hr, hc)]
     wt = P.EdgeWeights(*[a.to(dev) for a in _t(*w)])
     assert not P.fwd_uses_tensor_cores(Hn, dtype_name)
-    before = (P.fused_edge_layer.launches, P.fused_edge_layer.tc_launches)
+    f32 = P.fwd_uses_f32_kernel(Hn, dtype_name)
+    assert f32 == (dtype_name == "f32")
+    counts = (lambda: (P.fused_edge_layer.launches,
+                       P.fused_edge_layer.tc_launches,
+                       P.fused_edge_layer.f32_launches))
+    before = counts()
     out = P.fused_edge_layer(*args, *pa, wt, T, dtype_name)
     torch.cuda.synchronize()
-    assert (P.fused_edge_layer.launches, P.fused_edge_layer.tc_launches) == (
-        before[0] + 1, before[1])
+    assert counts() == (before[0] + 1, before[1], before[2] + f32)
     ref = P.fused_edge_layer_ref(*args, *pa, wt, T, dtype_name)
     for a, b in zip(out, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all()
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 2 ** -7 * scale
+    assert torch.equal(out[1], ref[1])
 
 
 @pytest.mark.cuda
@@ -271,6 +279,34 @@ def test_fused_edge_fwd_tc_kernel_is_built_on_hmma_on_card():
           if "fused_edge_fwd_tc_kernelILi64E" in f.split()[0]]
     assert len(tc) == 1
     assert "HMMA" in tc[0]
+
+
+@pytest.mark.cuda
+def test_fused_edge_fwd_f32_kernel_is_built_on_ffma_on_card():
+    """The built library's SASS of fused_edge_fwd_f32_kernel<64> holds FFMA
+    (CUDA-core f32 FMA) instructions and no HMMA: its products stay in
+    f32, not TF32."""
+    import os
+    import shutil
+    import subprocess
+
+    from distegnn_tpu_torch.ops import build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                     "cuobjdump")
+    lib = build._build("fused_edge_fwd")[0]
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    f32 = [f for f in sass.split("Function : ")[1:]
+           if "fused_edge_fwd_f32_kernelILi64E" in f.split()[0]]
+    assert len(f32) == 1
+    # a k step of one product is 8 edges x 4 columns = 32 FMAs a thread
+    assert f32[0].count("FFMA") >= 4 * 32
+    assert "HMMA" not in f32[0]
 
 
 # ------------------------------------------------------------ prefix scan
@@ -613,6 +649,102 @@ def test_blocked_seg_sum_kernel_matches_f64_and_plain_on_card(
         assert (out[0, (nb - 1) * block:] == 0).all()
 
 
+def plan_slots(rng, B, nb, epb, block, variant):
+    """Slots for the plan and edge-order tests: ``shuffled`` (blocked_slots
+    with the slot order mixed), ``sentinels`` (shuffled, padding marked by
+    -1 and block + 3 as well as block), ``short`` (2 % of the slots real:
+    most nodes own none, some one)."""
+    if variant == "short":
+        return blocked_slots(rng, B, nb, epb, block, fill=0.02, shuffle=True)
+    slot = blocked_slots(rng, B, nb, epb, block, shuffle=True)
+    if variant == "sentinels":
+        pad = slot == block
+        other = torch.from_numpy(rng.choice(
+            np.array([-1, block, block + 3], np.int32),
+            size=tuple(slot.shape)))
+        slot = torch.where(pad, other, slot)
+    return slot
+
+
+PLAN_CASES = [(B, nb, epb, block) for B, nb, epb, block in
+              ((1, 6, 1024, 256), (4, 4, 1536, 256), (2, 5, 256, 64),
+               (4, 16, 12288, 256))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shuffled", "sentinels", "short"])
+@pytest.mark.parametrize("B, nb, epb, block", PLAN_CASES)
+def test_blocked_plan_kernel_equals_plain_on_card(B, nb, epb, block,
+                                                  variant):
+    """The plan kernel (per-warp counts, a block-wide scan, a stable
+    placement by every warp) equals blocked_plan_ref, a stable argsort per
+    node block with bincount / cumsum offsets, with torch.equal: perm, off
+    and the degree; one counted launch; repeatable."""
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(B * 100 + nb)
+    slot = plan_slots(rng, B, nb, epb, block, variant).to(dev)
+    n = nb * block
+    before = BL.blocked_plan.launches
+    plan = BL.blocked_plan(slot, n, block)
+    torch.cuda.synchronize()
+    assert BL.blocked_plan.launches == before + 1
+    want = BL.blocked_plan_ref(slot, n, block)
+    for a, b in zip(plan, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    for a, b in zip(BL.blocked_plan(slot, n, block), plan):
+        assert torch.equal(a, b)
+
+
+# the paths' widths and types, a batch of 1 and of 4
+INORDER_CASES = [(B, F, dt) for B in (1, 4) for F in (1, 3, 64)
+                 for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shuffled", "sentinels", "short"])
+@pytest.mark.parametrize("B, F, dtype", INORDER_CASES)
+def test_blocked_seg_sum_is_the_edge_order_sum_on_card(B, F, dtype,
+                                                       variant):
+    """The segment sum through a plan equals the edge-order reference (a
+    dense gather through the plan summed one degree step at a time in f32)
+    with torch.equal, lies within 1e-6 of the f64 sum of each column's max,
+    repeats bitwise, and launches once with no plan launch of its own; an
+    all-sentinel block sums to exact zeros."""
+    from distegnn_tpu_torch.ops import blocked as BL
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    nb, epb, block, tile = 5, 1024, 256, 512
+    rng = np.random.default_rng(B * 1000 + F)
+    slot = plan_slots(rng, B, nb, epb, block, variant).to(dev)
+    n = nb * block
+    data = torch.from_numpy(rng.normal(size=(B, nb * epb, F)).astype(
+        np.float32)).to(dev).to(dtype)
+    plan = BL.blocked_plan(slot, n, block)
+    counts = (lambda: (BL.blocked_segment_sum.launches,
+                       BL.blocked_plan.launches))
+    before = counts()
+    out = BL.blocked_segment_sum(data, slot, n, block, tile, plan)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1])
+    assert out.dtype == torch.float32 and out.shape == (B, n, F)
+    assert torch.equal(out, BL.blocked_segment_sum_inorder(data, plan,
+                                                           block))
+    ref, scale = _seg_sum_f64(data, slot, n, block)
+    assert float(((out.double() - ref).abs() / scale).max()) <= 1e-6
+    assert torch.equal(BL._seg_sum_cuda(data, slot, n, block, tile, plan),
+                       out)
+    if variant != "short":
+        # blocked_slots leaves graph 0's last block all sentinels
+        assert (out[0, (nb - 1) * block:] == 0).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B, nb, epb, F, block, tile", BLOCKED_CASES)
@@ -727,7 +859,9 @@ def test_blocked_gather_narrow_rows_on_card(dtype, F, offset):
 def test_blocked_op_backwards_on_card(dtype):
     """The autograd Functions on the card: seg_sum's backward is the gather
     kernel, the gather's and the paired column gather's the seg_sum kernel
-    (one launch each), equal to the same Functions on the plain versions."""
+    (one launch each) through the plan their forward was given (one plan
+    launch in all; a plan apiece without one), equal to the same Functions
+    on the plain versions."""
     from unittest import mock
 
     from distegnn_tpu_torch.ops import blocked as BL
@@ -749,28 +883,36 @@ def test_blocked_op_backwards_on_card(dtype):
     cot_n = torch.randn((B, n, F), device=dev)
     cot_e = torch.randn((B, E, F), device=dev).to(dtype)
 
-    def grads():
+    def grads(plan):
         d = data.clone().requires_grad_()
         hh = h.clone().requires_grad_()
-        (gd,) = torch.autograd.grad(BL.blocked_segment_sum(d, slot, n),
-                                    d, cot_n)
-        (gh,) = torch.autograd.grad(BL.blocked_gather(hh, slot), hh, cot_e)
+        (gd,) = torch.autograd.grad(
+            BL.blocked_segment_sum(d, slot, n, plan=plan), d, cot_n)
+        (gh,) = torch.autograd.grad(BL.blocked_gather(hh, slot, plan=plan),
+                                    hh, cot_e)
         (gp,) = torch.autograd.grad(
-            BL.paired_col_gather(hh, col, pair, slot), hh, cot_e)
+            BL.paired_col_gather(hh, col, pair, slot, plan=plan), hh, cot_e)
         return gd, gh, gp
 
     counts = (lambda: (BL.blocked_segment_sum.launches,
-                       BL.blocked_gather.launches))
+                       BL.blocked_gather.launches, BL.blocked_plan.launches))
     before = counts()
-    got = grads()
+    plan = BL.blocked_plan(slot, n)
+    got = grads(plan)
     torch.cuda.synchronize()
-    # forwards: 1 seg_sum + 1 gather; backwards: 1 gather + 2 seg_sums
-    assert counts() == (before[0] + 3, before[1] + 2)
+    # the plan once; forwards: 1 seg_sum + 1 gather; backwards: 1 gather +
+    # 2 seg_sums, all three seg_sums through that plan
+    assert counts() == (before[0] + 3, before[1] + 2, before[2] + 1)
+    # without a plan each segment sum builds its own
+    unplanned = grads(None)
+    assert counts() == (before[0] + 6, before[1] + 4, before[2] + 4)
     with mock.patch.object(BL, "_seg_sum_cuda",
                            BL.blocked_segment_sum_ref), \
             mock.patch.object(BL, "_gather_cuda", BL.blocked_gather_ref):
-        want = grads()
-    assert counts() == (before[0] + 3, before[1] + 2)
+        want = grads(plan)
+    assert counts() == (before[0] + 6, before[1] + 4, before[2] + 4)
+    for a, b in zip(got, unplanned):
+        assert torch.equal(a, b)
     assert got[0].dtype == dtype and torch.equal(got[0], want[0])
     for a, b in zip(got[1:], want[1:]):
         assert a.dtype == dtype

@@ -214,17 +214,23 @@ def test_rollout_bound_catches_a_wrong_aggregation(pallas_models, fault):
     d1 = float((good - loc).abs().max())
     assert d1 > 0
 
-    seg = BL._seg_sum_impl
+    seg, plan_of = BL._seg_sum_impl, BL._plan_impl
 
-    def faulty(data, slot, n, block, tile):
-        out = seg(data, slot, n, block, tile)
+    def faulty(data, slot, n, block, tile, plan=None):
+        out = seg(data, slot, n, block, tile, plan)
         if fault == "zero_translations" and data.shape[-1] == 3:
             return out * 0.0
-        if fault == "inv_deg_5pct" and data.shape[-1] == 1:
-            return out * 1.05
         return out
 
-    with mock.patch.object(BL, "_seg_sum_impl", faulty):
+    def faulty_plan(slot, n, block):
+        # inv_deg is the reciprocal of the plan's degree
+        plan = plan_of(slot, n, block)
+        if fault == "inv_deg_5pct":
+            return plan._replace(deg=plan.deg * 1.05)
+        return plan
+
+    with mock.patch.object(BL, "_seg_sum_impl", faulty), \
+            mock.patch.object(BL, "_plan_impl", faulty_plan):
         bad = ro(loc, vel, mask, 1)[0][0]
     assert float((bad - good).abs().max()) / d1 > tol
     pm_e = FastEGNN(node_feat_nf=1, edge_attr_nf=2, hidden_nf=H,

@@ -376,8 +376,8 @@ def test_edgeops_refuses_a_blocked_batch_and_names_slice_5():
     there), whose row gather is h[row] with 0 at the padding slots."""
     pb = pgraph.pad_graphs([blocked_test_graph(0, n_real=BLOCK)],
                            edge_block=BLOCK)
-    slot, inv_deg, oh = pblocked.blocked_slot_inv_deg(pb, "pallas")
-    ops = pblocked.EdgeOps(pb, slot, inv_deg, oh, seg_impl="cumsum")
+    slot, inv_deg, oh, plan = pblocked.blocked_slot_inv_deg(pb, "pallas")
+    ops = pblocked.EdgeOps(pb, slot, inv_deg, oh, plan, seg_impl="cumsum")
     assert ops.blocked and not ops.cumsum and not ops.ell
     h = torch.from_numpy(np.random.default_rng(0).normal(
         size=(1, pb.max_nodes, 4)).astype(np.float32))
