@@ -21,8 +21,11 @@ or of the JAX package. Phases (any failure exits nonzero):
   2d. the fused-stack megakernel (csrc/fused_stack_fwd.cu) against its
      plain version at H=64, C=3, L=4, A=2 on the JAX package's megakernel
      workload (4 node blocks of 512 + a trailing empty block, ~10 %
-     far-block edges): all four outputs and four checkpoints, f32 and bf16,
-     gravity on and off, timed beside its bound and its plain version.
+     far-block edges), as a batch of one graph and as one launch for a
+     batch of four distinct graphs of different real sizes: every graph's
+     four outputs and four checkpoints, f32 and bf16, gravity on and off,
+     timed beside its bound (summed over the batch's graphs) and its plain
+     version; the launch's grid, blocks per SM and shared memory printed.
   2c. the prefix-scan kernel (csrc/prefix_scan.cu) in both directions, f32
      and bf16 input, against f64 and against its plain version, at the
      plain train path's shapes ([E, 68], [E, 64], [E, 3] with E the padded
@@ -46,11 +49,13 @@ or of the JAX package. Phases (any failure exits nonzero):
   3c. serve configs/nbody_serve.yaml + model.edge_impl=fused_stack,
      data.edge_block=512: scenes of ~500 and ~1000 nodes (rung 1536), the
      counts set to 0 just before and read just after: exactly one stack
-     launch per padded graph and request and no fused_edge_fwd launch;
-     equivariance; agreement with the same weights under edge_impl=fused
-     and through the plain stack; a 1500-node scene (rung 2048) raises
-     StackVmemBudgetError before any launch; the kernel timed at the served
-     shape.
+     launch per request (its 4 padded graphs in the launch) and no
+     fused_edge_fwd launch; equivariance; agreement with the same weights
+     under edge_impl=fused and through the plain stack; a 1500-node scene
+     (rung 2048) raises StackVmemBudgetError before any launch; the kernel
+     held against its plain version on a batch of four distinct scenes at
+     the served rung, then held and timed on the largest request's padded
+     batch (B=4).
   4. time each kernel and its plain version with CUDA events, its bound from
      this run's shapes, and per-request predict time on the host clock.
   5. train: ``distegnn_tpu_torch.main.run`` on configs/largefluid_distegnn.yaml
@@ -332,14 +337,15 @@ def bwd_work(N, E, active, H, elt):
     return nbytes, active * (12 * H * H + 30 * H)
 
 
-def compare(label, dname, names, out, ref):
+def compare(label, dname, names, out, ref, verbose=True):
     """Hold each kernel output against its plain version: finite, the same
     shape, and max / mean abs error within TOL_MAX (TOL_TRANS for
     ``trans_sum``) / TOL_MEAN of the output's max |plain|. Returns the
-    largest max abs error."""
+    largest max abs error; ``verbose`` prints each output's line, else one
+    line with each output's max abs error over its max |plain|."""
     import torch
 
-    errs = []
+    errs, rel = [], []
     for name, a, b in zip(names, out, ref):
         check(a.shape == b.shape, f"{label} {dname} {name} shape {a.shape} "
               f"!= {b.shape}")
@@ -348,14 +354,19 @@ def compare(label, dname, names, out, ref):
         scale = float(b.abs().max())
         mx, mean = float(d.max()), float(d.mean())
         tmax = TOL_TRANS[dname] if name == "trans_sum" else TOL_MAX[dname]
-        print(f"{label} vs plain {dname} {name}: max_abs_err={mx:.3e} "
-              f"mean_abs_err={mean:.3e} scale={scale:.4e} "
-              f"tol_max={tmax * scale:.3e} "
-              f"tol_mean={TOL_MEAN[dname] * scale:.3e}")
+        if verbose:
+            print(f"{label} vs plain {dname} {name}: max_abs_err={mx:.3e} "
+                  f"mean_abs_err={mean:.3e} scale={scale:.4e} "
+                  f"tol_max={tmax * scale:.3e} "
+                  f"tol_mean={TOL_MEAN[dname] * scale:.3e}")
+        rel.append(f"{name} {mx / max(scale, 1e-30):.2e}")
         check(scale > 0 and mx <= tmax * scale
               and mean <= TOL_MEAN[dname] * scale,
               f"{label} disagrees with its plain version ({dname} {name})")
         errs.append(mx)
+    if not verbose:
+        print(f"{label} vs plain {dname}, max abs error / max |plain| (tol "
+              f"{TOL_MAX[dname]:.2e}): " + ", ".join(rel))
     return max(errs)
 
 
@@ -1372,12 +1383,16 @@ def _plain_train_phase(root, dev, clouds, e_train, log_dir, profile):
 STACK_TPU = "distegnn_tpu/ops/layer_pipeline.py:425"
 STACK_NAMES = ("h", "x", "X", "Hv", "ck_h", "ck_x", "ck_X", "ck_Hv")
 # phase 2d's workload at the published width; its residency estimate
-# exceeds the 16 MiB default, so it passes an explicit budget
+# exceeds the 16 MiB default, so it passes an explicit budget. Its batch of
+# four adds three distinct graphs of these real sizes to the first
 STACK_BUDGET_2D = 64 * 2 ** 20
+STACK_SIZES_2D = (3 * BLOCK + 200, 2 * BLOCK + 37, 4 * BLOCK - 100)
 # phase 3c: two scenes whose rung pads to 3 blocks (1536 nodes) and one
-# whose rung (2048) exceeds the default budget
+# whose rung (2048) exceeds the default budget; the kernel is also held on
+# a batch of four distinct scenes at the served rung
 STACK_SCENES = (500, 1000)
 STACK_OVER_BUDGET = 1500
+STACK_DISTINCT = (1000, 900, 700, 500)
 # phase 7: synthetic fluid clouds at phase 5's density, bench.py's
 # 1536-node cap for this lowering
 STACK_FLUID_N = 1536
@@ -1411,23 +1426,24 @@ def stack_plain_patches():
     """The stack wrapper's kernel call pointed at its plain version."""
     from distegnn_tpu_torch.ops import layer_pipeline as lp
 
-    return (mock.patch.object(lp, "_fused_egnn_stack_cuda",
-                              lp.fused_egnn_stack_ref),)
+    return (mock.patch.object(lp, "_fused_egnn_stack_batch_cuda",
+                              lp.fused_egnn_stack_batch_ref),)
 
 
 def stack_work(cfg, ops, n_real):
-    """(bytes, flop) of one launch: the bytes of the JAX package's
+    """(bytes, flop) of one batched launch, summed over the batch's graphs:
+    per graph the bytes of the JAX package's
     hbm_bytes_per_step('fused_stack') model at these shapes; the operations
     of this run's data over L layers (active in-window and remote edges
     through phi_e + phi_x, the hoisted products and the node / virtual MLPs
-    of the real nodes)."""
+    of the real nodes, ``n_real`` over the batch)."""
     from distegnn_tpu_torch.ops import layer_pipeline as lp
 
     H, C, A, L = cfg.hidden, cfg.channels, cfg.node_attr_nf, cfg.n_layers
-    N = ops[0].shape[0]
-    E, R = ops[8][1].shape[0], ops[9][0].shape[0]
-    active = int((ops[8][3][:, 2] > 0).sum()) + int((ops[9][3] > 0).sum())
-    nbytes = lp.hbm_bytes_per_step(
+    B, N = ops[0].shape[:2]
+    E, R = ops[8][1].shape[1], ops[9][0].shape[1]
+    active = int((ops[8][3][..., 2] > 0).sum()) + int((ops[9][3] > 0).sum())
+    nbytes = B * lp.hbm_bytes_per_step(
         "fused_stack", n_nodes=N, n_edges=E, hidden=H, channels=C,
         n_layers=L, remote_pad=R, node_attr_nf=A,
         dtype_name=cfg.dtype_name)["total"]
@@ -1439,62 +1455,97 @@ def stack_work(cfg, ops, n_real):
                  + (3 * H + A) * H + H * H)             # phi_h
     macs_virtual = C * (2 * H * H + H * H)              # phi_hv
     flops = L * (active * (4 * H * H + 12 * H + 8)
-                 + 2 * n_real * macs_node + 2 * macs_virtual)
+                 + 2 * n_real * macs_node + 2 * B * macs_virtual)
     return nbytes, flops, active
 
 
-def stack_time(label, cfg, ops, w, n_real, reps=20):
-    """The kernel against its plain version on the same card tensors (all
-    four outputs and checkpoints), then both timed (CUDA events) beside the
-    bound of the shape. Returns the row's numbers."""
+def stack_resident_bytes(cfg, ops):
+    """The bytes a batched launch keeps live on the card, from its shapes:
+    per graph the checkpoint slots (the state), hr / hc, the aggregates,
+    the edge and remote streams, the inputs and the tile partials; the
+    stacked weights once. Held against the card's 50 MB L2."""
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+
+    H, C, A, L = cfg.hidden, cfg.channels, cfg.node_attr_nf, cfg.n_layers
+    B, N = ops[0].shape[:2]
+    E, R = ops[8][1].shape[1], ops[9][0].shape[1]
+    elt = 2 if cfg.dtype_name == "bf16" else 4
+    ntile = N // 16
+    graph = ((L + 1) * (N * (H + 3) + 3 * C + H * C) * 4
+             + 2 * N * H * elt + N * (H + 12) * 4
+             + E * (3 * 4 + 8 * 4) + R * 20
+             + N * (H + 7 + A) * 4 + ntile * (8 + 3 * C + C * H) * 4)
+    weights = 4 * L * sum(a * b for a, b in
+                          lp.stack_weight_shapes(cfg).values())
+    return B * graph + weights
+
+
+def stack_time(label, cfg, ops, w, n_real, reps=20, timed=True):
+    """One batched launch against the plain version on the same card
+    tensors (every graph's four outputs and checkpoints), then both timed
+    (CUDA events) beside the bound of the batch. Returns the row's
+    numbers."""
     import torch
 
     from distegnn_tpu_torch.ops import layer_pipeline as lp
 
     dname = cfg.dtype_name
+    B = ops[0].shape[0]
     with torch.no_grad():
-        out, cks = lp._fused_egnn_stack_cuda(cfg, *ops, w)
+        out, cks = lp._fused_egnn_stack_batch_cuda(cfg, *ops, w)
         torch.cuda.synchronize()
         info = dict(lp.fused_egnn_stack.last_launch)
-        ref, ref_cks = lp.fused_egnn_stack_ref(cfg, *ops, w)
-        err = compare(label, dname, STACK_NAMES, list(out) + list(cks),
-                      list(ref) + list(ref_cks))
+        ref, ref_cks = lp.fused_egnn_stack_batch_ref(cfg, *ops, w)
+        err = max(compare(f"{label} graph {b}", dname, STACK_NAMES,
+                          [t[b] for t in list(out) + list(cks)],
+                          [t[b] for t in list(ref) + list(ref_cks)],
+                          verbose=B == 1)
+                  for b in range(B))
         del out, cks, ref, ref_cks
-        ms = cuda_ms(lambda: lp._fused_egnn_stack_cuda(cfg, *ops, w),
-                     reps=reps)
-        plain_ms = cuda_ms(lambda: lp.fused_egnn_stack_ref(cfg, *ops, w),
-                           reps=3, warm=1)
+        if not timed:
+            return dict(err=err)
+        # the median of 5 batches of `reps` eager launches (one batch
+        # varied by up to 20 % between calls on one card)
+        ms = cuda_ms_batches(
+            lambda: lp._fused_egnn_stack_batch_cuda(cfg, *ops, w),
+            launches=reps, batches=5, graph=False)
+        plain_ms = cuda_ms(
+            lambda: lp.fused_egnn_stack_batch_ref(cfg, *ops, w), reps=3,
+            warm=1)
     nbytes, flops, active = stack_work(cfg, ops, n_real)
     b_ms, b_by = bound(nbytes, flops, dname)
     f32_ms, _ = bound(nbytes, flops, "f32")
-    N = ops[0].shape[0]
-    E, R = ops[8][1].shape[0], ops[9][0].shape[0]
-    shape = (f"N={N} E_slots={E} R={R} active_edges={active} H={cfg.hidden} "
-             f"C={cfg.channels} L={cfg.n_layers}")
+    N = ops[0].shape[1]
+    E, R = ops[8][1].shape[1], ops[9][0].shape[1]
+    shape = (f"B={B} N={N} E_slots={E} R={R} active_edges={active} "
+             f"H={cfg.hidden} C={cfg.channels} L={cfg.n_layers}")
     print(f"{label} {dname}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop), "
           f"{b_ms / ms:.4f} of bound; f32 FMA bound {f32_ms:.4f} ms; grid "
           f"{info['grid']} blocks ({info['blocks_per_sm']} per SM), "
-          f"{info['smem_bytes']} B dynamic shared memory; {shape}")
+          f"{info['smem_bytes']} B dynamic shared memory; working set "
+          f"{stack_resident_bytes(cfg, ops) / 1e6:.2f} MB (L2 50 MB); "
+          f"{shape}")
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=b_ms,
                 bound_by=b_by, dtype=dname, shape=shape)
 
 
-def stack_graph(rng):
+def stack_graph(rng, n_real=4 * BLOCK):
     """The JAX package's megakernel workload (tests/test_layer_pipeline.py):
     4 real node blocks, edges near the diagonal with ~10 % into a far block,
-    2 node attributes."""
+    2 node attributes; ``n_real`` nodes (a last block partly filled when it
+    is not a multiple of the block)."""
     import numpy as np
 
-    n_real = 4 * BLOCK
+    nblk = -(-n_real // BLOCK)
     rows, cols = [], []
-    for b in range(4):
-        r = rng.integers(b * BLOCK, (b + 1) * BLOCK, size=384)
+    for b in range(nblk):
+        r = rng.integers(b * BLOCK, min((b + 1) * BLOCK, n_real), size=384)
         near = rng.integers(max(0, (b - 1) * BLOCK),
                             min(n_real, (b + 2) * BLOCK), size=384)
-        far_block = (b + 3) % 4
-        far = rng.integers(far_block * BLOCK, (far_block + 1) * BLOCK,
-                           size=384)
+        far_block = (b + 3) % nblk
+        far = rng.integers(far_block * BLOCK,
+                           min((far_block + 1) * BLOCK, n_real), size=384)
         rows.append(r)
         cols.append(np.where(rng.uniform(size=384) < 0.1, far, near))
     row, col = np.concatenate(rows), np.concatenate(cols)
@@ -1508,9 +1559,9 @@ def stack_graph(rng):
             "edge_attr": rng.normal(size=(ei.shape[1], 2)).astype(np.float32)}
 
 
-def stack_model_operands(model, batch, b=0):
-    """The megakernel's operands for graph ``b`` of a blocked batch on the
-    card, exactly as FastEGNN._fused_stack_forward builds them."""
+def stack_model_operands(model, batch):
+    """The batched megakernel's operands for a blocked batch on the card,
+    exactly as FastEGNN._fused_stack_forward builds them."""
     import torch
 
     from distegnn_tpu_torch.ops import edge_pipeline as ep
@@ -1518,24 +1569,28 @@ def stack_model_operands(model, batch, b=0):
     with torch.no_grad():
         cfg = model.stack_config(batch)
         w = {k: a.detach() for k, a in model.stacked_weights().items()}
-        arrs = tuple(a[b].contiguous() for a in ep.build_edge_blocks(
+        arrs = tuple(a.contiguous() for a in ep.build_edge_blocks(
             batch.row, batch.col, batch.edge_attr, batch.edge_mask,
             block=batch.edge_block, n_nodes=batch.max_nodes))
+        B = batch.batch_size
         H, C = model.hidden_nf, model.virtual_channels
-        ops = (model.embedding_in(batch.node_feat)[b], batch.loc[b],
-               batch.vel[b], batch.loc_mean[b][:, None].repeat(1, C),
-               model.virtual_node_feat[0].detach(), batch.node_mask[b],
-               batch.node_attr[b] if model.node_attr_nf else None,
+        ops = (model.embedding_in(batch.node_feat), batch.loc, batch.vel,
+               batch.loc_mean[:, :, None].repeat(1, 1, C),
+               model.virtual_node_feat.detach().expand(B, H, C).contiguous(),
+               batch.node_mask,
+               batch.node_attr if model.node_attr_nf else None,
                model.gravity if model.has_gravity else None, arrs,
-               (batch.remote_edge_index[b, 0], batch.remote_edge_index[b, 1],
-                batch.remote_edge_attr[b], batch.remote_edge_mask[b]))
-    return cfg, ops, w, float(batch.node_mask[b].sum())
+               (batch.remote_edge_index[:, 0], batch.remote_edge_index[:, 1],
+                batch.remote_edge_attr, batch.remote_edge_mask))
+    return cfg, ops, w, float(batch.node_mask.sum())
 
 
 def stack_kernel_phase(dev):
     """Phase 2d: the megakernel against its plain version at H=64, C=3,
     L=4, A=2 on the JAX package's workload, f32 and bf16, gravity on and
-    off; timed in each dtype without gravity (the published configs')."""
+    off, as a batch of one graph and as a batch of four distinct graphs of
+    different real sizes (one launch each); timed in each dtype and batch
+    (gravity off, the published configs', at the most repetitions)."""
     import numpy as np
     import torch
 
@@ -1544,8 +1599,9 @@ def stack_kernel_phase(dev):
     from distegnn_tpu_torch.ops.graph import pad_graphs
 
     rng = np.random.default_rng(31)
-    pb = pad_graphs([stack_graph(rng)], max_nodes=5 * BLOCK,
-                    edge_block=BLOCK, split_remote=True).to(dev)
+    g0 = stack_graph(rng)
+    rng4 = np.random.default_rng(32)
+    graphs = [g0] + [stack_graph(rng4, n) for n in STACK_SIZES_2D]
     H, C, A, L = HIDDEN, 3, 2, 4
     res = {}
     for gravity in (False, True):
@@ -1560,30 +1616,37 @@ def stack_kernel_phase(dev):
                     / math.sqrt(a if a > 1 else b)
                 w[k] = torch.from_numpy(rng.uniform(-s, s, size=(L, a, b))
                                         .astype(np.float32)).to(dev)
-            nm = pb.node_mask[0]
-            arrs = tuple(a[0].contiguous() for a in ep.build_edge_blocks(
-                pb.row, pb.col, pb.edge_attr, pb.edge_mask, block=BLOCK,
-                n_nodes=5 * BLOCK))
-            ops = (torch.from_numpy(rng.normal(size=(5 * BLOCK, H))
-                                    .astype(np.float32)).to(dev)
-                   * nm[:, None], pb.loc[0], pb.vel[0],
-                   pb.loc_mean[0][:, None].repeat(1, C),
-                   torch.from_numpy(rng.normal(size=(H, C))
-                                    .astype(np.float32)).to(dev),
-                   nm, pb.node_attr[0],
-                   torch.tensor([0.0, 0.0, -9.8], device=dev)
-                   if gravity else None, arrs,
-                   (pb.remote_edge_index[0, 0], pb.remote_edge_index[0, 1],
-                    pb.remote_edge_attr[0], pb.remote_edge_mask[0]))
-            est = lp.estimate_stack_vmem_bytes(
-                cfg, n_nodes=5 * BLOCK, n_edges=arrs[1].shape[0],
-                remote_pad=ops[9][0].shape[0])
-            label = f"stack kernel (2d) gravity={gravity}"
-            print(f"{label}: residency estimate {est / 2**20:.2f} MiB "
-                  f"(budget passed {STACK_BUDGET_2D / 2**20:.0f} MiB)")
-            r = stack_time(label, cfg, ops, w, float(nm.sum()),
-                           reps=20 if not gravity else 3)
-            res[(dname, gravity)] = r
+            h0 = rng.normal(size=(5 * BLOCK, H)).astype(np.float32)
+            Hv0 = rng.normal(size=(H, C)).astype(np.float32)
+            for B in (1, 4):
+                pb = pad_graphs(graphs[:B], max_nodes=5 * BLOCK,
+                                edge_block=BLOCK, split_remote=True).to(dev)
+                nm = pb.node_mask
+                arrs = tuple(a.contiguous() for a in ep.build_edge_blocks(
+                    pb.row, pb.col, pb.edge_attr, pb.edge_mask, block=BLOCK,
+                    n_nodes=5 * BLOCK))
+                hb = np.stack([h0] + [rng4.normal(size=h0.shape).astype(
+                    np.float32) for _ in range(B - 1)])
+                hvb = np.stack([Hv0] + [rng4.normal(size=Hv0.shape).astype(
+                    np.float32) for _ in range(B - 1)])
+                ops = (torch.from_numpy(hb).to(dev) * nm[..., None],
+                       pb.loc, pb.vel, pb.loc_mean[:, :, None].repeat(1, 1, C),
+                       torch.from_numpy(hvb).to(dev), nm, pb.node_attr,
+                       torch.tensor([0.0, 0.0, -9.8], device=dev)
+                       if gravity else None, arrs,
+                       (pb.remote_edge_index[:, 0],
+                        pb.remote_edge_index[:, 1], pb.remote_edge_attr,
+                        pb.remote_edge_mask))
+                est = lp.estimate_stack_vmem_bytes(
+                    cfg, n_nodes=5 * BLOCK, n_edges=arrs[1].shape[1],
+                    remote_pad=ops[9][0].shape[1])
+                label = f"stack kernel (2d) B={B} gravity={gravity}"
+                print(f"{label}: residency estimate {est / 2**20:.2f} MiB "
+                      f"a graph (budget passed "
+                      f"{STACK_BUDGET_2D / 2**20:.0f} MiB)")
+                r = stack_time(label, cfg, ops, w, float(nm.sum()),
+                               reps=20 if not gravity else 3)
+                res[(dname, gravity, B)] = r
     return res
 
 
@@ -1625,11 +1688,11 @@ def stack_serve_phase(root, dev, profile=False):
     reset_stack_counts()
     outs = [eng.predict(g) for g in scenes]
     stack, fwd, bwd = stack_counts()
-    want = eng.max_batch * len(scenes)
+    want = len(scenes)
     print(f"serve stack: {len(scenes)} requests, fused_stack_fwd launches="
-          f"{stack} (expected {eng.max_batch} padded graphs x {len(scenes)} "
-          f"requests = {want}), fused_edge_fwd {fwd}, fused_edge_bwd {bwd} "
-          f"(expected 0)")
+          f"{stack} (expected one per request, its {eng.max_batch} padded "
+          f"graphs in the launch: {want}), fused_edge_fwd {fwd}, "
+          f"fused_edge_bwd {bwd} (expected 0)")
     check(stack == want and fwd == 0 and bwd == 0,
           f"serve stack: launches {stack}/{fwd}/{bwd} != {want}/0/0")
     for g, o in zip(scenes, outs):
@@ -1673,6 +1736,16 @@ def stack_serve_phase(root, dev, profile=False):
     times = predict_times("serve stack ", eng, scenes)
     if profile:
         profile_phase(eng, scenes[-1])
+    # the kernel at the served rung: a batch of four distinct scenes held
+    # against the plain version, then the largest request's padded batch
+    # (its scene and three replicas, as predict pads it) held and timed
+    distinct = [scene(n, seed=220 + i) for i, n in enumerate(STACK_DISTINCT)]
+    batch, _ = eng.ladder.pad_batch(
+        distinct, eng.ladder.bucket_of_graph(distinct[0]), eng.max_batch,
+        **eng._layout_opts)
+    cfg_k, ops, w, n_real = stack_model_operands(model, batch.to(dev))
+    stack_time("serve stack kernel, 4 distinct scenes", cfg_k, ops, w,
+               n_real, timed=False)
     batch, _ = eng.ladder.pad_batch(
         [scenes[-1]], eng.ladder.bucket_of_graph(scenes[-1]), eng.max_batch,
         **eng._layout_opts)

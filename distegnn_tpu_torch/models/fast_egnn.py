@@ -24,9 +24,9 @@ through every path; ``remat=True`` checkpoints each layer, as
 recomputed in the backward pass instead of kept.
 
 ``FastEGNN(edge_impl='fused_stack')`` builds the same ``'fused'`` layers
-(the ``state_dict`` is identical) but runs the whole layer loop of each graph
-as ONE launch of the megakernel ``fused_egnn_stack`` (ops/layer_pipeline.py),
-with the per-layer parameters stacked at run time.
+(the ``state_dict`` is identical) but runs the whole layer loop of the whole
+batch as ONE launch of the megakernel ``fused_egnn_stack_batch``
+(ops/layer_pipeline.py), with the per-layer parameters stacked at run time.
 
 Layouts follow the JAX package at every public boundary: ``[B, N, ...]``
 node arrays, virtual coordinates ``[B, 3, C]`` and virtual features
@@ -53,7 +53,7 @@ from distegnn_tpu_torch.ops.edge_pipeline import (EdgeWeights,
 from distegnn_tpu_torch.ops.graph import GraphBatch
 from distegnn_tpu_torch.ops.layer_pipeline import (DEFAULT_STACK_VMEM_BUDGET,
                                                    StackConfig,
-                                                   fused_egnn_stack,
+                                                   fused_egnn_stack_batch,
                                                    stack_weight_shapes)
 from distegnn_tpu_torch.ops.segment import segment_sum
 from distegnn_tpu_torch.parallel.collectives import global_node_mean
@@ -455,24 +455,18 @@ class FastEGNN(nn.Module):
 
     def _fused_stack_forward(self, g: GraphBatch, h, x, v, X, Hv, gravity,
                              fused_arrs):
-        """The whole layer loop as ONE megakernel launch per graph."""
+        """The whole layer loop of the whole batch as ONE megakernel
+        launch."""
         cfg = self.stack_config(g)
         wstack = self.stacked_weights()
         shapes = stack_weight_shapes(cfg)
         if wstack.keys() != shapes.keys():
             raise ValueError(f"stacked weights {sorted(wstack)} do not match "
                              f"the megakernel's {sorted(shapes)}")
-        row_t, col_l, kblk, scal = fused_arrs
-        xs, Xs = [], []
-        for b in range(g.batch_size):
-            edge_arrs = (row_t[b], col_l[b], kblk[b], scal[b])
-            remote_arrs = (g.remote_edge_index[b, 0],
-                           g.remote_edge_index[b, 1],
-                           g.remote_edge_attr[b], g.remote_edge_mask[b])
-            _, x_b, X_b, _ = fused_egnn_stack(
-                cfg, h[b], x[b], v[b], X[b], Hv[b], g.node_mask[b],
-                g.node_attr[b] if self.node_attr_nf else None, gravity,
-                edge_arrs, remote_arrs, wstack)
-            xs.append(x_b)
-            Xs.append(X_b)
-        return torch.stack(xs), torch.stack(Xs)
+        remote_arrs = (g.remote_edge_index[:, 0], g.remote_edge_index[:, 1],
+                       g.remote_edge_attr, g.remote_edge_mask)
+        _, x, X, _ = fused_egnn_stack_batch(
+            cfg, h, x, v, X, Hv, g.node_mask,
+            g.node_attr if self.node_attr_nf else None, gravity,
+            tuple(fused_arrs), remote_arrs, wstack)
+        return x, X

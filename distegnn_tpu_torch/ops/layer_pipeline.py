@@ -7,15 +7,18 @@ edge pass (the math of ``fused_edge_layer``), the remote tail, the virtual
 section and the node / virtual updates. It returns the final state and the
 four ``[L, ...]`` layer-INPUT checkpoints, which are the backward's anchors.
 
-On CUDA tensors it launches the hand-written kernel ``csrc/fused_stack_fwd.cu``
-(one cooperative launch per graph, a grid-wide sync between the phases of
-each layer); on CPU tensors it runs the plain version
-``fused_egnn_stack_ref``, the layer loop over the same math. There is no
-backward kernel, as in the JAX package: ``FusedEgnnStack.backward`` walks the
-layers in reverse, reruns each one through ``_layer_ref`` from its checkpoint
-(whose in-window pass IS ``fused_edge_layer``, so per layer one forward and
-one backward launch of the fused edge kernels on the card) and takes its
-vector-Jacobian product.
+``fused_egnn_stack_batch`` runs it for a batch of graphs (a leading batch
+axis on every per-graph operand). On CUDA tensors it launches the
+hand-written kernel ``csrc/fused_stack_fwd.cu`` once for the whole batch (one
+cooperative launch, a grid-wide sync between the phases of each layer); on
+CPU tensors it runs the plain version ``fused_egnn_stack_batch_ref``, the
+layer loop over the same math, graph by graph. ``fused_egnn_stack`` is the
+same on one graph (a batch of one), with the JAX package's signature. There
+is no backward kernel, as in the JAX package: ``FusedEgnnStack.backward``
+walks each graph's layers in reverse, reruns each one through ``_layer_ref``
+from its checkpoint (whose in-window pass IS ``fused_edge_layer``, so per
+layer and graph one forward and one backward launch of the fused edge
+kernels on the card) and takes its vector-Jacobian product.
 
 Scale contract, kept from the JAX package with the same numbers: the whole
 graph must fit. ``estimate_stack_vmem_bytes`` models the residency and
@@ -377,7 +380,7 @@ def fused_egnn_stack_ref(cfg: StackConfig, h0, x0, v, X0, Hv0, node_mask,
 # the stacked weights follow _PTRS, in _WKEYS order
 _PTRS = ("row_t", "col_l", "kblk", "scal", "rr", "rc", "rattr", "rmask",
          "h0", "x0", "v", "X0", "Hv0", "nm", "nattr", "gvec",
-         "S_h", "S_x", "S_X", "S_Hv", "hr", "hc", "agg", "part_cm",
+         "S_h", "S_x", "S_X", "S_Hv", "hr", "hc", "agg", "rtr", "part_cm",
          "part_tX", "part_Hv")
 _WKEYS = ("e_w1", "e_b1", "e_w2", "e_b2", "e_w3", "e_b3", "e_w4",
           "ev_k0", "ev_b0", "ev_k1", "ev_b1", "xv_k0", "xv_b0", "xv_k1",
@@ -386,7 +389,7 @@ _WKEYS = ("e_w1", "e_b1", "e_w2", "e_b2", "e_w3", "e_b3", "e_w4",
           "g_k0", "g_b0", "g_k1", "g_b1")
 _STACK_SIZES = frozenset((16, 32, 64))
 _MAX_CHANNELS = 8
-_BLOCKS_PER_SM = 4   # the most co-resident blocks the partials are sized for
+_NODE_TILE = 16   # nodes per node tile of the kernel's phases A and C
 
 
 def _weight_keys(cfg: StackConfig):
@@ -406,13 +409,51 @@ def _lib_fn():
     return fn
 
 
-def _fused_egnn_stack_cuda(cfg: StackConfig, h0, x0, v, X0, Hv0, node_mask,
-                           node_attr, gravity, edge_arrs, remote_arrs,
-                           wstack):
-    """Launch ``csrc/fused_stack_fwd.cu`` once for one graph: the same
-    results as :func:`fused_egnn_stack_ref`."""
-    _check_stack(cfg, h0, edge_arrs, remote_arrs)
-    N, H = h0.shape
+def _graph(b, h0, x0, v, X0, Hv0, node_mask, node_attr, edge_arrs,
+           remote_arrs):
+    """Graph ``b`` of a batch's operands, in fused_egnn_stack's layout."""
+    return (h0[b], x0[b], v[b], X0[b], Hv0[b], node_mask[b],
+            node_attr[b] if node_attr is not None else None,
+            tuple(a[b] for a in edge_arrs), tuple(a[b] for a in remote_arrs))
+
+
+def _check_batch(cfg: StackConfig, h0, edge_arrs, remote_arrs) -> int:
+    """The megakernel's checks for every graph of a batch (the residency
+    check per graph, as a single-graph launch takes it), all before any
+    launch; returns the per-graph residency estimate."""
+    est = 0
+    for b in range(h0.shape[0]):
+        est = _check_stack(cfg, h0[b], tuple(a[b] for a in edge_arrs),
+                           tuple(a[b] for a in remote_arrs))
+    return est
+
+
+def fused_egnn_stack_batch_ref(cfg: StackConfig, h0, x0, v, X0, Hv0,
+                               node_mask, node_attr, gravity, edge_arrs,
+                               remote_arrs, wstack):
+    """Plain PyTorch version of the batched megakernel (same arguments as
+    :func:`fused_egnn_stack_batch`): :func:`fused_egnn_stack_ref` graph by
+    graph. Returns ``((h [B,N,H], x [B,N,3], X [B,3,C], Hv [B,H,C]),
+    (ck_h [B,L,N,H], ck_x [B,L,N,3], ck_X [B,L,3,C], ck_Hv [B,L,H,C]))``."""
+    _check_batch(cfg, h0, edge_arrs, remote_arrs)
+    outs, cks = [], []
+    for b in range(h0.shape[0]):
+        g = _graph(b, h0, x0, v, X0, Hv0, node_mask, node_attr, edge_arrs,
+                   remote_arrs)
+        o, c = fused_egnn_stack_ref(cfg, *g[:7], gravity, *g[7:], wstack)
+        outs.append(o)
+        cks.append(c)
+    return (tuple(torch.stack(t) for t in zip(*outs)),
+            tuple(torch.stack(t) for t in zip(*cks)))
+
+
+def _fused_egnn_stack_batch_cuda(cfg: StackConfig, h0, x0, v, X0, Hv0,
+                                 node_mask, node_attr, gravity, edge_arrs,
+                                 remote_arrs, wstack):
+    """Launch ``csrc/fused_stack_fwd.cu`` once for a batch of graphs: the
+    same results as :func:`fused_egnn_stack_batch_ref`."""
+    _check_batch(cfg, h0, edge_arrs, remote_arrs)
+    B, N, H = h0.shape
     C, L, A, T = cfg.channels, cfg.n_layers, cfg.node_attr_nf, cfg.block
     if H not in _STACK_SIZES:
         raise ValueError(f"fused_stack_fwd supports H in "
@@ -424,8 +465,9 @@ def _fused_egnn_stack_cuda(cfg: StackConfig, h0, x0, v, X0, Hv0, node_mask,
     f32, i32 = torch.float32, torch.int32
     row_t, col_l, kblk, scal = edge_arrs
     rr, rc, rattr, rmask = remote_arrs
-    E, R = col_l.shape[0], rr.shape[0]
-    if E % (N // T) or (E // (N // T)) % T or R % 64:
+    E, R = col_l.shape[1], rr.shape[1]
+    if (E % (N // T) or (E // (N // T)) % T or R % 64
+            or T % _NODE_TILE):
         raise ValueError(f"layout mismatch: N={N} E={E} R={R} block={T}")
 
     def f(a):
@@ -434,18 +476,20 @@ def _fused_egnn_stack_cuda(cfg: StackConfig, h0, x0, v, X0, Hv0, node_mask,
     ops = {"row_t": row_t.contiguous(), "col_l": col_l.contiguous(),
            "kblk": kblk.contiguous(), "scal": scal.contiguous(),
            "rr": rr.to(i32).contiguous(), "rc": rc.to(i32).contiguous(),
-           "rattr": f(rattr[:, :2]), "rmask": f(rmask),
+           "rattr": f(rattr[..., :2]), "rmask": f(rmask),
            "h0": f(h0), "x0": f(x0), "v": f(v), "X0": f(X0), "Hv0": f(Hv0),
            "nm": f(node_mask),
            "nattr": f(node_attr) if A else None,
            "gvec": f(gravity) if cfg.has_gravity else None}
     for name, dtype, shape in (
-            ("row_t", i32, (E // T, T)), ("col_l", i32, (E, 1)),
-            ("kblk", i32, (E, 1)), ("scal", f32, (E, XL)),
-            ("rr", i32, (R,)), ("rc", i32, (R,)), ("rattr", f32, (R, 2)),
-            ("rmask", f32, (R,)), ("h0", f32, (N, H)), ("x0", f32, (N, 3)),
-            ("v", f32, (N, 3)), ("X0", f32, (3, C)), ("Hv0", f32, (H, C)),
-            ("nm", f32, (N,)), ("nattr", f32, (N, A)), ("gvec", f32, (3,))):
+            ("row_t", i32, (B, E // T, T)), ("col_l", i32, (B, E, 1)),
+            ("kblk", i32, (B, E, 1)), ("scal", f32, (B, E, XL)),
+            ("rr", i32, (B, R)), ("rc", i32, (B, R)),
+            ("rattr", f32, (B, R, 2)), ("rmask", f32, (B, R)),
+            ("h0", f32, (B, N, H)), ("x0", f32, (B, N, 3)),
+            ("v", f32, (B, N, 3)), ("X0", f32, (B, 3, C)),
+            ("Hv0", f32, (B, H, C)), ("nm", f32, (B, N)),
+            ("nattr", f32, (B, N, A)), ("gvec", f32, (3,))):
         if ops[name] is not None:
             _check(ops[name], name, dtype, shape, dev)
     shapes = stack_weight_shapes(cfg)
@@ -456,22 +500,23 @@ def _fused_egnn_stack_cuda(cfg: StackConfig, h0, x0, v, X0, Hv0, node_mask,
 
     act = torch.bfloat16 if cfg.dtype_name == "bf16" else f32
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    max_grid = _BLOCKS_PER_SM * n_sm
+    ntile = N // _NODE_TILE
     ops.update(
-        S_h=torch.empty((L + 1, N, H), dtype=f32, device=dev),
-        S_x=torch.empty((L + 1, N, 3), dtype=f32, device=dev),
-        S_X=torch.empty((L + 1, 3, C), dtype=f32, device=dev),
-        S_Hv=torch.empty((L + 1, H, C), dtype=f32, device=dev),
-        hr=torch.empty((N, H), dtype=act, device=dev),
-        hc=torch.empty((N, H), dtype=act, device=dev),
-        agg=torch.empty((N, H + 12), dtype=f32, device=dev),
-        part_cm=torch.empty((2, max_grid, 4), dtype=f32, device=dev),
-        part_tX=torch.empty((max_grid, 3 * C), dtype=f32, device=dev),
-        part_Hv=torch.empty((max_grid, C * H), dtype=f32, device=dev))
+        S_h=torch.empty((B, L + 1, N, H), dtype=f32, device=dev),
+        S_x=torch.empty((B, L + 1, N, 3), dtype=f32, device=dev),
+        S_X=torch.empty((B, L + 1, 3, C), dtype=f32, device=dev),
+        S_Hv=torch.empty((B, L + 1, H, C), dtype=f32, device=dev),
+        hr=torch.empty((B, N, H), dtype=act, device=dev),
+        hc=torch.empty((B, N, H), dtype=act, device=dev),
+        agg=torch.empty((B, N, H + 8), dtype=f32, device=dev),
+        rtr=torch.empty((B, N, 4), dtype=f32, device=dev),
+        part_cm=torch.empty((2, B, ntile, 4), dtype=f32, device=dev),
+        part_tX=torch.empty((B, ntile, 3 * C), dtype=f32, device=dev),
+        part_Hv=torch.empty((B, ntile, C * H), dtype=f32, device=dev))
     ptrs = [ops[n].data_ptr() if ops[n] is not None else 0 for n in _PTRS]
     ptrs += [wts[k].data_ptr() if k in wts else 0 for k in _WKEYS]
-    dims = [N, E, R, T, L, C, A, int(cfg.has_gravity), int(cfg.residual),
-            int(cfg.coords_mean), max_grid, n_sm]
+    dims = [B, N, E, R, T, L, C, A, int(cfg.has_gravity), int(cfg.residual),
+            int(cfg.coords_mean), n_sm]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_dims = (ctypes.c_int * len(dims))(*dims)
     info = (ctypes.c_int * 3)()
@@ -483,21 +528,22 @@ def _fused_egnn_stack_cuda(cfg: StackConfig, h0, x0, v, X0, Hv0, node_mask,
         raise RuntimeError(f"fused_stack_fwd launch failed: CUDA error {err}")
     fused_egnn_stack.launches += 1
     fused_egnn_stack.last_launch = {"grid": info[0], "blocks_per_sm": info[1],
-                                    "smem_bytes": info[2]}
+                                    "smem_bytes": info[2], "graphs": B}
     S_h, S_x, S_X, S_Hv = ops["S_h"], ops["S_x"], ops["S_X"], ops["S_Hv"]
-    return ((S_h[L], S_x[L], S_X[L], S_Hv[L]),
-            (S_h[:L], S_x[:L], S_X[:L], S_Hv[:L]))
+    return ((S_h[:, L], S_x[:, L], S_X[:, L], S_Hv[:, L]),
+            (S_h[:, :L], S_x[:, :L], S_X[:, :L], S_Hv[:, :L]))
 
 
 class FusedEgnnStack(torch.autograd.Function):
-    """The megakernel as an autograd node. The stacked weights come in as
-    separate tensors (in ``_WKEYS`` order) so that their gradients reach the
-    per-layer parameters they are stacked from."""
+    """The batched megakernel as an autograd node. The stacked weights come
+    in as separate tensors (in ``_WKEYS`` order) so that their gradients
+    reach the per-layer parameters they are stacked from."""
 
     @staticmethod
     def forward(ctx, cfg, h0, x0, v, X0, Hv0, node_mask, node_attr, gravity,
                 edge_arrs, remote_arrs, *wlist):
-        run = _on_device(_fused_egnn_stack_cuda, fused_egnn_stack_ref, h0)
+        run = _on_device(_fused_egnn_stack_batch_cuda,
+                         fused_egnn_stack_batch_ref, h0)
         keys = _weight_keys(cfg)
         wstack = dict(zip(keys, wlist))
         out, cks = run(cfg, h0, x0, v, X0, Hv0, node_mask, node_attr,
@@ -509,30 +555,64 @@ class FusedEgnnStack(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dh, dx, dX, dHv):
+        """The JAX reverse walk, graph by graph: each layer rerun from its
+        checkpoint through ``_layer_ref`` (per layer and graph one forward
+        and one backward launch of the fused edge kernels on the card) and
+        its vector-Jacobian product taken."""
         cfg, keys = ctx.cfg, ctx.keys
         node_mask, node_attr, gravity, edge_arrs, remote_arrs = ctx.consts
         ck_h, ck_x, ck_X, ck_Hv, v, *wlist = ctx.saved_tensors
-        dv = torch.zeros_like(v)
-        dws = [[] for _ in keys]
-        for l in reversed(range(cfg.n_layers)):
-            with torch.enable_grad():
-                ins = [a.detach().requires_grad_() for a in
-                       (ck_h[l], ck_x[l], v, ck_X[l], ck_Hv[l])]
-                wl = [w[l].detach().requires_grad_() for w in wlist]
-                outs = _layer_ref(cfg, *ins, node_mask, node_attr, gravity,
-                                  edge_arrs, remote_arrs, dict(zip(keys, wl)))
-                grads = torch.autograd.grad(outs, ins + wl,
-                                            grad_outputs=(dh, dx, dX, dHv),
-                                            allow_unused=True)
-            grads = [torch.zeros_like(a) if g is None else g
-                     for g, a in zip(grads, ins + wl)]
-            dh, dx, dv_l, dX, dHv = grads[:5]
-            dv = dv + dv_l
-            for acc, g in zip(dws, grads[5:]):
+        d_in = [[], [], [], [], []]            # dh0, dx0, dv, dX0, dHv0
+        dws = [[None] * cfg.n_layers for _ in keys]
+        for b in range(v.shape[0]):
+            g_dh, g_dx, g_dX, g_dHv = dh[b], dx[b], dX[b], dHv[b]
+            g_dv = torch.zeros_like(v[b])
+            arrs = (tuple(a[b] for a in edge_arrs),
+                    tuple(a[b] for a in remote_arrs))
+            nattr = node_attr[b] if node_attr is not None else None
+            for l in reversed(range(cfg.n_layers)):
+                with torch.enable_grad():
+                    ins = [a.detach().requires_grad_() for a in
+                           (ck_h[b, l], ck_x[b, l], v[b], ck_X[b, l],
+                            ck_Hv[b, l])]
+                    wl = [w[l].detach().requires_grad_() for w in wlist]
+                    outs = _layer_ref(cfg, *ins, node_mask[b], nattr,
+                                      gravity, *arrs, dict(zip(keys, wl)))
+                    grads = torch.autograd.grad(
+                        outs, ins + wl,
+                        grad_outputs=(g_dh, g_dx, g_dX, g_dHv),
+                        allow_unused=True)
+                grads = [torch.zeros_like(a) if g is None else g
+                         for g, a in zip(grads, ins + wl)]
+                g_dh, g_dx, dv_l, g_dX, g_dHv = grads[:5]
+                g_dv = g_dv + dv_l
+                for acc, g in zip(dws, grads[5:]):
+                    acc[l] = g if acc[l] is None else acc[l] + g
+            for acc, g in zip(d_in, (g_dh, g_dx, g_dv, g_dX, g_dHv)):
                 acc.append(g)
-        dw = [torch.stack(acc[::-1]) for acc in dws]
-        return (None, dh, dx, dv, dX, dHv, None, None, None, None, None,
+        dh0, dx0, dv, dX0, dHv0 = (torch.stack(a) for a in d_in)
+        dw = [torch.stack(acc) for acc in dws]
+        return (None, dh0, dx0, dv, dX0, dHv0, None, None, None, None, None,
                 *dw)
+
+
+def fused_egnn_stack_batch(cfg: StackConfig, h0, x0, v, X0, Hv0, node_mask,
+                           node_attr, gravity, edge_arrs, remote_arrs,
+                           wstack):
+    """Run all L EGCL layers of a batch of B graphs in one megakernel
+    launch.
+
+    The arguments are :func:`fused_egnn_stack`'s with a leading batch axis
+    on every per-graph operand (``h0`` [B, N, H], ``edge_arrs`` and
+    ``remote_arrs`` as ``FastEGNN`` builds them for the batch); ``gravity``
+    and the stacked weights are shared. Returns (h [B,N,H], x [B,N,3],
+    X [B,3,C], Hv [B,H,C]) after L layers. The residency check runs per
+    graph, before any launch; ``fused_egnn_stack.launches`` counts one per
+    batch. Differentiable as :func:`fused_egnn_stack`; the backward walks
+    each graph's layers in reverse."""
+    return FusedEgnnStack.apply(cfg, h0, x0, v, X0, Hv0, node_mask,
+                                node_attr, gravity, edge_arrs, remote_arrs,
+                                *[wstack[k] for k in _weight_keys(cfg)])
 
 
 def fused_egnn_stack(cfg: StackConfig, h0, x0, v, X0, Hv0, node_mask,
@@ -560,11 +640,15 @@ def fused_egnn_stack(cfg: StackConfig, h0, x0, v, X0, Hv0, node_mask,
     batch-borne constants get no gradient. CUDA tensors launch the kernel (a
     failed build or launch raises; there is no fallback), CPU tensors run
     :func:`fused_egnn_stack_ref`. The residency check runs before either.
+    It is :func:`fused_egnn_stack_batch` on a batch of one;
     ``fused_egnn_stack.launches`` counts kernel launches.
     """
-    return FusedEgnnStack.apply(cfg, h0, x0, v, X0, Hv0, node_mask,
-                                node_attr, gravity, edge_arrs, remote_arrs,
-                                *[wstack[k] for k in _weight_keys(cfg)])
+    out = fused_egnn_stack_batch(
+        cfg, h0[None], x0[None], v[None], X0[None], Hv0[None],
+        node_mask[None], node_attr[None] if node_attr is not None else None,
+        gravity, tuple(a[None] for a in edge_arrs),
+        tuple(a[None] for a in remote_arrs), wstack)
+    return tuple(a[0] for a in out)
 
 
 fused_egnn_stack.launches = 0

@@ -510,14 +510,18 @@ def test_fused_stack_kernel_matches_plain_version_on_card(dtype_name,
     dev = torch.device("cuda")
     cfg, ops, w = _stack_operands(21, 2, dtype_name, gravity, dev)
     before = LP.fused_egnn_stack.launches
+    # the graph as a batch of one
+    one = [None if a is None else tuple(t[None] for t in a)
+           if isinstance(a, tuple) else a[None] for a in ops]
+    one[7] = ops[7]                            # gravity is shared
     with torch.no_grad():
-        out, cks = LP._fused_egnn_stack_cuda(cfg, *ops, w)
+        out, cks = LP._fused_egnn_stack_batch_cuda(cfg, *one, w)
         torch.cuda.synchronize()
         assert LP.fused_egnn_stack.launches == before + 1
         ref_out, ref_cks = LP.fused_egnn_stack_ref(cfg, *ops, w)
     for a, b in zip(list(out) + list(cks), list(ref_out) + list(ref_cks)):
-        _close(a, b, dtype_name)
-    assert torch.equal(cks[0][0], ops[0])      # slot 0 is the input
+        _close(a[0], b, dtype_name)
+    assert torch.equal(cks[0][0, 0], ops[0])   # slot 0 is the input
 
 
 @pytest.mark.cuda
@@ -550,8 +554,8 @@ def test_fused_stack_launch_counts_and_gradients_on_card():
     g = grads()
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + L, before[2] + L)
-    with mock.patch.object(LP, "_fused_egnn_stack_cuda",
-                           LP.fused_egnn_stack_ref):
+    with mock.patch.object(LP, "_fused_egnn_stack_batch_cuda",
+                           LP.fused_egnn_stack_batch_ref):
         g_ref = grads()
     scale = max(float(a.abs().max()) for a in g_ref)
     for a, b in zip(g, g_ref):
@@ -568,6 +572,133 @@ def test_fused_stack_budget_error_before_any_launch_on_card():
     before = LP.fused_egnn_stack.launches
     with pytest.raises(LP.StackVmemBudgetError):
         LP.fused_egnn_stack(cfg._replace(vmem_budget=1024), *ops, w)
+    assert LP.fused_egnn_stack.launches == before
+
+
+# graphs of different real sizes and edge sets for the batched launch
+STACK_BATCH_SIZES = (4 * T, 3 * T + 200, 2 * T + 37, 4 * T - 100)
+
+
+def _stack_batch_operands(seed, B, L, dtype_name, gravity, dev, C=2, A=2):
+    """A batch of the first B of STACK_BATCH_SIZES graphs, padded to 5
+    blocks, in fused_egnn_stack_batch's layout."""
+    from distegnn_tpu_torch.ops import layer_pipeline as LP
+    from distegnn_tpu_torch.ops.graph import pad_graphs
+
+    rng = np.random.default_rng(seed)
+    graphs = [_stack_graph(rng, n) for n in STACK_BATCH_SIZES[:B]]
+    pb = pad_graphs(graphs, max_nodes=5 * T, edge_block=T,
+                    split_remote=True).to(dev)
+    arrs = tuple(a.contiguous() for a in P.build_edge_blocks(
+        pb.row, pb.col, pb.edge_attr, pb.edge_mask, block=T,
+        n_nodes=5 * T))
+    N = 5 * T
+    cfg = LP.StackConfig(n_layers=L, block=T, hidden=H, channels=C,
+                         node_attr_nf=A, has_gravity=gravity,
+                         dtype_name=dtype_name)
+    wstack = {}
+    for k, (a, b) in LP.stack_weight_shapes(cfg).items():
+        s = (1e-3 if k in ("e_w4", "xv_k1", "X_k1") else 1.0) / np.sqrt(
+            a if a > 1 else b)
+        wstack[k] = torch.from_numpy(rng.uniform(-s, s, size=(L, a, b))
+                                     .astype(np.float32)).to(dev)
+    nm = pb.node_mask
+    ops = (torch.from_numpy(rng.normal(size=(B, N, H)).astype(np.float32))
+           .to(dev) * nm[..., None],
+           pb.loc, pb.vel, pb.loc_mean[:, :, None].repeat(1, 1, C),
+           torch.from_numpy(rng.normal(size=(B, H, C)).astype(np.float32))
+           .to(dev), nm, pb.node_attr,
+           torch.tensor([0.0, 0.0, -9.8], device=dev) if gravity else None,
+           arrs, (pb.remote_edge_index[:, 0], pb.remote_edge_index[:, 1],
+                  pb.remote_edge_attr, pb.remote_edge_mask))
+    return cfg, ops, wstack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gravity", [False, True])
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 2, 4])
+def test_fused_stack_batch_kernel_matches_plain_version_on_card(
+        B, dtype_name, gravity):
+    """One launch for a batch of B graphs of different real sizes (L=2,
+    H=16, C=2, A=2, remote tails, trailing empty blocks) against the plain
+    version graph by graph: every graph's four outputs and four layer-input
+    checkpoints."""
+    from distegnn_tpu_torch.ops import layer_pipeline as LP
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    cfg, ops, w = _stack_batch_operands(31 + B, B, 2, dtype_name, gravity,
+                                        dev)
+    assert len(set(float(ops[5][b].sum()) for b in range(B))) == B
+    before = LP.fused_egnn_stack.launches
+    with torch.no_grad():
+        out, cks = LP._fused_egnn_stack_batch_cuda(cfg, *ops, w)
+        torch.cuda.synchronize()
+        assert LP.fused_egnn_stack.launches == before + 1
+        assert LP.fused_egnn_stack.last_launch["graphs"] == B
+        ref_out, ref_cks = LP.fused_egnn_stack_batch_ref(cfg, *ops, w)
+    for b in range(B):
+        for a, r in zip(list(out) + list(cks),
+                        list(ref_out) + list(ref_cks)):
+            _close(a[b], r[b], dtype_name)
+        assert torch.equal(cks[0][b, 0], ops[0][b])   # slot 0 is the input
+
+
+@pytest.mark.cuda
+def test_fused_stack_batch_launch_counts_and_gradients_on_card():
+    """The batched autograd node: one stack launch for B=2 graphs forward;
+    backward L x B fused_edge_fwd + L x B fused_edge_bwd launches (each
+    graph's layers rerun from their checkpoints), and gradients within 2^-7
+    of the largest of those of the same walk from the plain version's
+    checkpoints."""
+    from unittest import mock
+
+    from distegnn_tpu_torch.ops import layer_pipeline as LP
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    B, L = 2, 2
+    cfg, ops, w = _stack_batch_operands(41, B, L, "f32", True, dev)
+
+    def grads():
+        diff = [a.clone().requires_grad_() for a in ops[:5]]
+        wt = {k: a.clone().requires_grad_() for k, a in w.items()}
+        out = LP.fused_egnn_stack_batch(cfg, *diff, *ops[5:], wt)
+        loss = sum((o * o).sum() for o in out)
+        return torch.autograd.grad(loss, diff + list(wt.values()))
+
+    counts = (lambda: (LP.fused_egnn_stack.launches,
+                       P.fused_edge_layer.launches,
+                       P.fused_edge_layer.bwd_launches))
+    before = counts()
+    g = grads()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + L * B,
+                        before[2] + L * B)
+    with mock.patch.object(LP, "_fused_egnn_stack_batch_cuda",
+                           LP.fused_egnn_stack_batch_ref):
+        g_ref = grads()
+    scale = max(float(a.abs().max()) for a in g_ref)
+    for a, b in zip(g, g_ref):
+        assert float((a - b).abs().max()) <= 2 ** -7 * scale
+
+
+@pytest.mark.cuda
+def test_fused_stack_batch_budget_error_before_any_launch_on_card():
+    """A batch whose graphs each exceed the budget raises the typed error
+    (the per-graph check) and launches nothing."""
+    from distegnn_tpu_torch.ops import layer_pipeline as LP
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cfg, ops, w = _stack_batch_operands(43, 2, 2, "f32", False,
+                                        torch.device("cuda"))
+    before = LP.fused_egnn_stack.launches
+    with pytest.raises(LP.StackVmemBudgetError):
+        LP.fused_egnn_stack_batch(cfg._replace(vmem_budget=1024), *ops, w)
     assert LP.fused_egnn_stack.launches == before
 
 

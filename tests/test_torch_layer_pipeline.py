@@ -49,18 +49,20 @@ TOL = 1e-5
 TOL_BF16_MEAN, TOL_BF16_MAX = 2 ** -9, 2 ** -7
 
 
-def stack_graph(seed):
+def stack_graph(seed, n_real=N_REAL):
     """tests/test_layer_pipeline.py's graph (near-diagonal edges, ~10 %
-    into a far block) with 2 node attributes."""
+    into a far block) with 2 node attributes; ``n_real`` nodes (the last
+    block partly filled when it is not a multiple of the block)."""
     rng = np.random.default_rng(seed)
+    nblk = -(-n_real // BLOCK)
     rows, cols = [], []
-    for b in range(4):
-        r = rng.integers(b * BLOCK, (b + 1) * BLOCK, size=384)
+    for b in range(nblk):
+        r = rng.integers(b * BLOCK, min((b + 1) * BLOCK, n_real), size=384)
         near = rng.integers(max(0, (b - 1) * BLOCK),
-                            min(N_REAL, (b + 2) * BLOCK), size=384)
-        far_block = (b + 3) % 4
-        far = rng.integers(far_block * BLOCK, (far_block + 1) * BLOCK,
-                           size=384)
+                            min(n_real, (b + 2) * BLOCK), size=384)
+        far_block = (b + 3) % nblk
+        far = rng.integers(far_block * BLOCK,
+                           min((far_block + 1) * BLOCK, n_real), size=384)
         c = np.where(rng.uniform(size=384) < 0.1, far, near)
         rows.append(r)
         cols.append(c)
@@ -69,11 +71,11 @@ def stack_graph(seed):
     ei = np.stack([row[order], col[order]]).astype(np.int64)
     e = ei.shape[1]
     return {
-        "node_feat": rng.normal(size=(N_REAL, 2)).astype(np.float32),
-        "node_attr": rng.normal(size=(N_REAL, A)).astype(np.float32),
-        "loc": rng.uniform(0, 1, size=(N_REAL, 3)).astype(np.float32),
-        "vel": (rng.normal(size=(N_REAL, 3)) * 0.05).astype(np.float32),
-        "target": rng.uniform(0, 1, size=(N_REAL, 3)).astype(np.float32),
+        "node_feat": rng.normal(size=(n_real, 2)).astype(np.float32),
+        "node_attr": rng.normal(size=(n_real, A)).astype(np.float32),
+        "loc": rng.uniform(0, 1, size=(n_real, 3)).astype(np.float32),
+        "vel": (rng.normal(size=(n_real, 3)) * 0.05).astype(np.float32),
+        "target": rng.uniform(0, 1, size=(n_real, 3)).astype(np.float32),
         "edge_index": ei,
         "edge_attr": rng.normal(size=(e, 2)).astype(np.float32),
     }
@@ -515,6 +517,123 @@ def test_train_micro_step_matches_fused():
     res = {}
     for impl, m in models.items():
         # samples * C >= N: the deterministic MMD branch, no draw
+        loss, _ = make_loss_fn(m, 0.03, 1.5, -(-N_PAD // C))(pb)
+        loss.backward()
+        res[impl] = (float(loss.detach()),
+                     {k: p.grad.clone() if p.grad is not None
+                      else torch.zeros_like(p)
+                      for k, p in m.named_parameters()})
+    (ls, gs), (lf, gf) = res["fused_stack"], res["fused"]
+    assert abs(ls - lf) <= TOL * abs(lf)
+    scale = max(float(g.abs().max()) for g in gf.values())
+    for k in gf:
+        err = float((gs[k] - gf[k]).abs().max())
+        assert err <= TOL * scale, f"{k}: {err:.3e}"
+    assert sum(float(g.abs().max()) > 0 for g in gs.values()) > len(gs) // 2
+
+
+# ------------------------------------------ (g) the graph-batch axis
+
+# two graphs of different sizes and edge sets in one padded batch: a
+# cross-graph indexing fault cannot hide behind replicas
+BATCH_SIZES = (N_REAL, 3 * BLOCK - 37)
+
+
+def _batch_graphs():
+    return [stack_graph(20 + i, n) for i, n in enumerate(BATCH_SIZES)]
+
+
+def _batch_operands(dtype_name):
+    """A B=2 batch's megakernel operands (torch, CPU) in
+    fused_egnn_stack_batch's layout, and its weights."""
+    pb = pad_graphs(_batch_graphs(), max_nodes=N_PAD, edge_block=BLOCK,
+                    split_remote=True)
+    assert float(pb.remote_edge_mask.sum()) > 0
+    arrs = PE.build_edge_blocks(pb.row, pb.col, pb.edge_attr, pb.edge_mask,
+                                block=BLOCK, n_nodes=N_PAD)
+    rng = np.random.default_rng(8)
+    nm = pb.node_mask
+    B = nm.shape[0]
+    h0 = torch.from_numpy(rng.normal(size=(B, N_PAD, H))
+                          .astype(np.float32)) * nm[..., None]
+    Hv0 = torch.from_numpy(rng.normal(size=(B, H, C)).astype(np.float32))
+    ops = (h0, pb.loc, pb.vel, pb.loc_mean[:, :, None].repeat(1, 1, C), Hv0,
+           nm, pb.node_attr, torch.tensor(GRAVITY), tuple(arrs),
+           (pb.remote_edge_index[:, 0], pb.remote_edge_index[:, 1],
+            pb.remote_edge_attr, pb.remote_edge_mask))
+    cfg_kw = _cfg(2, dtype_name)
+    w = {k: torch.from_numpy(a) for k, a in _weights(cfg_kw, seed=7).items()}
+    return PL.StackConfig(**cfg_kw), ops, w
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+def test_batched_plain_version_is_the_per_graph_plain_version(dtype_name):
+    """fused_egnn_stack_batch_ref (and fused_egnn_stack_batch, which runs it
+    on the CPU) over two graphs of different sizes: graph b's outputs and
+    checkpoints are exactly fused_egnn_stack_ref's on graph b alone."""
+    cfg, ops, w = _batch_operands(dtype_name)
+    with torch.no_grad():
+        out, cks = PL.fused_egnn_stack_batch_ref(cfg, *ops, w)
+        via = PL.fused_egnn_stack_batch(cfg, *ops, w)
+    L = cfg.n_layers
+    for b, n in enumerate(BATCH_SIZES):
+        g = PL._graph(b, *ops[:7], ops[8], ops[9])
+        with torch.no_grad():
+            ref, ref_cks = PL.fused_egnn_stack_ref(cfg, *g[:7], ops[7],
+                                                   *g[7:], w)
+        for a, r in zip(out, ref):
+            assert torch.equal(a[b], r)
+        for a, r in zip(via, ref):
+            assert torch.equal(a[b], r)
+        for a, r in zip(cks, ref_cks):
+            assert a.shape[:2] == (2, L) and torch.equal(a[b], r)
+        assert float(ops[5][b].sum()) == n
+    # the two graphs' answers differ (no replica hides a mix-up)
+    assert float((out[1][0] - out[1][1]).abs().max()) > 1e-2
+
+
+@pytest.fixture(scope="module")
+def jax_model_batch_forward():
+    kw = dict(max_nodes=N_PAD, edge_block=BLOCK, split_remote=True)
+    gs = _batch_graphs()
+    jb = jax_pad_graphs(gs, compute_pair=False, **kw)
+    jm = JaxFastEGNN(node_feat_nf=2, node_attr_nf=A, edge_attr_nf=2,
+                     hidden_nf=H, virtual_channels=C, n_layers=2,
+                     gravity=GRAVITY, edge_impl="fused_stack")
+    params = numpy_params(jm, jb, 12)
+    jx, jX = jax.jit(jm.apply)(params, jb)
+    return jb, pad_graphs(gs, **kw), params, np.asarray(jx), np.asarray(jX)
+
+
+def test_model_batch_of_two_graphs_matches_jax(jax_model_batch_forward):
+    """FastEGNN(edge_impl='fused_stack') on a B=2 batch of different graphs
+    (one megakernel call for the batch) against the JAX model (one per
+    graph) on the same converted parameters."""
+    jb, pb, params, jx, jX = jax_model_batch_forward
+    pm = _port_model("fused_stack", 2)
+    pm.load_state_dict(params_from_jax(params), strict=True)
+    with torch.no_grad():
+        px, pX = pm(pb)
+    m = np.asarray(jb.node_mask) > 0
+    assert px.shape[0] == 2 and m[0].sum() != m[1].sum()
+    np.testing.assert_allclose(px.numpy()[m], jx[m], rtol=0, atol=TOL)
+    np.testing.assert_allclose(pX.numpy(), jX, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(px.numpy()[~m], 0.0)
+
+
+def test_train_micro_step_batch_of_two_graphs_matches_fused():
+    """One micro-step (MSE + MMD, backward) of the fused_stack model on a
+    B=2 batch of different graphs (the backward walks each graph's layers)
+    against the same step under edge_impl='fused': loss and every
+    parameter's gradient."""
+    pb = pad_graphs(_batch_graphs(), max_nodes=N_PAD, edge_block=BLOCK,
+                    split_remote=True)
+    gen = torch.Generator().manual_seed(13)
+    models = {"fused_stack": _port_model("fused_stack", 2, generator=gen)}
+    models["fused"] = _port_model("fused", 2)
+    models["fused"].load_state_dict(models["fused_stack"].state_dict())
+    res = {}
+    for impl, m in models.items():
         loss, _ = make_loss_fn(m, 0.03, 1.5, -(-N_PAD // C))(pb)
         loss.backward()
         res[impl] = (float(loss.detach()),
