@@ -124,6 +124,28 @@ or of the JAX package. Phases (any failure exits nonzero):
      phase 5's aggregate bounds and phase 6's per-tensor bound; micro-step ms,
      nodes/s and peak device memory.
 
+  9. distributed training (parallel/launch.py ``run_distributed``): the six
+     clouds partitioned into 4 parts each by the native metis partitioner
+     (data/distribute.py; asserted native, within its 3 % balance cap, a
+     cut below a random split's; partition ms and local edges per part
+     printed). (j1) configs/largefluid_distegnn.yaml as published +
+     data.world_size=4 (distribute, metis, plain scatter, bf16, remat, MSE
+     + MMD, accumulation 4), 2 epochs, 4 ranks sharing the card over gloo:
+     per rank the exact all-reduces of every micro-step (derived in
+     ``micro_step_collectives``), batch_consistency 0, micro-step ms, the
+     collectives' host ms and peak memory, the global nodes/s; parameters
+     bitwise equal across ranks (run_distributed's broadcast check). Then,
+     spawned over the same shards: (j1)'s first update with MMD off against
+     the union of the parts in one process (phase 6's bounds) and an f32
+     forward against it (1e-5 of scale); (j2) + model.edge_impl=fused,
+     data.edge_block=512, 1 epoch: exact fused launches per rank, the first
+     update with the plain versions (phase 5's bounds), edge_impl
+     fused_stack under the axis launching no stack; (j0) as published with
+     the world size from the card count: 1 rank over nccl, 1 epoch.
+
+Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
+loader's first pass) with the native library and with the numpy layout.
+
 With ``--profile`` it then breaks one request of the largest scene into host
 stages and profiles it with torch.profiler (device time by kernel, the
 device's idle share), and profiles one train micro-step of each train path
@@ -571,7 +593,42 @@ def serve_phase(cfg, model, eng, dev, scenes):
     predict_times("", eng, scenes)
     print(f"predict ms, first pass mean over the {len(scenes)} requests: "
           f"{first_ms:.3f}")
+    pad_batch_ms(eng, scenes[-1])
     return launches
+
+
+def no_native():
+    """The native library unavailable: the port's numpy layout runs."""
+    from distegnn_tpu_torch import native
+
+    return mock.patch.object(native._NATIVE, "get", lambda: None)
+
+
+def pad_batch_ms(eng, g, reps=5):
+    """The host padding of one request (``pad_batch``: blockify, pairing,
+    the remote list) with the native library and with the numpy layout,
+    median of ``reps`` each; the two batches must be equal."""
+    import torch
+
+    bucket = eng.ladder.bucket_of_graph(g)
+    out = {}
+    for label, ctx in (("native", contextlib.nullcontext), ("numpy",
+                                                            no_native)):
+        ts = []
+        with ctx():
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                batch, _ = eng.ladder.pad_batch([g], bucket, eng.max_batch,
+                                                **eng._layout_opts)
+                ts.append((time.perf_counter() - t0) * 1e3)
+        out[label] = (sorted(ts)[reps // 2], batch)
+    a, b = out["native"][1], out["numpy"][1]
+    same = all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(vars(a).values(), vars(b).values()))
+    check(same, "pad_batch: the native and numpy layouts differ")
+    print(f"pad_batch ms (host), n={g['loc'].shape[0]}, median of {reps}: "
+          f"native layout {out['native'][0]:.3f}, numpy "
+          f"{out['numpy'][0]:.3f} (equal batches)")
 
 
 def check_equivariance(label, eng, g, out):
@@ -682,7 +739,8 @@ def scan_plain_patches():
 
 
 def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
-                 time_extra=0, profile=False):
+                 time_extra=0, profile=False, axis_name=None, rank=None,
+                 profiler=None):
     """One optimizer update (accumulation_steps micro-steps) of the train
     step from ``init_sd`` over ``batches`` (on the card), with the per-step
     generators of epoch 1. Returns a dict: the micro-steps' losses with and
@@ -690,7 +748,10 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
     sees it, by parameter name), the change of ``counts()`` (kernel
     launches) over the update, and the micro-step ms of ``time_extra`` more
     timed micro-steps. ``patches`` (e.g. :func:`fused_plain_patches`) are
-    entered around it all."""
+    entered around it all. ``axis_name`` / ``rank``: one rank of a
+    distributed run (the gradient is then the one summed over the ranks).
+    ``profile`` runs one more micro-step under ``profiler`` (default
+    :func:`profile_step`), whose result is ``out["profile"]``."""
     import torch
 
     from distegnn_tpu_torch.models.registry import get_model
@@ -699,7 +760,7 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
                                                needs_grad_clip,
                                                step_generator)
 
-    model = get_model(cfg.model)
+    model = get_model(cfg.model, axis_name=axis_name)
     model.load_state_dict(init_sd)
     model.to(dev)
     pname = {id(p): n for n, p in model.named_parameters()}
@@ -723,7 +784,7 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
     opt.adam.step = capture_then_step
     state = TrainState(model, opt)
     step = make_train_step(model, opt, t.mmd.weight, t.mmd.sigma,
-                           t.mmd.samples)
+                           t.mmd.samples, axis_name=axis_name)
     before = counts()
     with contextlib.ExitStack() as stack:
         for pt in patches:
@@ -731,7 +792,8 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
         out = {"loss_with_mmd": [], "loss": []}
         for i in range(t.accumulation_steps):
             b = batches[i % len(batches)]
-            state, m = step(state, b, step_generator(cfg.seed, 1, i, dev))
+            state, m = step(state, b, step_generator(cfg.seed, 1, i, dev,
+                                                     rank))
             for k in out:
                 out[k].append(float(m[k]))
         out["grad"] = grads[0]
@@ -741,13 +803,15 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
             b = batches[i % len(batches)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, m = step(state, b, step_generator(cfg.seed, 2, i, dev))
+            state, m = step(state, b, step_generator(cfg.seed, 2, i, dev,
+                                                     rank))
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         out["ms"] = ms
         if profile:
-            profile_step(lambda: step(state, batches[0],
-                                      step_generator(cfg.seed, 3, 0, dev)))
+            out["profile"] = (profiler or profile_step)(
+                lambda: step(state, batches[0], step_generator(
+                    cfg.seed, 3, 0, dev, rank)))
     return out
 
 
@@ -966,11 +1030,21 @@ def drive_train(cfg, ds, dev, reset_counts, read_counts, label):
 def host_batches(cfg, ds, dev, label):
     """The train loader's epoch-1 batches on the card, with where the
     trainer's host time goes: the loader's first and second pass (layout
-    work cached on the first) and the copy to the card."""
+    work cached on the first), the first pass again with the numpy layout
+    (on copies of the graph dicts: the plain pairing caches itself on
+    them), and the copy to the card."""
     import torch
 
+    from distegnn_tpu_torch.data.loader import GraphDataset
     from distegnn_tpu_torch.main import make_loaders
 
+    with no_native():
+        copies = [GraphDataset([dict(g) for g in d.graphs]) for d in ds]
+        loader = make_loaders(cfg, *copies)[0]
+        loader.set_epoch(1)
+        t0 = time.perf_counter()
+        numpy_host = list(loader)
+        numpy_ms = (time.perf_counter() - t0) * 1e3 / len(numpy_host)
     loader = make_loaders(cfg, *ds)[0]
     loader.set_epoch(1)
     t0 = time.perf_counter()
@@ -982,8 +1056,13 @@ def host_batches(cfg, ds, dev, label):
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     nb = len(host)
+    same = all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for a, b in zip(host, numpy_host)
+               for x, y in zip(vars(a).values(), vars(b).values()))
+    check(same, f"{label}the native and numpy loader layouts differ")
     print(f"{label}loader ms per batch (host): first pass "
-          f"{(t1 - t0) * 1e3 / nb:.1f}, second {(t2 - t1) * 1e3 / nb:.1f}; "
+          f"{(t1 - t0) * 1e3 / nb:.1f} (numpy layout {numpy_ms:.1f}, equal "
+          f"batches), second {(t2 - t1) * 1e3 / nb:.1f}; "
           f"copy to the card {(t3 - t2) * 1e3 / nb:.1f} ms per batch")
     return loader, batches
 
@@ -2503,6 +2582,625 @@ def _blocked_train_phase(root, dev, clouds, log_dir, profile):
                 einsum_ms=med_e, scatter_ms=med_s)
 
 
+# ------------------------------------------------ phase 9: distributed training
+
+DIST_WS = 4
+# j1 trains 2 epochs over the 4 / 1 / 1 clouds, j2 and j0 one
+DIST_EPOCHS = 2
+# the native partitioner's balance cap (native/partition.cpp k-way refine)
+PART_CAP = 1.03
+# a rank's f32 forward against the union graph's, of the max |coordinate|
+TOL_UNION_F32 = 1e-5
+
+
+class StepProbe:
+    """``on_step`` of ``run_distributed`` (pickled into every rank): after
+    each micro-step, synchronised, the host time, the losses, the
+    collectives so far by kind and their host seconds, the fused kernels'
+    launches so far and the peak device memory, written to
+    ``<out_dir>/rank<r>.json``."""
+
+    def __init__(self, out_dir):
+        self.out_dir = out_dir
+        self.rows = []
+
+    def __call__(self, epoch, step, metrics):
+        import torch
+        import torch.distributed as dist
+
+        from distegnn_tpu_torch.ops import edge_pipeline as ep
+        from distegnn_tpu_torch.ops import layer_pipeline as lp
+        from distegnn_tpu_torch.parallel.collectives import all_reduce
+
+        cuda = torch.cuda.is_available()
+        if cuda:
+            torch.cuda.synchronize()
+        self.rows.append({
+            "epoch": epoch, "step": step, "t": time.perf_counter(),
+            "loss": float(metrics["loss_with_mmd"]),
+            "consistency": float(metrics["batch_consistency"]),
+            "counts": dict(all_reduce.counts),
+            "seconds": sum(all_reduce.seconds.values()),
+            "fwd": ep.fused_edge_layer.launches,
+            "tc": ep.fused_edge_layer.tc_launches,
+            "bwd": ep.fused_edge_layer.bwd_launches,
+            "stack": lp.fused_egnn_stack.launches,
+            "peak": torch.cuda.max_memory_allocated() if cuda else 0})
+        with open(os.path.join(self.out_dir,
+                               f"rank{dist.get_rank()}.json"), "w") as f:
+            json.dump(self.rows, f)
+
+
+def micro_step_collectives(L, remat, mmd, update):
+    """The all-reduces of one micro-step of the distributed train step, by
+    kind, derived from the code: each layer's three node means sum a
+    value and a count (models/fast_egnn.py, parallel/collectives.py), rerun
+    by remat's recompute; the backward sums the cotangent of every value
+    sum that reaches the loss: all but layer 0's coordinate mean (the input
+    positions) and the last layer's feature mean (its Hv output is unused);
+    the loss's node count once per weighted share (two with MMD); the two
+    logged losses in one buffer; the consistency pair (MIN, MAX); the
+    gradient buffer once per update (train/step.py)."""
+    return {"psum": 6 * L * (2 if remat else 1) + (2 if mmd else 1),
+            "psum_bwd": 3 * L - 2, "loss": 1, "consistency": 2,
+            "grad": 1 if update else 0}
+
+
+def write_dist_shards(cfg, clouds, out_dir, ws):
+    """The 4 / 1 / 1 clouds partitioned by the config's split mode into
+    ``ws`` parts and written as shard files (data/distribute.py, the
+    preprocessing path of a distribute run). Returns (split paths, (each
+    cloud's partition ms: the outer-radius graph and the labels; the
+    labels alone, native_partition), the split's wall ms)."""
+    from distegnn_tpu_torch.data import partition
+    from distegnn_tpu_torch.data.distribute import write_partitioned_split
+
+    from distegnn_tpu_torch import native
+
+    d = cfg.data
+    part_ms, label_ms = [], []
+
+    def timed(fn, into):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    paths = []
+    t0 = time.perf_counter()
+    with mock.patch.object(partition, "assign_partitions", timed(
+            partition.assign_partitions, part_ms)), mock.patch.object(
+            native, "native_partition", timed(native.native_partition,
+                                              label_ms)):
+        for split, graphs in (("train", clouds[:4]), ("valid", clouds[4:5]),
+                              ("test", clouds[5:])):
+            paths.append(write_partitioned_split(
+                graphs, out_dir, f"fluid_{split}", ws, d.split_mode,
+                d.inner_radius, d.outer_radius, seed=cfg.seed))
+    return paths, (part_ms, label_ms), (time.perf_counter() - t0) * 1e3
+
+
+def check_partitions(clouds, paths, part_ms, ws):
+    """Phase 9's partition checks: the native partitioner ran; each cloud's
+    parts within its balance cap; the edge cut (the cloud's radius edges
+    that no part keeps: inner = outer radius) below a random split's."""
+    import pickle
+
+    import numpy as np
+
+    from distegnn_tpu_torch.data import partition
+    from distegnn_tpu_torch.native import native_edge_cut
+
+    check(partition.metis_labels.partitioner == "native",
+          "metis did not run the native partitioner")
+    shards = []
+    for split in paths:
+        per = []
+        for p in split:
+            with open(p, "rb") as f:
+                per.append(pickle.load(f))
+        shards.append(per)
+    parts = [[shard[i] for shard in split] for split in shards
+             for i in range(len(split[0]))]
+    for i, (cloud, pr) in enumerate(zip(clouds, parts)):
+        n = [q["loc"].shape[0] for q in pr]
+        local = [q["edge_index"].shape[1] for q in pr]
+        total = cloud["edge_index"].shape[1]
+        cut = total - sum(local)
+        indptr, col = partition._csr_from_edges(cloud["edge_index"],
+                                                cloud["loc"].shape[0])
+        rnd = native_edge_cut(indptr, col, partition.random_labels(
+            cloud["loc"].shape[0], ws, np.random.default_rng(i)))
+        imb = max(n) / (sum(n) / ws)
+        print(f"partition cloud {i}: metis {part_ms[0][i]:.1f} ms (the "
+              f"outer-radius graph + the native labels "
+              f"{part_ms[1][i]:.1f} ms); "
+              f"nodes per part {n} (max/mean {imb:.4f}, cap {PART_CAP}); "
+              f"local edges per part {local}; cut {cut} of {total} edges "
+              f"({cut / total:.4f}), random split {rnd} ({rnd / total:.4f})")
+        check(sum(n) == cloud["loc"].shape[0], "partition lost nodes")
+        check(imb <= PART_CAP, f"cloud {i}: partition imbalance {imb:.4f}")
+        check(cut < rnd, f"cloud {i}: metis cut {cut} >= random {rnd}")
+    return shards
+
+
+def read_probe(out_dir, ws):
+    rows = []
+    for r in range(ws):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def report_dist_run(label, cfg, rows, n_real, startup):
+    """Per rank: exact collectives of every micro-step (the first one also
+    carries ``startup``: the loaders' layout agreement and the replication
+    check), batch_consistency 0, micro-step ms (median of the steps after
+    the first update, host clock between synchronised micro-step ends),
+    collective seconds and peak memory; the global nodes/s. Returns the
+    medians."""
+    L, k = cfg.model.n_layers, cfg.train.accumulation_steps
+    mmd = bool(cfg.train.mmd.weight)
+    meds = []
+    for r, rr in enumerate(rows):
+        prev, prev_s = {}, 0.0
+        for j, row in enumerate(rr):
+            want = micro_step_collectives(L, cfg.model.remat, mmd,
+                                          (j + 1) % k == 0)
+            if j == 0:
+                for kind, n in startup.items():
+                    want[kind] = want.get(kind, 0) + n
+            got = {kind: n - prev.get(kind, 0)
+                   for kind, n in row["counts"].items()
+                   if n - prev.get(kind, 0)}
+            check(got == {kind: n for kind, n in want.items() if n},
+                  f"{label}rank {r} micro-step {j}: collectives {got}, "
+                  f"expected {want}")
+            row["coll_ms"] = (row["seconds"] - prev_s) * 1e3
+            prev, prev_s = row["counts"], row["seconds"]
+            check(row["consistency"] == 0.0,
+                  f"{label}rank {r}: batch_consistency {row['consistency']}")
+            check(math.isfinite(row["loss"]), f"{label}non-finite loss")
+        # the steps after the first update (a run of one update: all but
+        # the first step)
+        after = k if len(rr) > k else 1
+        post = [(b["t"] - a["t"]) * 1e3 for j, (a, b) in
+                enumerate(zip(rr, rr[1:])) if j + 1 >= after
+                and a["epoch"] == b["epoch"]]
+        coll = sorted(row["coll_ms"] for row in rr[after:]) or [0.0]
+        med = sorted(post)[len(post) // 2] if post else float("nan")
+        meds.append(med)
+        per = micro_step_collectives(L, cfg.model.remat, mmd, False)
+        print(f"{label}rank {r}: micro-step ms from step {after + 1} on "
+              f"(host clock, loader included) "
+              + " ".join(f"{v:.1f}" for v in post)
+              + f", median {med:.1f}; all-reduces a micro-step "
+              f"{sum(per.values())} (+1 gradient at each update: "
+              f"{json.dumps(per)}), their host ms a micro-step median "
+              f"{coll[len(coll) // 2]:.1f}; peak device memory "
+              f"{rr[-1]['peak'] / 2**30:.3f} GiB; batch_consistency 0 in "
+              f"all {len(rr)} micro-steps")
+    slow = max(meds)
+    print(f"{label}global: {n_real} real nodes over {len(rows)} rank(s) / "
+          f"the slowest rank's median {slow:.1f} ms = "
+          f"{n_real / (slow / 1e3):.0f} nodes/s" + (
+              " (ranks sharing one card: the collectives' and the host's "
+              "overhead, not scaling)" if len(rows) > 1 else ""))
+    return meds
+
+
+def profile_dist_step(fn):
+    """One distributed micro-step under torch.profiler: its wall ms, the
+    device's kernel time, the collective ops' host time and calls, and the
+    top device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in avgs if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    comm = [(e.key, e.cpu_time_total / 1e3, e.count) for e in avgs
+            if e.device_type == DeviceType.CPU
+            and ("all_reduce" in e.key or "allreduce" in e.key)]
+    return {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
+            "comm": comm, "top": rows[:8]}
+
+
+def dist_check_rank(rank, ws, init_method, cfgs, paths, out_dir,
+                    device="cuda"):
+    """A rank of phase 9's checks (spawned, over the card): (a) (j1)'s
+    first update (its seeded weights, its first batches) with MMD off, for
+    the union comparison; (j1) as published: 3 timed micro-steps after its
+    first update and one under torch.profiler; (b) an f32 forward of the
+    first batch; (c) (j2)'s
+    first update with the fused kernels and with their plain versions;
+    (d) one forward with edge_impl fused_stack: no stack launch; (e) rank 0
+    times both fused kernels at its batch's shape."""
+    import itertools
+
+    import torch
+
+    from distegnn_tpu_torch.models.registry import get_model
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+    from distegnn_tpu_torch.parallel.launch import rank_loaders
+    from distegnn_tpu_torch.parallel.mesh import (GRAPH_AXIS,
+                                                  destroy_graph_group,
+                                                  init_graph_group)
+
+    gg = init_graph_group(ws, rank, device, init_method)
+    dev = gg.device
+    out = {}
+    try:
+        def first_batches(cfg):
+            loader = rank_loaders(cfg, paths, rank, dev)[0]
+            loader.set_epoch(1)
+            return list(itertools.islice(loader,
+                                         cfg.train.accumulation_steps))
+
+        def seeded(cfg):
+            return get_model(cfg.model, generator=torch.Generator()
+                             .manual_seed(int(cfg.seed))).state_dict()
+
+        cfg = cfgs["union"]
+        batches = first_batches(cfg)
+        init = seeded(cfg)
+        u = first_update(cfg, init, batches, dev, axis_name=GRAPH_AXIS,
+                         rank=rank)
+        out["union"] = {"loss": u["loss"], "grad": {
+            n: g.cpu() for n, g in u["grad"].items()}}
+        # (j1) as published: 3 timed micro-steps, one more profiled
+        j1 = first_update(cfgs["j1"], init, batches, dev, time_extra=3,
+                          profile=True, profiler=profile_dist_step,
+                          axis_name=GRAPH_AXIS, rank=rank)
+        out["j1"] = {"ms": j1["ms"], "profile": j1["profile"]}
+        m32 = get_model(cfgs["f32"].model, axis_name=GRAPH_AXIS)
+        m32.load_state_dict(init)
+        m32.to(dev)
+        with torch.no_grad():
+            x, X = m32(batches[0])
+        n = int(batches[0].node_mask.sum())
+        out["f32"] = {"x": x[0, :n].cpu(), "X": X.cpu()}
+
+        cfg = cfgs["fused"]
+        fb = first_batches(cfg)
+        init = seeded(cfg)
+        k = first_update(cfg, init, fb, dev, axis_name=GRAPH_AXIS, rank=rank)
+        p = first_update(cfg, init, fb, dev, patches=fused_plain_patches(),
+                         axis_name=GRAPH_AXIS, rank=rank)
+        out["fused"] = {key: v for key, v in (("k", k), ("p", p))}
+        for v in out["fused"].values():
+            v["grad"] = {n: g.cpu() for n, g in v["grad"].items()}
+        stack = get_model(cfgs["stack"].model, axis_name=GRAPH_AXIS)
+        stack.load_state_dict(init)
+        stack.to(dev)
+        before = (lp.fused_egnn_stack.launches, ep.fused_edge_layer.launches)
+        with torch.no_grad():
+            stack(fb[0])
+        torch.cuda.synchronize()
+        out["stack"] = (lp.fused_egnn_stack.launches - before[0],
+                        ep.fused_edge_layer.launches - before[1])
+        if rank == 0:
+            fused = get_model(cfg.model)
+            fused.load_state_dict(init)
+            out["kernels"] = flagship_kernel_phase(fused.to(dev), fb[0], dev)
+            out["kernels"]["n_real"] = int(fb[0].node_mask.sum())
+    finally:
+        destroy_graph_group()
+    torch.save(out, os.path.join(out_dir, f"check{rank}.pt"))
+
+
+def union_batches(cfg, paths, dev):
+    """The first accumulation_steps batches of the union run: for each
+    train graph (in the ranks' epoch-1 order) one graph of its parts' nodes
+    in rank order (each part Morton-ordered as its rank reads it) and their
+    local edges; with each part's node offsets."""
+    import numpy as np
+
+    from distegnn_tpu_torch.data.loader import GraphDataset
+    from distegnn_tpu_torch.ops.graph import pad_graphs
+
+    shards = [GraphDataset(p, node_order=cfg.data.node_order)
+              for p in paths[0]]
+    order = np.random.default_rng([int(cfg.seed), 1]).permutation(
+        len(shards[0]))
+    batches, offsets = [], []
+    for i in order[:cfg.train.accumulation_steps]:
+        parts = [s[int(i)] for s in shards]
+        off = np.cumsum([0] + [q["loc"].shape[0] for q in parts])
+        g = {k: np.concatenate([q[k] for q in parts])
+             for k in ("node_feat", "node_attr", "loc", "vel", "target",
+                       "edge_attr")}
+        g["edge_index"] = np.concatenate(
+            [q["edge_index"] + o for q, o in zip(parts, off)], axis=1)
+        g["loc_mean"] = parts[0]["loc_mean"]
+        batches.append(pad_graphs([g]).to(dev))
+        offsets.append(off)
+    return batches, offsets
+
+
+def dist_phase(root, dev, clouds):
+    """Phase 9: distributed training, the flagship config as published over
+    graph parts (see the module docstring). Logs, checkpoints and shards go
+    to a temporary directory that is removed afterwards."""
+    import tempfile
+
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    flagship = os.path.join(root, "configs", "largefluid_distegnn.yaml")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        cfg = load_config(flagship, {
+            "data.world_size": DIST_WS, "train.epochs": DIST_EPOCHS,
+            "log.log_dir": os.path.join(tmp, "logs")})
+        d, m = cfg.data, cfg.model
+        print(f"dist config: {d.accelerate_mode} split_mode={d.split_mode} "
+              f"outer/inner radius {d.outer_radius}/{d.inner_radius} "
+              f"world_size={d.world_size} edge_impl={m.edge_impl} "
+              f"segment_impl={m.segment_impl} edge_block={d.edge_block} "
+              f"compute_dtype={m.compute_dtype} remat={m.remat} "
+              f"mmd={cfg.train.mmd.weight} accumulation="
+              f"{cfg.train.accumulation_steps} node_order={d.node_order}")
+        paths, part_ms, split_ms = write_dist_shards(
+            cfg, clouds, os.path.join(tmp, "ws4"), DIST_WS)
+        print(f"partitioned and wrote 6 clouds x {DIST_WS} parts in "
+              f"{split_ms:.0f} ms (each: the outer-radius graph, the labels, "
+              f"{DIST_WS} local inner-radius graphs)")
+        check_partitions(clouds, paths, part_ms, DIST_WS)
+        n_real = clouds[0]["loc"].shape[0]   # a batch: one cloud, all ranks
+        j1_meds = dist_j1(cfg, paths, dev, tmp, n_real)
+        res = dist_checks(flagship, paths, dev, tmp)
+        launches = dist_j2(flagship, paths, dev, tmp, n_real, res,
+                           cfg.model.n_layers)
+        j0_meds = dist_j0(flagship, clouds, dev, tmp, n_real)
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "kernels": res[0]["kernels"],
+            "j1_ms": j1_meds, "j0_ms": j0_meds}
+
+
+def dist_j1(cfg, paths, dev, tmp, n_real):
+    """(j1): the config as published at 4 ranks sharing the card."""
+    import copy
+
+    from distegnn_tpu_torch.parallel.launch import run_distributed
+
+    probe_dir = os.path.join(tmp, "probe_j1")
+    os.makedirs(probe_dir)
+    t0 = time.perf_counter()
+    best = run_distributed(copy.deepcopy(cfg), split_paths=paths, device=dev,
+                           on_step=StepProbe(probe_dir))
+    print(f"(j1) run_distributed: {DIST_WS} ranks x {DIST_EPOCHS} epochs in "
+          f"{time.perf_counter() - t0:.1f} s (spawn and loading included); "
+          f"best {json.dumps(best)}; parameters bitwise equal across the "
+          f"ranks at the start and the end (run_distributed's broadcast and "
+          f"compare)")
+    check(math.isfinite(best["loss_valid"]), "(j1) non-finite eval loss")
+    rows = read_probe(probe_dir, DIST_WS)
+    check(all(len(r) == DIST_EPOCHS * 4 for r in rows),
+          "(j1) missing micro-steps")
+    check(all(r[-1]["fwd"] == 0 and r[-1]["stack"] == 0 for r in rows),
+          "(j1) the plain path launched a fused kernel")
+    return report_dist_run("(j1) ", cfg, rows, n_real,
+                           {"layout": 3, "replicated": 1})
+
+
+def dist_checks(flagship, paths, dev, tmp):
+    """The spawned checks (:func:`dist_check_rank`), then in this process
+    the union run: (j1)'s first update with MMD off against the parts'
+    union (the aggregate bounds of phases 5 and 6), and the f32 forward
+    (1e-5 of scale). Returns the ranks' results."""
+    import copy
+
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.models.registry import get_model
+
+    def cfg_of(over):
+        return load_config(flagship, dict({"data.world_size": DIST_WS},
+                                          **over))
+
+    cfgs = {"j1": cfg_of({}), "union": cfg_of({"train.mmd.weight": 0.0}),
+            "fused": cfg_of({"model.edge_impl": "fused",
+                             "data.edge_block": BLOCK}),
+            "stack": cfg_of({"model.edge_impl": "fused_stack",
+                             "data.edge_block": BLOCK})}
+    cfgs["f32"] = copy.deepcopy(cfgs["union"])
+    cfgs["f32"].model.compute_dtype = None
+    check_dir = os.path.join(tmp, "checks")
+    os.makedirs(check_dir)
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        dist_check_rank, args=(DIST_WS, "file://" + os.path.join(
+            check_dir, "store"), cfgs, paths, check_dir, dev.type),
+        nprocs=DIST_WS, join=True, start_method="spawn")
+    res = [torch.load(os.path.join(check_dir, f"check{r}.pt"),
+                      weights_only=False) for r in range(DIST_WS)]
+    print(f"checks: {DIST_WS} ranks in {time.perf_counter() - t0:.1f} s")
+    for r, rr in enumerate(res):
+        ms, pr = sorted(rr["j1"]["ms"]), rr["j1"]["profile"]
+        print(f"(j1) rank {r}: micro-step ms (synchronised, step only, "
+              f"after the first update) " + " ".join(f"{v:.1f}" for v in ms)
+              + f"; one micro-step under torch.profiler: wall "
+              f"{pr['wall_ms']:.1f} ms, device kernel time "
+              f"{pr['device_ms']:.1f} ms (busy {pr['device_ms'] / pr['wall_ms']:.4f}), "
+              f"collective ops (host time, calls): " + ", ".join(
+                  f"{k} {v:.1f} ms x{n}" for k, v, n in pr["comm"]))
+    for key, ms, n in res[0]["j1"]["profile"]["top"]:
+        print(f"(j1) rank 0 profiled kernel: {ms:.3f} ms x{n} {key[:80]}")
+    for r, rr in enumerate(res):
+        for n, g in rr["union"]["grad"].items():
+            check(torch.equal(g, res[0]["union"]["grad"][n]),
+                  f"rank {r}: the summed gradient of {n} differs")
+
+    ucfg = cfgs["union"]
+    init = get_model(ucfg.model, generator=torch.Generator().manual_seed(
+        int(ucfg.seed))).state_dict()
+    ub, offs = union_batches(ucfg, paths, dev)
+    uu = first_update(ucfg, init, ub, dev)
+    uu["grad"] = {n: g.cpu() for n, g in uu["grad"].items()}
+    ru = res[0]["union"]
+    errs, per = update_distance(dict(ru, loss_with_mmd=ru["loss"]),
+                                dict(uu, loss_with_mmd=uu["loss"]))
+    gmax = max(float(g.abs().max()) for g in uu["grad"].values())
+    worst = sorted(per.items(), key=lambda kv: -kv[1])
+    print(f"(j1) first update (MMD off) of {DIST_WS} ranks vs the union "
+          f"graph in one process: losses {ru['loss']} vs {uu['loss']} (max "
+          f"rel err {errs['loss']:.3e}); gradient norm rel err "
+          f"{errs['grad norm']:.3e}, max abs err / max abs {errs['grad']:.3e}"
+          f", l2 {errs['grad l2']:.3e} (tol {TOL_TRAIN:.0e} each); per "
+          f"tensor, error over its own max, worst 4: " + ", ".join(
+              f"{n} {v:.3e} (its max {float(uu['grad'][n].abs().max()) / gmax:.2e}"
+              f" of the gradient's)" for n, v in worst[:4]))
+    check(all(errs[key] <= TOL_TRAIN for key in ("loss", "grad norm",
+                                                 "grad", "grad l2")),
+          "(j1) the distributed update disagrees with the union graph's")
+
+    m32 = get_model(cfgs["f32"].model)
+    m32.load_state_dict(init)
+    m32.to(dev)
+    with torch.no_grad():
+        x, X = m32(ub[0])
+    x, o = x[0].cpu(), offs[0]
+    scale = float(x.abs().max())
+    e_x = max(float((rr["f32"]["x"] - x[o[r]:o[r + 1]]).abs().max())
+              for r, rr in enumerate(res))
+    e_X = max(float((rr["f32"]["X"] - X.cpu()).abs().max()) for rr in res)
+    print(f"(j1) f32 forward of {DIST_WS} ranks vs the union graph: max abs "
+          f"err {e_x:.3e} of max |x| {scale:.3f}, virtual {e_X:.3e} (tol "
+          f"{TOL_UNION_F32:.0e} of scale)")
+    check(e_x <= TOL_UNION_F32 * scale and e_X <= TOL_UNION_F32 * float(
+        X.abs().max()), "(j1) the f32 forward disagrees with the union's")
+    return res
+
+
+def dist_j2(flagship, paths, dev, tmp, n_real, res, L):
+    """(j2): model.edge_impl fused, data.edge_block 512, one epoch; exact
+    launches per rank, then the checks' first updates (kernels vs plain
+    versions) and fused_stack under the axis. Returns the run's (forward,
+    backward) launches over all ranks."""
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.parallel.launch import run_distributed
+
+    cfg2 = load_config(flagship, {
+        "data.world_size": DIST_WS, "model.edge_impl": "fused",
+        "data.edge_block": BLOCK, "train.epochs": 1,
+        "log.log_dir": os.path.join(tmp, "logs")})
+    probe_dir = os.path.join(tmp, "probe_j2")
+    os.makedirs(probe_dir)
+    t0 = time.perf_counter()
+    run_distributed(cfg2, split_paths=paths, device=dev,
+                    on_step=StepProbe(probe_dir))
+    rows2 = read_probe(probe_dir, DIST_WS)
+    print(f"(j2) run_distributed fused: {DIST_WS} ranks x 1 epoch in "
+          f"{time.perf_counter() - t0:.1f} s (no evaluation: test_interval "
+          f"{cfg2.log.test_interval})")
+    micro = 4
+    want_fwd, want_bwd = 2 * L * micro, L * micro
+    for r, rr in enumerate(rows2):
+        last = rr[-1]
+        print(f"(j2) rank {r}: fused_edge_fwd {last['fwd']} (expected {L} "
+              f"layers x {micro} micro-steps x 2 (remat) = {want_fwd}; "
+              f"{last['tc']} on the tensor cores), fused_edge_bwd "
+              f"{last['bwd']} (expected {want_bwd}), fused_stack_fwd "
+              f"{last['stack']}")
+        check(len(rr) == micro and last["fwd"] == want_fwd
+              and last["tc"] == want_fwd and last["bwd"] == want_bwd
+              and last["stack"] == 0, f"(j2) rank {r}: launch counts")
+    report_dist_run("(j2) ", cfg2, rows2, n_real,
+                    {"layout": 6, "replicated": 1})
+    for r, rr in enumerate(res):
+        k, p = rr["fused"]["k"], rr["fused"]["p"]
+        check(k["launches"] == (want_fwd, want_bwd)
+              and p["launches"] == (0, 0),
+              f"rank {r}: first update launches {k['launches']} / "
+              f"{p['launches']}")
+        errs, per = update_distance(k, p)
+        worst = sorted(per.items(), key=lambda kv: -kv[1])
+        print(f"(j2) rank {r} first update, kernels vs plain versions: "
+              f"losses max rel err "
+              f"{max(errs['loss'], errs['loss_with_mmd']):.3e}, gradient "
+              f"norm {errs['grad norm']:.3e}, max {errs['grad']:.3e} (tol "
+              f"{TOL_TRAIN:.0e}); worst tensor {worst[0][0]} "
+              f"{worst[0][1]:.3e} (tol {TOL_PARAM:.3e})")
+        check(all(errs[key] <= TOL_TRAIN for key in ("loss_with_mmd", "loss",
+                                                     "grad norm", "grad")),
+              f"(j2) rank {r}: the kernels disagree with the plain versions")
+        check(worst[0][1] <= TOL_PARAM,
+              f"(j2) rank {r}: the gradient of {worst[0][0]} disagrees")
+        check(rr["stack"] == (0, L), f"rank {r}: edge_impl fused_stack under "
+              f"the graph axis launched {rr['stack']} (stack, "
+              f"fused_edge_fwd), expected (0, {L})")
+    print(f"(j2) edge_impl fused_stack under the graph axis, one forward a "
+          f"rank: 0 fused_stack_fwd launches, {L} fused_edge_fwd (the "
+          f"per-layer fused path)")
+    return (sum(r[-1]["fwd"] for r in rows2),
+            sum(r[-1]["bwd"] for r in rows2))
+
+
+def dist_j0(flagship, clouds, dev, tmp, n_real):
+    """(j0): the config as published with the world size derived from the
+    card count (one rank on a one-card machine, over nccl), one epoch."""
+    import pickle
+
+    import torch
+
+    from distegnn_tpu_torch.config import derive_runtime_fields, load_config
+    from distegnn_tpu_torch.parallel.collectives import all_reduce
+    from distegnn_tpu_torch.parallel.launch import run_distributed
+    from distegnn_tpu_torch.parallel.mesh import backend_for
+
+    cfg0 = derive_runtime_fields(load_config(
+        flagship, {"train.epochs": 1,
+                   "log.log_dir": os.path.join(tmp, "logs")}))
+    ws0 = cfg0.data.world_size
+    check(ws0 == max(1, torch.cuda.device_count()),
+          "(j0) world size not derived from the card count")
+    backend = backend_for(ws0, dev.type)
+    if dev.type == "cuda":
+        check(backend == "nccl", f"(j0) {ws0} rank(s) on "
+              f"{torch.cuda.device_count()} card(s) would not take nccl")
+    # one part a graph: the cloud itself (its edges are the inner-radius
+    # graph, FLUID_RADIUS), as split_graph would rebuild it
+    check(ws0 == 1 and cfg0.data.inner_radius == FLUID_RADIUS,
+          "(j0) expects one rank and the clouds' radius")
+    paths1 = []
+    for split, graphs in (("train", clouds[:4]), ("valid", clouds[4:5]),
+                          ("test", clouds[5:])):
+        path = os.path.join(tmp, f"fluid_{split}_0-1.pkl")
+        with open(path, "wb") as f:
+            pickle.dump([dict(g, loc_mean=g["loc"].mean(axis=0).astype(
+                "float32")) for g in graphs], f)
+        paths1.append([path])
+    probe_dir = os.path.join(tmp, "probe_j0")
+    os.makedirs(probe_dir)
+    # the rank runs in this process: its collective counts start from 0
+    all_reduce.counts.clear()
+    all_reduce.seconds.clear()
+    t0 = time.perf_counter()
+    run_distributed(cfg0, split_paths=paths1, device=dev,
+                    on_step=StepProbe(probe_dir))
+    print(f"(j0) run_distributed at world size {ws0} (derived: "
+          f"{torch.cuda.device_count()} card), backend {backend}: 1 epoch "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return report_dist_run("(j0) ", cfg0, read_probe(probe_dir, ws0),
+                           n_real, {"layout": 3, "replicated": 1})
+
+
 def profile_phase(eng, g, reps=5):
     """``--profile``: where one request's time goes, for the largest scene.
     Host clock around each stage (each ended by a synchronise), then
@@ -2644,10 +3342,13 @@ def main():
     plain = plain_train_phase(root, dev, clouds, e_train, profile=profile)
     stack = stack_train_phase(root, dev, stack_clouds, profile=profile)
     blocked = blocked_train_phase(root, dev, clouds, profile=profile)
+    dist = dist_phase(root, dev, clouds)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
-          f"backward), fused_edge_bwd {train_bwd} (train) + "
-          f"{stack['launches'][2]} (stack train backward), prefix_scan "
+          f"backward) + {dist['launches'][0]} (distributed train, "
+          f"{DIST_WS} ranks), fused_edge_bwd {train_bwd} (train) + "
+          f"{stack['launches'][2]} (stack train backward) + "
+          f"{dist['launches'][1]} (distributed train), prefix_scan "
           f"{serve_scans} (serve cumsum) + "
           f"{sum(plain['widths'].values())} (plain train), suffix "
           f"{plain['suffix']}, fused_stack_fwd {serve_stacks} (serve) + "
@@ -2698,6 +3399,16 @@ def main():
             f"{flagship['fused_edge_bwd']['shape']}",
             flagship["fused_edge_bwd"],
             "distegnn_tpu/ops/edge_pipeline.py:314", train_bwd)]
+    dk = dist["kernels"]
+    kernels += [
+        row(dk["fused_edge_fwd"]["kernel"], f"distributed train "
+            f"{dk['fused_edge_fwd']['dtype']} {DIST_WS} ranks, rank 0 "
+            f"{dk['fused_edge_fwd']['shape']}", dk["fused_edge_fwd"],
+            fwd_tpu, dist["launches"][0], source="fused_edge_fwd"),
+        row("fused_edge_bwd", f"distributed train "
+            f"{dk['fused_edge_bwd']['dtype']} {DIST_WS} ranks, rank 0 "
+            f"{dk['fused_edge_bwd']['shape']}", dk["fused_edge_bwd"],
+            "distegnn_tpu/ops/edge_pipeline.py:314", dist["launches"][1])]
     kernels += [row(name, f"{key} {sres[key]['shape']}", sres[key], tpu, n,
                     source="prefix_scan")
                 for name, key, n, tpu in scan_rows]

@@ -6,8 +6,9 @@ command-line flags and its derived run name (pure Python, no jax).
 Sections the port does not read yet (obs, promote, ...) are carried through
 from the YAML unchanged. The keys that the JAX package acts on and the port
 does not port yet (``train.resume``, ``train.checkpoint_interval_s``,
-``train.scan_epochs``, ``parallel.mesh``, ``log.wandb.enable``) must keep
-their JAX defaults: any other value raises ``NotImplementedError`` naming the
+``train.scan_epochs``, the data and tensor axes ``parallel.mesh.data`` /
+``data.data_parallel`` and ``parallel.mesh.tensor``, ``log.wandb.enable``)
+must keep their JAX defaults: any other value raises ``NotImplementedError`` naming the
 key and the ROADMAP item that will port it, rather than run another program
 without a word. At their defaults the port runs the JAX program.
 ``train.divergence_retries`` / ``divergence_lr_decay`` are ported (the
@@ -88,12 +89,25 @@ _DEFAULTS: dict = {
         "accelerate_mode": "cutoff_edges",
         "radius": -1.0,
         "cutoff_rate": 0.0,
+        # distribute mode: graph parts of outer_radius partitions, local
+        # inner_radius edges (data/partition.py)
+        "outer_radius": None,
+        "inner_radius": None,
+        "split_mode": "metis",
+        # graph parts = ranks; None derives it (derive_runtime_fields)
+        "world_size": None,
         "frame_0": 30,
         "frame_T": 40,
+        "delta_t": 20,
         "node_order": "none",
         "node_bucket": 8,
         "edge_bucket": 128,
         "edge_block": 0,
+        # the data axis of the JAX mesh: not ported (see _UNPORTED)
+        "data_parallel": 1,
+        # batches collated and copied ahead by a background thread in a
+        # distributed run (0 = synchronous)
+        "prefetch_depth": 2,
     },
     "train": {
         "learning_rate": 5e-4,
@@ -190,11 +204,11 @@ _UNPORTED = (
      "the epoch as one device program, ROADMAP.md queue 1 item 3.4; the "
      "port's eager loop is its only mode"),
     ("parallel.mesh.data", (None, 1),
-     "the distributed slice, ROADMAP.md queue 1 item 2; the port trains on "
-     "one device"),
-    ("parallel.mesh.graph", (None, 1),
-     "the distributed slice, ROADMAP.md queue 1 item 2; the port trains on "
-     "one device"),
+     "the data axis, ROADMAP.md queue 1 item 11; the port's distributed run "
+     "has the graph axis only"),
+    ("data.data_parallel", (1, None),
+     "the data axis, ROADMAP.md queue 1 item 11; the port's distributed run "
+     "has the graph axis only"),
     ("parallel.mesh.tensor", (1, None),
      "tensor parallelism, ROADMAP.md queue 1 item 6"),
     ("log.wandb.enable", (False,),
@@ -225,6 +239,7 @@ def _check_unported(cfg: ConfigDict) -> None:
 
 _VALID_ACCEL_MODES = ("cutoff_edges", "distribute")
 _VALID_NODE_ORDERS = ("none", "morton")
+_VALID_SPLIT_MODES = ("random", "metis", "spectral", "kmeans")
 
 
 def validate_config(cfg: ConfigDict) -> None:
@@ -236,6 +251,23 @@ def validate_config(cfg: ConfigDict) -> None:
     if d.accelerate_mode not in _VALID_ACCEL_MODES:
         raise ValueError(
             f"data.accelerate_mode must be one of {_VALID_ACCEL_MODES}")
+    if d.accelerate_mode == "distribute":
+        if d.split_mode not in _VALID_SPLIT_MODES:
+            raise ValueError(
+                f"data.split_mode must be one of {_VALID_SPLIT_MODES}")
+        if d.outer_radius is None or d.inner_radius is None:
+            raise ValueError("distribute mode requires data.outer_radius and "
+                             "data.inner_radius")
+    if int(d.get("prefetch_depth", 2)) < 0:
+        raise ValueError("data.prefetch_depth must be >= 0 (0 = synchronous)")
+    graph = _get(cfg, "parallel.mesh.graph")
+    ws = d.get("world_size")
+    if graph is not None and ws is not None and int(graph) != int(ws):
+        raise ValueError(f"parallel.mesh.graph={int(graph)} conflicts with "
+                         f"data.world_size={int(ws)} — set one of them")
+    for key, v in (("parallel.mesh.graph", graph), ("data.world_size", ws)):
+        if v is not None and int(v) < 1:
+            raise ValueError(f"{key} must be >= 1")
     if not 0.0 <= float(d.cutoff_rate) < 1.0:
         raise ValueError("data.cutoff_rate must be in [0, 1)")
     if int(d.batch_size) < 1:
@@ -325,6 +357,10 @@ CLI_FIELDS = {
     "virtual_channels": ("model.virtual_channels", int),
     "epochs": ("train.epochs", int),
     "edge_impl": ("model.edge_impl", str),
+    "split_mode": ("data.split_mode", str),
+    "outer_radius": ("data.outer_radius", float),
+    "inner_radius": ("data.inner_radius", float),
+    "world_size": ("data.world_size", int),
 }
 
 
@@ -345,14 +381,30 @@ def cli_overrides(args: argparse.Namespace) -> dict:
             for name, (path, _) in CLI_FIELDS.items()}
 
 
-def derive_runtime_fields(cfg: ConfigDict) -> ConfigDict:
-    """Set ``data.world_size`` (1: the port trains on one device) and
-    ``log.exp_name`` as the JAX package does for ``cutoff_edges``: dataset,
-    radius and cutoff, model, world size, channels and a time stamp."""
-    cfg.data.world_size = 1
+def derive_runtime_fields(cfg: ConfigDict,
+                          world_size: Optional[int] = None) -> ConfigDict:
+    """Set ``data.world_size`` and ``log.exp_name`` as the JAX package does
+    (dataset, the radii and split mode or the radius and cutoff, model,
+    world size, channels and a time stamp). ``cutoff_edges`` trains on one
+    device: world size 1. ``distribute``: ``world_size``, else
+    ``data.world_size`` or ``parallel.mesh.graph`` when set, else the
+    number of CUDA cards (at least 1)."""
     d = cfg.data
+    if d.accelerate_mode != "distribute":
+        world_size = 1
+    if world_size is None:
+        world_size = d.get("world_size") or _get(cfg, "parallel.mesh.graph")
+    if world_size is None:
+        import torch
+
+        world_size = max(1, torch.cuda.device_count())
+    d.world_size = int(world_size)
+    if d.accelerate_mode == "distribute":
+        geo = f"{d.split_mode}_o{d.outer_radius}_i{d.inner_radius}"
+    else:
+        geo = f"r{d.radius}_cut{d.cutoff_rate}"
     stamp = time.strftime("%Y%m%d_%H%M%S")
     cfg.log.exp_name = (
-        f"{d.dataset_name}_r{d.radius}_cut{d.cutoff_rate}"
-        f"_{cfg.model.model_name}_ws1_C{cfg.model.virtual_channels}_{stamp}")
+        f"{d.dataset_name}_{geo}_{cfg.model.model_name}"
+        f"_ws{d.world_size}_C{cfg.model.virtual_channels}_{stamp}")
     return cfg

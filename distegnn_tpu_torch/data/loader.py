@@ -1,5 +1,5 @@
-"""Static-shape graph loaders (port of the single-device half of
-``distegnn_tpu/data/loader.py``).
+"""Static-shape graph loaders (port of ``distegnn_tpu/data/loader.py`` and
+of ``PrefetchLoader`` of ``distegnn_tpu/data/stream.py``).
 
 ``GraphDataset`` holds graph dicts in memory (or reads them from a pickle);
 ``GraphLoader`` collates them into padded ``GraphBatch``es whose node count,
@@ -11,14 +11,24 @@ loader. Two layouts: the plain row-sorted one (``edge_block`` 0, the
 ``max_in_degree`` of the scatter-free lowerings) and the blocked one (the
 one-hot kernels of the plain path, with the pairing when the dataset is
 symmetric; with ``split_remote`` the fused edge kernel's).
+
+A distributed run gives each rank the loader of its own graph-part shard
+(:func:`shard_loader`): the same shuffle seed, so every rank draws the same
+graphs in the same order, and one layout (node count, edges per block,
+pairing, remote width) agreed over the ranks, so rank r's batch is exactly
+slice r of the JAX package's ``ShardedGraphLoader`` stack. ``PrefetchLoader``
+collates and copies batches to the card in a background thread.
 """
 
 from __future__ import annotations
 
 import pickle
-from typing import List, Optional, Sequence, Union
+import queue
+import threading
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from distegnn_tpu_torch.ops.blocked import (prepare_blocked_graph,
                                             scan_dataset_for_blocking)
@@ -80,7 +90,12 @@ class GraphLoader:
     def __init__(self, dataset: GraphDataset, batch_size: int,
                  shuffle: bool = False, seed: int = 0, edge_block: int = 0,
                  pairing: Optional[bool] = None, node_bucket: int = 8,
-                 edge_bucket: int = 128, split_remote: bool = False):
+                 edge_bucket: int = 128, split_remote: bool = False,
+                 max_nodes: Optional[int] = None,
+                 max_edges: Optional[int] = None,
+                 edges_per_block: Optional[int] = None,
+                 max_in_degree: Optional[int] = None,
+                 remote_pad: Optional[int] = None):
         if split_remote and not edge_block:
             raise ValueError("GraphLoader: split_remote requires edge_block "
                              "> 0 (the fused pipeline's window is defined on "
@@ -99,28 +114,33 @@ class GraphLoader:
         n, e = dataset.size_maxima()
         if not edge_block:
             self.pairing = bool(pairing)
-            self.max_nodes = _round_up(max(n, 1), node_bucket)
-            self.max_edges = _round_up(max(e, 1), edge_bucket)
-            self.max_in_degree = None
-            if self.pairing:
+            self.max_nodes = max_nodes or _round_up(max(n, 1), node_bucket)
+            self.max_edges = max_edges or _round_up(max(e, 1), edge_bucket)
+            self.max_in_degree = max_in_degree
+            if self.pairing and max_in_degree is None:
                 # one ELL degree for the run, so every batch has one shape
                 deg = max(int(np.bincount(dataset[i]["edge_index"][0],
                                           minlength=1).max())
                           for i in range(len(dataset)))
                 self.max_in_degree = _round_up(max(deg, 1), 8)
             return
-        self.max_nodes = _round_up(max(n, 1), edge_block)
+        self.max_nodes = _round_up(max(max_nodes or 0, n, 1), edge_block)
         if split_remote:
             # the fused kernel's 3-block window needs nb >= 3; small graphs
             # pay all-padding blocks rather than failing
             self.max_nodes = max(self.max_nodes, 3 * edge_block)
-        deg, sym = scan_dataset_for_blocking(dataset, self.max_nodes,
-                                             edge_block)
-        self.pairing = sym if pairing is None else bool(pairing)
-        self.edges_per_block = _round_up(deg, self.EDGE_TILE)
+        if edges_per_block is None or pairing is None:
+            deg, sym = scan_dataset_for_blocking(dataset, self.max_nodes,
+                                                 edge_block)
+            if edges_per_block is None:
+                edges_per_block = _round_up(deg, self.EDGE_TILE)
+            if pairing is None:
+                pairing = sym
+        self.pairing = bool(pairing)
+        self.edges_per_block = edges_per_block
         self.max_edges = (self.max_nodes // edge_block) * self.edges_per_block
-        self.remote_pad = None
-        if split_remote:
+        self.remote_pad = remote_pad
+        if split_remote and remote_pad is None:
             # blockify never adds out-of-window edges (its padding slots sit
             # in their own block): scan the raw lists, pad to 128 lanes
             er = max(count_remote_edges(dataset[i]["edge_index"],
@@ -177,3 +197,151 @@ class GraphLoader:
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
             yield pad_graphs([self._graph(int(i)) for i in idx],
                              **self.pad_kwargs())
+
+
+def shard_loader(dataset: GraphDataset, batch_size: int, axis_name: str,
+                 device, shuffle: bool = False, seed: int = 0,
+                 node_bucket: int = 8, edge_bucket: int = 128,
+                 edge_block: int = 0, pairing: Optional[bool] = None,
+                 split_remote: bool = False) -> GraphLoader:
+    """This rank's loader over its own shard (part r of every graph), with
+    the layout the JAX package's ``ShardedGraphLoader`` computes over all
+    shards: each rank scans its shard, and one MAX all-reduce over the axis
+    (:mod:`parallel.collectives`, kind 'layout') gives the common node and
+    edge maxima, edges per block, ELL in-degree and remote width, and the
+    AND of the pairing decisions (blocked: every shard symmetric; plain
+    with ``pairing``: every graph of every shard sorted and symmetric, else
+    no batch of the run carries a pairing, so all ranks lower alike)."""
+    import torch.distributed as dist
+
+    from distegnn_tpu_torch.ops.blocked import pairing_perm_fast
+    from distegnn_tpu_torch.parallel.collectives import all_reduce
+
+    def agree(vals):
+        t = torch.tensor([int(v) for v in vals], dtype=torch.int64,
+                         device=device)
+        all_reduce(t, axis_name, "layout", op=dist.ReduceOp.MAX)
+        return [int(v) for v in t.tolist()]
+
+    n, e = dataset.size_maxima()
+    graphs = [dataset[i] for i in range(len(dataset))]
+    if edge_block:
+        N = _round_up(max(n, 1), edge_block)
+        if split_remote:
+            N = max(N, 3 * edge_block)
+        (N,) = agree([N])
+        deg, sym = scan_dataset_for_blocking(dataset, N, edge_block)
+        er = (max(count_remote_edges(g["edge_index"], block=edge_block,
+                                     n_nodes=N) for g in graphs)
+              if split_remote else 0)
+        epb, er, asym = agree([_round_up(deg, GraphLoader.EDGE_TILE), er,
+                               not sym])
+        return GraphLoader(
+            dataset, batch_size, shuffle=shuffle, seed=seed,
+            edge_block=edge_block, split_remote=split_remote, max_nodes=N,
+            edges_per_block=epb,
+            pairing=(not asym) if pairing is None else pairing,
+            remote_pad=max(_round_up(er, 128), 128) if split_remote else None)
+    if split_remote:
+        raise ValueError("shard_loader: split_remote requires edge_block > 0")
+    deg, unpaired = 1, False
+    if pairing:
+        for g in graphs:
+            row = g["edge_index"][0]
+            deg = max(deg, int(np.bincount(row, minlength=1).max()))
+            unpaired = unpaired or bool(np.any(np.diff(row) < 0)) or (
+                pairing_perm_fast(g["edge_index"].astype(np.int64)) is None)
+    n, e, deg, unpaired = agree([n, e, deg, unpaired])
+    return GraphLoader(
+        dataset, batch_size, shuffle=shuffle, seed=seed,
+        pairing=bool(pairing) and not unpaired,
+        max_nodes=_round_up(max(n, 1), node_bucket),
+        max_edges=_round_up(max(e, 1), edge_bucket),
+        max_in_degree=_round_up(deg, 8) if pairing else None)
+
+
+class PrefetchLoader:
+    """Runs ``loader``'s collation and ``put`` (e.g. the copy to the card)
+    up to ``depth`` batches ahead in a background thread; ``depth=0`` is
+    synchronous. A failure in the thread is raised by the consumer's next
+    ``__next__`` (chained as ``__cause__``), never a hang; leaving the loop
+    early stops and joins the thread."""
+
+    def __init__(self, loader, put: Optional[Callable] = None,
+                 depth: int = 2):
+        if depth < 0:
+            raise ValueError(f"PrefetchLoader: depth must be >= 0, got {depth}")
+        self.loader, self.put, self.depth = loader, put, depth
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def _produce(self, batch):
+        return self.put(batch) if self.put is not None else batch
+
+    def __iter__(self):
+        if self.depth == 0:
+            for batch in self.loader:
+                yield self._produce(batch)
+            return
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+
+        def offer(msg) -> bool:
+            # a bounded put that gives up once the consumer has stopped
+            while not stop.is_set():
+                try:
+                    q.put(msg, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for batch in self.loader:
+                    if not offer(("item", self._produce(batch))):
+                        return
+                offer(("done", None))
+            except BaseException as exc:  # handed to the consumer below
+                offer(("err", exc))
+
+        t = threading.Thread(target=producer, daemon=True,
+                             name="distegnn-prefetch")
+        t.start()
+        try:
+            while True:
+                try:
+                    kind, val = q.get(timeout=1.0)
+                except queue.Empty:
+                    if not t.is_alive() and q.empty():
+                        raise RuntimeError("prefetch thread ended without "
+                                           "reporting") from None
+                    continue
+                if kind == "done":
+                    return
+                if kind == "err":
+                    raise RuntimeError(
+                        f"prefetch thread failed: {val!r}") from val
+                yield val
+        finally:
+            stop.set()
+            while True:  # unblock a producer parked on a full queue
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=10.0)
+
+
+def device_put(device) -> Callable:
+    """``put`` of a :class:`PrefetchLoader` that copies a batch to
+    ``device``: through page-locked memory, without blocking, on a card;
+    unchanged on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return lambda batch: batch.to(dev)
+    return lambda batch: batch.pin_memory().to(dev, non_blocking=True)

@@ -1,15 +1,17 @@
-"""Training entry point of the port (the single-device ``cutoff_edges`` flow
-of the JAX package's ``main.py``).
+"""Training entry point of the port (the JAX package's ``main.py``).
 
     python -m distegnn_tpu_torch.main --config_path configs/<x>.yaml \\
-        [--epochs N --lr ... --seed ...] [--device cpu]
+        [--epochs N --lr ... --seed ... --world_size P] [--device cpu]
 
-``main`` parses the flags, loads the config and the datasets, and calls
-:func:`run`, which builds the loaders, the model, the optimizer and the
-steps and runs the epoch loop. ``run`` takes in-memory datasets too
-(``GraphDataset`` of graph dicts). The device defaults to the CUDA card and
-refuses to fall back; ``--device cpu`` runs the plain versions of the
-kernels.
+``main`` parses the flags and loads the config. ``accelerate_mode:
+cutoff_edges`` loads the datasets and calls :func:`run`, which builds the
+loaders, the model, the optimizer and the steps and runs the epoch loop on
+one device; ``run`` takes in-memory datasets too (``GraphDataset`` of graph
+dicts). ``accelerate_mode: distribute`` goes to
+``parallel.launch.run_distributed``: graph parts over ``torch.distributed``,
+one rank each. The device defaults to the CUDA card and refuses to fall
+back; ``--device cpu`` runs the plain versions of the kernels (and the
+ranks over gloo on the CPU).
 """
 
 from __future__ import annotations
@@ -44,14 +46,6 @@ def process_dataset_edge_cutoff(data_cfg):
         "in-memory datasets to distegnn_tpu_torch.main.run")
 
 
-def _require_single_device(config) -> None:
-    if config.data.accelerate_mode != "cutoff_edges":
-        raise NotImplementedError(
-            "accelerate_mode='distribute' (graph partitions over "
-            "torch.distributed, launch.py) comes with the distributed slice "
-            "of the port")
-
-
 def make_loaders(config, ds_train, ds_valid, ds_test):
     """The train / valid / test loaders, as the JAX package's ``main.py``
     builds them: the compact remote list only for the fused lowerings; the
@@ -76,22 +70,40 @@ def make_loaders(config, ds_train, ds_valid, ds_test):
 
 def run(config, ds_train: GraphDataset, ds_valid: GraphDataset,
         ds_test: GraphDataset, device=None, on_step=None):
-    """Train ``config``'s model on the datasets. Returns (state, best,
-    log_dict); ``state.model`` holds the last parameters. ``on_step(epoch,
-    step, metrics)`` is called after every micro-step."""
+    """Train ``config``'s model on the datasets on one device. Returns
+    (state, best, log_dict); ``state.model`` holds the last parameters.
+    ``on_step(epoch, step, metrics)`` is called after every micro-step.
+    Graph parts over several ranks (``accelerate_mode: distribute``) go
+    through ``parallel.launch.run_distributed``."""
     dev = resolve_device(device)
-    _require_single_device(config)
+    if config.data.accelerate_mode != "cutoff_edges":
+        raise ValueError(
+            "run trains one device on whole graphs; accelerate_mode="
+            f"{config.data.accelerate_mode!r} goes through "
+            "distegnn_tpu_torch.parallel.launch.run_distributed (main "
+            "dispatches it)")
     if not config.log.get("exp_name"):
         derive_runtime_fields(config)
-    loader_train, loader_valid, loader_test = make_loaders(
-        config, ds_train, ds_valid, ds_test)
-
+    loaders = make_loaders(config, ds_train, ds_valid, ds_test)
     gen = torch.Generator().manual_seed(int(config.seed))
     model = get_model(config.model, generator=gen).to(dev)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[train] Model: {config.model.model_name}, {n_params} parameters, "
           f"{len(ds_train)}/{len(ds_valid)}/{len(ds_test)} graphs, on {dev}",
           flush=True)
+    state, _, best, log_dict = train_model(config, model, loaders, dev,
+                                           on_step=on_step)
+    return state, best, log_dict
+
+
+def train_model(config, model, loaders, dev, on_step=None, axis_name=None,
+                rank=None):
+    """The optimizer, the steps and the epoch loop over (train, valid, test)
+    ``loaders`` for ``model`` (on ``dev``), restoring
+    ``model.checkpoint`` first when set. ``axis_name`` / ``rank``: one rank
+    of a distributed run. Returns the trainer's (state, best_state, best,
+    log_dict)."""
+    loader_train, loader_valid, loader_test = loaders
     t = config.train
     total_steps = t.epochs * len(loader_train) // t.accumulation_steps
     optimizer = make_optimizer(
@@ -107,18 +119,22 @@ def run(config, ds_train: GraphDataset, ds_valid: GraphDataset,
     # MMD applies to the virtual-node (Fast*) models only
     mmd_w = t.mmd.weight if config.model.model_name.startswith("Fast") else 0.0
     train_step = make_train_step(model, optimizer, mmd_w, t.mmd.sigma,
-                                 t.mmd.samples)
-    eval_step = make_eval_step(model)
-    state, _, best, log_dict = train(
-        state, train_step, eval_step, loader_train, loader_valid,
-        loader_test, config, dev, start_epoch=start_epoch, on_step=on_step)
-    return state, best, log_dict
+                                 t.mmd.samples, axis_name=axis_name)
+    eval_step = make_eval_step(model, axis_name=axis_name)
+    return train(state, train_step, eval_step, loader_train, loader_valid,
+                 loader_test, config, dev, start_epoch=start_epoch,
+                 on_step=on_step, rank=rank)
 
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
     config = load_config(args.config_path, cli_overrides(args))
-    _require_single_device(config)
+    if config.data.accelerate_mode == "distribute":
+        from distegnn_tpu_torch.parallel.launch import run_distributed
+
+        best = run_distributed(config, device=args.device)
+        print(f"[train] Done. Best: {best}", flush=True)
+        return best
     derive_runtime_fields(config)
     fix_seed(config.seed)
     files = process_dataset_edge_cutoff(config.data)

@@ -28,6 +28,12 @@ recomputed in the backward pass instead of kept.
 batch as ONE launch of the megakernel ``fused_egnn_stack_batch``
 (ops/layer_pipeline.py), with the per-layer parameters stacked at run time.
 
+``axis_name`` (the ``graph`` axis of a distributed run, parallel/mesh.py)
+makes the three node means of every layer global across the graph parts
+(parallel/collectives.py). A collective cannot run inside the megakernel,
+so under an axis ``fused_stack`` runs the per-layer ``fused`` path, as the
+JAX package does; the parameters are the same.
+
 Layouts follow the JAX package at every public boundary: ``[B, N, ...]``
 node arrays, virtual coordinates ``[B, 3, C]`` and virtual features
 ``[B, H, C]``. Shape legend: B graphs, N padded nodes, E padded edges,
@@ -102,7 +108,8 @@ class EGCLVel(nn.Module):
                  hoist_edge_mlp: bool = True,
                  seg_impl: str = "scatter", fuse_agg: bool = True,
                  agg_dtype=None, edge_impl: str = "plain",
-                 blocked_impl: str = "einsum", generator=None):
+                 blocked_impl: str = "einsum",
+                 axis_name: Optional[str] = None, generator=None):
         super().__init__()
         if edge_impl not in ("plain", "fused"):
             raise ValueError(f"unknown edge_impl {edge_impl!r}")
@@ -129,6 +136,7 @@ class EGCLVel(nn.Module):
         self.hoist_edge_mlp, self.seg_impl = hoist_edge_mlp, seg_impl
         self.fuse_agg, self.agg_dtype = fuse_agg, agg_dtype
         self.edge_impl, self.blocked_impl = edge_impl, blocked_impl
+        self.axis_name = axis_name
         self.dt = resolve_dtype(compute_dtype)
         kw = dict(dtype=self.dt, generator=generator)
         if fused:
@@ -246,7 +254,8 @@ class EGCLVel(nn.Module):
         vcd = X[:, None, :, :] - x[..., None]                  # [B, N, 3, C]
         virtual_radial = torch.linalg.norm(vcd, dim=2, keepdim=True)
 
-        coord_mean = global_node_mean(x, node_mask)            # [B, 3]
+        ax = self.axis_name
+        coord_mean = global_node_mean(x, node_mask, ax)        # [B, 3]
         Xc = X - coord_mean[:, :, None]                        # [B, 3, C]
         m_X = torch.einsum("bdc,bde->bce", Xc, Xc)             # [B, C, C]
 
@@ -271,7 +280,7 @@ class EGCLVel(nn.Module):
         x = x * nm
 
         trans_X = vcd * self.phi_X(vef).transpose(2, 3)        # [B, N, 3, C]
-        X = X + global_node_mean(trans_X, node_mask)
+        X = X + global_node_mean(trans_X, node_mask, ax)
 
         agg_v = torch.mean(vef, dim=2)                         # [B, N, H]
         n_in = [h, agg_h, agg_v]
@@ -282,7 +291,8 @@ class EGCLVel(nn.Module):
         h = (h + out) if self.residual else out
         h = h * nm
 
-        agg_Hv = global_node_mean(vef.to(torch.float32), node_mask)  # [B,C,H]
+        agg_Hv = global_node_mean(vef.to(torch.float32), node_mask,
+                                  ax)                          # [B, C, H]
         hv_in = torch.cat([Hv.transpose(1, 2), agg_Hv], dim=-1)
         out_v = self.phi_hv(hv_in).transpose(1, 2)             # [B, H, C]
         Hv = (Hv + out_v) if self.residual else out_v
@@ -300,7 +310,9 @@ class FastEGNN(nn.Module):
     None) adds each layer's gravity head. ``stack_vmem_budget`` (bytes, 0 =
     the 16 MiB default) bounds the ``fused_stack`` residency estimate;
     ``remat`` does not apply to ``fused_stack``, whose backward reruns each
-    layer from its checkpoint anyway."""
+    layer from its checkpoint anyway. ``axis_name`` makes the model one part
+    of a graph split over the process group of that axis (the module
+    docstring)."""
 
     def __init__(self, node_feat_nf: int, node_attr_nf: int = 0,
                  edge_attr_nf: int = 0, hidden_nf: int = 64,
@@ -311,7 +323,8 @@ class FastEGNN(nn.Module):
                  compute_dtype=None, hoist_edge_mlp: bool = True,
                  blocked_impl: str = "einsum", segment_impl: str = "scatter",
                  remat: bool = False, fuse_agg: bool = True, agg_dtype=None,
-                 edge_impl: str = "plain", stack_vmem_budget: int = 0, *,
+                 edge_impl: str = "plain", stack_vmem_budget: int = 0,
+                 axis_name: Optional[str] = None, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if virtual_channels < 1:
@@ -324,6 +337,7 @@ class FastEGNN(nn.Module):
         self.residual = residual
         self.edge_impl, self.blocked_impl = edge_impl, blocked_impl
         self.remat = bool(remat)
+        self.axis_name = axis_name
         self.compute_dtype = resolve_dtype(compute_dtype)
         self.stack_vmem_budget = int(stack_vmem_budget)
         if edge_impl == "fused_stack":
@@ -348,7 +362,7 @@ class FastEGNN(nn.Module):
                     hoist_edge_mlp=hoist_edge_mlp, seg_impl=segment_impl,
                     fuse_agg=fuse_agg, agg_dtype=agg_dtype,
                     edge_impl=layer_impl, blocked_impl=blocked_impl,
-                    generator=generator)
+                    axis_name=axis_name, generator=generator)
             for _ in range(n_layers)])
 
     def _check_stack_model(self, attention, normalize, tanh):
@@ -401,7 +415,8 @@ class FastEGNN(nn.Module):
         h = self.embedding_in(g.node_feat)
         x, v = g.loc, g.vel
         gravity = self.gravity if self.has_gravity else None
-        if self.edge_impl == "fused_stack":
+        # under an axis fused_stack runs its layers one by one (fused)
+        if self.edge_impl == "fused_stack" and self.axis_name is None:
             return self._fused_stack_forward(g, h, x, v, X, Hv, gravity,
                                              fused_arrs)
         # blocked layout: slot ids + in-degree reciprocal (+ the einsum

@@ -10,11 +10,16 @@ import torch
 from distegnn_tpu_torch.models.fast_egnn import FastEGNN
 
 
-def get_model(model_config,
+def get_model(model_config, world_size: int = 1,
+              dataset_name: Optional[str] = None,
+              axis_name: Optional[str] = None,
               generator: Optional[torch.Generator] = None) -> FastEGNN:
     """``model_config``: attribute-style ``model:`` section of a config.
 
-    The model is built on the CPU, with its parameters drawn from
+    ``axis_name`` is the graph axis of a distributed run ('graph', see
+    parallel/mesh.py), None on one device; ``world_size`` and
+    ``dataset_name`` are the JAX signature's and select nothing for
+    FastEGNN. The model is built on the CPU, with its parameters drawn from
     ``generator``; move it with ``.to(device)``."""
     name = model_config.model_name
     if name != "FastEGNN":
@@ -38,4 +43,4 @@ def get_model(model_config,
         agg_dtype=model_config.get("agg_dtype"),
         edge_impl=model_config.get("edge_impl", "plain"),
         stack_vmem_budget=int(model_config.get("stack_vmem_budget", 0) or 0),
-        generator=generator)
+        axis_name=axis_name, generator=generator)

@@ -11,8 +11,9 @@ Padding slots carry row = col = (their block's last node), so the whole edge
 list stays row-sorted. The fused edge kernel (ops/edge_pipeline.py) and the
 blocked ``EdgeOps`` branches below read this layout.
 
-Host half (numpy): ``blockify`` / ``prepare_blocked_graph`` /
-``pairing_perm`` / ``scan_dataset_for_blocking``.
+Host half: ``blockify`` / ``prepare_blocked_graph`` / ``pairing_perm`` /
+``scan_dataset_for_blocking``, through the C++ library of ``native.py``
+where it builds and numpy otherwise (the same layout either way).
 
 Device half: ``slot_ids`` turns (row, edge_mask) into block-local receiver
 ids with the sentinel ``block`` for masked slots, ``blocked_plan`` turns
@@ -151,9 +152,13 @@ def prepare_blocked_graph(g: dict, n_nodes_padded: int, epb: int,
         g["edge_index"] = g["edge_index"][:, order]
         if g.get("edge_attr") is not None:
             g["edge_attr"] = g["edge_attr"][order]
-    ei, ea, em = blockify_edges(g["edge_index"].astype(np.int64),
-                                g.get("edge_attr"), n_nodes_padded, epb,
-                                block)
+    from distegnn_tpu_torch.native import native_blockify
+
+    ei64 = g["edge_index"].astype(np.int64)
+    nat = native_blockify(ei64, g.get("edge_attr"), n_nodes_padded, epb,
+                          block)
+    ei, ea, em = (nat if nat is not None else blockify_edges(
+        ei64, g.get("edge_attr"), n_nodes_padded, epb, block))
     g["edge_index"], g["edge_attr"], g["_edge_mask"] = ei, ea, em
     g["_edge_pair"] = pairing_perm_fast(ei) if compute_pair else None
     g["_blockified"] = stamp
@@ -175,11 +180,15 @@ def pairing_perm(edge_index: np.ndarray) -> Optional[np.ndarray]:
 
 
 def pairing_perm_fast(edge_index: np.ndarray) -> Optional[np.ndarray]:
-    """:func:`pairing_perm`. The JAX package routes this through a native
-    C++ binding (native/blockify.cpp) when it is built; that binding is
-    ported with the ``native/`` slice, and until then this is the numpy
-    version, which gives the same permutation."""
-    return pairing_perm(edge_index)
+    """:func:`pairing_perm` through the C++ library (native/blockify.cpp)
+    where it builds, numpy otherwise: the same permutation, or None when
+    the list is not symmetric."""
+    from distegnn_tpu_torch.native import native_pairing
+
+    pair = native_pairing(edge_index)
+    if pair is None:
+        return pairing_perm(edge_index)
+    return None if pair is False else pair
 
 
 def scan_dataset_for_blocking(dataset, n_nodes_padded: int, block: int):
@@ -190,7 +199,7 @@ def scan_dataset_for_blocking(dataset, n_nodes_padded: int, block: int):
     for i in range(len(dataset)):
         ei = dataset[i]["edge_index"]
         deg = max(deg, max_block_degree(np.sort(ei[0]), n_nodes_padded, block))
-        symmetric = symmetric and pairing_perm(ei) is not None
+        symmetric = symmetric and pairing_perm_fast(ei) is not None
     return deg, symmetric
 
 

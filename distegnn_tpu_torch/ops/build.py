@@ -6,16 +6,23 @@ with ``nvcc`` for ``sm_90a`` into a shared library under
 ``csrc/*.cuh`` headers, so an edited source or header is rebuilt) and loaded
 with ``ctypes``. Nothing is built or loaded at import time: the CPU tests
 import every module of the port.
+
+Several processes may reach a build at once (the ranks of a distributed
+run): :func:`locked_build` lets one of them compile while the others wait on
+a file lock, and the library appears under its final name by an atomic
+rename only once it is complete.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Callable, Dict, List, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -55,6 +62,37 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+@contextlib.contextmanager
+def _file_lock(path: str):
+    """An exclusive ``flock`` on ``path`` (released when the holder exits,
+    even by a crash)."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def locked_build(out: str, compile_to: Callable[[str], str]) -> Tuple[str, str]:
+    """Make the file ``out`` once across processes: under a lock beside it,
+    return ``(out, "(cached build)")`` when it exists, else call
+    ``compile_to(tmp)`` (which writes ``tmp`` and returns its report) and
+    rename ``tmp`` to ``out``."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with _file_lock(out + ".lock"):
+        if os.path.exists(out):
+            return out, "(cached build)"
+        tmp = f"{out}.{os.getpid()}.tmp"
+        try:
+            report = compile_to(tmp)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return out, report
+
+
 def _build(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -64,19 +102,18 @@ def _build(name: str):
         with open(path, "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    if os.path.exists(out):
-        return out, "(cached build)"
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed for {src} (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+
+    def nvcc(tmp: str) -> str:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed for {src} (exit {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        return proc.stdout + proc.stderr
+
+    return locked_build(out, nvcc)
 
 
 def build_all(names: List[str]) -> Dict[str, str]:

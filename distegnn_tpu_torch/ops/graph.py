@@ -70,13 +70,19 @@ class GraphBatch:
     edge_tile: int = 0
     max_in_degree: int = 0
 
-    def to(self, device) -> "GraphBatch":
+    def _map(self, fn) -> "GraphBatch":
+        return GraphBatch(**{
+            f.name: (fn(v) if isinstance(v, torch.Tensor) else v)
+            for f in dataclasses.fields(self)
+            for v in (getattr(self, f.name),)})
+
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
         """A copy with every tensor on ``device``."""
-        moved = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            moved[f.name] = v.to(device) if isinstance(v, torch.Tensor) else v
-        return GraphBatch(**moved)
+        return self._map(lambda v: v.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "GraphBatch":
+        """A copy in page-locked host memory (for non-blocking copies)."""
+        return self._map(lambda v: v.pin_memory())
 
     @property
     def batch_size(self) -> int:

@@ -1,5 +1,9 @@
-"""Loss functions (port of ``distegnn_tpu/train/loss.py``, single device):
-the node-weighted masked MSE and the MMD virtual-node regulariser.
+"""Loss functions (port of ``distegnn_tpu/train/loss.py``): the
+node-weighted masked MSE and the MMD virtual-node regulariser.
+
+Under a graph axis each part computes its MSE over its own nodes and
+weights it by its share of the graph's nodes (the node counts summed over
+the axis); the weighted shares sum to the global loss.
 
 MMD: an RBF kernel exp(-d / (2 sigma^2)) on Euclidean distances between the
 C virtual-node positions and ``samples * C`` target positions per graph,
@@ -15,6 +19,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from distegnn_tpu_torch.parallel.collectives import _psum
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
@@ -75,22 +81,19 @@ def mmd_loss(virtual_loc: torch.Tensor, target: torch.Tensor,
 
 def weighted_local_loss(local_loss: torch.Tensor, node_mask: torch.Tensor,
                         axis_name: Optional[str] = None) -> torch.Tensor:
-    """This partition's node-weighted share of the global loss,
-    local_loss * node_cnt / total_node_cnt; single device that is
-    ``local_loss`` itself (node_cnt == total)."""
-    _single_device(axis_name)
+    """This part's node-weighted share of the global loss,
+    local_loss * node_cnt / total_node_cnt (the count summed over the
+    axis). Not summed across parts: each rank differentiates its own share
+    and the step sums the parameter gradients. On one device it is
+    ``local_loss`` itself."""
     node_cnt = torch.sum(node_mask)
-    return local_loss * node_cnt / torch.clamp(node_cnt, min=1.0)
+    total = _psum(node_cnt, axis_name)
+    return local_loss * node_cnt / torch.clamp(total, min=1.0)
 
 
 def weighted_global_loss(local_loss: torch.Tensor, node_mask: torch.Tensor,
                          axis_name: Optional[str] = None) -> torch.Tensor:
-    """The node-weighted global loss (the logged and evaluated quantity)."""
-    return weighted_local_loss(local_loss, node_mask, axis_name)
-
-
-def _single_device(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: the sums across partitions over "
-            "torch.distributed come with the distributed slice of the port")
+    """The node-weighted global loss, the shares summed across parts (the
+    logged and evaluated quantity)."""
+    return _psum(weighted_local_loss(local_loss, node_mask, axis_name),
+                 axis_name)

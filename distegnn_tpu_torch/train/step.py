@@ -1,5 +1,5 @@
-"""The train and eval steps (port of ``distegnn_tpu/train/step.py``, single
-device): forward, loss (masked MSE + MMD), backward, and the optimizer.
+"""The train and eval steps (port of ``distegnn_tpu/train/step.py``):
+forward, loss (masked MSE + MMD), backward, and the optimizer.
 
 The optimizer does what the JAX package's optax chain does:
   clip by global norm (``clip_norm``) -> + weight_decay * p -> Adam (b1 0.9,
@@ -15,6 +15,18 @@ clips that sum once and takes one ``torch.optim.Adam`` step, whose
 Randomness inside a step (the MMD draw) comes from a ``torch.Generator``
 seeded from (seed, epoch, step) by :func:`step_generator`, as the JAX
 trainer folds its key.
+
+Distributed (``axis_name``, one rank per graph part): each rank
+differentiates only its own node-weighted loss share (the parts couple
+through the model's virtual-node sums, whose backward sums the cotangent
+over the axis), and at each update the parameter gradients are summed over
+the axis in one flattened buffer before the clip: the DDP-sum pattern of
+the JAX step, so every rank applies the same update and the parameters stay
+replicated. Summing the accumulated gradient once per update instead of
+each micro-step's is equal in exact arithmetic. The logged losses are
+summed over the axis, and ``batch_consistency`` is max |loc_mean - its min
+over the ranks|, reduced with MAX: 0 iff every rank fed the same graphs.
+The MMD draw is independent per rank (the rank joins the generator's seed).
 """
 
 from __future__ import annotations
@@ -26,7 +38,10 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from distegnn_tpu_torch.ops.graph import GraphBatch
+from distegnn_tpu_torch.parallel.collectives import all_reduce
 from distegnn_tpu_torch.train.loss import (masked_mse, mmd_loss,
                                            weighted_global_loss,
                                            weighted_local_loss)
@@ -83,10 +98,15 @@ class Optimizer:
         t = min(count, self.total_steps) / self.total_steps
         return lr * 0.5 * (1.0 + math.cos(math.pi * t))
 
-    def micro_step(self) -> bool:
+    def micro_step(self, reduce_grads: Optional[Callable] = None) -> bool:
+        """Count one micro-step; on every ``accumulation_steps``-th, call
+        ``reduce_grads(params)`` (the distributed step's gradient sum), then
+        clip and update."""
         self.micro += 1
         if self.micro < self.accumulation_steps:
             return False
+        if reduce_grads is not None:
+            reduce_grads(self.params)
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         self.last_grad_norm = norm.detach()
@@ -132,64 +152,109 @@ class TrainState:
     step: int = 0
 
 
-def step_generator(seed: int, epoch: int, step: int,
-                   device: torch.device) -> torch.Generator:
-    """The generator of one train step, seeded from (seed, epoch, step)."""
-    s = np.random.SeedSequence([int(seed), int(epoch), int(step)])
+def step_generator(seed: int, epoch: int, step: int, device: torch.device,
+                   rank: Optional[int] = None) -> torch.Generator:
+    """The generator of one train step, seeded from (seed, epoch, step) and,
+    for a rank of a distributed run, its rank."""
+    entropy = [int(seed), int(epoch), int(step)]
+    if rank is not None:
+        entropy.append(int(rank))
+    s = np.random.SeedSequence(entropy)
     return torch.Generator(device=device).manual_seed(
         int(s.generate_state(1, np.uint64)[0]))
 
 
 def make_loss_fn(model, mmd_weight: float, mmd_sigma: float,
-                 mmd_samples: int) -> Callable:
+                 mmd_samples: int, axis_name: Optional[str] = None) -> Callable:
     """loss(batch, generator=None, mmd_idx=None) -> (loss to differentiate,
-    logged node-weighted MSE)."""
+    logged node-weighted MSE). Under ``axis_name`` both are this rank's
+    node-weighted shares (the train step sums them for logging)."""
 
     def loss_fn(batch: GraphBatch, generator=None, mmd_idx=None):
         loc_pred, virtual_loc = model(batch)
         mse = masked_mse(loc_pred, batch.target, batch.node_mask)
-        loss = weighted_local_loss(mse, batch.node_mask)
+        loss = weighted_local_loss(mse, batch.node_mask, axis_name)
         logged = loss
         if mmd_weight:
             lm = mmd_loss(virtual_loc, batch.target, batch.node_mask,
                           mmd_sigma, mmd_samples, generator=generator,
                           idx=mmd_idx)
-            loss = loss + mmd_weight * weighted_local_loss(lm,
-                                                           batch.node_mask)
+            loss = loss + mmd_weight * weighted_local_loss(
+                lm, batch.node_mask, axis_name)
         return loss, logged
 
     return loss_fn
 
 
-def make_train_step(model, optimizer: Optimizer, mmd_weight: float,
-                    mmd_sigma: float, mmd_samples: int) -> Callable:
-    """Returns step(state, batch, generator) -> (state, metrics) for the
-    state holding ``model`` and ``optimizer``: one micro-step (forward,
-    loss / k backward, and every k-th micro-step the optimizer update). The
-    metrics are detached device scalars."""
-    loss_fn = make_loss_fn(model, mmd_weight, mmd_sigma, mmd_samples)
-    k = optimizer.accumulation_steps
+def sum_gradients(params, axis_name: str) -> None:
+    """Sum the parameters' ``.grad`` over the axis in one flattened buffer
+    (one collective, not one a tensor). A missing gradient counts as zero
+    and every parameter gets the sum, so all ranks hold the same gradients
+    whichever parameters their own loss share reached."""
+    flat = torch.cat([(p.grad if p.grad is not None
+                       else torch.zeros_like(p)).reshape(-1) for p in params])
+    all_reduce(flat, axis_name, "grad")
+    off = 0
+    for p in params:
+        n = p.numel()
+        p.grad = flat[off:off + n].view_as(p).clone()
+        off += n
 
-    def step(state: TrainState, batch: GraphBatch, generator=None):
+
+def batch_consistency(loc_mean: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """max |loc_mean - its min over the ranks|, the max over the ranks: 0
+    iff every rank's batch carries the same graphs' means."""
+    low = all_reduce(loc_mean.detach().clone(), axis_name, "consistency",
+                     op=dist.ReduceOp.MIN)
+    resid = torch.max(torch.abs(loc_mean - low)).reshape(1)
+    return all_reduce(resid, axis_name, "consistency",
+                      op=dist.ReduceOp.MAX)[0]
+
+
+def make_train_step(model, optimizer: Optimizer, mmd_weight: float,
+                    mmd_sigma: float, mmd_samples: int,
+                    axis_name: Optional[str] = None) -> Callable:
+    """Returns step(state, batch, generator=None, mmd_idx=None) -> (state,
+    metrics) for the state holding ``model`` and ``optimizer``: one
+    micro-step (forward, loss / k backward, and every k-th micro-step the
+    optimizer update). The metrics are detached device scalars; under
+    ``axis_name`` the losses are summed over the axis and
+    ``batch_consistency`` is added (the module docstring)."""
+    loss_fn = make_loss_fn(model, mmd_weight, mmd_sigma, mmd_samples,
+                           axis_name)
+    k = optimizer.accumulation_steps
+    reduce_grads = (None if axis_name is None
+                    else lambda params: sum_gradients(params, axis_name))
+
+    def step(state: TrainState, batch: GraphBatch, generator=None,
+             mmd_idx=None):
         model.train()
-        loss, logged = loss_fn(batch, generator)
+        loss, logged = loss_fn(batch, generator, mmd_idx)
         (loss / k).backward()
-        optimizer.micro_step()
+        optimizer.micro_step(reduce_grads)
         state.step += 1
-        return state, {"loss": logged.detach(),
-                       "loss_with_mmd": loss.detach()}
+        metrics = {"loss": logged.detach(), "loss_with_mmd": loss.detach()}
+        if axis_name is not None:
+            sums = all_reduce(torch.stack([metrics["loss"],
+                                           metrics["loss_with_mmd"]]),
+                              axis_name, "loss")
+            metrics = {"loss": sums[0], "loss_with_mmd": sums[1],
+                       "batch_consistency": batch_consistency(
+                           batch.loc_mean, axis_name)}
+        return state, metrics
 
     return step
 
 
-def make_eval_step(model) -> Callable:
-    """Returns eval(batch) -> the node-weighted MSE (no MMD), no autograd."""
+def make_eval_step(model, axis_name: Optional[str] = None) -> Callable:
+    """Returns eval(batch) -> the node-weighted global MSE (no MMD), no
+    autograd."""
 
     def eval_step(batch: GraphBatch):
         model.eval()
         with torch.no_grad():
             loc_pred, _ = model(batch)
             mse = masked_mse(loc_pred, batch.target, batch.node_mask)
-            return weighted_global_loss(mse, batch.node_mask)
+            return weighted_global_loss(mse, batch.node_mask, axis_name)
 
     return eval_step

@@ -24,7 +24,7 @@ UNPORTED = [("train.resume", "auto"),
             ("train.scan_epochs", True),
             ("train.scan_epochs", False),
             ("parallel.mesh.data", 2),
-            ("parallel.mesh.graph", 4),
+            ("data.data_parallel", 2),
             ("parallel.mesh.tensor", 2),
             ("log.wandb.enable", True)]
 
@@ -81,3 +81,44 @@ def test_unported_keys_pass_at_their_jax_defaults():
                               "parallel.mesh.tensor": 1,
                               "log.wandb.enable": False})
     assert cfg.train.divergence_retries == 2
+
+
+DISTRIBUTE = ["largefluid_distegnn.yaml", "simulation_distegnn.yaml",
+              "fluid_synth_ell.yaml"]
+
+
+@pytest.mark.parametrize("name", DISTRIBUTE)
+def test_published_distribute_configs_derive_the_world_size(name,
+                                                            monkeypatch):
+    """The graph-partition configs as published: the port reads their
+    distribute keys as the JAX package does, and derives the world size
+    from data.world_size, parallel.mesh.graph or the card count, naming it
+    in exp_name as JAX's derive_runtime_fields does."""
+    import torch
+
+    from distegnn_tpu.config import derive_runtime_fields as jax_derive
+    from distegnn_tpu_torch.config import derive_runtime_fields
+
+    path = os.path.join(REPO, "configs", name)
+    cfg, jcfg = load_config(path), jax_load_config(path)
+    for key in ("accelerate_mode", "split_mode", "outer_radius",
+                "inner_radius", "delta_t", "data_parallel",
+                "prefetch_depth"):
+        assert cfg.data[key] == jcfg.data[key], key
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    for over, ws in (({}, 3), ({"parallel.mesh.graph": 4}, 4),
+                     ({"data.world_size": 2}, 2)):
+        c = load_config(path, over)
+        derive_runtime_fields(c)
+        assert c.data.world_size == ws
+        j = jax_derive(jax_load_config(path), world_size=ws)
+        assert c.log.exp_name[:-15] == j.log.exp_name[:-15]
+        assert f"_ws{ws}_C" in c.log.exp_name
+
+
+def test_graph_axis_is_accepted_and_must_agree_with_world_size():
+    assert load_config(SERVE, {"parallel.mesh.graph": 4}).parallel.mesh \
+        .graph == 4
+    with pytest.raises(ValueError, match="conflicts with data.world_size"):
+        load_config(SERVE, {"parallel.mesh.graph": 4,
+                            "data.world_size": 2})

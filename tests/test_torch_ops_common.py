@@ -22,6 +22,7 @@ from distegnn_tpu_torch.convert import _mlp
 from distegnn_tpu_torch.models import common as pcommon
 from distegnn_tpu_torch.ops import segment as pseg
 from distegnn_tpu_torch.parallel import collectives as pcoll
+from torch_dist_worker import one_rank_group
 
 
 def _close(port, ref, tol=1e-6):
@@ -59,7 +60,7 @@ def test_masked_reductions_match_jax(fn):
     _close(got, want)
 
 
-def test_global_node_reductions_match_jax():
+def test_global_node_reductions_match_jax(tmp_path):
     rng = np.random.default_rng(2)
     data = rng.normal(size=(2, 64, 3, 4)).astype(np.float32)
     mask = (rng.uniform(size=(2, 64)) < 0.8).astype(np.float32)
@@ -71,9 +72,16 @@ def test_global_node_reductions_match_jax():
     _close(pcoll.global_node_mean(torch.from_numpy(data),
                                   torch.from_numpy(mask)),
            js / jnp.maximum(jc, 1.0)[:, None, None])
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # over a graph axis: a rank of one holds the whole graph, and the mean
+    # summed over the axis is the same; without a group the axis is refused
+    with pytest.raises(RuntimeError, match="init_graph_group"):
         pcoll.global_node_mean(torch.from_numpy(data), torch.from_numpy(mask),
                                axis_name="graph")
+    with one_rank_group(tmp_path):
+        _close(pcoll.global_node_mean(torch.from_numpy(data),
+                                      torch.from_numpy(mask),
+                                      axis_name="graph"),
+               js / jnp.maximum(jc, 1.0)[:, None, None])
 
 
 def test_gather_nodes_matches_jax():

@@ -56,6 +56,7 @@ from distegnn_tpu_torch.train.checkpoint import (CheckpointCorruptError,
 from distegnn_tpu_torch.train.step import (TrainState, make_loss_fn,
                                            make_optimizer, step_generator)
 from test_torch_fast_egnn import numpy_params
+from torch_dist_worker import one_rank_group
 from test_torch_graph import (BLOCK, assert_batches_equal, blocked_test_graph,
                               plain_test_graph)
 
@@ -88,7 +89,7 @@ def _loss_inputs(seed, B=2, N=40, C=3, n_real=(31, 17)):
     return pred, target, vloc, mask
 
 
-def test_masked_mse_rbf_and_weighted_losses_match_jax():
+def test_masked_mse_rbf_and_weighted_losses_match_jax(tmp_path):
     pred, target, vloc, mask = _loss_inputs(0)
     t = [torch.from_numpy(a) for a in (pred, target, vloc, mask)]
     a = jloss.masked_mse(pred, target, mask)
@@ -101,8 +102,15 @@ def test_masked_mse_rbf_and_weighted_losses_match_jax():
     x, y = target[0], pred[1]
     assert _rel(ploss.rbf_kernel_sum(t[1][0], t[0][1], 1.5, wx=t[3][0]),
                 jloss.rbf_kernel_sum(x, y, 1.5, wx=mask[0])) <= 1e-6
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    # over a graph axis: a rank of one weights its share by a node count
+    # summed over the axis, its own; without a group the axis is refused
+    with pytest.raises(RuntimeError, match="init_graph_group"):
         ploss.weighted_local_loss(b, t[3], axis_name="graph")
+    with one_rank_group(tmp_path):
+        for fn, jfn in ((ploss.weighted_local_loss, jloss.weighted_local_loss),
+                        (ploss.weighted_global_loss,
+                         jloss.weighted_global_loss)):
+            assert _rel(fn(b, t[3], axis_name="graph"), jfn(a, mask)) <= 1e-6
 
 
 @pytest.mark.parametrize("branch", ["deterministic", "sampling"])
@@ -536,6 +544,9 @@ def test_main_cli_trains_nbody_on_cpu(tmp_path):
 
 
 def test_run_refuses_distribute_mode(tmp_path):
+    """``run`` trains whole graphs on one device; graph parts over ranks
+    go through run_distributed (main dispatches there:
+    tests/test_torch_distributed.py)."""
     cfg = _small_config(tmp_path, **{"data.accelerate_mode": "distribute"})
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    with pytest.raises(ValueError, match="run_distributed"):
         pmain.run(cfg, None, None, None, device="cpu")
