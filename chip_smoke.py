@@ -143,6 +143,24 @@ or of the JAX package. Phases (any failure exits nonzero):
      fused_stack under the axis launching no stack; (j0) as published with
      the world size from the card count: 1 rank over nccl, 1 epoch.
 
+  10. the preemption drill: configs/largefluid_distegnn.yaml +
+     data.accelerate_mode=cutoff_edges, model.edge_impl=fused,
+     data.edge_block=512 (phase 5's cell) over phase 5's clouds, 2 epochs,
+     an evaluation after each, a cadence save after every micro-step
+     (keep_checkpoints 2) and log.trace_epoch 2, through main.run: A and A2
+     uninterrupted; B with SIGTERM from the on_step hook after micro-step 2
+     of epoch 2 (micro 3 of the 4-step accumulation); C resuming B's log
+     dir with train.resume: auto in a fresh model; D as A with
+     obs.enable: false. Checked: B's preempt checkpoint, PREEMPTED marker
+     (1, 3) and rotation; C's restored state bitwise B's at the signal
+     (parameters, Adam moments, accumulated gradients, micro, updates,
+     step); C's replayed coordinates; C's final parameters within 2 x
+     max |A2 - A| + 1e-6 x max |A| of A's; exact fused launches in A and
+     C's equal to A's for the steps C ran; each run's events (memory
+     events with CUDA peak bytes), the obs report of A's and A's trace
+     naming both fused tensor-core kernels. Printed: a checkpoint's bytes,
+     save and restore ms, the micro-step median with and without events.
+
 Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
 loader's first pass) with the native library and with the numpy layout.
 
@@ -2631,7 +2649,7 @@ class StepProbe:
             json.dump(self.rows, f)
 
 
-def micro_step_collectives(L, remat, mmd, update):
+def micro_step_collectives(L, remat, mmd, update, first=False):
     """The all-reduces of one micro-step of the distributed train step, by
     kind, derived from the code: each layer's three node means sum a
     value and a count (models/fast_egnn.py, parallel/collectives.py), rerun
@@ -2640,10 +2658,14 @@ def micro_step_collectives(L, remat, mmd, update):
     positions) and the last layer's feature mean (its Hv output is unused);
     the loss's node count once per weighted share (two with MMD); the two
     logged losses in one buffer; the consistency pair (MIN, MAX); the
-    gradient buffer once per update (train/step.py)."""
+    gradient buffer once per update (train/step.py); the preemption
+    guard's stop agreement, one MAX after every micro-step
+    (train/trainer.py PreemptionGuard.stop_agreed). The probe reads the
+    counts between a micro-step and that agreement, so each micro-step's
+    delta carries the previous one's: all but the run's ``first``."""
     return {"psum": 6 * L * (2 if remat else 1) + (2 if mmd else 1),
             "psum_bwd": 3 * L - 2, "loss": 1, "consistency": 2,
-            "grad": 1 if update else 0}
+            "grad": 1 if update else 0, "stop": 0 if first else 1}
 
 
 def write_dist_shards(cfg, clouds, out_dir, ws):
@@ -2748,7 +2770,7 @@ def report_dist_run(label, cfg, rows, n_real, startup):
         prev, prev_s = {}, 0.0
         for j, row in enumerate(rr):
             want = micro_step_collectives(L, cfg.model.remat, mmd,
-                                          (j + 1) % k == 0)
+                                          (j + 1) % k == 0, first=(j == 0))
             if j == 0:
                 for kind, n in startup.items():
                     want[kind] = want.get(kind, 0) + n
@@ -2962,6 +2984,11 @@ def dist_phase(root, dev, clouds):
               f"{DIST_WS} local inner-radius graphs)")
         check_partitions(clouds, paths, part_ms, DIST_WS)
         n_real = clouds[0]["loc"].shape[0]   # a batch: one cloud, all ranks
+        per = micro_step_collectives(cfg.model.n_layers, cfg.model.remat,
+                                     bool(cfg.train.mmd.weight), False)
+        check(sum(per.values()) == 64, f"the flagship micro-step's "
+              f"all-reduces {per} are not 64 (63 of the step + the stop "
+              "agreement)")
         j1_meds = dist_j1(cfg, paths, dev, tmp, n_real)
         res = dist_checks(flagship, paths, dev, tmp)
         launches = dist_j2(flagship, paths, dev, tmp, n_real, res,
@@ -3201,6 +3228,329 @@ def dist_j0(flagship, clouds, dev, tmp, n_real):
                            n_real, {"layout": 3, "replicated": 1})
 
 
+# ------------------------------------------------ phase 10: the preemption drill
+
+# the flagship (cell d) over phase 5's clouds: 2 epochs of 4 micro-steps, an
+# evaluation after each; B's SIGTERM comes after micro-step 2 of epoch 2
+# (the run's 7th: micro 3 of the 4-step accumulation)
+PREEMPT_EPOCHS = 2
+PREEMPT_AT = (2, 2)
+
+
+class PreemptProbe:
+    """``on_step`` of a phase-10 run: after each micro-step, synchronised,
+    its (epoch, step), the host time and the fused kernels' launches so
+    far; SIGTERM to this process after micro-step ``kill_at``."""
+
+    def __init__(self, kill_at=None):
+        self.kill_at, self.rows = kill_at, []
+
+    def __call__(self, epoch, step, metrics):
+        import signal
+
+        import torch
+
+        from distegnn_tpu_torch.ops import edge_pipeline as ep
+
+        torch.cuda.synchronize()
+        self.rows.append({"at": (epoch, step), "t": time.perf_counter(),
+                          "counts": (ep.fused_edge_layer.launches,
+                                     ep.fused_edge_layer.bwd_launches,
+                                     ep.fused_edge_layer.tc_launches)})
+        if (epoch, step) == self.kill_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def gaps(self, epoch=None):
+        """Host ms between consecutive micro-steps of one epoch (of
+        ``epoch`` only, when given)."""
+        return [(b["t"] - a["t"]) * 1e3 for a, b in
+                zip(self.rows, self.rows[1:]) if a["at"][0] == b["at"][0]
+                and epoch in (None, a["at"][0])]
+
+
+def train_snapshot(state):
+    """CPU copies of a TrainState's parameters, Adam state, accumulated
+    gradients and counters."""
+    opt = state.optimizer
+    return {"params": {k: v.detach().cpu().clone() for k, v in
+                       state.model.state_dict().items()},
+            "adam": [{k: v.detach().cpu().clone() for k, v in
+                      opt.adam.state[p].items()} for p in opt.params],
+            "grads": [None if p.grad is None else p.grad.detach().cpu()
+                      .clone() for p in opt.params],
+            "counts": (opt.micro, opt.updates, state.step)}
+
+
+def snapshots_equal(a, b):
+    """The names of what differs between two train_snapshots (bitwise)."""
+    bad = [k for k, v in a["params"].items()
+           if not torch_equal(v, b["params"][k])]
+    for i, (x, y) in enumerate(zip(a["adam"], b["adam"])):
+        if x.keys() != y.keys() or any(not torch_equal(x[k], y[k])
+                                       for k in x):
+            bad.append(f"adam[{i}]")
+    for i, (x, y) in enumerate(zip(a["grads"], b["grads"])):
+        if (x is None) != (y is None) or (x is not None
+                                          and not torch_equal(x, y)):
+            bad.append(f"grad[{i}]")
+    if a["counts"] != b["counts"]:
+        bad.append(f"(micro, updates, step) {a['counts']} != {b['counts']}")
+    return bad
+
+
+def torch_equal(a, b):
+    import torch
+
+    return torch.equal(a, b)
+
+
+def run_events(cfg):
+    """(names, records) of a run's events.jsonl."""
+    path = os.path.join(cfg.log.log_dir, cfg.log.exp_name, "obs",
+                        "events.jsonl")
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return [r["name"] for r in recs], recs
+
+
+def preempt_phase(root, dev, clouds):
+    """Phase 10: the preemption drill on the card (see the module
+    docstring). Logs, checkpoints, events and traces go to a temporary
+    directory that is removed afterwards."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_preempt_") as tmp:
+        return _preempt_phase(root, dev, clouds, tmp)
+
+
+def _preempt_phase(root, dev, clouds, tmp):
+    import torch
+
+    from distegnn_tpu_torch import main as pmain
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    flagship = os.path.join(root, "configs", "largefluid_distegnn.yaml")
+
+    def config(name, log_dir, **over):
+        ov = {"model.edge_impl": "fused", "data.edge_block": BLOCK,
+              "data.accelerate_mode": "cutoff_edges",
+              "train.epochs": PREEMPT_EPOCHS, "log.test_interval": 1,
+              "train.checkpoint_interval_s": 1e-9,
+              "train.keep_checkpoints": 2,
+              "log.trace_epoch": PREEMPT_EPOCHS,
+              "log.log_dir": os.path.join(tmp, log_dir),
+              "log.exp_name": name}
+        ov.update(over)
+        return load_config(flagship, ov)
+
+    ds = fluid_datasets(clouds, "none")
+
+    def drive(cfg, kill_at=None):
+        probe = PreemptProbe(kill_at)
+        ep.fused_edge_layer.launches = 0
+        ep.fused_edge_layer.bwd_launches = 0
+        ep.fused_edge_layer.tc_launches = 0
+        t0 = time.perf_counter()
+        state, best, _ = pmain.run(cfg, *ds, device=dev, on_step=probe)
+        wall = time.perf_counter() - t0
+        counts = (ep.fused_edge_layer.launches,
+                  ep.fused_edge_layer.bwd_launches,
+                  ep.fused_edge_layer.tc_launches)
+        return state, best, probe, counts, wall
+
+    cfg_a = config("A", "a")
+    m = cfg_a.model
+    print(f"preempt drill config: H={m.hidden_nf} L={m.n_layers} "
+          f"C={m.virtual_channels} compute_dtype={m.compute_dtype} "
+          f"remat={m.remat} edge_impl={m.edge_impl} accumulation_steps="
+          f"{cfg_a.train.accumulation_steps} epochs={cfg_a.train.epochs} "
+          f"test_interval 1, a cadence save after every micro-step "
+          f"(checkpoint_interval_s {cfg_a.train.checkpoint_interval_s}), "
+          f"keep_checkpoints {cfg_a.train.keep_checkpoints}, trace_epoch "
+          f"{cfg_a.log.trace_epoch}")
+    a, best_a, probe_a, counts_a, wall_a = drive(cfg_a)
+    a2, _, probe_a2, _, _ = drive(config("A2", "a2"))
+    cfg_b = config("B", "b")
+    b, best_b, probe_b, _, wall_b = drive(cfg_b, PREEMPT_AT)
+    snap_b = train_snapshot(b)
+    del b
+    restored = {}
+    real_resolve = pmain.resolve_resume
+
+    def resolve(config, state):
+        rr = real_resolve(config, state)
+        if rr is not None:
+            restored["snap"] = train_snapshot(rr.state)
+            restored["rr"] = rr
+        return rr
+
+    cfg_c = config("C", "b", **{"train.resume": "auto"})
+    with mock.patch.object(pmain, "resolve_resume", resolve):
+        c, best_c, probe_c, counts_c, wall_c = drive(cfg_c)
+    d, _, probe_d, _, _ = drive(config("D", "d", **{"obs.enable": False}))
+    print(f"phase 10 runs: A {wall_a:.1f} s, B {wall_b:.1f} s (preempted), "
+          f"C {wall_c:.1f} s (resumed), A2 and D (obs off) alike")
+
+    # B: the preempt checkpoint, the marker and the rotation
+    L, k = m.n_layers, cfg_a.train.accumulation_steps
+    steps_a = [r["at"] for r in probe_a.rows]
+    n_micro = PREEMPT_EPOCHS * len(ds[0])
+    check(steps_a == [(e, s) for e in range(1, PREEMPT_EPOCHS + 1)
+                      for s in range(len(ds[0]))], f"A's steps {steps_a}")
+    at_b = [r["at"] for r in probe_b.rows]
+    check(at_b == steps_a[:steps_a.index(PREEMPT_AT) + 1],
+          f"B ran {at_b}, not up to {PREEMPT_AT}")
+    pre = best_b.get("preempted") or {}
+    ckpt_b = os.path.join(tmp, "b", "B", "state_dict")
+    with open(os.path.join(ckpt_b, "PREEMPTED")) as f:
+        marker = json.load(f)
+    files = sorted(os.listdir(ckpt_b))
+    step_files = [x for x in files if x.startswith("step_")]
+    print(f"B preempted after micro-step {len(at_b)} ({PREEMPT_AT}, micro "
+          f"{snap_b['counts'][0]} of {k}): marker {json.dumps(marker)}; "
+          f"files {files}")
+    check((pre.get("epoch"), pre.get("step_in_epoch")) == (1, 3)
+          and (marker["checkpoint"], marker["epoch"],
+               marker["step_in_epoch"]) == ("preempt_model.ckpt", 1, 3),
+          f"B's preemption record {pre} / marker {marker}")
+    check(snap_b["counts"][0] == 3, "B's signal did not land at micro 3")
+    check("preempt_model.ckpt" in files and 0 < len(step_files)
+          <= cfg_b.train.keep_checkpoints,
+          f"B's checkpoint directory {files}")
+
+    # C: the restored state is B's at the signal, the replayed coordinates
+    bad = snapshots_equal(snap_b, restored.get("snap") or {"params": {},
+                                                           "adam": [],
+                                                           "grads": [],
+                                                           "counts": None})
+    rr = restored.get("rr")
+    check(rr is not None and rr.path.endswith("preempt_model.ckpt"),
+          "C did not restore B's preempt checkpoint")
+    print(f"C restored {rr.path} (epoch {rr.epoch} + {rr.step_in_epoch} "
+          f"steps, seed {rr.seed}); against B's state at the signal: "
+          f"parameters, Adam moments, accumulated gradients, micro, updates "
+          f"and step {'bitwise equal' if not bad else 'DIFFER: ' + str(bad)}")
+    check(not bad, f"C's restored state differs from B's: {bad}")
+    at_c = [r["at"] for r in probe_c.rows]
+    want_c = steps_a[len(at_b):]
+    print(f"C replayed {at_c} (A's remaining coordinates {want_c})")
+    check(at_c == want_c, "C did not replay A's remaining coordinates")
+
+    # C's final parameters against A's, with A2 for the card's spread
+    def params(state):
+        return {kk: v.detach().float().cpu() for kk, v in
+                state.model.state_dict().items()}
+
+    pa, pa2, pc = params(a), params(a2), params(c)
+    spread = max(float((pa2[kk] - v).abs().max()) for kk, v in pa.items())
+    scale = max(float(v.abs().max()) for v in pa.values())
+    dist_c = max(float((pc[kk] - v).abs().max()) for kk, v in pa.items())
+    bound = 2 * spread + 1e-6 * scale
+    print(f"final parameters: max |A2 - A| {spread:.3e} (the card's "
+          f"run-to-run spread), max |C - A| {dist_c:.3e}, bound 2 x spread "
+          f"+ 1e-6 x max |A| ({scale:.4g}) = {bound:.3e}")
+    check(dist_c <= bound, "the resumed run's parameters are off A's")
+
+    # launches: A's exact counts, and C's equal to A's for the steps C ran
+    evals = PREEMPT_EPOCHS * (len(ds[1]) + len(ds[2]))
+    want_a = (L * n_micro * 2 + L * evals, L * n_micro)
+    check(counts_a[:2] == want_a and counts_a[2] == counts_a[0],
+          f"A's launches {counts_a}, expected fwd/bwd {want_a}, all "
+          "forwards on the tensor-core kernel")
+    rows_a = probe_a.rows
+    i0 = len(at_b) - 1
+    after_c = tuple(fin - r for fin, r in zip(counts_a,
+                                              rows_a[i0]["counts"]))
+    print(f"fused launches: A {counts_a} (fwd, bwd, tensor-core fwd; "
+          f"expected fwd {want_a[0]} = {L} x {n_micro} x 2 + {L} x "
+          f"{evals}, bwd {want_a[1]}), C {counts_c}, A's for C's steps and "
+          f"its evaluation {after_c}")
+    check(counts_c == after_c and counts_c[0] > 0 and counts_c[1] > 0,
+          "C's fused launches differ from A's for the same steps")
+
+    # the events
+    for label, cfg, extra, n_steps in (
+            ("A", cfg_a, (), n_micro), ("B", cfg_b, ("train/preempt",),
+                                        len(at_b)),
+            ("C", cfg_c, ("train/resume", "ckpt/restore"), len(at_c))):
+        names, recs = run_events(cfg)
+        need = ("train/run_start", "train/epoch", "train/eval",
+                "ckpt/save", "ckpt/rotate", "jax/memory") + extra
+        missing = [x for x in need if x not in names]
+        mem = [r.get("peak_bytes_in_use", 0) for r in recs
+               if r["name"] == "jax/memory"]
+        print(f"{label} events: {len(recs)} records, {names.count('train/step')}"
+              f" train/step, memory events' CUDA peak bytes {mem}")
+        check(not missing and names.count("train/step") == n_steps
+              and mem and all(v > 0 for v in mem),
+              f"{label}'s events: missing {missing}, steps "
+              f"{names.count('train/step')} of {n_steps}, memory {mem}")
+    check(not os.path.exists(os.path.join(tmp, "d", "D", "obs")),
+          "obs.enable: false wrote events")
+    _, recs_a = run_events(cfg_a)
+    saves = [r for r in recs_a if r["name"] == "ckpt/save"
+             and r["path"].startswith("step_")]
+    save_ms = sorted(1e3 * r["dur_s"] for r in saves)
+    _, recs_c = run_events(cfg_c)
+    (rest,) = [r for r in recs_c if r["name"] == "ckpt/restore"]
+    events_a = os.path.join(tmp, "a", "A", "obs", "events.jsonl")
+    out = subprocess.run([sys.executable, "-m",
+                          "distegnn_tpu_torch.obs.report", events_a,
+                          "--check"], capture_output=True, text=True,
+                         cwd=root, timeout=120)
+    print("obs report of A's events:\n" + out.stdout.rstrip())
+    check(out.returncode == 0 and f"steps: {n_micro}" in out.stdout,
+          f"the obs report failed: {out.stderr.strip()}")
+
+    # A's trace of epoch 2 names both fused kernels
+    trace = os.path.join(tmp, "a", "A", "trace",
+                         f"epoch{PREEMPT_EPOCHS}.json")
+    with open(trace) as f:
+        text = f.read()
+    found = {name: name in text for name in ("fused_edge_fwd_tc_kernel",
+                                             "fused_edge_bwd_tc_kernel")}
+    print(f"A's trace {os.path.basename(trace)}: {len(text)} bytes; "
+          f"kernels named: {found}")
+    check(all(found.values()), f"the trace lacks a fused kernel: {found}")
+
+    smi = nvidia_smi()
+    med = {}
+
+    def median(v):
+        v = sorted(v)
+        return v[len(v) // 2]
+
+    for label, probe in (("A", probe_a), ("A2", probe_a2),
+                         ("D (obs off)", probe_d)):
+        med[label] = median(probe.gaps())
+        print(f"phase 10 {label}: micro-step ms in the trainer (host clock; "
+              f"the cadence save included, epoch 1 the loader's first pass, "
+              f"epoch {PREEMPT_EPOCHS} the profiler): " + " ".join(
+                  f"{v:.1f}" for v in probe.gaps())
+              + f", median {med[label]:.3f}, epoch 1 "
+              f"{median(probe.gaps(1)):.3f}, epoch {PREEMPT_EPOCHS} "
+              f"{median(probe.gaps(PREEMPT_EPOCHS)):.3f} [{smi}]")
+    print(f"phase 10 checkpoint: {rest['bytes']} bytes a flagship "
+          f"checkpoint with its whole optimizer state (B's preempt "
+          f"checkpoint: parameters, Adam moments, accumulated gradient), "
+          f"restore ms {1e3 * rest['dur_s']:.3f} (verify + torch.load + "
+          f"load into the card's model); A's cadence saves "
+          f"{min(r['bytes'] for r in saves)}-"
+          f"{max(r['bytes'] for r in saves)} bytes, save ms (state to the "
+          f"host + torch.save + fsync + manifest) median "
+          f"{save_ms[len(save_ms) // 2]:.3f} of {len(save_ms)} (min "
+          f"{save_ms[0]:.3f} max {save_ms[-1]:.3f}) [{smi}]")
+    print(f"phase 10 obs: micro-step median A {med['A']:.3f} / A2 "
+          f"{med['A2']:.3f} ms with events, D {med['D (obs off)']:.3f} ms "
+          f"without [{smi}]")
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": counts_a, "resumed_launches": counts_c,
+            "spread": spread, "dist": dist_c}
+
+
 def profile_phase(eng, g, reps=5):
     """``--profile``: where one request's time goes, for the largest scene.
     Host clock around each stage (each ended by a synchronise), then
@@ -3343,6 +3693,7 @@ def main():
     stack = stack_train_phase(root, dev, stack_clouds, profile=profile)
     blocked = blocked_train_phase(root, dev, clouds, profile=profile)
     dist = dist_phase(root, dev, clouds)
+    preempt = preempt_phase(root, dev, clouds)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
           f"backward) + {dist['launches'][0]} (distributed train, "
@@ -3358,7 +3709,10 @@ def main():
           f"train), blocked_gather {rollout['launches'][0][1]} + "
           f"{rollout['launches'][1][1]} + {blocked['launches'][1]}, "
           f"blocked_plan {rollout['launches'][0][2]} + "
-          f"{rollout['launches'][1][2]} + {blocked['launches'][2]}")
+          f"{rollout['launches'][1][2]} + {blocked['launches'][2]}; "
+          f"preemption drill run A: fused_edge_fwd "
+          f"{preempt['launches'][0]}, fused_edge_bwd "
+          f"{preempt['launches'][1]}")
 
     # one row per kernel and path, with the numbers of the dtype and shape
     # that path launches the kernel at: serving f32 at phase 2's shape,

@@ -3,16 +3,19 @@ the serving and training paths read: YAML merged over defaults, overrides,
 the ``model``/``data``/``train``/``log``/``serve`` checks, the trainer's
 command-line flags and its derived run name (pure Python, no jax).
 
-Sections the port does not read yet (obs, promote, ...) are carried through
+Sections the port does not read yet (promote, slo, ...) are carried through
 from the YAML unchanged. The keys that the JAX package acts on and the port
-does not port yet (``train.resume``, ``train.checkpoint_interval_s``,
-``train.scan_epochs``, the data and tensor axes ``parallel.mesh.data`` /
-``data.data_parallel`` and ``parallel.mesh.tensor``, ``log.wandb.enable``)
-must keep their JAX defaults: any other value raises ``NotImplementedError`` naming the
+does not port yet (``train.scan_epochs``, the data and tensor axes
+``parallel.mesh.data`` / ``data.data_parallel`` and ``parallel.mesh.tensor``,
+``log.wandb.enable``, ``serve.tiled.enable``, ``promote.publish``) must keep
+their JAX defaults: any other value raises ``NotImplementedError`` naming the
 key and the ROADMAP item that will port it, rather than run another program
 without a word. At their defaults the port runs the JAX program.
-``train.divergence_retries`` / ``divergence_lr_decay`` are ported (the
-trainer's rollback) and take any value.
+``train.divergence_retries`` / ``divergence_lr_decay`` (the trainer's
+rollback), ``train.resume`` / ``checkpoint_interval_s`` /
+``keep_checkpoints`` (preemption, cadence saves and the resume scan),
+``log.trace_epoch`` / ``check_consistency`` and the ``obs`` section are
+ported and checked as in JAX.
 """
 
 from __future__ import annotations
@@ -121,17 +124,42 @@ _DEFAULTS: dict = {
         # the divergence rollback (train/trainer.py)
         "divergence_retries": 2,
         "divergence_lr_decay": 0.5,
-        # acted on by the JAX package, not ported yet: only their defaults
-        # are accepted (see _UNPORTED)
+        # the epoch as one device program: not ported (see _UNPORTED)
         "scan_epochs": "auto",
+        # resume: null (a fresh run) | 'auto' (the newest valid checkpoint
+        # under log.log_dir) | a checkpoint path
         "resume": None,
+        # seconds between mid-epoch step_<n>.ckpt saves (0 = off), keeping
+        # the newest keep_checkpoints
         "checkpoint_interval_s": 0,
+        "keep_checkpoints": 3,
     },
     "log": {
         "log_dir": "./logs",
         "test_interval": 2,
+        # assert the parameters bitwise replicated over the graph axis at
+        # every eval epoch (parallel/checks.py)
+        "check_consistency": True,
+        # a torch.profiler trace of this epoch (0 = off) under
+        # <exp_dir>/trace/
+        "trace_epoch": 0,
         "wandb": {"enable": False, "offline": True, "api_key": "",
                   "project": "", "entity": ""},
+    },
+    # the event stream (obs/): rank 0 writes <exp_dir>/obs/events.jsonl;
+    # enable: false turns every hook into a no-op and writes no file
+    "obs": {
+        "enable": True,
+        # every rank writes its own events_p<rank>.jsonl
+        "per_host": False,
+        # the device memory probe (obs/cudaprobe.py; the JAX package's key)
+        "jax_probe": True,
+        # one train/step event per micro-step
+        "step_events": True,
+        # the writer flushes every buffer_events events or
+        # flush_interval_s seconds
+        "buffer_events": 256,
+        "flush_interval_s": 2.0,
     },
     "parallel": {
         "mesh": {"data": None, "graph": None, "tensor": 1},
@@ -148,7 +176,11 @@ _DEFAULTS: dict = {
         # optional K-step rollout serving (rollout.make_rollout_fn kwargs);
         # null disables rollouts
         "rollout": None,
+        # the tiled executor: not ported (see _UNPORTED)
+        "tiled": {"enable": False},
     },
+    # the promotion conveyor's trainer end: not ported (see _UNPORTED)
+    "promote": {"publish": False},
 }
 
 def _merge(base: dict, override: Mapping) -> dict:
@@ -196,23 +228,23 @@ def apply_overrides(cfg: ConfigDict, overrides: Mapping) -> None:
 # Keys the JAX package acts on that the port does not port yet: (dotted
 # path, the values that run the JAX program on the port too, what ports it)
 _UNPORTED = (
-    ("train.resume", (None,),
-     "the resume scan, ROADMAP.md queue 1 item 3.2"),
-    ("train.checkpoint_interval_s", (0,),
-     "the cadence saves, ROADMAP.md queue 1 item 3.2"),
     ("train.scan_epochs", ("auto",),
-     "the epoch as one device program, ROADMAP.md queue 1 item 3.4; the "
-     "port's eager loop is its only mode"),
+     "the epoch as CUDA graphs of the micro-step, ROADMAP.md queue 1 item "
+     "1.3; the port's eager loop is its only mode"),
     ("parallel.mesh.data", (None, 1),
-     "the data axis, ROADMAP.md queue 1 item 11; the port's distributed run "
-     "has the graph axis only"),
+     "the data axis, ROADMAP.md queue 1 item 2.3; the port's distributed "
+     "run has the graph axis only"),
     ("data.data_parallel", (1, None),
-     "the data axis, ROADMAP.md queue 1 item 11; the port's distributed run "
-     "has the graph axis only"),
+     "the data axis, ROADMAP.md queue 1 item 2.3; the port's distributed "
+     "run has the graph axis only"),
     ("parallel.mesh.tensor", (1, None),
-     "tensor parallelism, ROADMAP.md queue 1 item 6"),
+     "tensor parallelism, ROADMAP.md queue 1 item 7"),
     ("log.wandb.enable", (False,),
-     "wandb logging, ROADMAP.md queue 1 item 3.6; wandb is not installed"),
+     "wandb logging, not queued in ROADMAP.md: wandb is not installed"),
+    ("serve.tiled.enable", (False, None),
+     "the tiled executor, ROADMAP.md queue 1 item 6"),
+    ("promote.publish", (False, None),
+     "the promotion publisher (promote/), ROADMAP.md queue 1 item 6"),
 )
 
 
@@ -277,6 +309,14 @@ def validate_config(cfg: ConfigDict) -> None:
     t = cfg.train
     if int(t.accumulation_steps) < 1:
         raise ValueError("train.accumulation_steps must be >= 1")
+    resume = t.get("resume")
+    if resume is not None and not isinstance(resume, str):
+        raise ValueError("train.resume must be null, 'auto', or a checkpoint "
+                         "path")
+    if float(t.get("checkpoint_interval_s", 0) or 0) < 0:
+        raise ValueError("train.checkpoint_interval_s must be >= 0")
+    if int(t.get("keep_checkpoints", 3)) < 1:
+        raise ValueError("train.keep_checkpoints must be >= 1")
     if int(t.epochs) < 0 or int(t.early_stop) < 1:
         raise ValueError("train.epochs must be >= 0 and train.early_stop >= 1")
     if float(t.mmd.sigma) <= 0 or int(t.mmd.samples) < 1:
@@ -287,6 +327,19 @@ def validate_config(cfg: ConfigDict) -> None:
         raise ValueError("log.log_dir must be a string path")
     if int(lg.get("test_interval", 2)) < 1:
         raise ValueError("log.test_interval must be >= 1")
+    if not isinstance(lg.get("check_consistency", True), bool):
+        raise ValueError("log.check_consistency must be a boolean")
+    if int(lg.get("trace_epoch", 0) or 0) < 0:
+        raise ValueError("log.trace_epoch must be >= 0")
+    o = cfg.get("obs")
+    if o is not None:
+        for flag in ("enable", "per_host", "jax_probe", "step_events"):
+            if not isinstance(o.get(flag, False), bool):
+                raise ValueError(f"obs.{flag} must be a boolean")
+        if int(o.get("buffer_events", 256)) < 1:
+            raise ValueError("obs.buffer_events must be >= 1")
+        if float(o.get("flush_interval_s", 2.0)) < 0:
+            raise ValueError("obs.flush_interval_s must be >= 0")
     if int(cfg.model.virtual_channels) < 1:
         raise ValueError("model.virtual_channels must be >= 1")
     edge_impl = cfg.model.get("edge_impl", "plain")
@@ -357,6 +410,7 @@ CLI_FIELDS = {
     "virtual_channels": ("model.virtual_channels", int),
     "epochs": ("train.epochs", int),
     "edge_impl": ("model.edge_impl", str),
+    "resume": ("train.resume", str),
     "split_mode": ("data.split_mode", str),
     "outer_radius": ("data.outer_radius", float),
     "inner_radius": ("data.inner_radius", float),

@@ -18,23 +18,55 @@ graphs in the same order, and one layout (node count, edges per block,
 pairing, remote width) agreed over the ranks, so rank r's batch is exactly
 slice r of the JAX package's ``ShardedGraphLoader`` stack. ``PrefetchLoader``
 collates and copies batches to the card in a background thread.
+
+Stall accounting (the trainer reads per-step deltas of the registry counter
+``data/stall_s``, obs/metrics.py): a ``GraphLoader``'s collation is time the
+trainer waits on data, unless the thread collating runs under
+:func:`stall_attribution`: ``PrefetchLoader``'s producer charges its
+overlapped work to ``data/produce_s``, and only the consumer's real wait
+lands on ``data/stall_s`` (and on ``data/prefetch_stall_s``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import pickle
 import queue
 import threading
+import time
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from distegnn_tpu_torch import obs
+from distegnn_tpu_torch.obs.cudaprobe import TransferMeter
 from distegnn_tpu_torch.ops.blocked import (prepare_blocked_graph,
                                             scan_dataset_for_blocking)
 from distegnn_tpu_torch.ops.edge_pipeline import count_remote_edges
 from distegnn_tpu_torch.ops.graph import _round_up, pad_graphs
 from distegnn_tpu_torch.ops.order import morton_perm, reorder_graph
+
+# the counter this thread's collation time is charged to (None: the
+# trainer's data/stall_s)
+_STALL_TLS = threading.local()
+
+
+def _stall_counter():
+    name = getattr(_STALL_TLS, "name", None) or "data/stall_s"
+    return obs.get_registry().counter(name)
+
+
+@contextlib.contextmanager
+def stall_attribution(name: str):
+    """Charge this THREAD's loader stall accounting to counter ``name``."""
+    prev = getattr(_STALL_TLS, "name", None)
+    _STALL_TLS.name = name
+    try:
+        yield
+    finally:
+        _STALL_TLS.name = prev
+
 
 class GraphDataset:
     """A list of graph dicts, from a pickle file or in memory.
@@ -193,10 +225,16 @@ class GraphLoader:
 
     def __iter__(self):
         order = self._order()
+        # collation is data stall (the trainer blocks on this generator),
+        # unless this thread runs under stall_attribution
+        stall = _stall_counter()
         for b in range(len(self)):
+            t0 = time.perf_counter()
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            yield pad_graphs([self._graph(int(i)) for i in idx],
-                             **self.pad_kwargs())
+            batch = pad_graphs([self._graph(int(i)) for i in idx],
+                               **self.pad_kwargs())
+            stall.add(time.perf_counter() - t0)
+            yield batch
 
 
 def shard_loader(dataset: GraphDataset, batch_size: int, axis_name: str,
@@ -265,13 +303,20 @@ class PrefetchLoader:
     up to ``depth`` batches ahead in a background thread; ``depth=0`` is
     synchronous. A failure in the thread is raised by the consumer's next
     ``__next__`` (chained as ``__cause__``), never a hang; leaving the loop
-    early stops and joins the thread."""
+    early stops and joins the thread.
+
+    Accounting: the producer runs under ``stall_attribution(
+    "data/produce_s")``; the consumer's wait on the queue lands on
+    ``data/stall_s`` and ``data/prefetch_stall_s``; with ``depth=0`` the
+    ``put`` is stall. Every batch handed to ``put`` is counted in
+    ``xfer/h2d_bytes``; the gauge ``data/prefetch_depth`` holds ``depth``."""
 
     def __init__(self, loader, put: Optional[Callable] = None,
                  depth: int = 2):
         if depth < 0:
             raise ValueError(f"PrefetchLoader: depth must be >= 0, got {depth}")
         self.loader, self.put, self.depth = loader, put, depth
+        self._meter = TransferMeter()
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
@@ -280,12 +325,19 @@ class PrefetchLoader:
         return len(self.loader)
 
     def _produce(self, batch):
+        self._meter.h2d(batch)
         return self.put(batch) if self.put is not None else batch
 
     def __iter__(self):
+        reg = obs.get_registry()
+        reg.gauge("data/prefetch_depth").set(self.depth)
+        stall = reg.counter("data/stall_s")
         if self.depth == 0:
             for batch in self.loader:
-                yield self._produce(batch)
+                t0 = time.perf_counter()
+                out = self._produce(batch)
+                stall.add(time.perf_counter() - t0)
+                yield out
             return
         q: queue.Queue = queue.Queue(maxsize=self.depth)
         stop = threading.Event()
@@ -302,9 +354,10 @@ class PrefetchLoader:
 
         def producer():
             try:
-                for batch in self.loader:
-                    if not offer(("item", self._produce(batch))):
-                        return
+                with stall_attribution("data/produce_s"):
+                    for batch in self.loader:
+                        if not offer(("item", self._produce(batch))):
+                            return
                 offer(("done", None))
             except BaseException as exc:  # handed to the consumer below
                 offer(("err", exc))
@@ -312,15 +365,21 @@ class PrefetchLoader:
         t = threading.Thread(target=producer, daemon=True,
                              name="distegnn-prefetch")
         t.start()
+        pf_stall = reg.counter("data/prefetch_stall_s")
         try:
             while True:
-                try:
-                    kind, val = q.get(timeout=1.0)
-                except queue.Empty:
-                    if not t.is_alive() and q.empty():
-                        raise RuntimeError("prefetch thread ended without "
-                                           "reporting") from None
-                    continue
+                t0 = time.perf_counter()
+                while True:
+                    try:
+                        kind, val = q.get(timeout=1.0)
+                        break
+                    except queue.Empty:
+                        if not t.is_alive() and q.empty():
+                            raise RuntimeError("prefetch thread ended "
+                                               "without reporting") from None
+                waited = time.perf_counter() - t0
+                stall.add(waited)
+                pf_stall.add(waited)
                 if kind == "done":
                     return
                 if kind == "err":

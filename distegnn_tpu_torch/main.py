@@ -12,6 +12,14 @@ dicts). ``accelerate_mode: distribute`` goes to
 one rank each. The device defaults to the CUDA card and refuses to fall
 back; ``--device cpu`` runs the plain versions of the kernels (and the
 ranks over gloo on the CPU).
+
+``train.resume: auto`` (or ``--resume auto``) continues the newest valid
+checkpoint under ``log.log_dir``, a mid-epoch one included, with its seed;
+``train.checkpoint_interval_s`` writes mid-epoch checkpoints. A SIGTERM or
+SIGINT checkpoints the run after the in-flight micro-step and exits with
+code 75 (resumable). The run's events land in
+``<exp_dir>/obs/events.jsonl``; ``python -m distegnn_tpu_torch.obs.report``
+renders them.
 """
 
 from __future__ import annotations
@@ -20,18 +28,24 @@ import sys
 
 import torch
 
-from distegnn_tpu_torch import resolve_device
+from distegnn_tpu_torch import obs, resolve_device
 from distegnn_tpu_torch.config import (build_arg_parser, cli_overrides,
                                        derive_runtime_fields, load_config)
 from distegnn_tpu_torch.data.loader import GraphDataset, GraphLoader
 from distegnn_tpu_torch.data.nbody import process_nbody_cutoff
 from distegnn_tpu_torch.models.registry import get_model
-from distegnn_tpu_torch.train.checkpoint import restore_checkpoint
+from distegnn_tpu_torch.train.checkpoint import (adopt_resume_seed,
+                                                 resolve_resume,
+                                                 restore_checkpoint,
+                                                 verify_resume_consensus)
 from distegnn_tpu_torch.train.step import (TrainState, make_eval_step,
                                            make_optimizer, make_train_step,
                                            needs_grad_clip)
-from distegnn_tpu_torch.train.trainer import train
+from distegnn_tpu_torch.train.trainer import configure_obs, train
 from distegnn_tpu_torch.utils.seed import fix_seed
+
+# the exit code of a preempted, resumable run (EX_TEMPFAIL), as in JAX
+EXIT_PREEMPTED = 75
 
 
 def process_dataset_edge_cutoff(data_cfg):
@@ -84,6 +98,9 @@ def run(config, ds_train: GraphDataset, ds_valid: GraphDataset,
             "dispatches it)")
     if not config.log.get("exp_name"):
         derive_runtime_fields(config)
+    # a resumed run takes its checkpoint's seed before the loaders and the
+    # model derive anything from it
+    adopt_resume_seed(config)
     loaders = make_loaders(config, ds_train, ds_valid, ds_test)
     gen = torch.Generator().manual_seed(int(config.seed))
     model = get_model(config.model, generator=gen).to(dev)
@@ -99,10 +116,12 @@ def run(config, ds_train: GraphDataset, ds_valid: GraphDataset,
 def train_model(config, model, loaders, dev, on_step=None, axis_name=None,
                 rank=None):
     """The optimizer, the steps and the epoch loop over (train, valid, test)
-    ``loaders`` for ``model`` (on ``dev``), restoring
-    ``model.checkpoint`` first when set. ``axis_name`` / ``rank``: one rank
-    of a distributed run. Returns the trainer's (state, best_state, best,
-    log_dict)."""
+    ``loaders`` for ``model`` (on ``dev``). ``train.resume`` restores its
+    checkpoint first (the model, the optimizer's whole state and the
+    (epoch, step) to continue from); otherwise ``model.checkpoint`` is
+    restored when set. ``axis_name`` / ``rank``: one rank of a distributed
+    run, whose ranks must agree on the resume coordinates. Returns the
+    trainer's (state, best_state, best, log_dict)."""
     loader_train, loader_valid, loader_test = loaders
     t = config.train
     total_steps = t.epochs * len(loader_train) // t.accumulation_steps
@@ -112,10 +131,20 @@ def train_model(config, model, loaders, dev, on_step=None, axis_name=None,
         accumulation_steps=t.accumulation_steps,
         total_steps=max(total_steps, 1), scheduler=str(t.scheduler))
     state = TrainState(model, optimizer)
-    start_epoch = 0
-    if config.model.get("checkpoint"):
+    # the event stream first: the restore's events belong to this run
+    tracer = configure_obs(config)
+    start_epoch, start_step = 0, 0
+    resumed = resolve_resume(config, state)
+    if resumed is not None:
+        start_epoch, start_step = resumed.epoch, resumed.step_in_epoch
+        obs.log(f"[train] resume: restored {resumed.path} (epoch "
+                f"{start_epoch} + {start_step} step(s) applied)")
+    elif config.model.get("checkpoint"):
         state, start_epoch, _ = restore_checkpoint(config.model.checkpoint,
                                                    state)
+    # every rank resolved its own candidate: the same one, or none steps
+    verify_resume_consensus(start_epoch, start_step, axis_name,
+                            path=None if resumed is None else resumed.path)
     # MMD applies to the virtual-node (Fast*) models only
     mmd_w = t.mmd.weight if config.model.model_name.startswith("Fast") else 0.0
     train_step = make_train_step(model, optimizer, mmd_w, t.mmd.sigma,
@@ -123,7 +152,19 @@ def train_model(config, model, loaders, dev, on_step=None, axis_name=None,
     eval_step = make_eval_step(model, axis_name=axis_name)
     return train(state, train_step, eval_step, loader_train, loader_valid,
                  loader_test, config, dev, start_epoch=start_epoch,
-                 on_step=on_step, rank=rank)
+                 on_step=on_step, rank=rank, start_step_in_epoch=start_step,
+                 axis_name=axis_name, tracer=tracer)
+
+
+def point_at_events() -> None:
+    """Flush the event stream and print where it landed and how to render
+    it."""
+    tracer = obs.get_tracer()
+    tracer.flush()
+    w = tracer.writer
+    if w is not None:
+        obs.log(f"[train] obs: events at {w.path}; render with python -m "
+                f"distegnn_tpu_torch.obs.report {w.path}")
 
 
 def main(argv=None):
@@ -133,17 +174,25 @@ def main(argv=None):
         from distegnn_tpu_torch.parallel.launch import run_distributed
 
         best = run_distributed(config, device=args.device)
+    else:
+        derive_runtime_fields(config)
+        adopt_resume_seed(config)
+        fix_seed(config.seed)
+        files = process_dataset_edge_cutoff(config.data)
+        ds_train, ds_valid, ds_test = (
+            GraphDataset(f, node_order=config.data.node_order) for f in files)
+        _, best, _ = run(config, ds_train, ds_valid, ds_test,
+                         device=args.device)
+    if best.get("preempted"):
+        print(f"[train] Preempted (resumable). Best so far: {best}",
+              flush=True)
+    else:
         print(f"[train] Done. Best: {best}", flush=True)
-        return best
-    derive_runtime_fields(config)
-    fix_seed(config.seed)
-    files = process_dataset_edge_cutoff(config.data)
-    ds_train, ds_valid, ds_test = (
-        GraphDataset(f, node_order=config.data.node_order) for f in files)
-    _, best, _ = run(config, ds_train, ds_valid, ds_test, device=args.device)
-    print(f"[train] Done. Best: {best}", flush=True)
+    point_at_events()
     return best
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    _best = main(sys.argv[1:])
+    if isinstance(_best, dict) and _best.get("preempted"):
+        sys.exit(EXIT_PREEMPTED)

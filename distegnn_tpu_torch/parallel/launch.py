@@ -16,6 +16,13 @@ over a ``FileStore`` in a temporary directory; one rank runs in the calling
 process. Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``
 set) each process instead joins as its rank: rank 0 preprocesses while the
 others wait at a barrier. A failed rank fails the run.
+
+Each rank's main thread installs its own preemption guard (the trainer's);
+they agree on a stop after the same micro-step, rank 0 writes the
+checkpoint, and a resume (``train.resume``) has every rank resolve its
+own candidate and agree on it (train/checkpoint.py) before the first step.
+The parent of spawned ranks holds its first SIGTERM / SIGINT so that it
+cannot end the group while the ranks checkpoint.
 """
 
 from __future__ import annotations
@@ -29,9 +36,8 @@ import torch
 import torch.distributed as dist
 
 from distegnn_tpu_torch import resolve_device
-from distegnn_tpu_torch.parallel.collectives import all_reduce
-from distegnn_tpu_torch.parallel.mesh import (GRAPH_AXIS, axis_group,
-                                              destroy_graph_group,
+from distegnn_tpu_torch.parallel.checks import assert_replicated
+from distegnn_tpu_torch.parallel.mesh import (GRAPH_AXIS, destroy_graph_group,
                                               init_graph_group)
 
 
@@ -61,7 +67,7 @@ def _dispatch_preprocess(config, ws: int) -> List[List[str]]:
     if name == "Water-3D":
         raise NotImplementedError(
             "the Water-3D processor is not ported yet (ROADMAP.md queue 1 "
-            "item 8); pass split_paths of shards written another way")
+            "item 3); pass split_paths of shards written another way")
     raise NotImplementedError(f"{name} has no distribute-mode processor")
 
 
@@ -77,21 +83,6 @@ def build_native_and_kernels(device_type: str) -> None:
     if device_type == "cuda":
         build_all(sorted(f[:-3] for f in os.listdir(CSRC)
                          if f.endswith(".cu")))
-
-
-def assert_replicated(model: torch.nn.Module, axis_name: str,
-                      when: str) -> None:
-    """Raise on every rank unless every rank's parameters equal rank 0's
-    bit for bit (one broadcast of the flattened parameters, one MIN of the
-    verdict)."""
-    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
-    ref = flat.clone()
-    dist.broadcast(ref, 0, group=axis_group(axis_name))
-    same = torch.tensor([int(torch.equal(flat, ref))], device=flat.device)
-    all_reduce(same, axis_name, "replicated", op=dist.ReduceOp.MIN)
-    if int(same.item()) != 1:
-        raise AssertionError(f"parameters differ across ranks at the {when} "
-                             "of the run")
 
 
 def rank_loaders(config, split_paths, rank: int, device: torch.device):
@@ -184,15 +175,18 @@ def run_distributed(config, split_paths: Optional[List[List[str]]] = None,
     CPU). ``on_step(epoch, step, metrics)`` (picklable) runs in every rank
     after every micro-step. Returns rank 0's best."""
     from distegnn_tpu_torch.config import derive_runtime_fields
+    from distegnn_tpu_torch.train.checkpoint import adopt_resume_seed
 
     device_type = resolve_device(device).type
     env = os.environ
     if all(k in env for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")):
         world_size = int(env["WORLD_SIZE"])
         derive_runtime_fields(config, world_size=world_size)
+        adopt_resume_seed(config)
         return _rank_main(int(env["RANK"]), world_size, config, split_paths,
                           device_type, "env://", on_step, None)
     derive_runtime_fields(config)
+    adopt_resume_seed(config)
     world_size = int(config.data.world_size)
     if split_paths is None:
         split_paths = _dispatch_preprocess(config, world_size)
@@ -206,8 +200,18 @@ def run_distributed(config, split_paths: Optional[List[List[str]]] = None,
         if world_size == 1:
             _rank_main(0, *args)
         else:
-            torch.multiprocessing.start_processes(
-                _rank_main, args=args, nprocs=world_size, join=True,
-                start_method="spawn")
+            # the parent only waits: a SIGTERM / SIGINT meant for the run is
+            # each rank's to handle (they agree on a stop and exit
+            # resumable), so the parent's first one must not end the group;
+            # a second ends it
+            from distegnn_tpu_torch.train.trainer import PreemptionGuard
+
+            guard = PreemptionGuard().install()
+            try:
+                torch.multiprocessing.start_processes(
+                    _rank_main, args=args, nprocs=world_size, join=True,
+                    start_method="spawn")
+            finally:
+                guard.uninstall()
         with open(os.path.join(tmp, "rank0.pkl"), "rb") as f:
             return pickle.load(f)

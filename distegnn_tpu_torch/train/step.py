@@ -125,12 +125,46 @@ class Optimizer:
         return True
 
     def state_dict(self) -> dict:
+        """The whole accumulation state, as optax's MultiSteps state holds
+        it: Adam's, ``micro``, ``updates`` and ``grads``, the micro-gradients
+        summed since the last update (``p.grad`` of each parameter, None
+        where it has none). The tensors are references; a checkpoint copies
+        them as it serialises."""
         return {"adam": self.adam.state_dict(), "micro": self.micro,
-                "updates": self.updates}
+                "updates": self.updates,
+                "grads": [None if p.grad is None else p.grad.detach()
+                          for p in self.params]}
+
+    def check_state_dict(self, sd: dict) -> None:
+        """Raise ValueError, touching nothing, unless :meth:`load_state_dict`
+        can load ``sd`` exactly."""
+        micro, grads = int(sd["micro"]), sd.get("grads")
+        if grads is None and micro != 0:
+            raise ValueError(
+                f"the optimizer state has micro={micro} of "
+                f"accumulation_steps={self.accumulation_steps} but no "
+                "accumulation state (the summed micro-gradients, 'grads'): "
+                "it was saved mid-accumulation by an older version and "
+                "cannot resume exactly")
+        if grads is not None and len(grads) != len(self.params):
+            raise ValueError(f"the optimizer state holds {len(grads)} "
+                             f"gradients for {len(self.params)} parameters")
 
     def load_state_dict(self, sd: dict) -> None:
+        """Load a :meth:`state_dict` (copies of its gradients become the
+        parameters' ``.grad``). A payload without ``grads`` (written before
+        the accumulation state was saved) loads only at ``micro == 0``,
+        where nothing has accumulated; at any other ``micro`` it raises
+        ValueError rather than resume with a wrong gradient."""
+        self.check_state_dict(sd)
+        micro, grads = int(sd["micro"]), sd.get("grads")
+        if grads is None:
+            grads = [None] * len(self.params)
         self.adam.load_state_dict(sd["adam"])
-        self.micro, self.updates = int(sd["micro"]), int(sd["updates"])
+        for p, g in zip(self.params, grads):
+            p.grad = None if g is None else g.detach().to(
+                device=p.device, dtype=p.dtype).clone()
+        self.micro, self.updates = micro, int(sd["updates"])
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],

@@ -18,15 +18,14 @@ CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
 SERVE = os.path.join(REPO, "configs", "nbody_serve.yaml")
 
 # (dotted key, a value off the JAX default)
-UNPORTED = [("train.resume", "auto"),
-            ("train.resume", "logs/run/state_dict/last_model.ckpt"),
-            ("train.checkpoint_interval_s", 600),
-            ("train.scan_epochs", True),
+UNPORTED = [("train.scan_epochs", True),
             ("train.scan_epochs", False),
             ("parallel.mesh.data", 2),
             ("data.data_parallel", 2),
             ("parallel.mesh.tensor", 2),
-            ("log.wandb.enable", True)]
+            ("log.wandb.enable", True),
+            ("serve.tiled.enable", True),
+            ("promote.publish", True)]
 
 
 @pytest.mark.parametrize("path", CONFIGS,
@@ -58,6 +57,61 @@ def test_divergence_keys_load_and_land_in_train(key, value):
 def test_unported_key_off_its_default_raises(key, value):
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         load_config(SERVE, {key: value})
+
+
+def _yaml_with(tmp_path, key, value):
+    """configs/nbody_serve.yaml with ``key`` set (the JAX package takes
+    overrides of its command-line flags only)."""
+    with open(SERVE) as f:
+        raw = yaml.safe_load(f)
+    section, name = key.split(".")
+    raw.setdefault(section, {})[name] = value
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+# the durability, trace and obs keys are ported: (key, value, whether the
+# JAX package's checks refuse it); every case is loaded by both packages
+PORTED = [("train.resume", "auto", False),
+          ("train.resume", "logs/run/state_dict/last_model.ckpt", False),
+          ("train.resume", 3, True),
+          ("train.checkpoint_interval_s", 600, False),
+          ("train.checkpoint_interval_s", -1, True),
+          ("train.keep_checkpoints", 1, False),
+          ("train.keep_checkpoints", 0, True),
+          ("log.trace_epoch", 2, False),
+          ("log.trace_epoch", -1, True),
+          ("log.check_consistency", False, False),
+          ("log.check_consistency", "yes", True),
+          ("obs.enable", False, False),
+          ("obs.per_host", 1, True),
+          ("obs.buffer_events", 0, True),
+          ("obs.flush_interval_s", -0.5, True)]
+
+
+@pytest.mark.parametrize("key, value, refused", PORTED)
+def test_ported_keys_load_and_are_checked_as_in_jax(tmp_path, key, value,
+                                                    refused):
+    path = _yaml_with(tmp_path, key, value)
+    section, name = key.split(".")
+    if refused:
+        with pytest.raises(ValueError, match=name):
+            jax_load_config(path)
+        with pytest.raises(ValueError, match=name):
+            load_config(path)
+        return
+    assert load_config(path)[section][name] == value
+    assert jax_load_config(path)[section][name] == value
+    assert load_config(SERVE, {key: value})[section][name] == value
+
+
+def test_ported_defaults_are_the_jax_defaults():
+    cfg, jcfg = load_config(SERVE), jax_load_config(SERVE)
+    assert cfg.train.keep_checkpoints == jcfg.train.keep_checkpoints == 3
+    for key in ("trace_epoch", "check_consistency"):
+        assert cfg.log[key] == jcfg.log[key], key
+    assert dict(cfg.obs) == dict(jcfg.obs)
 
 
 def test_unported_key_off_its_default_raises_from_yaml(tmp_path):

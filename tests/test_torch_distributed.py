@@ -28,9 +28,12 @@ relative difference into the step: measured 1.2e-4 of lr at most.
 Also without JAX: the union invariant (the parts' forward and the
 gradient summed over the ranks equal one process on the union graph, each
 part's local edges only), with a rank whose part is empty; ``fused_stack``
-runs the per-layer fused layers under the axis; the replication check; and
+runs the per-layer fused layers under the axis; the replication check;
 ``python -m distegnn_tpu_torch.main`` on a distribute config at world size
-2 (2 epochs through ``run_distributed``).
+2 (2 epochs through ``run_distributed``); and a preemption drill at 2
+ranks: SIGTERM to rank 1 only, both ranks stop after the same micro-step,
+rank 0 alone writes, the resume agrees and ends bitwise at the
+uninterrupted run's parameters, and disagreeing resume coordinates raise.
 """
 
 import json
@@ -471,5 +474,94 @@ def test_water3d_distribute_names_its_roadmap_item(tmp_path):
     cfg = load_config(os.path.join(REPO, "configs",
                                    "simulation_distegnn.yaml"),
                       {"data.data_dir": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         _dispatch_preprocess(cfg, 2)
+
+
+@pytest.fixture(scope="module")
+def preempt_drill(tmp_path_factory):
+    """2 gloo ranks, 2 epochs of 4 micro-steps (accumulation 2) over 150-node
+    graphs split in 2: uninterrupted (with obs.per_host); SIGTERM to rank 1
+    before batch 5
+    (epoch 2, step 1); ``resume: auto`` of the preempted run; resume
+    coordinates that differ."""
+    from distegnn_tpu_torch.config import load_config
+
+    tmp = str(tmp_path_factory.mktemp("preempt"))
+    graphs = [_graph(40 + s) for s in range(6)]
+    parts = [split_graph(g, 2, "metis", RADIUS, outer_radius=RADIUS, seed=i)
+             for i, g in enumerate(graphs)]
+    splits = [[[parts[i][r] for i in idx] for r in range(2)]
+              for idx in ((0, 1, 2, 3), (4,), (5,))]
+    sd = {k: v.numpy() for k, v in FastEGNN(
+        **MODEL, generator=torch.Generator().manual_seed(1)).state_dict()
+          .items()}
+
+    def cfg(log_dir, name, **over):
+        ov = {"model.hidden_nf": H, "model.n_layers": L,
+              "model.normalize": False, "data.world_size": 2,
+              "train.accumulation_steps": 2, "train.epochs": 2,
+              "log.test_interval": 1, "log.log_dir": os.path.join(tmp,
+                                                                  log_dir),
+              "log.exp_name": name, "seed": SEED,
+              "train.checkpoint_interval_s": 1e-9}
+        ov.update(over)
+        return load_config(os.path.join(REPO, "configs",
+                                        "nbody_fastegnn.yaml"),
+                           ov).to_dict()
+
+    job = dict(kind="train", splits=splits, model=MODEL, state_dict=sd)
+    jobs = {"full": dict(job, config=cfg("full", "full",
+                                         **{"obs.per_host": True})),
+            "pre": dict(job, config=cfg("run", "pre"), kill=(1,), at=5),
+            "res": dict(job, config=cfg("run", "res",
+                                        **{"train.resume": "auto"})),
+            "consensus": dict(kind="consensus")}
+    ctx = start(jobs, 2, tmp)
+    return collect(ctx, 2, tmp), tmp
+
+
+def test_sigterm_to_one_rank_stops_both_after_the_same_micro_step(
+        preempt_drill):
+    ranks, tmp = preempt_drill
+    pre = [r["pre"] for r in ranks]
+    assert pre[0]["steps"] == pre[1]["steps"] == [(1, s) for s in range(4)] \
+        + [(2, 0), (2, 1)]
+    assert pre[0]["preempted"]["epoch"] == pre[1]["preempted"]["epoch"] == 1
+    assert pre[0]["preempted"]["step_in_epoch"] == \
+        pre[1]["preempted"]["step_in_epoch"] == 2
+    # rank 0 alone writes: the cadence, eval and preempt checkpoints and
+    # their manifests; rank 1 none
+    assert pre[1]["writes"] == [] and ranks[1]["full"]["writes"] == []
+    assert "preempt_model.ckpt" in pre[0]["writes"]
+    ckpt = os.path.join(tmp, "run", "pre", "state_dict")
+    with open(os.path.join(ckpt, "PREEMPTED")) as f:
+        marker = json.load(f)
+    assert (marker["epoch"], marker["step_in_epoch"]) == (1, 2)
+    # the stop agreement: one MAX all-reduce a micro-step on every rank
+    assert ranks[0]["counts"]["stop"] == ranks[1]["counts"]["stop"]
+    # the event streams: rank 0's alone, or one a rank under obs.per_host
+    assert os.listdir(os.path.join(tmp, "run", "pre", "obs")) == \
+        ["events.jsonl"]
+    assert sorted(os.listdir(os.path.join(tmp, "full", "full", "obs"))) == \
+        ["events_p0.jsonl", "events_p1.jsonl"]
+
+
+def test_resume_agrees_and_ends_at_the_uninterrupted_parameters(
+        preempt_drill):
+    ranks, _ = preempt_drill
+    for r in ranks:
+        assert r["res"]["steps"] == [(2, 2), (2, 3)]
+        assert r["res"]["preempted"] is None
+        for k, v in r["full"]["params"].items():
+            np.testing.assert_array_equal(r["res"]["params"][k], v)
+    for k, v in ranks[0]["res"]["params"].items():
+        np.testing.assert_array_equal(ranks[1]["res"]["params"][k], v)
+
+
+def test_disagreeing_resume_coordinates_raise_on_every_rank(preempt_drill):
+    ranks, _ = preempt_drill
+    for r in ranks:
+        assert r["consensus"]["lagging"] == [0]
+        assert r["consensus"]["coords"] == [(1, 2), (1, 3)]
+

@@ -6,6 +6,7 @@ on its shard and writes its results to ``rank<r>.pkl``."""
 import contextlib
 import os
 import pickle
+import signal
 from unittest import mock
 
 import torch
@@ -13,7 +14,7 @@ import torch
 from distegnn_tpu_torch.data.loader import GraphDataset, shard_loader
 from distegnn_tpu_torch.models.fast_egnn import FastEGNN
 from distegnn_tpu_torch.parallel.collectives import all_reduce
-from distegnn_tpu_torch.parallel.launch import assert_replicated
+from distegnn_tpu_torch.parallel.checks import assert_replicated
 from distegnn_tpu_torch.parallel.mesh import (GRAPH_AXIS, destroy_graph_group,
                                               init_graph_group)
 from distegnn_tpu_torch.train.step import (TrainState, make_eval_step,
@@ -131,8 +132,76 @@ def _replicated_job(job, rank):
     return {"raised": None}
 
 
+class Killer:
+    """A loader that sends this process SIGTERM before batch ``at`` (over
+    the whole run)."""
+
+    def __init__(self, loader, at):
+        self.loader, self.at, self.n = loader, at, 0
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            if self.n == self.at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            self.n += 1
+            yield batch
+
+
+def _train_job(job, rank):
+    """``main.train_model`` on this rank's shards with the job's config; a
+    SIGTERM to the ranks in ``job['kill']`` before batch ``job['at']``.
+    Returns the micro-steps run, the preemption record, the files this
+    rank wrote and the final parameters."""
+    from distegnn_tpu_torch.config import ConfigDict
+    from distegnn_tpu_torch.main import train_model
+    from distegnn_tpu_torch.train import checkpoint as ckpt
+
+    cfg = ConfigDict(job["config"])
+    loaders = [shard_loader(GraphDataset(split[rank]), 1, GRAPH_AXIS, CPU,
+                            shuffle=(i == 0), seed=cfg.seed)
+               for i, split in enumerate(job["splits"])]
+    if rank in job.get("kill", ()):
+        loaders[0] = Killer(loaders[0], job["at"])
+    model = _model(job, job["state_dict"])
+    steps, writes = [], []
+    real = ckpt._write_atomic
+
+    def counted(path, data):
+        writes.append(os.path.basename(path))
+        return real(path, data)
+
+    with mock.patch.object(ckpt, "_write_atomic", counted):
+        _, _, best, _ = train_model(
+            cfg, model, loaders, CPU, axis_name=GRAPH_AXIS, rank=rank,
+            on_step=lambda e, s, m: steps.append((e, s)))
+    return {"steps": steps, "preempted": best.get("preempted"),
+            "writes": writes,
+            "params": {k: _np(v) for k, v in model.state_dict().items()}}
+
+
+def _consensus_job(job, rank):
+    """Resume coordinates that differ across the ranks raise on every
+    rank."""
+    from distegnn_tpu_torch.train.checkpoint import (ResumeConsensusError,
+                                                     verify_resume_consensus)
+
+    verify_resume_consensus(1, 2, GRAPH_AXIS)       # agreed: passes
+    try:
+        verify_resume_consensus(1, 2 + rank, GRAPH_AXIS, path="mine.ckpt")
+    except ResumeConsensusError as exc:
+        return {"lagging": exc.lagging, "coords": exc.coords}
+    return {"lagging": None}
+
+
 JOBS = {"step": _step_job, "grad": _grad_job, "stack": _stack_job,
-        "replicated": _replicated_job}
+        "replicated": _replicated_job, "train": _train_job,
+        "consensus": _consensus_job}
 
 
 def run_rank(rank, world_size, init_method, in_path, out_dir):
