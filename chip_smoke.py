@@ -161,6 +161,30 @@ or of the JAX package. Phases (any failure exits nonzero):
      naming both fused tensor-core kernels. Printed: a checkpoint's bytes,
      save and restore ms, the micro-step median with and without events.
 
+  11. the other datasets, on synthetic raw files in their published
+     layout and per-frame size (written here: Water-3D h5 by the port's
+     HDF5 writer, 2 trajectories x [45, 7806, 3] a split at ~94.9 k edges
+     a frame within 0.035; an AdK-shaped npz [4200, 855, 3]); only depth is
+     cut (data.max_samples, train.epochs; printed). (a)
+     configs/water3d_fastegnn.yaml as published (plain scatter, f32, batch
+     15 ~ 117 k nodes) through main.run, 2 epochs: finite losses, the
+     parameters moved, preprocessing ms a frame, micro-step ms, nodes/s,
+     peak memory. (b) + model.edge_impl=fused, data.edge_block=512, 1
+     epoch: exact fused launches (L x 15 graphs a micro-step, forward and
+     backward, every forward on the f32 kernel), both kernels held and
+     timed at the batch's graph 0, the first update with the plain versions
+     (phase 5's bounds). (c) configs/simulation_distegnn.yaml as published
+     + data.world_size=4 (metis, asserted native), 4 ranks sharing the card
+     over gloo, 2 epochs: exact all-reduces a micro-step,
+     batch_consistency 0, parameters bitwise replicated; the first update
+     with MMD off against the parts' union (phase 9's bounds); each rank's
+     shards written with write_shards and streamed through open_dataset in
+     the ranks' loaders, every batch of every split on the card bitwise
+     the pickle shards'. (d) configs/protein_fastegnn.yaml as published, 2
+     epochs; the same weights on the test split built with test_rot and
+     with test_trans: test MSE within TOL_DATA_EQUIV of the plain split's,
+     and the frames whose radius graphs differ after the move counted.
+
 Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
 loader's first pass) with the native library and with the numpy layout.
 
@@ -575,9 +599,7 @@ def serve_phase(cfg, model, eng, dev, scenes):
     torch.cuda.synchronize()
 
     # the main path: counts 0 just before, read just after
-    ep.fused_edge_layer.launches = 0
-    ep.fused_edge_layer.tc_launches = 0
-    ep.fused_edge_layer.f32_launches = 0
+    reset_fused_counts()
     t0 = time.perf_counter()
     outs = [eng.predict(g) for g in scenes]
     first_ms = (time.perf_counter() - t0) * 1e3 / len(scenes)
@@ -716,6 +738,16 @@ def fused_counts():
     from distegnn_tpu_torch.ops import edge_pipeline as ep
 
     return ep.fused_edge_layer.launches, ep.fused_edge_layer.bwd_launches
+
+
+def reset_fused_counts():
+    """Every launch count of the fused edge kernels to 0."""
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+
+    ep.fused_edge_layer.launches = 0
+    ep.fused_edge_layer.tc_launches = 0
+    ep.fused_edge_layer.f32_launches = 0
+    ep.fused_edge_layer.bwd_launches = 0
 
 
 def fwd_counts():
@@ -926,6 +958,7 @@ def flagship_kernel_phase(model, batch, dev):
                   f"{f32_ms:.4f} ms, {f32_ms / ms:.3f} of it")
     res["fused_edge_fwd"]["kernel"] = (
         "fused_edge_fwd_tc" if ep.fwd_uses_tensor_cores(H, dname)
+        else "fused_edge_fwd_f32" if ep.fwd_uses_f32_kernel(H, dname)
         else "fused_edge_fwd")
     return res
 
@@ -1021,8 +1054,10 @@ def drive_train(cfg, ds, dev, reset_counts, read_counts, label):
     wall = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    micro = TRAIN_EPOCHS * len(ds[0]) // cfg.data.batch_size
-    evals = (TRAIN_EPOCHS // cfg.log.test_interval) * (len(ds[1]) + len(ds[2]))
+    B, epochs = cfg.data.batch_size, cfg.train.epochs
+    micro = epochs * (len(ds[0]) // B)
+    evals = (epochs // cfg.log.test_interval) * (len(ds[1]) // B
+                                                 + len(ds[2]) // B)
     print(f"{label}trained {micro} micro-steps ({state.optimizer.updates} "
           f"optimizer updates) + {evals} eval forwards in {wall:.1f} s")
     losses = [mk[3] for mk in marks]
@@ -1114,14 +1149,9 @@ def _train_phase(root, dev, clouds, log_dir, profile):
           f"epochs={cfg.train.epochs} test_interval={cfg.log.test_interval}")
     ds = fluid_datasets(clouds, cfg.data.node_order)
 
-    def reset():
-        ep.fused_edge_layer.launches = 0
-        ep.fused_edge_layer.tc_launches = 0
-        ep.fused_edge_layer.bwd_launches = 0
-
     # the main path: counts 0 just before, read just after
     init_sd, state, (fwd, bwd, tc), micro, evals = drive_train(
-        cfg, ds, dev, reset,
+        cfg, ds, dev, reset_fused_counts,
         lambda: fused_counts() + (ep.fused_edge_layer.tc_launches,), "")
     L = m.n_layers
     want_fwd, want_bwd = L * micro * 2 + L * evals, L * micro
@@ -1510,13 +1540,10 @@ def stack_counts():
 
 
 def reset_stack_counts():
-    from distegnn_tpu_torch.ops import edge_pipeline as ep
     from distegnn_tpu_torch.ops import layer_pipeline as lp
 
     lp.fused_egnn_stack.launches = 0
-    ep.fused_edge_layer.launches = 0
-    ep.fused_edge_layer.tc_launches = 0
-    ep.fused_edge_layer.bwd_launches = 0
+    reset_fused_counts()
 
 
 def stack_plain_patches():
@@ -2924,10 +2951,12 @@ def dist_check_rank(rank, ws, init_method, cfgs, paths, out_dir,
 
 
 def union_batches(cfg, paths, dev):
-    """The first accumulation_steps batches of the union run: for each
-    train graph (in the ranks' epoch-1 order) one graph of its parts' nodes
-    in rank order (each part Morton-ordered as its rank reads it) and their
-    local edges; with each part's node offsets."""
+    """The union run's first batches, as many as the ranks' first update
+    reads (accumulation_steps, or the epoch's batches if fewer): for each
+    train graph of a batch (in the ranks' epoch-1 order) one graph of its
+    parts' nodes in rank order (each part Morton-ordered as its rank reads
+    it) and their local edges; with the node offsets of each batch's first
+    graph's parts."""
     import numpy as np
 
     from distegnn_tpu_torch.data.loader import GraphDataset
@@ -2935,20 +2964,25 @@ def union_batches(cfg, paths, dev):
 
     shards = [GraphDataset(p, node_order=cfg.data.node_order)
               for p in paths[0]]
+    B = cfg.data.batch_size
     order = np.random.default_rng([int(cfg.seed), 1]).permutation(
         len(shards[0]))
     batches, offsets = [], []
-    for i in order[:cfg.train.accumulation_steps]:
-        parts = [s[int(i)] for s in shards]
-        off = np.cumsum([0] + [q["loc"].shape[0] for q in parts])
-        g = {k: np.concatenate([q[k] for q in parts])
-             for k in ("node_feat", "node_attr", "loc", "vel", "target",
-                       "edge_attr")}
-        g["edge_index"] = np.concatenate(
-            [q["edge_index"] + o for q, o in zip(parts, off)], axis=1)
-        g["loc_mean"] = parts[0]["loc_mean"]
-        batches.append(pad_graphs([g]).to(dev))
-        offsets.append(off)
+    for b in range(min(cfg.train.accumulation_steps, len(order) // B)):
+        graphs = []
+        for i in order[b * B:(b + 1) * B]:
+            parts = [s[int(i)] for s in shards]
+            off = np.cumsum([0] + [q["loc"].shape[0] for q in parts])
+            g = {k: np.concatenate([q[k] for q in parts])
+                 for k in ("node_feat", "node_attr", "loc", "vel", "target",
+                           "edge_attr")}
+            g["edge_index"] = np.concatenate(
+                [q["edge_index"] + o for q, o in zip(parts, off)], axis=1)
+            g["loc_mean"] = parts[0]["loc_mean"]
+            graphs.append(g)
+            if len(graphs) == 1:
+                offsets.append(off)
+        batches.append(pad_graphs(graphs).to(dev))
     return batches, offsets
 
 
@@ -3350,9 +3384,7 @@ def _preempt_phase(root, dev, clouds, tmp):
 
     def drive(cfg, kill_at=None):
         probe = PreemptProbe(kill_at)
-        ep.fused_edge_layer.launches = 0
-        ep.fused_edge_layer.bwd_launches = 0
-        ep.fused_edge_layer.tc_launches = 0
+        reset_fused_counts()
         t0 = time.perf_counter()
         state, best, _ = pmain.run(cfg, *ds, device=dev, on_step=probe)
         wall = time.perf_counter() - t0
@@ -3551,6 +3583,487 @@ def _preempt_phase(root, dev, clouds, tmp):
             "spread": spread, "dist": dist_c}
 
 
+# ------------------------------------------------ phase 11: Water-3D, protein
+
+# Water-3D: the published mean of ~7806 particles a trajectory
+# (docs/DATASETS.md) at ~94931 edges a frame within the 0.035 radius
+# (SURVEY.md); the synthetic cloud's expected neighbours (13.2, boundary
+# losses included) gives that density
+W3D_N = 7806
+W3D_DEGREE = 13.2
+W3D_FRAMES = 45
+W3D_TRAJS = 2
+# the cuts of depth: 15 frames a split (one batch of the published 15) in
+# cutoff mode, 8 (two batches of 4) in distribute mode
+W3D_SAMPLES = 15
+W3D_DIST_SAMPLES = 8
+# AdK: 214 residues x 4 backbone atoms, less the last O: the published 855
+ADK_FRAMES, ADK_RES = 4200, 214
+ADK_SAMPLES = 50
+# timed micro-steps after a first update
+DATA_TIMED = 3
+# (d): the test MSE of the same weights on the rotated / translated test
+# split over the plain one's, |a - b| / b. Derived: rounding the moved
+# inputs to f32 shifts each coordinate by <= 2^-24 of max |x| (~50 A, ~80 A
+# after a shift of half the box): ~5e-6 A; four f32 layers carry at most
+# ~2x that into a prediction, |de| <= 1e-5 A. The MSE moves by 2 mean(e de)
+# <= 2 |de| rms(e), i.e. by 2 |de| / rms(e) of itself; with rms(e) >= 0.2 A
+# (the synthetic backbone's motion over delta_t = 15 frames) that is 1e-4,
+# the bound (rounding errors of random sign give ~1e-7). An edge that flips
+# at the 10 A cutoff moves two atoms by ~1e-3 x 10 A / ~60 neighbours:
+# ~1e-8 of the split's MSE.
+TOL_DATA_EQUIV = 1e-4
+
+
+def water3d_traj(rng, n, frames, radius, degree):
+    """One synthetic trajectory in the scheme of
+    scripts/generate_water3d_synthetic.py: a damped falling particle cloud
+    in a box sized for ``degree`` neighbours within ``radius`` [T, n, 3]."""
+    import numpy as np
+
+    vol = n * (4.0 / 3.0) * np.pi * radius ** 3 / degree
+    side = vol ** (1.0 / 3.0)
+    pos = rng.uniform(0, side, size=(n, 3)).astype(np.float32)
+    vel = rng.normal(size=(n, 3)).astype(np.float32) * 0.02
+    g = np.array([0.0, 0.0, -0.05], np.float32)
+    out = []
+    for _ in range(frames):
+        vel = (0.99 * vel + g * 0.01
+               + rng.normal(size=(n, 3)).astype(np.float32) * 2e-3)
+        pos = pos + vel * 0.02
+        vel = np.where((pos < 0) | (pos > side), -0.5 * vel, vel)
+        pos = np.clip(pos, 0, side)
+        out.append(pos.copy())
+    return np.stack(out)
+
+
+def write_water3d(data_dir, seed):
+    """``<data_dir>/Water-3D/{train,valid,test}.h5``, W3D_TRAJS trajectories
+    each (the port's HDF5 writer: the machine may lack h5py)."""
+    import numpy as np
+
+    from distegnn_tpu_torch.data.hdf5 import write_groups
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(data_dir, "Water-3D")
+    os.makedirs(base)
+    for split in ("train", "valid", "test"):
+        write_groups(os.path.join(base, f"{split}.h5"), {
+            f"traj_{k}": {"particle_type": np.full((W3D_N,), 5.0),
+                          "position": water3d_traj(rng, W3D_N, W3D_FRAMES,
+                                                   0.035, W3D_DEGREE)}
+            for k in range(W3D_TRAJS)})
+    return data_dir
+
+
+def write_adk(data_dir, seed):
+    """``<data_dir>/protein/adk_backbone.npz`` in the scheme of
+    scripts/generate_adk_synthetic.py: a compact random-walk backbone (N,
+    CA, C, O a residue) moved by 12 smooth collective modes and jitter,
+    CHARMM-like charges, an 80 A box."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = np.zeros((ADK_RES, 3))
+    d = rng.standard_normal(3)
+    d /= np.linalg.norm(d)
+    for i in range(1, ADK_RES):
+        d = 0.7 * d + 0.6 * rng.standard_normal(3)
+        d -= 0.004 * centers[i - 1]
+        d /= np.linalg.norm(d)
+        centers[i] = centers[i - 1] + 3.8 * d
+    centers -= centers.mean(axis=0)
+    centers *= 34.0 / np.abs(centers).max()
+    offsets = np.array([[-1.2, 0.4, 0.0], [0.0, 0.0, 0.0], [1.3, 0.2, 0.3],
+                        [1.8, -0.9, 0.7]])
+    x0 = (centers[:, None] + offsets[None]).reshape(-1, 3)[:-1]
+    n = x0.shape[0]
+    res = np.arange(n) // 4
+    t = np.arange(ADK_FRAMES, dtype=np.float64)
+    pos = np.broadcast_to(x0, (ADK_FRAMES, n, 3)).copy()
+    for k in range(12):
+        period, amp = rng.uniform(60.0, 1200.0), rng.uniform(0.4, 1.8)
+        phase = rng.uniform(0, 2 * np.pi)
+        spatial = np.sin((k + 1) * np.pi * res / ADK_RES
+                         + rng.uniform(0, 2 * np.pi))
+        axis = rng.standard_normal(3)
+        axis /= np.linalg.norm(axis)
+        wave = amp * np.sin(2 * np.pi * t / period + phase)
+        pos += wave[:, None, None] * spatial[None, :, None] * axis
+    pos += 0.05 * rng.standard_normal(pos.shape)
+    charges = (np.tile([-0.47, 0.07, 0.51, -0.51], ADK_RES)[:n]
+               + rng.normal(0, 0.02, n))
+    base = os.path.join(data_dir, "protein")
+    os.makedirs(base)
+    np.savez_compressed(os.path.join(base, "adk_backbone.npz"),
+                        positions=pos.astype(np.float32),
+                        charges=charges.astype(np.float32),
+                        dimensions=np.full(3, 80.0, np.float32))
+    return data_dir
+
+
+def print_cuts(label, cfg, over):
+    d, m, t = cfg.data, cfg.model, cfg.train
+    print(f"{label}config: {d.dataset_name} {d.accelerate_mode} H="
+          f"{m.hidden_nf} L={m.n_layers} C={m.virtual_channels} batch "
+          f"{d.batch_size} radius {d.radius} delta_t {d.delta_t} "
+          f"edge_impl {m.edge_impl} edge_block {d.edge_block} "
+          f"compute_dtype {m.compute_dtype} remat {m.remat} mmd "
+          f"{dict(t.mmd)} accumulation {t.accumulation_steps}; cut: "
+          + ", ".join(f"{k} {v}" for k, v in over.items()
+                      if k in ("data.max_samples", "train.epochs")))
+
+
+def timed_preprocess(label, fn, n_frames):
+    t0 = time.perf_counter()
+    out = fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"{label}preprocessing: {n_frames} frames in {ms:.0f} ms, "
+          f"{ms / n_frames:.1f} ms a frame (host)")
+    return out, ms / n_frames
+
+
+def data_phase(root, dev):
+    """Phase 11: the Water-3D and protein configs as published, on synthetic
+    raw files in their published layout and per-frame size. Files, logs and
+    shards go to a temporary directory that is removed afterwards."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        t0 = time.perf_counter()
+        w3d = write_water3d(os.path.join(tmp, "simulate"), 11)
+        adk = write_adk(os.path.join(tmp, "mdanalysis"), 12)
+        print(f"phase 11 raw files: Water-3D {W3D_TRAJS} trajectories x "
+              f"[{W3D_FRAMES}, {W3D_N}, 3] a split (the port's HDF5 writer), "
+              f"AdK [{ADK_FRAMES}, {4 * ADK_RES - 1}, 3] npz, in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out = water3d_cutoff_phase(root, dev, w3d, tmp)
+        out["dist"] = water3d_dist_phase(root, dev, w3d, tmp)
+        out["protein"] = protein_phase(root, dev, adk, tmp)
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def water3d_cutoff_phase(root, dev, data_dir, tmp):
+    """(a) configs/water3d_fastegnn.yaml as published, 2 epochs; (b) +
+    edge_impl fused, edge_block 512, 1 epoch, exact launches, the first
+    update with the plain versions."""
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.data.loader import GraphDataset
+    from distegnn_tpu_torch.main import process_dataset_edge_cutoff
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+
+    path = os.path.join(root, "configs", "water3d_fastegnn.yaml")
+    over = {"data.data_dir": data_dir, "data.max_samples": W3D_SAMPLES,
+            "train.epochs": 2, "log.log_dir": os.path.join(tmp, "logs")}
+    cfg = load_config(path, over)
+    print_cuts("(a) ", cfg, over)
+    files, prep_ms = timed_preprocess(
+        "(a) ", lambda: process_dataset_edge_cutoff(cfg.data, seed=cfg.seed),
+        3 * W3D_SAMPLES)
+
+    def datasets():
+        return [GraphDataset(f, node_order=cfg.data.node_order)
+                for f in files]
+
+    ds = datasets()
+    e = [g["edge_index"].shape[1] for d in ds for g in d.graphs]
+    n = [g["loc"].shape[0] for d in ds for g in d.graphs]
+    print(f"(a) frames {len(ds[0])}/{len(ds[1])}/{len(ds[2])}, {n[0]} "
+          f"particles, edges a frame {min(e)}..{max(e)} (mean "
+          f"{sum(e) / len(e):.0f}; published ~94931)")
+
+    init_sd, _, counts, _, _ = drive_train(cfg, ds, dev, reset_fused_counts,
+                                           fused_counts, "(a) ")
+    check(counts == (0, 0), f"(a) the plain path launched {counts}")
+    _, batches = host_batches(cfg, ds, dev, "(a) ")
+    n_real = float(batches[0].node_mask.sum())
+    k = first_update(cfg, init_sd, batches, dev, time_extra=DATA_TIMED)
+    med_a = step_times("(a) ", k, n_real)
+
+    over_b = dict(over, **{"model.edge_impl": "fused",
+                           "data.edge_block": BLOCK, "train.epochs": 1})
+    cfg_b = load_config(path, over_b)
+    print_cuts("(b) ", cfg_b, over_b)
+    ds = datasets()
+    init_sd, state, (fwd, bwd, f32), micro, evals = drive_train(
+        cfg_b, ds, dev, reset_fused_counts,
+        lambda: fused_counts() + (ep.fused_edge_layer.f32_launches,), "(b) ")
+    # FastEGNN launches the layer kernel once per graph of the batch
+    # (models/fast_egnn.py _fused_edges); without remat the backward reruns
+    # nothing: one backward launch per forward launch of a micro-step
+    L, B = cfg_b.model.n_layers, cfg_b.data.batch_size
+    want_fwd, want_bwd = L * B * (micro + evals), L * B * micro
+    print(f"(b) fused_edge_fwd launches={fwd} (expected {L} layers x {B} "
+          f"graphs x ({micro} micro-steps + {evals} eval forwards) = "
+          f"{want_fwd}), {f32} on the f32 kernel (expected all), "
+          f"fused_edge_bwd launches={bwd} (expected {L} x {B} x {micro} = "
+          f"{want_bwd})")
+    check(fwd == want_fwd and f32 == fwd and bwd == want_bwd,
+          "(b) fused launch counts")
+    _, batches = host_batches(cfg_b, ds, dev, "(b) ")
+    print("(b) both kernels at the train batch's graph 0 (f32):")
+    rows = flagship_kernel_phase(state.model, batches[0], dev)
+    n_real = float(batches[0].node_mask.sum())
+    k = first_update(cfg_b, init_sd, batches, dev, time_extra=DATA_TIMED)
+    p = first_update(cfg_b, init_sd, batches, dev,
+                     patches=fused_plain_patches())
+    acc = cfg_b.train.accumulation_steps
+    check(k["launches"] == (L * B * acc, L * B * acc)
+          and p["launches"] == (0, 0),
+          f"(b) first update launches: kernels {k['launches']}, plain "
+          f"{p['launches']}")
+    errs, per = update_distance(k, p)
+    worst = sorted(per.items(), key=lambda kv: -kv[1])
+    print(f"(b) first update, kernels vs plain: losses max rel err "
+          f"{max(errs['loss'], errs['loss_with_mmd']):.3e}, gradient norm "
+          f"{errs['grad norm']:.3e}, max {errs['grad']:.3e} (tol "
+          f"{TOL_TRAIN:.0e}); worst tensor {worst[0][0]} {worst[0][1]:.3e} "
+          f"(tol {TOL_PARAM:.3e})")
+    check(all(errs[key] <= TOL_TRAIN for key in ("loss_with_mmd", "loss",
+                                                 "grad norm", "grad")),
+          "(b) the kernels disagree with the plain versions")
+    check(worst[0][1] <= TOL_PARAM,
+          f"(b) the gradient of {worst[0][0]} disagrees")
+    med_b = step_times("(b) ", k, n_real)
+    return {"launches": (fwd, bwd), "kernels": rows, "prep_ms": prep_ms,
+            "ms": (med_a, med_b)}
+
+
+def data_check_rank(rank, ws, init_method, cfg, paths, dirs, out_dir,
+                    device="cuda"):
+    """A rank of (c)'s checks (spawned, over the card): the first update
+    with MMD off, for the union comparison; then every split's batches of
+    its loaders over the pickle shards and over the same shards as
+    ``write_shards`` directories (opened through ``open_dataset`` with
+    ``data.stream_shard_cache``), compared on the card bitwise."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from distegnn_tpu_torch.data.stream import StreamedGraphDataset
+    from distegnn_tpu_torch.models.registry import get_model
+    from distegnn_tpu_torch.parallel.launch import rank_loaders
+    from distegnn_tpu_torch.parallel.mesh import (GRAPH_AXIS,
+                                                  destroy_graph_group,
+                                                  init_graph_group)
+
+    gg = init_graph_group(ws, rank, device, init_method)
+    dev = gg.device
+    out = {}
+    try:
+        loader = rank_loaders(cfg, paths, rank, dev)[0]
+        loader.set_epoch(1)
+        batches = list(itertools.islice(loader,
+                                        cfg.train.accumulation_steps))
+        init = get_model(cfg.model, generator=torch.Generator().manual_seed(
+            int(cfg.seed))).state_dict()
+        u = first_update(cfg, init, batches, dev, axis_name=GRAPH_AXIS,
+                         rank=rank)
+        out["union"] = {"loss": u["loss"], "grad": {
+            n: g.cpu() for n, g in u["grad"].items()}}
+        whole = rank_loaders(cfg, paths, rank, dev)
+        streamed = rank_loaders(cfg, dirs, rank, dev)
+        compared, streams = 0, []
+        for w, s in zip(whole, streamed):
+            ds = s.loader.dataset
+            streams.append((type(ds) is StreamedGraphDataset,
+                            getattr(ds, "cache_shards", None)))
+            for epoch in (1, 2):
+                w.set_epoch(epoch)
+                s.set_epoch(epoch)
+                for a, b in itertools.zip_longest(w, s):
+                    if a is None or b is None:
+                        raise AssertionError("the loaders' lengths differ")
+                    for f in dataclasses.fields(a):
+                        x, y = getattr(a, f.name), getattr(b, f.name)
+                        same = (torch.equal(x, y) and x.device == y.device
+                                if isinstance(x, torch.Tensor) else x == y)
+                        if not same:
+                            raise AssertionError(
+                                f"rank {rank}: {f.name} of a streamed batch "
+                                "differs from the pickle run's")
+                    compared += 1
+        out["stream"] = {"batches": compared, "datasets": streams}
+    finally:
+        destroy_graph_group()
+    torch.save(out, os.path.join(out_dir, f"check{rank}.pt"))
+
+
+def water3d_dist_phase(root, dev, data_dir, tmp):
+    """(c) configs/simulation_distegnn.yaml as published + data.world_size
+    4: 4 ranks sharing the card over gloo, 2 epochs; exact collectives; the
+    first update (MMD off) against the parts' union; the shards streamed
+    from write_shards directories, batch for batch."""
+    import copy
+
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.data import partition
+    from distegnn_tpu_torch.data.loader import GraphDataset
+    from distegnn_tpu_torch.data.stream import write_shards
+    from distegnn_tpu_torch.models.registry import get_model
+    from distegnn_tpu_torch.parallel.launch import (_dispatch_preprocess,
+                                                    run_distributed)
+
+    path = os.path.join(root, "configs", "simulation_distegnn.yaml")
+    over = {"data.data_dir": data_dir, "data.world_size": DIST_WS,
+            "data.max_samples": W3D_DIST_SAMPLES, "train.epochs": 2,
+            "log.log_dir": os.path.join(tmp, "logs")}
+    cfg = load_config(path, over)
+    print_cuts("(c) ", cfg, over)
+    d = cfg.data
+    print(f"(c) split_mode {d.split_mode} outer/inner radius "
+          f"{d.outer_radius}/{d.inner_radius} world_size {d.world_size}")
+    paths, prep_ms = timed_preprocess(
+        "(c) ", lambda: _dispatch_preprocess(cfg, DIST_WS),
+        3 * W3D_DIST_SAMPLES)
+    check(partition.metis_labels.partitioner == "native",
+          "(c) metis did not run the native partitioner")
+    parts = [GraphDataset(p) for p in paths[0]]
+    print(f"(c) metis (native) parts of a frame: nodes "
+          f"{[q[0]['loc'].shape[0] for q in parts]}, local edges "
+          f"{[q[0]['edge_index'].shape[1] for q in parts]}")
+    n_real = sum(q[i]["loc"].shape[0] for q in parts
+                 for i in range(d.batch_size))
+    L, mmd = cfg.model.n_layers, bool(cfg.train.mmd.weight)
+    per = micro_step_collectives(L, cfg.model.remat, mmd, False)
+    print(f"(c) all-reduces a micro-step, derived: {sum(per.values())} "
+          f"{json.dumps(per)} (+1 gradient at each update)")
+    probe_dir = os.path.join(tmp, "probe_c")
+    os.makedirs(probe_dir)
+    t0 = time.perf_counter()
+    best = run_distributed(copy.deepcopy(cfg), split_paths=paths, device=dev,
+                           on_step=StepProbe(probe_dir))
+    print(f"(c) run_distributed: {DIST_WS} ranks x {cfg.train.epochs} "
+          f"epochs in {time.perf_counter() - t0:.1f} s; best "
+          f"{json.dumps(best)}; parameters bitwise equal across the ranks "
+          f"(run_distributed's checks at the start, each evaluation and the "
+          f"end)")
+    check(math.isfinite(best["loss_valid"]), "(c) non-finite eval loss")
+    rows = read_probe(probe_dir, DIST_WS)
+    micro = cfg.train.epochs * (len(parts[0]) // d.batch_size)
+    check(all(len(r) == micro and r[-1]["fwd"] == 0 for r in rows),
+          "(c) missing micro-steps or a fused launch")
+    meds = report_dist_run("(c) ", cfg, rows, n_real,
+                           {"layout": 3, "replicated": 1})
+
+    dirs = [[os.path.join(tmp, "shards", f"{split}_{r}")
+             for r in range(DIST_WS)] for split in ("train", "valid", "test")]
+    for ps, ds in zip(paths, dirs):
+        for p, q in zip(ps, ds):
+            write_shards(GraphDataset(p).graphs, q, shard_size=3)
+    ucfg = load_config(path, dict(over, **{"train.mmd.weight": 0.0}))
+    check_dir = os.path.join(tmp, "checks_c")
+    os.makedirs(check_dir)
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        data_check_rank, args=(DIST_WS, "file://" + os.path.join(
+            check_dir, "store"), ucfg, paths, dirs, check_dir, dev.type),
+        nprocs=DIST_WS, join=True, start_method="spawn")
+    res = [torch.load(os.path.join(check_dir, f"check{r}.pt"),
+                      weights_only=False) for r in range(DIST_WS)]
+    print(f"(c) checks: {DIST_WS} ranks in {time.perf_counter() - t0:.1f} s")
+    for r, rr in enumerate(res):
+        st = rr["stream"]
+        check(all(s == (True, d.stream_shard_cache) for s in st["datasets"]),
+              f"(c) rank {r}: the loaders did not stream {st['datasets']}")
+        print(f"(c) rank {r}: {st['batches']} batches (2 epochs of each "
+              f"split) from write_shards directories (StreamedGraphDataset, "
+              f"cache_shards {d.stream_shard_cache}) bitwise the pickle "
+              f"shards' on the card")
+        for n, g in rr["union"]["grad"].items():
+            check(torch.equal(g, res[0]["union"]["grad"][n]),
+                  f"(c) rank {r}: the summed gradient of {n} differs")
+    init = get_model(ucfg.model, generator=torch.Generator().manual_seed(
+        int(ucfg.seed))).state_dict()
+    ub, _ = union_batches(ucfg, paths, dev)
+    uu = first_update(ucfg, init, ub, dev)
+    uu["grad"] = {n: g.cpu() for n, g in uu["grad"].items()}
+    ru = res[0]["union"]
+    errs, _ = update_distance(dict(ru, loss_with_mmd=ru["loss"]),
+                              dict(uu, loss_with_mmd=uu["loss"]))
+    print(f"(c) first update (MMD off) of {DIST_WS} ranks vs the union in "
+          f"one process: losses max rel err {errs['loss']:.3e}, gradient "
+          f"norm {errs['grad norm']:.3e}, max {errs['grad']:.3e}, l2 "
+          f"{errs['grad l2']:.3e} (tol {TOL_TRAIN:.0e} each)")
+    check(all(errs[key] <= TOL_TRAIN for key in ("loss", "grad norm", "grad",
+                                                 "grad l2")),
+          "(c) the distributed update disagrees with the union's")
+    return {"prep_ms": prep_ms, "ms": meds, "collectives": per}
+
+
+def test_mse(model, files, batch_size, dev):
+    """The test split's node-weighted MSE under the eval step, with the
+    test graphs."""
+    from distegnn_tpu_torch.data.loader import GraphDataset, GraphLoader
+    from distegnn_tpu_torch.train.step import make_eval_step
+
+    ds = GraphDataset(files[2])
+    step = make_eval_step(model)
+    num = den = 0.0
+    for b in GraphLoader(ds, batch_size):
+        n = float(b.node_mask.sum())
+        num += float(step(b.to(dev))) * n
+        den += n
+    return num / den, ds.graphs
+
+
+def protein_phase(root, dev, data_dir, tmp):
+    """(d) configs/protein_fastegnn.yaml as published, 2 epochs; then the
+    same weights on the test split built with test_rot and with
+    test_trans."""
+    import numpy as np
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.data.loader import GraphDataset
+    from distegnn_tpu_torch.main import process_dataset_edge_cutoff
+
+    path = os.path.join(root, "configs", "protein_fastegnn.yaml")
+    over = {"data.data_dir": data_dir, "data.max_samples": ADK_SAMPLES,
+            "train.epochs": 2, "log.log_dir": os.path.join(tmp, "logs")}
+    cfg = load_config(path, over)
+    print_cuts("(d) ", cfg, over)
+    files, prep_ms = timed_preprocess(
+        "(d) ", lambda: process_dataset_edge_cutoff(cfg.data, seed=cfg.seed),
+        3 * ADK_SAMPLES)
+    ds = [GraphDataset(f, node_order=cfg.data.node_order) for f in files]
+    e = [g["edge_index"].shape[1] for g in ds[0].graphs]
+    print(f"(d) frames {len(ds[0])}/{len(ds[1])}/{len(ds[2])}, "
+          f"{ds[0][0]['loc'].shape[0]} atoms, edges a frame within "
+          f"{cfg.data.radius} A {min(e)}..{max(e)}")
+    init_sd, state, counts, _, _ = drive_train(cfg, ds, dev,
+                                               reset_fused_counts,
+                                               fused_counts, "(d) ")
+    check(counts == (0, 0), f"(d) the plain path launched {counts}")
+    _, batches = host_batches(cfg, ds, dev, "(d) ")
+    k = first_update(cfg, init_sd, batches, dev, time_extra=DATA_TIMED)
+    med = step_times("(d) ", k, float(batches[0].node_mask.sum()))
+    B = cfg.data.batch_size
+    plain, graphs = test_mse(state.model, files, B, dev)
+    for key in ("test_rot", "test_trans"):
+        cfg.data[key] = True
+        moved, mgraphs = test_mse(state.model, process_dataset_edge_cutoff(
+            cfg.data, seed=cfg.seed), B, dev)
+        cfg.data[key] = False
+        flips = sum(not np.array_equal(a["edge_index"], b["edge_index"])
+                    for a, b in zip(graphs, mgraphs))
+        rel = abs(moved - plain) / plain
+        print(f"(d) test MSE with {key}: {moved:.9g} vs plain {plain:.9g}, "
+              f"|a - b| / b {rel:.3e} (tol {TOL_DATA_EQUIV:.0e}); frames "
+              f"whose radius-graph edge sets differ: {flips} of "
+              f"{len(graphs)}")
+        check(rel <= TOL_DATA_EQUIV,
+              f"(d) the {key} test split's MSE disagrees with the plain one")
+    return {"prep_ms": prep_ms, "ms": med}
+
+
 def profile_phase(eng, g, reps=5):
     """``--profile``: where one request's time goes, for the largest scene.
     Host clock around each stage (each ended by a synchronise), then
@@ -3694,6 +4207,7 @@ def main():
     blocked = blocked_train_phase(root, dev, clouds, profile=profile)
     dist = dist_phase(root, dev, clouds)
     preempt = preempt_phase(root, dev, clouds)
+    data = data_phase(root, dev)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
           f"backward) + {dist['launches'][0]} (distributed train, "
@@ -3712,7 +4226,9 @@ def main():
           f"{rollout['launches'][1][2]} + {blocked['launches'][2]}; "
           f"preemption drill run A: fused_edge_fwd "
           f"{preempt['launches'][0]}, fused_edge_bwd "
-          f"{preempt['launches'][1]}")
+          f"{preempt['launches'][1]}; Water-3D fused train (phase 11 (b)): "
+          f"fused_edge_fwd {data['launches'][0]} (all on the f32 kernel), "
+          f"fused_edge_bwd {data['launches'][1]}")
 
     # one row per kernel and path, with the numbers of the dtype and shape
     # that path launches the kernel at: serving f32 at phase 2's shape,
@@ -3763,6 +4279,14 @@ def main():
             f"{dk['fused_edge_bwd']['dtype']} {DIST_WS} ranks, rank 0 "
             f"{dk['fused_edge_bwd']['shape']}", dk["fused_edge_bwd"],
             "distegnn_tpu/ops/edge_pipeline.py:314", dist["launches"][1])]
+    wk = data["kernels"]
+    kernels += [
+        row(wk["fused_edge_fwd"]["kernel"], f"Water-3D train f32 graph 0 "
+            f"{wk['fused_edge_fwd']['shape']}", wk["fused_edge_fwd"],
+            fwd_tpu, data["launches"][0], source="fused_edge_fwd"),
+        row("fused_edge_bwd", f"Water-3D train f32 graph 0 "
+            f"{wk['fused_edge_bwd']['shape']}", wk["fused_edge_bwd"],
+            "distegnn_tpu/ops/edge_pipeline.py:314", data["launches"][1])]
     kernels += [row(name, f"{key} {sres[key]['shape']}", sres[key], tpu, n,
                     source="prefix_scan")
                 for name, key, n, tpu in scan_rows]

@@ -102,6 +102,11 @@ _DEFAULTS: dict = {
         "frame_0": 30,
         "frame_T": 40,
         "delta_t": 20,
+        # the protein pipeline (data/protein.py): backbone atoms only, and
+        # the test split rotated / translated
+        "backbone": True,
+        "test_rot": False,
+        "test_trans": False,
         "node_order": "none",
         "node_bucket": 8,
         "edge_bucket": 128,
@@ -111,6 +116,9 @@ _DEFAULTS: dict = {
         # batches collated and copied ahead by a background thread in a
         # distributed run (0 = synchronous)
         "prefetch_depth": 2,
+        # decoded shards resident per StreamedGraphDataset when a dataset
+        # path is a shard directory (data/stream.py)
+        "stream_shard_cache": 4,
     },
     "train": {
         "learning_rate": 5e-4,
@@ -292,6 +300,8 @@ def validate_config(cfg: ConfigDict) -> None:
                              "data.inner_radius")
     if int(d.get("prefetch_depth", 2)) < 0:
         raise ValueError("data.prefetch_depth must be >= 0 (0 = synchronous)")
+    if int(d.get("stream_shard_cache", 4)) < 1:
+        raise ValueError("data.stream_shard_cache must be >= 1")
     graph = _get(cfg, "parallel.mesh.graph")
     ws = d.get("world_size")
     if graph is not None and ws is not None and int(graph) != int(ws):

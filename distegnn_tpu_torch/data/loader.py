@@ -262,7 +262,11 @@ def shard_loader(dataset: GraphDataset, batch_size: int, axis_name: str,
         return [int(v) for v in t.tolist()]
 
     n, e = dataset.size_maxima()
-    graphs = [dataset[i] for i in range(len(dataset))]
+
+    def graphs():
+        # one graph at a time: a streamed dataset keeps its cache's bound
+        return (dataset[i] for i in range(len(dataset)))
+
     if edge_block:
         N = _round_up(max(n, 1), edge_block)
         if split_remote:
@@ -270,7 +274,7 @@ def shard_loader(dataset: GraphDataset, batch_size: int, axis_name: str,
         (N,) = agree([N])
         deg, sym = scan_dataset_for_blocking(dataset, N, edge_block)
         er = (max(count_remote_edges(g["edge_index"], block=edge_block,
-                                     n_nodes=N) for g in graphs)
+                                     n_nodes=N) for g in graphs())
               if split_remote else 0)
         epb, er, asym = agree([_round_up(deg, GraphLoader.EDGE_TILE), er,
                                not sym])
@@ -284,7 +288,7 @@ def shard_loader(dataset: GraphDataset, batch_size: int, axis_name: str,
         raise ValueError("shard_loader: split_remote requires edge_block > 0")
     deg, unpaired = 1, False
     if pairing:
-        for g in graphs:
+        for g in graphs():
             row = g["edge_index"][0]
             deg = max(deg, int(np.bincount(row, minlength=1).max()))
             unpaired = unpaired or bool(np.any(np.diff(row) < 0)) or (

@@ -33,6 +33,8 @@ from distegnn_tpu_torch.config import (build_arg_parser, cli_overrides,
                                        derive_runtime_fields, load_config)
 from distegnn_tpu_torch.data.loader import GraphDataset, GraphLoader
 from distegnn_tpu_torch.data.nbody import process_nbody_cutoff
+from distegnn_tpu_torch.data.protein import process_protein_cutoff
+from distegnn_tpu_torch.data.water3d import process_water3d_cutoff
 from distegnn_tpu_torch.models.registry import get_model
 from distegnn_tpu_torch.train.checkpoint import (adopt_resume_seed,
                                                  resolve_resume,
@@ -48,16 +50,26 @@ from distegnn_tpu_torch.utils.seed import fix_seed
 EXIT_PREEMPTED = 75
 
 
-def process_dataset_edge_cutoff(data_cfg):
-    """The processed train/valid/test files of a cutoff-mode dataset."""
+def process_dataset_edge_cutoff(data_cfg, seed: int = 0):
+    """The processed train/valid/test files of a cutoff-mode dataset
+    (n-body, protein or Water-3D; ``seed`` draws Water-3D's frames and the
+    protein test split's rotations and shifts)."""
     name = data_cfg.dataset_name
     if name.startswith("nbody"):
         return process_nbody_cutoff(
             data_cfg.data_dir, name, data_cfg.max_samples, data_cfg.radius,
             data_cfg.frame_0, data_cfg.frame_T, data_cfg.cutoff_rate)
-    raise NotImplementedError(
-        f"dataset {name!r}: only the n-body processor is ported; pass "
-        "in-memory datasets to distegnn_tpu_torch.main.run")
+    if name == "protein":
+        return process_protein_cutoff(
+            data_cfg.data_dir, name, data_cfg.max_samples, data_cfg.radius,
+            data_cfg.delta_t, data_cfg.cutoff_rate,
+            backbone=data_cfg.backbone, test_rot=data_cfg.test_rot,
+            test_trans=data_cfg.test_trans, seed=seed)
+    if name == "Water-3D":
+        return process_water3d_cutoff(
+            data_cfg.data_dir, name, data_cfg.max_samples, data_cfg.radius,
+            data_cfg.delta_t, data_cfg.cutoff_rate, seed=seed)
+    raise NotImplementedError(f"{name} has no cutoff-mode processor")
 
 
 def make_loaders(config, ds_train, ds_valid, ds_test):
@@ -178,7 +190,7 @@ def main(argv=None):
         derive_runtime_fields(config)
         adopt_resume_seed(config)
         fix_seed(config.seed)
-        files = process_dataset_edge_cutoff(config.data)
+        files = process_dataset_edge_cutoff(config.data, seed=config.seed)
         ds_train, ds_valid, ds_test = (
             GraphDataset(f, node_order=config.data.node_order) for f in files)
         _, best, _ = run(config, ds_train, ds_valid, ds_test,

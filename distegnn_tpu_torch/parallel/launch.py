@@ -65,9 +65,11 @@ def _dispatch_preprocess(config, ws: int) -> List[List[str]]:
             d.data_dir, name, ws, d.max_samples, d.inner_radius,
             d.outer_radius, d.split_mode, d.delta_t, seed=config.seed)
     if name == "Water-3D":
-        raise NotImplementedError(
-            "the Water-3D processor is not ported yet (ROADMAP.md queue 1 "
-            "item 3); pass split_paths of shards written another way")
+        from distegnn_tpu_torch.data.water3d import process_water3d_distribute
+
+        return process_water3d_distribute(
+            d.data_dir, name, ws, d.max_samples, d.inner_radius,
+            d.outer_radius, d.split_mode, d.delta_t, seed=config.seed)
     raise NotImplementedError(f"{name} has no distribute-mode processor")
 
 
@@ -87,9 +89,12 @@ def build_native_and_kernels(device_type: str) -> None:
 
 def rank_loaders(config, split_paths, rank: int, device: torch.device):
     """This rank's (train, valid, test) loaders over shard ``rank`` of each
-    split, prefetched to ``device``."""
-    from distegnn_tpu_torch.data.loader import (GraphDataset, PrefetchLoader,
-                                                device_put, shard_loader)
+    split, prefetched to ``device``. A shard that is a ``write_shards``
+    directory streams (``data.stream_shard_cache`` decoded shards
+    resident); a pickle is read whole."""
+    from distegnn_tpu_torch.data.loader import (PrefetchLoader, device_put,
+                                                shard_loader)
+    from distegnn_tpu_torch.data.stream import open_dataset
 
     d = config.data
     edge_block = int(d.edge_block)
@@ -98,7 +103,8 @@ def rank_loaders(config, split_paths, rank: int, device: torch.device):
     put = device_put(device)
     loaders = []
     for i, paths in enumerate(split_paths):
-        ds = GraphDataset(paths[rank], node_order=d.node_order)
+        ds = open_dataset(paths[rank], node_order=d.node_order,
+                          cache_shards=int(d.get("stream_shard_cache", 4)))
         loaders.append(PrefetchLoader(shard_loader(
             ds, d.batch_size, GRAPH_AXIS, device, shuffle=(i == 0),
             seed=config.seed, node_bucket=int(d.node_bucket),
@@ -170,7 +176,8 @@ def run_distributed(config, split_paths: Optional[List[List[str]]] = None,
     """Distribute-mode training of ``config`` over ``data.world_size``
     ranks (derived when unset: ``parallel.mesh.graph``, else the card
     count). ``split_paths``: [train, valid, test] lists of ``world_size``
-    shard files (default: the dataset's, preprocessed here). ``device``
+    shard pickles or ``write_shards`` directories (default: the dataset's
+    pickles, preprocessed here). ``device``
     'cuda' (the default; refuses to fall back) or 'cpu' (gloo ranks on the
     CPU). ``on_step(epoch, step, metrics)`` (picklable) runs in every rank
     after every micro-step. Returns rank 0's best."""

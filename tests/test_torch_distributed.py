@@ -474,7 +474,9 @@ def test_water3d_distribute_names_its_roadmap_item(tmp_path):
     cfg = load_config(os.path.join(REPO, "configs",
                                    "simulation_distegnn.yaml"),
                       {"data.data_dir": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # the Water-3D processor is ported (data/water3d.py): with no raw
+    # files it names the one it looked for
+    with pytest.raises(FileNotFoundError, match="train.h5"):
         _dispatch_preprocess(cfg, 2)
 
 

@@ -124,7 +124,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'train.step', 'train.checkpoint', 'train.trainer', 'data.loader', "
         "'data.nbody', 'data.fluid113k', 'utils.seed', 'ops.cumsum', "
         "'ops.segment', 'ops.blocked', 'ops.layer_pipeline', "
-        "'ops.radius_dev', 'rollout', 'serve.engine')}\n"
+        "'ops.radius_dev', 'rollout', 'serve.engine', 'data.water3d', "
+        "'data.protein', 'data.stream', 'data.nbody_sim', 'utils.rotate')}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
