@@ -185,6 +185,35 @@ or of the JAX package. Phases (any failure exits nonzero):
      with test_trans: test MSE within TOL_DATA_EQUIV of the plain split's,
      and the frames whose radius graphs differ after the move counted.
 
+  12. the serving gateway (serve/transport.py, serve/registry.py,
+     serve/gateway.py): configs/nbody_serve.yaml as published with the
+     serve.models routing its comments document, ``fused`` (phase 3's
+     model) and ``rollout`` (phase 3d's), written to a temporary YAML. (a)
+     In process, a Gateway on an ephemeral port, 8 closed-loop
+     ``http.client`` threads: seven share 64 predicts of Morton-ordered
+     scenes of 1500/3000/6000 nodes (mean degree ~20), a scene over
+     max_nodes (413), an unknown model (404) and a malformed body (400);
+     the eighth sends 4 rollouts of K=8 on 1000-4000-node scenes, then 2
+     streamed rollouts (``?stream=1``, chunk_steps 4; it leaves the second
+     after its first chunk), one after another; the counts set
+     to 0 just before and read just after: fused_edge_fwd exactly L x
+     max_batch per executed predict batch (every one on the f32 kernel),
+     the one-hot kernels exactly per rollout step (1 plan, 2L seg_sum, 2L
+     gather; the steps read from the run's serve/execute spans); every
+     predict within 1e-5 of a direct engine.predict of the same entry and
+     seed, the rollouts within phase 3d's bounds of engine.rollout, the
+     streamed chunks of the buffered trajectory, the disconnected stream
+     cancelled before its last chunk, the mean batch fill of /metrics
+     above 1; a swap to a checkpoint in the trainer's format (canary
+     launches L x max_batch per warmed rung, then predicts within 1e-5 of
+     that checkpoint's engine) and one holding a NaN parameter (422, rolled
+     back). (b) ``python -m distegnn_tpu_torch.serve.gateway`` on the same
+     YAML: /readyz 200, then SIGTERM while a K=64 rollout and 8 predicts
+     are in flight: every accepted request answers 200, /readyz answers
+     503 during the drain, exit code 0. Printed: client-side p50/p99 per
+     model and route, requests/s, the mean batch fill, rollout ms, the
+     stream's first-chunk ms, the drain seconds and the phase's time.
+
 Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
 loader's first pass) with the native library and with the numpy layout.
 
@@ -2265,6 +2294,19 @@ def rollout_scene(n, seed, r0):
     return {"loc": loc[p], "vel": vel[p]}
 
 
+def rollout_radius():
+    """Phase 3d's radius: mean degree ~ROLLOUT_DEG at ROLLOUT_N nodes per
+    unit cube (one correction for the cube's boundary). Returns (radius,
+    measured mean degree)."""
+    from distegnn_tpu_torch.ops.radius import radius_graph_np
+
+    r0 = (3.0 * ROLLOUT_DEG / (4.0 * math.pi * ROLLOUT_N)) ** (1.0 / 3.0)
+    probe = rollout_scene(ROLLOUT_N, 500, r0)["loc"]
+    e = radius_graph_np(probe, r0).shape[1]
+    r0 *= (ROLLOUT_DEG / (e / ROLLOUT_N)) ** (1.0 / 3.0)
+    return r0, radius_graph_np(probe, r0).shape[1] / ROLLOUT_N
+
+
 def rollout_slots(eng, scenes, dev):
     """The slot ids of the first step of a rollout_batch of ``scenes`` (the
     batch the 3d main path runs), for phase 2e."""
@@ -2306,16 +2348,9 @@ def rollout_serve_phase(root, dev, profile=False):
     from distegnn_tpu_torch.config import load_config
     from distegnn_tpu_torch.serve import engine_with_params_from_config
 
-    from distegnn_tpu_torch.ops.radius import radius_graph_np
-
-    # the radius of a 4000-node unit-cube scene at mean degree ~20 (one
-    # correction for the cube's boundary, as in :func:`scene`)
-    r0 = (3.0 * ROLLOUT_DEG / (4.0 * math.pi * ROLLOUT_N)) ** (1.0 / 3.0)
-    probe = rollout_scene(ROLLOUT_N, 500, r0)["loc"]
-    e = radius_graph_np(probe, r0).shape[1]
-    r0 *= (ROLLOUT_DEG / (e / ROLLOUT_N)) ** (1.0 / 3.0)
-    e = radius_graph_np(probe, r0).shape[1]
-    print(f"rollout scenes: radius {r0:.5f}, mean degree {e / ROLLOUT_N:.2f} "
+    # the radius of a 4000-node unit-cube scene at mean degree ~20
+    r0, deg = rollout_radius()
+    print(f"rollout scenes: radius {r0:.5f}, mean degree {deg:.2f} "
           f"at {ROLLOUT_N} nodes per unit cube")
     opts = dict(ROLLOUT_OPTS, radius=float(r0))
     path = os.path.join(root, "configs", "nbody_serve.yaml")
@@ -4133,6 +4168,605 @@ def profile_phase(eng, g, reps=5):
         print(f"profile kernel: {ms:.3f} ms  x{n}  {key[:90]}")
 
 
+# ---- phase 12: the serving gateway ------------------------------------------
+
+GW_SCENES = (1500, 3000, 6000)
+GW_PREDICTS, GW_CLIENTS = 64, 8
+GW_STREAM_CHUNK = 4
+GW_CUT_STEPS = 32          # the stream the client leaves after one chunk
+GW_TOL = 1e-5              # tests/test_torch_serve.py's bound
+GW_DRAIN_PREDICTS = 8
+GW_DRAIN_STEPS = 64        # a rollout that holds the drain open
+
+
+def gateway_yaml(root, tmp, r0):
+    """configs/nbody_serve.yaml as published plus the ``serve.models``
+    routing its comments document: ``fused`` (phase 3's model) and
+    ``rollout`` (phase 3d's)."""
+    import yaml
+
+    with open(os.path.join(root, "configs", "nbody_serve.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["serve"]["models"] = [
+        {"name": "fused", "overrides": {"model": {"edge_impl": "fused"},
+                                        "data": {"edge_block": BLOCK}}},
+        {"name": "rollout", "overrides": {
+            "model": {"blocked_impl": "pallas"},
+            "serve": {"rollout": dict(ROLLOUT_OPTS, radius=float(r0))}}}]
+    path = os.path.join(tmp, "gateway.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def b64(a, dtype="<f4"):
+    import base64
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a, dtype=dtype)
+    return {"b64": base64.b64encode(a.tobytes()).decode("ascii"),
+            "shape": list(a.shape)}
+
+
+def unb64(spec):
+    import base64
+
+    import numpy as np
+
+    return np.frombuffer(base64.b64decode(spec["b64"]),
+                         "<f4").reshape(spec["shape"])
+
+
+def predict_body(g):
+    return json.dumps({
+        "positions": b64(g["loc"]), "velocities": b64(g["vel"]),
+        "node_feat": b64(g["node_feat"]), "edge_attr": b64(g["edge_attr"]),
+        "edge_index": b64(g["edge_index"], "<i4"),
+        "encoding": "b64"}).encode()
+
+
+def rollout_body(s, steps, chunk=None):
+    body = {"positions": b64(s["loc"]), "velocities": b64(s["vel"]),
+            "steps": int(steps), "encoding": "b64"}
+    if chunk is not None:
+        body["chunk_steps"] = int(chunk)
+    return json.dumps(body).encode()
+
+
+def http_call(port, method, path, data=None, timeout=300):
+    """One request on its own connection -> (status, body bytes, ms)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    c.request(method, path, body=data,
+              headers={"Content-Type": "application/json"})
+    r = c.getresponse()
+    body = r.read()
+    c.close()
+    return r.status, body, (time.perf_counter() - t0) * 1e3
+
+
+def http_stream(port, path, data, leave_after=None):
+    """A streamed rollout: the NDJSON lines, the ms to the first line and
+    to the end; ``leave_after`` lines closes the connection early."""
+    import http.client
+
+    t0 = time.perf_counter()
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    c.request("POST", path, body=data,
+              headers={"Content-Type": "application/json"})
+    r = c.getresponse()
+    lines, first_ms = [], None
+    while True:
+        line = r.readline()
+        if not line:
+            break
+        if first_ms is None:
+            first_ms = (time.perf_counter() - t0) * 1e3
+        lines.append(json.loads(line))
+        if leave_after is not None and len(lines) >= leave_after:
+            break
+    c.close()
+    return r.status, lines, first_ms, (time.perf_counter() - t0) * 1e3
+
+
+def pct(vals, q):
+    s = sorted(vals)
+    return s[min(len(s) - 1, max(0, int(round(q / 100 * (len(s) - 1)))))]
+
+
+def gateway_phase(root, dev):
+    """Phase 12 (see the module docstring). Its files go to a temporary
+    directory that is removed afterwards."""
+    import tempfile
+
+    from distegnn_tpu_torch import obs
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gateway_") as tmp:
+        try:
+            return _gateway_phase(root, dev, tmp)
+        finally:
+            obs.configure(enable=False)     # the event file dies with tmp
+
+
+def _gateway_phase(root, dev, tmp):
+    import queue as pyqueue
+    import threading
+
+    import numpy as np
+    import torch
+
+    from distegnn_tpu_torch import obs
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.models.registry import get_model
+    from distegnn_tpu_torch.obs.metrics import MetricsRegistry
+    from distegnn_tpu_torch.obs.report import load_events
+    from distegnn_tpu_torch.obs.slo import parse_prometheus
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.serve import engine_with_params_from_config
+    from distegnn_tpu_torch.serve.registry import ModelRegistry
+    from distegnn_tpu_torch.serve.transport import Gateway
+    from distegnn_tpu_torch.train.checkpoint import save_checkpoint
+    from distegnn_tpu_torch.train.step import TrainState, make_optimizer
+
+    t_phase = time.perf_counter()
+    r0, deg = rollout_radius()
+    path = gateway_yaml(root, tmp, r0)
+    cfg = load_config(path)
+    print(f"gateway config: configs/nbody_serve.yaml as published + "
+          f"serve.models [fused: edge_impl fused, edge_block {BLOCK}; "
+          f"rollout: blocked_impl pallas, serve.rollout radius {r0:.4f} "
+          f"(mean degree {deg:.2f}), {ROLLOUT_OPTS}]; max_batch "
+          f"{cfg.serve.max_batch}, batch_deadline_ms "
+          f"{cfg.serve.batch_deadline_ms}, queue_capacity "
+          f"{cfg.serve.queue_capacity}, request_timeout_ms "
+          f"{cfg.serve.request_timeout_ms}, warmup_nodes "
+          f"{list(cfg.serve.gateway.warmup_nodes)} (as published)")
+    obs.configure(log_dir=os.path.join(tmp, "obs"))
+    reg = ModelRegistry.from_config(cfg, device=dev)
+    fused, roll = reg.get("fused"), reg.get("rollout")
+    m = fused.config.model
+    L, B = int(m.n_layers), int(fused.engine.max_batch)
+    print(f"gateway models: fused H={m.hidden_nf} L={L} "
+          f"C={m.virtual_channels} edge_impl={m.edge_impl}; rollout "
+          f"blocked_impl={roll.config.model.blocked_impl}")
+    reg.start()
+    reg.warmup([int(n) for n in cfg.serve.gateway.warmup_nodes])
+    check(reg.ready(), f"gateway: models not ready after warmup: "
+          f"{reg.health()}")
+    gw_metrics = MetricsRegistry()
+    gw = Gateway(reg, host="127.0.0.1", port=0,
+                 max_inflight=int(cfg.serve.gateway.max_inflight),
+                 drain_grace_s=float(cfg.serve.gateway.drain_grace_s),
+                 metrics_registry=gw_metrics,
+                 stream_chunk_steps=int(cfg.serve.stream.chunk_steps))
+    server = threading.Thread(target=gw.serve_forever, daemon=True)
+    server.start()
+    port = gw.port
+
+    # the traffic of (a): predicts, rollouts, two streams, three errors
+    preds = [scene(n, seed=700 + 10 * i + k) for i, n in
+             enumerate(GW_SCENES) for k in range(2)]
+    bodies = [predict_body(g) for g in preds]
+    many = [rollout_scene(n, 710 + i, r0)
+            for i, n in enumerate(ROLLOUT_SIZES)]
+    K = ROLLOUT_STEPS
+    # one client sends the rollouts and then the two streams, each after the
+    # last came back; the other seven share the predicts and the errors.
+    # The queue batches rollouts per (rung, steps), and 1000-4000 nodes are
+    # three rungs: sent at once, the later rungs would wait behind the first
+    # past the published 500 ms queued-time deadline
+    mixed = [("predict", i % len(preds)) for i in range(GW_PREDICTS)]
+    mixed += [("413", None), ("404", None), ("400", None)]
+    work = [pyqueue.Queue() for _ in range(2)]
+    for job in [("rollout", i) for i in range(len(many))] + [
+            ("stream", len(many) - 1), ("cut", 0)]:
+        work[0].put(job)
+    for i in np.random.default_rng(12).permutation(len(mixed)):
+        work[1].put(mixed[i])
+    jobs = list(work[0].queue) + list(work[1].queue)
+    over = json.dumps({"positions": b64(np.random.default_rng(1).uniform(
+        0, 1, (int(cfg.serve.max_nodes) + 1, 3))),
+        "edge_index": [[0, 1], [1, 0]]}).encode()
+    tiny = json.dumps({"positions": [[0.0, 0.0, 0.0]],
+                       "radius": 0.1}).encode()
+    results = []
+    lock = threading.Lock()
+
+    def client(jobs_q):
+        while True:
+            try:
+                kind, i = jobs_q.get_nowait()
+            except pyqueue.Empty:
+                return
+            if kind == "predict":
+                out = http_call(port, "POST", "/v1/models/fused/predict",
+                           bodies[i])
+            elif kind == "rollout":
+                out = http_call(port, "POST", "/v1/models/rollout/rollout",
+                           rollout_body(many[i], K))
+            elif kind in ("stream", "cut"):
+                out = http_stream(
+                    port, "/v1/models/rollout/rollout?stream=1",
+                    rollout_body(many[i], K if kind == "stream"
+                                 else GW_CUT_STEPS, GW_STREAM_CHUNK),
+                    leave_after=1 if kind == "cut" else None)
+            elif kind == "413":
+                out = http_call(port, "POST", "/v1/models/fused/predict", over)
+            elif kind == "404":
+                out = http_call(port, "POST", "/v1/models/nope/predict",
+                                tiny)
+            else:
+                out = http_call(port, "POST", "/v1/models/fused/predict",
+                           b"{not json")
+            with lock:
+                results.append((kind, i, out))
+
+    # the engine warms predict rungs only: one rollout and one stream of a
+    # step each take the rollout path's first-use costs before the counts
+    st, _, ms = http_call(port, "POST", "/v1/models/rollout/rollout",
+                          rollout_body(many[-1], 1))
+    st2, lines, _, ms2 = http_stream(
+        port, "/v1/models/rollout/rollout?stream=1",
+        rollout_body(many[0], 1, 1))
+    print(f"gateway rollout warm-up: buffered K=1 {st} in {ms:.1f} ms, "
+          f"streamed K=1 {st2} in {ms2:.1f} ms")
+    check(st == 200 and st2 == 200 and lines[-1].get("done"),
+          "gateway: the rollout warm-up failed")
+    torch.cuda.synchronize()
+    b0 = fused.engine.metrics.snapshot()
+    t_reset = time.time()           # the events' clock: the warm-up's end
+    reset_fused_counts()
+    reset_blocked_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(work[min(c, 1)],))
+               for c in range(GW_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    # the client that left got its answer before the server stopped: wait
+    # for the cancelled stream's end (its event) before reading the counts
+    events_path = os.path.join(tmp, "obs", "events.jsonl")
+    cut = []
+    while not cut:
+        check(time.perf_counter() - t0 < 600, "gateway: the disconnected "
+              "stream never ended")
+        time.sleep(0.05)
+        obs.flush()
+        if os.path.exists(events_path):
+            cut = [e for e in load_events(events_path)[0]
+                   if e.get("name") == "serve/stream_cancelled"]
+    fwd, tc = fwd_counts()
+    f32 = ep.fused_edge_layer.f32_launches
+    bl_n, bl_w = blocked_counts(), blocked_widths()
+    b1 = fused.engine.metrics.snapshot()
+    check(len(results) == len(jobs), f"gateway: {len(results)} of "
+          f"{len(jobs)} requests answered")
+    by = collections.defaultdict(list)
+    for kind, i, out in results:
+        by[kind].append((i, out))
+    for kind, want in (("413", 413), ("404", 404), ("400", 400)):
+        st, body, _ = by[kind][0][1]
+        print(f"gateway {kind}: status {st} {json.loads(body)['type']}")
+        check(st == want, f"gateway: {kind} answered {st}")
+    for i, (st, body, ms) in sorted(by["rollout"]):
+        b = json.loads(body)
+        print(f"gateway rollout {i} ({many[i]['loc'].shape[0]} nodes): "
+              f"status {st} in {ms:.1f} ms"
+              + (f", queue {b['queue_ms']} ms, compute {b['compute_ms']} ms,"
+                 f" batch of {b['batch_filled']}" if st == 200 else
+                 f": {b['type']}"))
+    bad = [o[0] for _, o in by["rollout"] if o[0] != 200]
+    check(not bad, f"gateway: rollout statuses {bad}")
+    # seven closed-loop clients with no pause between requests offer more
+    # than the fused dispatcher serves in the published 500 ms queued-time
+    # deadline at times: such a predict is shed as the JAX gateway sheds it,
+    # a 504 RequestTimeout, counted here and on the gateway's counter
+    shed = [json.loads(o[1])["type"] for _, o in by["predict"]
+            if o[0] != 200]
+    timeouts = int(gw_metrics.snapshot()["gateway/timeouts"])
+    print(f"gateway predicts: {GW_PREDICTS - len(shed)} answered 200, "
+          f"{len(shed)} shed at the deadline {sorted(set(shed))}; the "
+          f"gateway's timeouts counter {timeouts}")
+    check(set(shed) <= {"RequestTimeout"} and len(shed) == timeouts,
+          f"gateway: predicts answered {shed}")
+    check({i for i, o in by["predict"] if o[0] == 200} == set(
+        range(len(preds))), "gateway: a scene was never answered")
+
+    # launches: fused forward L x max_batch per executed predict batch
+    batches = b1["batches_executed"] - b0["batches_executed"]
+    check(b1["requests_retried"] == b0["requests_retried"],
+          "gateway: a predict batch was retried")
+    want_fwd = L * B * batches
+    print(f"gateway fused predicts: {GW_PREDICTS} requests in {batches} "
+          f"batches; fused_edge_fwd launches {fwd} (expected L x max_batch "
+          f"x batches = {L} x {B} x {batches} = {want_fwd}), {f32} on the "
+          f"f32 kernel, {tc} on the tensor-core kernel")
+    check(fwd == want_fwd and f32 == fwd and tc == 0,
+          f"gateway: fused launches {fwd}/{f32}/{tc} != {want_fwd}")
+    obs.flush()
+    events, _ = load_events(events_path)
+    execs = [e for e in events if e.get("name") == "serve/execute"
+             and e.get("workload") in ("rollout", "rollout_stream")
+             and e["ts"] >= t_reset]
+    steps = sum(int(e["steps"]) for e in execs)
+    want_bl = blocked_want(L, steps=steps)
+    print(f"gateway rollouts: {len(execs)} executions, {steps} steps; "
+          f"blocked_seg_sum {bl_n[0]} {bl_w[0]}, blocked_gather {bl_n[1]} "
+          f"{bl_w[1]}, blocked_plan {bl_n[2]} (expected per step 2L, 2L "
+          f"and 1: {want_bl})")
+    check(bl_w == want_bl[:2] and bl_n == (2 * L * steps, 2 * L * steps,
+                                           steps),
+          f"gateway: blocked launches {bl_n} {bl_w} != {want_bl}")
+    check(len(cut) == 1, f"gateway: {len(cut)} stream_cancelled events")
+    chunks_run = cut[0]["steps_done"] // GW_STREAM_CHUNK
+    total_chunks = GW_CUT_STEPS // GW_STREAM_CHUNK
+    print(f"gateway disconnected stream: {chunks_run} of {total_chunks} "
+          f"chunks ran ({cut[0]['steps_done']} of {GW_CUT_STEPS} steps)")
+    check(chunks_run < total_chunks, "gateway: the disconnect cancelled "
+          "nothing")
+
+    # the batcher coalesced: mean requests per executed batch, from /metrics
+    st, text, _ = http_call(port, "GET", "/metrics")
+    prom = parse_prometheus(text.decode())
+    pre = "distegnn_model_fused_serve_"
+    fill = prom[pre + "batch_slots_filled"] / prom[pre + "batches_executed"]
+    print(f"gateway /metrics: {int(prom[pre + 'batches_executed'])} fused "
+          f"batches, mean batch fill {fill:.3f} requests (of {B})")
+    check(st == 200 and fill > 1.0, f"gateway: mean batch fill {fill}")
+
+    # every predict against a direct engine of the same entry and seed
+    _, direct = engine_with_params_from_config(fused.config, device=dev)
+    want = [direct.predict(g) for g in preds]
+    err = 0.0
+    for i, (stt, body, _) in by["predict"]:
+        if stt != 200:
+            continue
+        out = unb64(json.loads(body)["prediction"])
+        err = max(err, float(np.abs(out - want[i]).max()))
+    print(f"gateway predicts vs engine.predict: max_abs_err {err:.3e} tol "
+          f"{GW_TOL:.0e}")
+    legs = collections.defaultdict(list)
+    for _, (stt, body, ms) in by["predict"]:
+        if stt != 200:
+            continue
+        b = json.loads(body)
+        for k in ("queue_ms", "compute_ms", "total_ms"):
+            legs[k].append(b[k])
+        legs["client_ms"].append(ms)
+    print("gateway predict legs, p50 / p99 ms: " + ", ".join(
+        f"{k} {pct(v, 50):.2f} / {pct(v, 99):.2f}"
+        for k, v in legs.items()) + " (queue and compute: the batch's; "
+        "total: the handler's, from the body's decode to the answer)")
+    check(err <= GW_TOL, "gateway: a predict disagrees with the engine")
+    # rollouts against engine.rollout, at phase 3d's bounds
+    _, rdirect = engine_with_params_from_config(roll.config, device=dev)
+    trajs = {i: unb64(json.loads(o[1])["trajectory"])
+             for i, o in by["rollout"]}
+    worst = (0.0, 0.0)
+    for i, s in enumerate(many):
+        ref = rdirect.rollout(s["loc"], s["vel"], K)
+        d1 = float(np.abs(ref[0] - s["loc"]).max())
+        dk = float(np.abs(ref - s["loc"]).max())
+        e1 = float(np.abs(trajs[i][0] - ref[0]).max()) / d1
+        ek = float(np.abs(trajs[i] - ref).max()) / dk
+        worst = (max(worst[0], e1), max(worst[1], ek))
+    print(f"gateway rollouts vs engine.rollout: first step {worst[0]:.3e} "
+          f"of max |x_1 - x_0| (tol {TOL_ROLLOUT_STEP:.0e}), all steps "
+          f"{worst[1]:.3e} of max |x_k - x_0| (tol {TOL_ROLLOUT_TRAJ:.0e})")
+    check(worst[0] <= TOL_ROLLOUT_STEP and worst[1] <= TOL_ROLLOUT_TRAJ,
+          "gateway: a rollout disagrees with engine.rollout")
+    (si, (sst, lines, first_ms, stream_ms)), = by["stream"]
+    check(sst == 200 and lines[-1].get("done") and
+          not lines[-1]["cancelled"], f"gateway: stream {sst} {lines[-1]}")
+    cat = np.concatenate([unb64(x["chunk"]) for x in lines[:-1]])
+    ref = trajs[si]
+    d1 = float(np.abs(ref[0] - many[si]["loc"]).max())
+    dk = float(np.abs(ref - many[si]["loc"]).max())
+    e1 = float(np.abs(cat[0] - ref[0]).max()) / d1
+    ek = float(np.abs(cat - ref).max()) / dk
+    print(f"gateway stream ({len(lines) - 1} chunks of {GW_STREAM_CHUNK}) "
+          f"vs the buffered trajectory: first step {e1:.3e}, all steps "
+          f"{ek:.3e} (phase 3d's bounds)")
+    check(cat.shape == ref.shape and e1 <= TOL_ROLLOUT_STEP
+          and ek <= TOL_ROLLOUT_TRAJ, "gateway: the streamed trajectory "
+          "disagrees with the buffered one")
+
+    # blue/green: the trainer's checkpoint format, then a NaN parameter
+    gen = torch.Generator().manual_seed(int(cfg.seed) + 1)
+    new = get_model(fused.config.model, generator=gen)
+    good = os.path.join(tmp, "swap", "good.ckpt")
+    save_checkpoint(good, TrainState(new, make_optimizer(
+        new.parameters(), 1e-3)), epoch=0)
+    nan = get_model(fused.config.model, generator=gen)
+    with torch.no_grad():
+        next(iter(nan.parameters())).view(-1)[0] = float("nan")
+    bad = os.path.join(tmp, "swap_nan", "nan.ckpt")
+    save_checkpoint(bad, TrainState(nan, make_optimizer(
+        nan.parameters(), 1e-3)), epoch=0)
+    reset_fused_counts()
+    st, body, ms = http_call(port, "POST", "/v1/models/fused/swap",
+                        json.dumps({"checkpoint": good}).encode())
+    info = json.loads(body)
+    swap_fwd = fwd_counts()[0]
+    print(f"gateway swap to the trainer checkpoint: status {st} {info} in "
+          f"{ms:.1f} ms; canary launches {swap_fwd} (expected L x max_batch"
+          f" x rungs = {L * B * info.get('rungs_canaried', -1)})")
+    check(st == 200 and info["version"] == 1 and
+          swap_fwd == L * B * info["rungs_canaried"], "gateway: swap failed")
+    reset_fused_counts()
+    st, body, _ = http_call(port, "POST", "/v1/models/fused/swap",
+                       json.dumps({"checkpoint": bad}).encode())
+    info = json.loads(body)
+    print(f"gateway swap to a NaN parameter: status {st} {info['type']} "
+          f"stage {info['stage']} rolled_back {info['rolled_back']}; "
+          f"canary launches {fwd_counts()[0]} (expected {L * B}: the "
+          f"first rung fails)")
+    check(st == 422 and info["stage"] == "canary" and info["rolled_back"]
+          and fwd_counts()[0] == L * B, "gateway: the NaN swap did not "
+          "roll back")
+    _, sdirect = engine_with_params_from_config(fused.config, device=dev,
+                                                checkpoint=good)
+    err = 0.0
+    for g, b in zip(preds[::2], bodies[::2]):
+        st, body, _ = http_call(port, "POST", "/v1/models/fused/predict", b)
+        check(st == 200, f"gateway: predict after the swaps {st}")
+        out = unb64(json.loads(body)["prediction"])
+        err = max(err, float(np.abs(out - sdirect.predict(g)).max()))
+    print(f"gateway predicts after the swaps vs the new checkpoint's "
+          f"engine: max_abs_err {err:.3e} tol {GW_TOL:.0e}")
+    check(err <= GW_TOL, "gateway: the swapped model disagrees")
+    del direct, rdirect, sdirect
+
+    # client-side latency per model and route
+    lat = collections.defaultdict(list)
+    for kind, i, out in results:
+        if kind in ("predict", "rollout"):
+            lat[kind].append(out[2])
+        elif kind in ("stream", "cut"):
+            lat[kind].append(out[3])
+    for kind, model in (("predict", "fused"), ("rollout", "rollout"),
+                        ("stream", "rollout"), ("cut", "rollout")):
+        v = lat[kind]
+        print(f"gateway client ms {model} {kind}: n={len(v)} p50 "
+              f"{pct(v, 50):.2f} p99 {pct(v, 99):.2f}")
+    print(f"gateway (a): {len(results)} requests from {GW_CLIENTS} "
+          f"closed-loop clients in "
+          f"{wall:.3f} s: {len(results) / wall:.1f} requests/s; rollout "
+          f"K={K} p50 {pct(lat['rollout'], 50):.2f} ms; stream first chunk "
+          f"{first_ms:.2f} ms of {stream_ms:.2f} ms")
+    gw.drain()
+    gw.close()
+    server.join(30)
+
+    drain_s = gateway_subprocess(root, path, bodies, many[-1], dev)
+    ph_s = time.perf_counter() - t_phase
+    print(f"gateway phase: {ph_s:.1f} s")
+    return dict(fwd=fwd, blocked=bl_n, widths=bl_w, fill=fill,
+                rps=len(results) / wall, drain_s=drain_s)
+
+
+def gateway_subprocess(root, path, bodies, long_scene, dev):
+    """Phase 12 (b): ``python -m distegnn_tpu_torch.serve.gateway`` on the
+    card; SIGTERM while requests are in flight. Returns the drain seconds."""
+    import signal
+    import threading
+
+    from distegnn_tpu_torch.obs.slo import parse_prometheus
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=root)
+    err_path = os.path.join(os.path.dirname(path), "gateway.stderr")
+    err = open(err_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distegnn_tpu_torch.serve.gateway",
+         "--config_path", path, "--port", "0", "--obs-dir", "",
+         "--device", dev.type],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+
+    def stderr_tail():
+        err.flush()
+        with open(err_path) as f:
+            return f.read()[-2000:]
+
+    try:
+        port = None
+        for line in proc.stdout:
+            if "listening on http://" in line:
+                port = int(line.split("http://")[1].split()[0]
+                           .rsplit(":", 1)[1])
+                break
+        if port is None:
+            proc.kill()
+            fail(f"gateway entry point printed no listening line: "
+                 f"{stderr_tail()}")
+        while True:
+            st, body, _ = http_call(port, "GET", "/readyz")
+            if st == 200:
+                break
+            check(time.perf_counter() - t0 < 120, "gateway: /readyz never "
+                  "answered 200")
+            time.sleep(0.05)
+        print(f"gateway entry point: ready on port {port} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        res = {}
+
+        def go(key, path_, body):
+            try:
+                res[key] = http_call(port, "POST", path_, body)
+            except OSError as exc:
+                res[key] = (None, repr(exc).encode(), 0.0)
+
+        long = threading.Thread(target=go, args=(
+            "long", "/v1/models/rollout/rollout",
+            rollout_body(long_scene, GW_DRAIN_STEPS)))
+        long.start()
+        time.sleep(0.3)
+        # one rung (the two 1500-node scenes): two batches of four
+        ts = [threading.Thread(target=go, args=(
+            i, "/v1/models/fused/predict", bodies[i % 2]))
+            for i in range(GW_DRAIN_PREDICTS)]
+        for t in ts:
+            t.start()
+        # SIGTERM once the server holds them all (its inflight gauge), or
+        # after a second
+        t_wait = time.perf_counter()
+        while time.perf_counter() - t_wait < 1.0:
+            st, text, _ = http_call(port, "GET", "/metrics")
+            held = parse_prometheus(text.decode()).get(
+                "distegnn_gateway_inflight", 0.0)
+            if held >= 1 + GW_DRAIN_PREDICTS:
+                break
+            time.sleep(0.002)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        saw = None
+        while saw is None and proc.poll() is None:
+            try:
+                st, body, _ = http_call(port, "GET", "/readyz", timeout=5)
+                if st == 503:
+                    saw = json.loads(body)
+            except OSError:
+                break
+            time.sleep(0.005)
+        code = proc.wait(timeout=120)
+        drain_s = time.perf_counter() - t_sig
+        for t in ts + [long]:
+            t.join(60)
+        # a request the server never read (still in the listen backlog when
+        # the drain closed it) fails to connect: it was not accepted
+        statuses = [res[i][0] for i in range(GW_DRAIN_PREDICTS)]
+        types = sorted({json.loads(res[i][1]).get("type", "")
+                        if res[i][0] is not None else res[i][1].decode()
+                        for i in range(GW_DRAIN_PREDICTS)
+                        if res[i][0] != 200})
+        print(f"gateway SIGTERM with {int(held)} requests in flight: exit "
+              f"code {code} after {drain_s:.3f} s; "
+              f"in-flight rollout K={GW_DRAIN_STEPS} status "
+              f"{res['long'][0]}; predicts {statuses} (non-200 types "
+              f"{types}); /readyz during the drain: {saw}")
+        if code != 0:
+            fail(f"gateway entry point exited {code}: {stderr_tail()}")
+        check(res["long"][0] == 200, "gateway: the accepted rollout did not "
+              "get its 200")
+        check(all(s in (200, 503, None) for s in statuses)
+              and all(res[i][0] != 503 or json.loads(res[i][1])["type"]
+                      == "Draining" for i in range(GW_DRAIN_PREDICTS)),
+              f"gateway: drain answered {statuses} {types}")
+        check(saw is not None and saw.get("reason") == "draining",
+              "gateway: /readyz never answered 503 during the drain")
+        return drain_s
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+
+
 def main():
     import torch
 
@@ -4208,7 +4842,9 @@ def main():
     dist = dist_phase(root, dev, clouds)
     preempt = preempt_phase(root, dev, clouds)
     data = data_phase(root, dev)
+    gate = gateway_phase(root, dev)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
+          f"{gate['fwd']} (gateway) + "
           f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
           f"backward) + {dist['launches'][0]} (distributed train, "
           f"{DIST_WS} ranks), fused_edge_bwd {train_bwd} (train) + "
@@ -4224,6 +4860,9 @@ def main():
           f"{rollout['launches'][1][1]} + {blocked['launches'][1]}, "
           f"blocked_plan {rollout['launches'][0][2]} + "
           f"{rollout['launches'][1][2]} + {blocked['launches'][2]}; "
+          f"gateway rollouts: blocked_seg_sum {gate['blocked'][0]}, "
+          f"blocked_gather {gate['blocked'][1]}, blocked_plan "
+          f"{gate['blocked'][2]}; "
           f"preemption drill run A: fused_edge_fwd "
           f"{preempt['launches'][0]}, fused_edge_bwd "
           f"{preempt['launches'][1]}; Water-3D fused train (phase 11 (b)): "
@@ -4259,7 +4898,7 @@ def main():
          "distegnn_tpu/ops/cumsum.py:62"))
     kernels = [
         row("fused_edge_fwd_f32", "serve f32 N=8192", kres["f32"], fwd_tpu,
-            launches, source="fused_edge_fwd"),
+            launches + gate["fwd"], source="fused_edge_fwd"),
         row(flagship["fused_edge_fwd"]["kernel"],
             f"train {flagship['fused_edge_fwd']['dtype']} "
             f"{flagship['fused_edge_fwd']['shape']}",
@@ -4310,7 +4949,7 @@ def main():
     for i, name in enumerate(("blocked_seg_sum", "blocked_gather")):
         for path, rows, widths in (
                 ("rollout serve", rollout["rows"],
-                 [w[i] for w in rollout["widths"]]),
+                 [w[i] for w in rollout["widths"]] + [gate["widths"][i]]),
                 ("blocked train", blocked["rows"], [blocked["widths"][i]])):
             for key, r in sorted(rows.items()):
                 n = sum(w.get(key, 0) for w in widths)
@@ -4320,7 +4959,7 @@ def main():
                         BLOCKED_TPU[name], n, source="blocked_onehot"))
     for path, rows, n in (
             ("rollout serve", rollout["rows"],
-             sum(c[2] for c in rollout["launches"])),
+             sum(c[2] for c in rollout["launches"]) + gate["blocked"][2]),
             ("blocked train", blocked["rows"], blocked["launches"][2])):
         r = rows[min(rows)]["blocked_plan"]
         kernels.append(row("blocked_plan", f"{path} {r['shape']}", r,

@@ -1,21 +1,21 @@
 """Config loading for the port — the slice of ``distegnn_tpu/config.py`` that
 the serving and training paths read: YAML merged over defaults, overrides,
-the ``model``/``data``/``train``/``log``/``serve`` checks, the trainer's
-command-line flags and its derived run name (pure Python, no jax).
+the ``model``/``data``/``train``/``log``/``obs``/``serve``/``slo``/
+``promote`` checks, the trainer's command-line flags and its derived run
+name (pure Python, no jax).
 
-Sections the port does not read yet (promote, slo, ...) are carried through
-from the YAML unchanged. The keys that the JAX package acts on and the port
-does not port yet (``train.scan_epochs``, the data and tensor axes
-``parallel.mesh.data`` / ``data.data_parallel`` and ``parallel.mesh.tensor``,
-``log.wandb.enable``, ``serve.tiled.enable``, ``promote.publish``) must keep
-their JAX defaults: any other value raises ``NotImplementedError`` naming the
-key and the ROADMAP item that will port it, rather than run another program
-without a word. At their defaults the port runs the JAX program.
-``train.divergence_retries`` / ``divergence_lr_decay`` (the trainer's
-rollback), ``train.resume`` / ``checkpoint_interval_s`` /
-``keep_checkpoints`` (preemption, cadence saves and the resume scan),
-``log.trace_epoch`` / ``check_consistency`` and the ``obs`` section are
-ported and checked as in JAX.
+The keys that the JAX package acts on and the port does not port yet
+(``train.scan_epochs``, the data and tensor axes ``parallel.mesh.data`` /
+``data.data_parallel`` and ``parallel.mesh.tensor``, ``log.wandb.enable``,
+``serve.tiled.enable``, ``serve.workers``, ``serve.donate``,
+``promote.publish`` and ``promote.enable``) must keep their JAX defaults:
+any other value raises ``NotImplementedError`` naming the key and the
+ROADMAP item that will port it, rather than run another program without a
+word. At their defaults the port runs the JAX program. Every other serving
+key acts as in JAX: the queue and gateway keys in ``serve/queue.py`` and
+``serve/transport.py``, ``serve.cache_size`` as the engine's LRU of shape
+keys, ``serve.replicas`` / ``supervisor`` / ``autoscale`` in
+``serve/replica.py`` and its neighbours, ``slo`` in ``obs/slo.py``.
 """
 
 from __future__ import annotations
@@ -180,15 +180,121 @@ _DEFAULTS: dict = {
         "edge_multiple": 128,
         "max_nodes": 65536,
         "max_edges": 1 << 20,
+        # micro-batcher (serve/queue.py): coalesce same-rung requests up to
+        # max_batch or until the oldest has waited batch_deadline_ms; every
+        # forward runs at exactly max_batch graphs
         "max_batch": 8,
+        "batch_deadline_ms": 5.0,
+        # bounded ingress (submits beyond it fail fast) and the per-request
+        # queued-time deadline
+        "queue_capacity": 256,
+        "request_timeout_ms": 1000.0,
+        # the engine's LRU of shape keys (serve/engine.py: hits, misses and
+        # evictions as the JAX compile cache counts them) and buffer
+        # donation ('auto' is JAX's no-op off a TPU; true is refused)
+        "cache_size": 32,
+        "donate": "auto",
+        # hard-deadline headroom over request_timeout_ms: a ServeFuture
+        # waits at most timeout + margin (the gateway's 504)
+        "result_margin_s": 30.0,
         # optional K-step rollout serving (rollout.make_rollout_fn kwargs);
         # null disables rollouts
         "rollout": None,
+        # the session-affinity prep cache (serve/prep.py): entries (0
+        # disables) and a byte bound (0 = entries only)
+        "session_cache": 64,
+        "session_cache_bytes": 1 << 30,
         # the tiled executor: not ported (see _UNPORTED)
         "tiled": {"enable": False},
+        # engine replicas per model (serve/replica.py); 'thread' is the only
+        # ported backend (see _UNPORTED)
+        "replicas": 1,
+        "workers": "thread",
+        # the process backend's knobs, checked but not read (see _UNPORTED)
+        "worker": {
+            "spawn_timeout_s": 120.0,
+            "heartbeat_s": 0.5,
+            "kill_grace_s": 3.0,
+        },
+        # ReplicaSupervisor kwargs (serve/supervisor.py)
+        "supervisor": {
+            "heartbeat_s": 0.25,
+            "wedge_timeout_s": 60.0,
+            "worker_heartbeat_timeout_s": 10.0,
+            "backoff_base_s": 0.5,
+            "backoff_max_s": 30.0,
+            "breaker_threshold": 3,
+            "breaker_cooldown_s": 30.0,
+            "healthy_reset_s": 60.0,
+        },
+        # ReplicaAutoscaler knobs (serve/autoscale.py); off by default
+        "autoscale": {
+            "enable": False,
+            "min_replicas": 1,
+            "max_replicas": 4,
+            "interval_s": 0.5,
+            "scale_up_cooldown_s": 2.0,
+            "scale_down_cooldown_s": 10.0,
+            "step": 1,
+            "queue_high": 4.0,
+            "shed_high": 0.01,
+            "p99_high_ms": None,
+            "queue_low": 0.5,
+            "idle_rounds": 3,
+            "drain_timeout_s": 30.0,
+        },
+        # priority admission (serve/transport.py): bulk rollouts capped at a
+        # share of max_inflight, deferred while the SLO window is degraded
+        "priority": {
+            "enable": True,
+            "header": "X-Priority",
+            "bulk_max_inflight_frac": 0.75,
+            "degrade_shed_rate": 0.05,
+            "degrade_p99_ms": None,
+            "bulk_retry_factor": 4.0,
+            "bulk_content_bytes": 4_194_304,
+        },
+        # streamed rollouts (POST .../rollout?stream=1): steps per chunk
+        "stream": {"chunk_steps": 8},
+        # multi-model routing (serve/registry.py): null = one model from
+        # this config, else a list of {name, config_path?, overrides?}
+        "models": None,
+        # the HTTP gateway (serve/transport.py, serve/gateway.py)
+        "gateway": {
+            "host": "127.0.0.1",
+            "port": 8008,
+            "max_inflight": 64,
+            "drain_grace_s": 10.0,
+            "warmup_nodes": [48, 96],
+        },
     },
-    # the promotion conveyor's trainer end: not ported (see _UNPORTED)
-    "promote": {"publish": False},
+    # service-level objectives (obs/slo.py): thresholds scored against the
+    # event stream or a GET /metrics scrape; window_s sizes the gateway's
+    # rolling slo/window_* gauges
+    "slo": {
+        "enable": True,
+        "window_s": 60.0,
+        "routes": {},
+        "error_rate_max": None,
+        "shed_rate_max": None,
+        "batch_fill_min": None,
+        "session_hit_min": None,
+    },
+    # the promotion conveyor: checked as in JAX, not ported (see _UNPORTED)
+    "promote": {
+        "enable": False,
+        "publish": False,
+        "watch_dir": "",
+        "model": "",
+        "interval_s": 1.0,
+        "history": 4,
+        "shadow_sample": 0.25,
+        "min_shadow": 8,
+        "max_shadow_inflight": 8,
+        "gate_timeout_s": 30.0,
+        "drift_ceiling": 0.05,
+        "max_error_rate": 0.0,
+    },
 }
 
 def _merge(base: dict, override: Mapping) -> dict:
@@ -253,6 +359,14 @@ _UNPORTED = (
      "the tiled executor, ROADMAP.md queue 1 item 6"),
     ("promote.publish", (False, None),
      "the promotion publisher (promote/), ROADMAP.md queue 1 item 6"),
+    ("promote.enable", (False, None),
+     "the promoter (promote/), ROADMAP.md queue 1 item 6"),
+    ("serve.workers", ("thread", None),
+     "the process backend (serve/worker.py), ROADMAP.md queue 1 item 6; "
+     "the port's replicas are threads"),
+    ("serve.donate", ("auto", False),
+     "buffer donation: eager PyTorch has none to give, ROADMAP.md queue 1 "
+     "item 6; 'auto' is JAX's own no-op off a TPU"),
 )
 
 
@@ -383,13 +497,68 @@ def validate_config(cfg: ConfigDict) -> None:
                 "16 MiB/core default; the fused_stack megakernel raises "
                 "StackVmemBudgetError at trace time when the VMEM-resident "
                 "graph exceeds this bound)")
+    sl = cfg.get("slo")
+    if sl is not None:
+        if not isinstance(sl.get("enable", True), bool):
+            raise ValueError("slo.enable must be a boolean")
+        from distegnn_tpu_torch.obs.slo import SLOSpec
+
+        try:
+            # SLOSpec.from_mapping owns the threshold/route validation;
+            # surface its message under the config-section idiom
+            SLOSpec.from_mapping(dict(sl))
+        except ValueError as exc:
+            raise ValueError(str(exc)) from None
     s = cfg.get("serve")
     if s is None:
-        return
+        return  # hand-built config without the serving section
     if float(s.growth) <= 1.0:
         raise ValueError("serve.growth must be > 1")
-    if int(s.max_batch) < 1:
-        raise ValueError("serve.max_batch must be >= 1")
+    if int(s.max_batch) < 1 or int(s.cache_size) < 1:
+        raise ValueError("serve.max_batch and serve.cache_size must be >= 1")
+    if int(s.queue_capacity) < 1:
+        raise ValueError("serve.queue_capacity must be >= 1")
+    if float(s.batch_deadline_ms) < 0 or float(s.request_timeout_ms) <= 0:
+        raise ValueError("serve.batch_deadline_ms must be >= 0 and "
+                         "serve.request_timeout_ms > 0")
+    if s.donate not in (True, False, "auto"):
+        raise ValueError("serve.donate must be true, false, or 'auto'")
+    if float(s.get("result_margin_s", 30.0)) <= 0:
+        raise ValueError("serve.result_margin_s must be > 0")
+    if int(s.get("session_cache", 0)) < 0:
+        raise ValueError("serve.session_cache must be >= 0 (0 disables)")
+    if int(s.get("session_cache_bytes", 0) or 0) < 0:
+        raise ValueError("serve.session_cache_bytes must be >= 0 "
+                         "(0 = unbounded by bytes)")
+    t = s.get("tiled")
+    if t is not None:
+        if not isinstance(t, Mapping):
+            raise ValueError("serve.tiled must be null or a mapping of "
+                             "tiled-executor knobs")
+        tknown = ("enable", "max_nodes", "tile_nodes", "halo_floor",
+                  "edge_floor", "growth", "timeout_factor", "devices")
+        for key in t:
+            if key not in tknown:
+                raise ValueError(f"serve.tiled: unknown key {key!r} "
+                                 f"(accepted: {', '.join(tknown)})")
+        if not isinstance(t.get("enable", False), bool):
+            raise ValueError("serve.tiled.enable must be a boolean")
+        for key in ("max_nodes", "tile_nodes", "halo_floor", "edge_floor"):
+            if int(t.get(key, 1)) < 1:
+                raise ValueError(f"serve.tiled.{key} must be >= 1")
+        if int(t.get("tile_nodes", 65536)) > int(t.get("max_nodes",
+                                                       4_194_304)):
+            raise ValueError("serve.tiled.tile_nodes must be <= "
+                             "serve.tiled.max_nodes")
+        if float(t.get("growth", 2.0)) <= 1.0:
+            raise ValueError("serve.tiled.growth must be > 1")
+        if float(t.get("timeout_factor", 8.0)) < 1.0:
+            raise ValueError("serve.tiled.timeout_factor must be >= 1")
+        td = t.get("devices", 1)
+        if td != "auto" and (isinstance(td, bool) or not isinstance(td, int)
+                             or td < 1):
+            raise ValueError("serve.tiled.devices must be 'auto' or an "
+                             "int >= 1")
     r = s.get("rollout")
     if r is not None:
         if not isinstance(r, Mapping):
@@ -405,6 +574,184 @@ def validate_config(cfg: ConfigDict) -> None:
                 * int(r.get("edge_block", 256))) % 512:
             raise ValueError("serve.rollout: max_degree * edge_block must be "
                              "a multiple of 512 (the kernel edge tile)")
+    if int(s.get("replicas", 1) or 1) < 1:
+        raise ValueError("serve.replicas must be >= 1")
+    if str(s.get("workers", "thread") or "thread") not in ("thread",
+                                                           "process"):
+        raise ValueError("serve.workers must be 'thread' or 'process'")
+    w = s.get("worker")
+    if w is not None:
+        if not isinstance(w, Mapping):
+            raise ValueError("serve.worker must be null or a mapping of "
+                             "process-worker knobs")
+        wknown = ("spawn_timeout_s", "heartbeat_s", "kill_grace_s")
+        for key in w:
+            if key not in wknown:
+                raise ValueError(f"serve.worker: unknown key {key!r} "
+                                 f"(accepted: {', '.join(wknown)})")
+        for key in wknown:
+            if key in w and float(w[key]) <= 0:
+                raise ValueError(f"serve.worker.{key} must be > 0")
+    sup = s.get("supervisor")
+    if sup is not None:
+        if not isinstance(sup, Mapping):
+            raise ValueError("serve.supervisor must be null or a mapping of "
+                             "ReplicaSupervisor kwargs")
+        known = ("heartbeat_s", "wedge_timeout_s",
+                 "worker_heartbeat_timeout_s", "backoff_base_s",
+                 "backoff_max_s", "breaker_threshold", "breaker_cooldown_s",
+                 "healthy_reset_s")
+        for key in sup:
+            if key not in known:
+                raise ValueError(f"serve.supervisor: unknown key {key!r} "
+                                 f"(accepted: {', '.join(known)})")
+        for key in known:
+            if key in sup and float(sup[key]) <= 0:
+                raise ValueError(f"serve.supervisor.{key} must be > 0")
+        if int(sup.get("breaker_threshold", 3)) < 1:
+            raise ValueError("serve.supervisor.breaker_threshold must be >= 1")
+    a = s.get("autoscale")
+    if a is not None:
+        if not isinstance(a, Mapping):
+            raise ValueError("serve.autoscale must be null or a mapping of "
+                             "ReplicaAutoscaler knobs")
+        aknown = ("enable", "min_replicas", "max_replicas", "interval_s",
+                  "scale_up_cooldown_s", "scale_down_cooldown_s", "step",
+                  "queue_high", "shed_high", "p99_high_ms", "queue_low",
+                  "idle_rounds", "drain_timeout_s")
+        for key in a:
+            if key not in aknown:
+                raise ValueError(f"serve.autoscale: unknown key {key!r} "
+                                 f"(accepted: {', '.join(aknown)})")
+        if not isinstance(a.get("enable", False), bool):
+            raise ValueError("serve.autoscale.enable must be a boolean")
+        lo = int(a.get("min_replicas", 1))
+        hi = int(a.get("max_replicas", 4))
+        if lo < 1 or hi < lo:
+            raise ValueError("serve.autoscale needs 1 <= min_replicas "
+                             "<= max_replicas")
+        if int(a.get("step", 1)) < 1 or int(a.get("idle_rounds", 3)) < 1:
+            raise ValueError("serve.autoscale.step and "
+                             "serve.autoscale.idle_rounds must be >= 1")
+        for key in ("interval_s", "drain_timeout_s", "queue_high"):
+            if float(a.get(key, 1.0)) <= 0:
+                raise ValueError(f"serve.autoscale.{key} must be > 0")
+        for key in ("scale_up_cooldown_s", "scale_down_cooldown_s",
+                    "shed_high", "queue_low"):
+            if float(a.get(key, 0.0)) < 0:
+                raise ValueError(f"serve.autoscale.{key} must be >= 0")
+        if a.get("p99_high_ms") is not None and float(a["p99_high_ms"]) <= 0:
+            raise ValueError("serve.autoscale.p99_high_ms must be null "
+                             "or > 0")
+    p = s.get("priority")
+    if p is not None:
+        if not isinstance(p, Mapping):
+            raise ValueError("serve.priority must be null or a mapping of "
+                             "priority-admission knobs")
+        pknown = ("enable", "header", "bulk_max_inflight_frac",
+                  "degrade_shed_rate", "degrade_p99_ms", "bulk_retry_factor",
+                  "bulk_content_bytes")
+        for key in p:
+            if key not in pknown:
+                raise ValueError(f"serve.priority: unknown key {key!r} "
+                                 f"(accepted: {', '.join(pknown)})")
+        if not isinstance(p.get("enable", True), bool):
+            raise ValueError("serve.priority.enable must be a boolean")
+        if not str(p.get("header", "X-Priority")).strip():
+            raise ValueError("serve.priority.header must be non-empty")
+        frac = float(p.get("bulk_max_inflight_frac", 0.75))
+        if not 0.0 < frac <= 1.0:
+            raise ValueError("serve.priority.bulk_max_inflight_frac must be "
+                             "in (0, 1]")
+        if float(p.get("degrade_shed_rate", 0.05)) < 0:
+            raise ValueError("serve.priority.degrade_shed_rate must be >= 0")
+        if (p.get("degrade_p99_ms") is not None
+                and float(p["degrade_p99_ms"]) <= 0):
+            raise ValueError("serve.priority.degrade_p99_ms must be null "
+                             "or > 0")
+        if float(p.get("bulk_retry_factor", 4.0)) < 1:
+            raise ValueError("serve.priority.bulk_retry_factor must be >= 1")
+        if int(p.get("bulk_content_bytes", 0) or 0) < 0:
+            raise ValueError("serve.priority.bulk_content_bytes must be "
+                             ">= 0 (0 disables)")
+    st = s.get("stream")
+    if st is not None:
+        if not isinstance(st, Mapping):
+            raise ValueError("serve.stream must be null or a mapping of "
+                             "streaming-rollout knobs")
+        for key in st:
+            if key not in ("chunk_steps",):
+                raise ValueError(f"serve.stream: unknown key {key!r} "
+                                 f"(accepted: chunk_steps)")
+        if int(st.get("chunk_steps", 8)) < 1:
+            raise ValueError("serve.stream.chunk_steps must be >= 1")
+    models = s.get("models")
+    if models is not None:
+        if not isinstance(models, (list, tuple)) or not models:
+            raise ValueError("serve.models must be null or a non-empty list "
+                             "of {name, config_path?, overrides?} entries")
+        seen = set()
+        for item in models:
+            if not isinstance(item, Mapping) or not item.get("name"):
+                raise ValueError("each serve.models entry needs a 'name'")
+            name = str(item["name"])
+            if name in seen:
+                raise ValueError(f"duplicate serve.models name {name!r}")
+            seen.add(name)
+            for key in item:
+                if key not in ("name", "config_path", "overrides"):
+                    raise ValueError(f"serve.models[{name!r}]: unknown key "
+                                     f"{key!r}")
+            if item.get("overrides") is not None and not isinstance(
+                    item["overrides"], Mapping):
+                raise ValueError(f"serve.models[{name!r}].overrides must be "
+                                 "a mapping")
+    g = s.get("gateway")
+    if g is not None:
+        if int(g.get("max_inflight", 64)) < 1:
+            raise ValueError("serve.gateway.max_inflight must be >= 1")
+        if not 0 <= int(g.get("port", 8008)) <= 65535:
+            raise ValueError("serve.gateway.port must be in [0, 65535]")
+        if float(g.get("drain_grace_s", 10.0)) < 0:
+            raise ValueError("serve.gateway.drain_grace_s must be >= 0")
+        nodes = g.get("warmup_nodes", [48, 96])
+        if (not isinstance(nodes, (list, tuple)) or not nodes
+                or any(int(n) < 2 for n in nodes)):
+            raise ValueError("serve.gateway.warmup_nodes must be a "
+                             "non-empty list of node counts >= 2")
+    pm = cfg.get("promote")
+    if pm is not None:
+        if not isinstance(pm, Mapping):
+            raise ValueError("promote must be null or a mapping of "
+                             "promotion-conveyor knobs")
+        pmknown = ("enable", "publish", "watch_dir", "model", "interval_s",
+                   "history", "shadow_sample", "min_shadow",
+                   "max_shadow_inflight", "gate_timeout_s", "drift_ceiling",
+                   "max_error_rate")
+        for key in pm:
+            if key not in pmknown:
+                raise ValueError(f"promote: unknown key {key!r} "
+                                 f"(accepted: {', '.join(pmknown)})")
+        for flag in ("enable", "publish"):
+            if not isinstance(pm.get(flag, False), bool):
+                raise ValueError(f"promote.{flag} must be a boolean")
+        for skey in ("watch_dir", "model"):
+            if not isinstance(pm.get(skey, ""), str):
+                raise ValueError(f"promote.{skey} must be a string")
+        for key in ("interval_s", "gate_timeout_s", "drift_ceiling"):
+            if float(pm.get(key, 1.0)) <= 0:
+                raise ValueError(f"promote.{key} must be > 0")
+        for key in ("history", "min_shadow", "max_shadow_inflight"):
+            if int(pm.get(key, 1)) < 1:
+                raise ValueError(f"promote.{key} must be >= 1")
+        if not 0.0 < float(pm.get("shadow_sample", 0.25)) <= 1.0:
+            raise ValueError("promote.shadow_sample must be in (0, 1]")
+        if float(pm.get("max_error_rate", 0.0)) < 0:
+            raise ValueError("promote.max_error_rate must be >= 0")
+        if ((pm.get("enable") or pm.get("publish"))
+                and not str(pm.get("watch_dir", "")).strip()):
+            raise ValueError("promote.watch_dir is required when "
+                             "promote.enable or promote.publish is set")
 
 
 # Command-line flags of the trainer: name -> (dotted config path, type), the

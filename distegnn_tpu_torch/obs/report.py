@@ -10,15 +10,17 @@ drive them without a file system):
   - :func:`render_text`: the report;
   - :func:`check`: the gate: a zero-event stream fails (and a recompile
     after warmup, which the JAX package's streams can carry; an eager
-    PyTorch run has none).
+    PyTorch run has none);
+  - :func:`stitch_request` / :func:`render_request`: one gateway request's
+    waterfall, every span and event carrying its ``request_id`` (directly
+    or through a batch's ``request_ids``) stitched into the queue -> batch
+    -> compute timeline;
+  - ``--slo``: an SLO spec (``obs/slo.py``) scored against the stream.
 
 Run it as::
 
     python -m distegnn_tpu_torch.obs.report <exp_dir>/obs/events.jsonl \
-        [--json] [--check]
-
-The request waterfall and the SLO verdicts of ``scripts/obs_report.py``
-wait for the serving fleet (ROADMAP.md queue 1 item 6).
+        [--json] [--check] [--request <id>] [--slo <spec.yaml>]
 """
 
 from __future__ import annotations
@@ -198,6 +200,132 @@ def render_text(summary: Dict[str, Any], source: str = "",
     return "\n".join(lines) + "\n"
 
 
+def _touches(rec: Dict[str, Any], request_id: str) -> bool:
+    """True when a record belongs to the request: its own ``request_id``
+    attr (http span, prep event) or membership in a batch-level
+    ``request_ids`` list (serve/batch, serve/execute)."""
+    if rec.get("request_id") == request_id:
+        return True
+    ids = rec.get("request_ids")
+    return isinstance(ids, (list, tuple)) and request_id in ids
+
+
+def request_ids_seen(events: List[Dict[str, Any]]) -> List[str]:
+    """All distinct request ids in the stream, in first-seen order."""
+    seen: Dict[str, None] = {}
+    for e in events:
+        rid = e.get("request_id")
+        if isinstance(rid, str):
+            seen.setdefault(rid)
+        for rid in (e.get("request_ids") or []):
+            if isinstance(rid, str):
+                seen.setdefault(rid)
+    return list(seen)
+
+
+def stitch_request(events: List[Dict[str, Any]],
+                   request_id: str) -> Dict[str, Any]:
+    """Reconstruct one request's life from the event stream alone.
+
+    Returns records (ts-sorted), per-phase durations, and the stitched
+    total. ``queue_ms`` comes out of the serve/batch event's per-member
+    list (position-aligned with ``request_ids``); the stitched total is
+    prep + queue-wait + batch compute, which the transport's reported
+    ``total_ms`` upper-bounds (it adds response encode + thread wakeup).
+    ``complete`` is True when the queue -> batch -> compute chain is all
+    present (http span + batch event with a queue slot + execute span).
+    """
+    recs = sorted((e for e in events if _touches(e, request_id)),
+                  key=lambda e: float(e.get("ts", 0.0)))
+    http = next((e for e in recs if e.get("name") == "serve/http"), None)
+    batches = [e for e in recs if e.get("name") == "serve/batch"]
+    execs = [e for e in recs if e.get("name") == "serve/execute"]
+    preps = [e for e in recs if e.get("name") == "serve/prep"]
+    queue_ms = None
+    for b in batches:
+        ids = b.get("request_ids") or []
+        qs = b.get("queue_ms") or []
+        if request_id in ids and len(qs) == len(ids):
+            queue_ms = float(qs[ids.index(request_id)])
+            break
+    prep_ms = round(sum(1e3 * float(e.get("dur_s", 0.0)) for e in preps), 3)
+    compute_ms = round(sum(1e3 * float(e.get("dur_s", 0.0))
+                           for e in batches), 3)
+    execute_ms = round(sum(1e3 * float(e.get("dur_s", 0.0))
+                           for e in execs), 3)
+    http_ms = (round(1e3 * float(http.get("dur_s", 0.0)), 3)
+               if http is not None else None)
+    stitched_ms = round((queue_ms or 0.0) + prep_ms + compute_ms, 3)
+    return {
+        "request_id": request_id,
+        "records": recs,
+        "phases": {"prep_ms": prep_ms if preps else None,
+                   "queue_ms": queue_ms, "compute_ms": compute_ms,
+                   "execute_ms": execute_ms, "http_ms": http_ms},
+        "stitched_ms": stitched_ms,
+        "complete": bool(http is not None and queue_ms is not None
+                         and batches and execs),
+    }
+
+
+def render_request(stitched: Dict[str, Any], source: str = "") -> str:
+    """The waterfall: one row per record the request touched, offsets
+    relative to the earliest span start (span ts is emitted at EXIT, so
+    start = ts - dur_s), plus a synthetic queue-wait row ahead of the
+    batch it resolved in."""
+    rid = stitched["request_id"]
+    recs = stitched["records"]
+    lines = [f"== request {rid} — queue -> batch -> compute waterfall"
+             f"{' — ' + source if source else ''} =="]
+    if not recs:
+        lines.append("no spans or events carry this request id")
+        return "\n".join(lines) + "\n"
+    http = next((e for e in recs if e.get("name") == "serve/http"), None)
+    if http is not None:
+        lines.append(f"route={http.get('route')} method={http.get('method')} "
+                     f"status={http.get('status')} proc={http.get('proc')}")
+
+    def _start(rec):
+        return float(rec.get("ts", 0.0)) - float(rec.get("dur_s", 0.0))
+
+    rows = []
+    for rec in recs:
+        detail = ", ".join(
+            f"{k}={rec[k]}" for k in ("route", "status", "session", "hit",
+                                      "filled", "capacity", "n", "e",
+                                      "workload", "steps", "retry")
+            if rec.get(k) is not None)
+        rows.append((_start(rec), rec.get("name", "?"),
+                     1e3 * float(rec.get("dur_s", 0.0)), detail))
+        if rec.get("name") == "serve/batch":
+            ids = rec.get("request_ids") or []
+            qs = rec.get("queue_ms") or []
+            if rid in ids and len(qs) == len(ids):
+                q = float(qs[ids.index(rid)])
+                rows.append((_start(rec) - q / 1e3, "[queue wait]", q, ""))
+    rows.sort(key=lambda r: r[0])
+    t0 = rows[0][0]
+    lines.append(f"  {'offset':>12}  {'span/event':<16} {'dur':>11}  detail")
+    for start, name, dur_ms, detail in rows:
+        lines.append(f"  {1e3 * (start - t0):>+9.3f} ms  {name:<16} "
+                     f"{dur_ms:>8.3f} ms" + (f"  {detail}" if detail else ""))
+    ph = stitched["phases"]
+    parts = [f"queue {ph['queue_ms']} ms" if ph["queue_ms"] is not None
+             else "queue ?"]
+    if ph["prep_ms"] is not None:
+        parts.insert(0, f"prep {ph['prep_ms']} ms")
+    parts.append(f"compute {ph['compute_ms']} ms")
+    lines.append(f"stitched: {' + '.join(parts)} = {stitched['stitched_ms']}"
+                 f" ms" + (f"  (http span {ph['http_ms']} ms)"
+                           if ph["http_ms"] is not None else ""))
+    lines.append("status: " + ("complete (queue -> batch -> compute all "
+                               "reconstructed)" if stitched["complete"]
+                               else "INCOMPLETE — a leg is missing from the "
+                               "stream (shed/timeout, or obs was disabled "
+                               "in part of the stack)"))
+    return "\n".join(lines) + "\n"
+
+
 def check(summary: Dict[str, Any]) -> List[str]:
     """The gate's failures (an empty list passes)."""
     fails = []
@@ -212,6 +340,37 @@ def check(summary: Dict[str, Any]) -> List[str]:
     return fails
 
 
+def _report_request(events, rid: str, source: str, as_json: bool) -> int:
+    stitched = stitch_request(events, rid)
+    if not stitched["records"]:
+        known = request_ids_seen(events)
+        print(f"obs report: request {rid!r} not found in {source} "
+              f"({len(known)} id(s) present"
+              + (f", e.g. {known[0]!r}" if known else "") + ")",
+              file=sys.stderr)
+        return 1
+    if as_json:
+        print(json.dumps(stitched, sort_keys=True, default=str))
+    else:
+        print(render_request(stitched, source=source), end="")
+    return 0
+
+
+def _report_slo(events, spec_path: str, source: str, as_json: bool) -> int:
+    from distegnn_tpu_torch.obs import slo as slomod
+
+    if not os.path.exists(spec_path):
+        print(f"obs report: no such SLO spec: {spec_path}", file=sys.stderr)
+        return 2
+    spec = slomod.SLOSpec.from_file(spec_path)
+    results = slomod.evaluate(spec, slomod.stats_from_events(events))
+    if as_json:
+        print(json.dumps(slomod.results_json(results), sort_keys=True))
+    else:
+        print(slomod.verdict_table(results, source=source), end="")
+    return 1 if slomod.breached(results) else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Render an obs events.jsonl stream as a run report.")
@@ -220,11 +379,22 @@ def main(argv=None) -> int:
                     help="emit the summary as JSON instead of text")
     ap.add_argument("--check", action="store_true",
                     help="exit 1 on zero events or recompiles after warmup")
+    ap.add_argument("--request", metavar="ID", default=None,
+                    help="render one gateway request's waterfall instead "
+                         "(exit 1 when the stream does not carry it)")
+    ap.add_argument("--slo", metavar="SPEC", default=None,
+                    help="score an SLO spec (YAML/JSON, the slo: section) "
+                         "against the stream (exit 1 on a breach)")
     args = ap.parse_args(argv)
     if not os.path.exists(args.events):
         print(f"obs report: no such file: {args.events}", file=sys.stderr)
         return 2
     events, bad = load_events(args.events)
+    if args.request is not None:
+        return _report_request(events, args.request, args.events,
+                               args.as_json)
+    if args.slo is not None:
+        return _report_slo(events, args.slo, args.events, args.as_json)
     summary = summarize(events)
     if args.as_json:
         print(json.dumps({**summary, "bad_lines": bad}, sort_keys=True))

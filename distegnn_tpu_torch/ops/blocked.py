@@ -12,7 +12,8 @@ list stays row-sorted. The fused edge kernel (ops/edge_pipeline.py) and the
 blocked ``EdgeOps`` branches below read this layout.
 
 Host half: ``blockify`` / ``prepare_blocked_graph`` / ``pairing_perm`` /
-``scan_dataset_for_blocking``, through the C++ library of ``native.py``
+``scan_dataset_for_blocking`` / ``repack_blocked`` (the topology-only
+``RepackPlan`` that the serve prep cache re-applies), through the C++ library of ``native.py``
 where it builds and numpy otherwise (the same layout either way).
 
 Device half: ``slot_ids`` turns (row, edge_mask) into block-local receiver
@@ -116,6 +117,58 @@ def blockify_edges(edge_index: np.ndarray, edge_attr: Optional[np.ndarray],
     if D:
         new_attr[dst] = edge_attr[src]
     return new_index, new_attr, new_mask
+
+
+class RepackPlan(NamedTuple):
+    """Topology-only artifact of :func:`repack_blocked` — everything about a
+    graph's blocked layout that does NOT depend on positions/attributes, so a
+    session serving the same scene can re-apply it to fresh per-step arrays
+    with two fancy-index gathers (the serve prep cache's hit path).
+
+    perm[new] = old Morton node relabel (None when built without loc);
+    edge_index/edge_mask are the blocked [2, NB*epb]/[NB*epb] arrays;
+    src/dst map client edge k's payload to slot dst via attr'[dst] = attr[src].
+    """
+    perm: Optional[np.ndarray]
+    edge_index: np.ndarray
+    edge_mask: np.ndarray
+    src: np.ndarray
+    dst: np.ndarray
+    stamp: tuple                 # (n_nodes_padded, epb, block)
+
+    def apply_edge_attr(self, edge_attr: np.ndarray) -> np.ndarray:
+        out = np.zeros((self.edge_mask.shape[0], edge_attr.shape[1]),
+                       np.float32)
+        out[self.dst] = edge_attr[self.src]
+        return out
+
+
+def repack_blocked(edge_index: np.ndarray, loc: Optional[np.ndarray] = None,
+                   *, n_nodes_padded: int, epb: int,
+                   block: int = DEFAULT_BLOCK, bits: int = 16) -> RepackPlan:
+    """Arbitrary client edge order -> the kernels' Morton/blocked layout in
+    one vectorized NumPy pass (sort-by-(block, row), no per-block loop).
+
+    When ``loc`` is given the node ids are first relabeled along the Z-order
+    curve (ops/order.py) so spatially-near nodes share blocks — the layout
+    the fused kernel's locality analysis assumes. Returns a :class:`RepackPlan`
+    whose ``src``/``dst`` index maps let position-dependent payloads
+    (edge_attr) be re-laid later without redoing the sort.
+    """
+    ei = np.asarray(edge_index).astype(np.int64, copy=False)
+    perm = None
+    if loc is not None:
+        from distegnn_tpu_torch.ops.order import morton_perm
+
+        perm = morton_perm(np.asarray(loc), bits=bits)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(perm.shape[0], dtype=perm.dtype)
+        ei = inv[ei]
+    src, dst, new_index, new_mask = _blockify_plan(
+        ei, n_nodes_padded, epb, block)
+    return RepackPlan(perm=perm, edge_index=new_index, edge_mask=new_mask,
+                      src=src, dst=dst,
+                      stamp=(n_nodes_padded, epb, block))
 
 
 def max_block_degree(rows_sorted: np.ndarray, n_nodes_padded: int,

@@ -24,7 +24,8 @@ import torch
 from distegnn_tpu_torch.ops.blocked import (max_block_degree,
                                             pairing_perm_fast,
                                             prepare_blocked_graph)
-from distegnn_tpu_torch.ops.edge_pipeline import split_remote_edges
+from distegnn_tpu_torch.ops.edge_pipeline import (pad_remote_list,
+                                                  split_remote_edges)
 
 
 @dataclasses.dataclass
@@ -190,6 +191,16 @@ def pad_graphs(
             # carry row == col inside their own block: never remote)
             outs = []
             for g in graphs:
+                sel = g.get("_remote_sel")
+                if (sel is not None
+                        and g.get("_blockified") == (N, edges_per_block,
+                                                     edge_block)):
+                    # a session-cached selection (serve/prep.py): the
+                    # classify and sort were done at prep time
+                    outs.append(pad_remote_list(
+                        g["edge_index"][:, sel], g["edge_attr"][sel],
+                        n_pad=remote_pad))
+                    continue
                 keep = g["_edge_mask"] > 0
                 outs.append(split_remote_edges(
                     g["edge_index"][:, keep], g["edge_attr"][keep],

@@ -1,6 +1,16 @@
-"""distegnn_tpu_torch.serve — bucketed one-step inference and K-step
-rollouts (port of the engine half of ``distegnn_tpu/serve``; the request
-queue, HTTP transport and worker processes are later slices)."""
+"""distegnn_tpu_torch.serve — bucketed serving (port of
+``distegnn_tpu/serve``).
+
+Request path: HTTP gateway (``transport.py``, run as
+``python -m distegnn_tpu_torch.serve.gateway``) -> ModelRegistry route ->
+ReplicaSet -> RequestQueue.submit(graph) -> bucket ladder -> micro-batcher
+-> InferenceEngine -> ServeFuture result. All components of one model share
+one ServeMetrics; the gateway adds process-wide admission and latency
+series and a ``/metrics`` scrape endpoint.
+
+Not ported yet (ROADMAP.md queue 1 item 6): the process backend
+(``serve/worker.py``), the tiled executor and the promoter.
+"""
 
 from __future__ import annotations
 
@@ -12,18 +22,50 @@ from distegnn_tpu_torch import resolve_device
 from distegnn_tpu_torch.serve.buckets import (Bucket, BucketLadder,
                                               BucketOverflowError,
                                               synthetic_graph)
-from distegnn_tpu_torch.serve.engine import (InferenceEngine,
+from distegnn_tpu_torch.serve.engine import (CanaryError, InferenceEngine,
                                              MixedRolloutStepsError,
                                              RolloutOverflowError)
+from distegnn_tpu_torch.serve.metrics import ServeMetrics
+from distegnn_tpu_torch.serve.prep import (PrepPlan, PrepResult,
+                                           SessionPrepCache)
+from distegnn_tpu_torch.serve.queue import (DispatcherCrashError,
+                                            QueueFullError, RequestQueue,
+                                            RequestTimeoutError, ServeFuture,
+                                            StreamSink)
+from distegnn_tpu_torch.serve.replica import (ModelUnavailableError, Replica,
+                                              ReplicaSet)
+from distegnn_tpu_torch.serve.supervisor import ReplicaSupervisor
 
 __all__ = ["Bucket", "BucketLadder", "BucketOverflowError", "synthetic_graph",
-           "InferenceEngine", "MixedRolloutStepsError",
-           "RolloutOverflowError", "engine_from_config",
-           "engine_with_params_from_config"]
+           "CanaryError", "InferenceEngine", "MixedRolloutStepsError",
+           "RolloutOverflowError", "ServeMetrics", "PrepPlan", "PrepResult",
+           "SessionPrepCache", "DispatcherCrashError", "QueueFullError",
+           "RequestQueue", "RequestTimeoutError", "ServeFuture", "StreamSink",
+           "ModelUnavailableError", "Replica", "ReplicaSet",
+           "ReplicaSupervisor", "engine_from_config", "queue_from_config",
+           "engine_with_params_from_config", "Gateway", "PayloadError",
+           "ModelEntry", "ModelRegistry", "SwapError", "SwapInProgressError"]
 
 
-def engine_from_config(cfg, model: torch.nn.Module,
-                       device=None) -> InferenceEngine:
+def __getattr__(name):
+    # the transport and registry import lazily: the in-process serve stack
+    # does not need the HTTP layer, and registry -> engine_from_config would
+    # otherwise be a load-time cycle through this package
+    if name in ("Gateway", "PayloadError"):
+        from distegnn_tpu_torch.serve import transport
+
+        return getattr(transport, name)
+    if name in ("ModelEntry", "ModelRegistry", "SwapError",
+                "SwapInProgressError"):
+        from distegnn_tpu_torch.serve import registry
+
+        return getattr(registry, name)
+    raise AttributeError(name)
+
+
+def engine_from_config(cfg, model: torch.nn.Module, device=None,
+                       metrics: Optional[ServeMetrics] = None
+                       ) -> InferenceEngine:
     """Build an InferenceEngine from a config's ``serve:`` section."""
     s = cfg.serve
     ladder = BucketLadder(
@@ -35,13 +77,29 @@ def engine_from_config(cfg, model: torch.nn.Module,
         # fused models only consume blocked split_remote batches
         layout = dict(edge_block=int(cfg.data.edge_block), split_remote=True)
     rollout = s.get("rollout")
-    return InferenceEngine(model, resolve_device(device), ladder=ladder,
-                           max_batch=s.max_batch, layout_opts=layout,
-                           rollout_opts=dict(rollout) if rollout else None)
+    return InferenceEngine(
+        model, resolve_device(device), ladder=ladder, max_batch=s.max_batch,
+        cache_size=int(s.get("cache_size", 32)), metrics=metrics,
+        layout_opts=layout,
+        rollout_opts=dict(rollout) if rollout else None,
+        session_cache=int(s.get("session_cache", 0) or 0),
+        session_cache_bytes=int(s.get("session_cache_bytes", 0) or 0))
+
+
+def queue_from_config(cfg, engine: InferenceEngine) -> RequestQueue:
+    """The engine's RequestQueue from ``serve:`` (not started)."""
+    s = cfg.serve
+    return RequestQueue(
+        engine, batch_deadline_ms=float(s.batch_deadline_ms),
+        queue_capacity=int(s.queue_capacity),
+        request_timeout_ms=float(s.request_timeout_ms),
+        result_margin_s=float(s.get("result_margin_s", 30.0)),
+        metrics=engine.metrics)
 
 
 def engine_with_params_from_config(cfg, device=None,
-                                   checkpoint: Optional[str] = None):
+                                   checkpoint: Optional[str] = None,
+                                   metrics: Optional[ServeMetrics] = None):
     """The deterministic model + engine recipe: parameters drawn from a
     ``torch.Generator`` seeded with ``cfg.seed``, then an optional
     checkpoint, a trainer checkpoint or a bare ``state_dict`` file (see
@@ -59,5 +117,5 @@ def engine_with_params_from_config(cfg, device=None,
         "checkpoint")
     if ckpt:
         load_params(str(ckpt), model)
-    engine = engine_from_config(cfg, model, dev)
+    engine = engine_from_config(cfg, model, dev, metrics=metrics)
     return model, engine

@@ -28,14 +28,26 @@ UNPORTED = [("train.scan_epochs", True),
             ("parallel.mesh.tensor", 2),
             ("log.wandb.enable", True),
             ("serve.tiled.enable", True),
-            ("promote.publish", True)]
+            ("promote.publish", True),
+            ("promote.enable", True),
+            ("serve.workers", "process"),
+            ("serve.donate", True)]
+
+
+# published configs that set a key the port refuses: (file, the key)
+REFUSED = {"nbody_promote.yaml": "promote.enable"}
 
 
 @pytest.mark.parametrize("path", CONFIGS,
                          ids=[os.path.basename(p) for p in CONFIGS])
 def test_every_published_config_validates(path):
-    cfg = load_config(path)
     jcfg = jax_load_config(path)
+    key = REFUSED.get(os.path.basename(path))
+    if key is not None:
+        with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+            load_config(path)
+        return
+    cfg = load_config(path)
     for key in ("resume", "checkpoint_interval_s", "scan_epochs",
                 "divergence_retries", "divergence_lr_decay"):
         assert cfg.train[key] == jcfg.train[key], key
@@ -60,8 +72,10 @@ def test_divergence_keys_load_and_land_in_train(key, value):
 
 @pytest.mark.parametrize("key, value", UNPORTED)
 def test_unported_key_off_its_default_raises(key, value):
-    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")) \
+            as err:
         load_config(SERVE, {key: value})
+    assert "ROADMAP.md" in str(err.value)
 
 
 def _yaml_with(tmp_path, key, value):
@@ -251,3 +265,84 @@ def test_main_trains_a_water3d_cpu_slice_shaped_config(tmp_path):
     path.write_text(yaml.safe_dump(raw))
     best = pmain.main(["--config_path", str(path), "--device", "cpu"])
     assert np.isfinite(best["loss_valid"]) and np.isfinite(best["loss_test"])
+
+
+def test_serving_defaults_are_the_jax_defaults():
+    """serve (but for the tiled executor's knobs, which stay refused), slo
+    and promote: the port's defaults equal JAX's key for key."""
+    from distegnn_tpu.config import _DEFAULTS as JAX_DEFAULTS
+    from distegnn_tpu_torch.config import _DEFAULTS
+
+    serve = {k: v for k, v in _DEFAULTS["serve"].items() if k != "tiled"}
+    jserve = {k: v for k, v in JAX_DEFAULTS["serve"].items() if k != "tiled"}
+    assert serve == jserve
+    assert _DEFAULTS["serve"]["tiled"] == {"enable": False}
+    for section in ("slo", "promote"):
+        assert _DEFAULTS[section] == JAX_DEFAULTS[section], section
+    cfg, jcfg = load_config(SERVE), jax_load_config(SERVE)
+    for key in ("batch_deadline_ms", "queue_capacity", "request_timeout_ms",
+                "cache_size", "donate", "gateway"):
+        assert cfg.serve[key] == jcfg.serve[key], key
+    assert (cfg.serve.cache_size, cfg.serve.queue_capacity) == (16, 128)
+
+
+def _yaml_deep(tmp_path, key, value):
+    """configs/nbody_serve.yaml with the dotted ``key`` (any depth) set."""
+    with open(SERVE) as f:
+        raw = yaml.safe_load(f)
+    *path, last = key.split(".")
+    node = raw
+    for p in path:
+        node = node.setdefault(p, {})
+    node[last] = value
+    out = tmp_path / "cfg.yaml"
+    out.write_text(yaml.safe_dump(raw))
+    return str(out)
+
+
+# the serving, slo and promote checks: (key, value, whether JAX refuses it)
+SERVING = [("serve.queue_capacity", 0, True),
+           ("serve.batch_deadline_ms", -1.0, True),
+           ("serve.request_timeout_ms", 0.0, True),
+           ("serve.cache_size", 0, True),
+           ("serve.cache_size", 4, False),
+           ("serve.result_margin_s", 0.0, True),
+           ("serve.session_cache", -1, True),
+           ("serve.session_cache", 0, False),
+           ("serve.replicas", 0, False),
+           ("serve.replicas", 2, False),
+           ("serve.supervisor.wedge_timeout_s", 0.0, True),
+           ("serve.supervisor.no_such_knob", 1.0, True),
+           ("serve.supervisor.wedge_timeout_s", 5.0, False),
+           ("serve.autoscale.min_replicas", 9, True),
+           ("serve.autoscale.enable", True, False),
+           ("serve.priority.bulk_max_inflight_frac", 0.0, True),
+           ("serve.stream.chunk_steps", 0, True),
+           ("serve.stream.chunk_steps", 4, False),
+           ("serve.models", [{"name": "a"}, {"name": "a"}], True),
+           ("serve.models", [{"name": "a", "overrides": {"seed": 1}}], False),
+           ("serve.gateway.port", 70000, True),
+           ("serve.gateway.warmup_nodes", [1], True),
+           ("serve.worker.spawn_timeout_s", 0.0, True),
+           ("slo.routes", {"train": {"p99_ms": 1.0}}, True),
+           ("slo.batch_fill_min", 0.5, False),
+           ("slo.enable", "yes", True),
+           ("promote.history", 0, True),
+           ("promote.no_such_knob", 1, True)]
+
+
+@pytest.mark.parametrize("key, value, refused", SERVING)
+def test_serving_keys_are_checked_as_in_jax(tmp_path, key, value, refused):
+    path = _yaml_deep(tmp_path, key, value)
+    if refused:
+        with pytest.raises(ValueError) as jerr:
+            jax_load_config(path)
+        with pytest.raises(ValueError) as perr:
+            load_config(path)
+        assert str(perr.value) == str(jerr.value)
+        return
+    cfg, jcfg = load_config(path), jax_load_config(path)
+    node, jnode = cfg, jcfg
+    for p in key.split("."):
+        node, jnode = node[p], jnode[p]
+    assert node == jnode == value

@@ -1,8 +1,10 @@
 """The port's serving entry points on the CPU: the engine built from
 configs/nbody_serve.yaml (+ model.edge_impl=fused, data.edge_block=512)
 predicts what the JAX package's engine predicts with the same parameters,
-batching does not change a graph's answer, the package never imports JAX,
-and the entry points refuse to fall back to the CPU silently.
+batching does not change a graph's answer, ``serve.cache_size`` bounds the
+engine's shape LRU, the package never imports JAX, and the entry points
+(the engine factory and ``python -m distegnn_tpu_torch.serve.gateway``)
+refuse to fall back to the CPU silently.
 
 Tolerance: 1e-5 absolute on predicted coordinates (unit-cube scenes), the
 model parity bound of tests/test_torch_fast_egnn.py.
@@ -125,7 +127,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'data.nbody', 'data.fluid113k', 'utils.seed', 'ops.cumsum', "
         "'ops.segment', 'ops.blocked', 'ops.layer_pipeline', "
         "'ops.radius_dev', 'rollout', 'serve.engine', 'data.water3d', "
-        "'data.protein', 'data.stream', 'data.nbody_sim', 'utils.rotate')}\n"
+        "'data.protein', 'data.stream', 'data.nbody_sim', 'utils.rotate', "
+        "'serve.queue', 'serve.replica', 'serve.supervisor', "
+        "'serve.registry', 'serve.autoscale', 'serve.metrics', "
+        "'serve.prep', 'serve.transport', 'serve.gateway', 'obs.slo')}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
@@ -133,3 +138,68 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_cache_size_bounds_the_shape_lru():
+    cfg = pconfig.load_config(CONFIG, {"model.hidden_nf": 16,
+                                       "model.n_layers": 2})
+    _, eng = engine_with_params_from_config(cfg, device="cpu")
+    assert eng.cache_size == cfg.serve.cache_size == 16
+    eng.cache_size = 2
+    for n in (60, 130, 300, 60):
+        eng.predict(scene(n, n, radius=0.3))
+        assert len(eng.shapes_seen) <= 2
+    assert eng.cache_stats() == {"live": 2, "hits": 0, "misses": 4,
+                                 "evictions": 2}
+
+
+def test_gateway_entry_point_refuses_cpu_fallback_and_drains(tmp_path):
+    """``python -m distegnn_tpu_torch.serve.gateway`` without a card and
+    without ``--device cpu`` raises; with ``--device cpu`` it prints the
+    listening line, answers /readyz and a predict, and on SIGTERM drains
+    and exits 0."""
+    import http.client
+    import json
+    import signal
+
+    from distegnn_tpu_torch.serve import gateway
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            gateway.main(["--config_path", CONFIG, "--port", "0",
+                          "--obs-dir", ""])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distegnn_tpu_torch.serve.gateway",
+         "--config_path", CONFIG, "--port", "0", "--device", "cpu",
+         "--obs-dir", str(tmp_path), "--warmup-nodes", "48"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        port = None
+        for line in proc.stdout:
+            if "listening on http://" in line:
+                port = int(line.split("http://")[1].split()[0]
+                           .rsplit(":", 1)[1])
+                break
+        assert port is not None, proc.stderr.read()
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        c.request("GET", "/readyz")
+        r = c.getresponse()
+        assert r.status == 200 and json.loads(r.read())["ready"]
+        g = scene(50, 5, radius=0.3)
+        c.request("POST", "/v1/models/default/predict", json.dumps(
+            {"positions": g["loc"].tolist(),
+             "edge_index": g["edge_index"].tolist()}))
+        r = c.getresponse()
+        body = json.loads(r.read())
+        assert r.status == 200 and np.isfinite(body["prediction"]).all()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+        events = (tmp_path / "obs" / "events.jsonl").read_text()
+        assert "gateway/drain_done" in events and "jax/memory" in events
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
