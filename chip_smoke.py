@@ -214,6 +214,32 @@ or of the JAX package. Phases (any failure exits nonzero):
      model and route, requests/s, the mean batch fill, rollout ms, the
      stream's first-chunk ms, the drain seconds and the phase's time.
 
+  13. the promotion conveyor and process-isolated replicas (promote/,
+     serve/worker.py, testing/serve_faults.py): configs/nbody_promote.yaml
+     as published (3 replicas, the promoter on) + phase 12's ``fused``
+     override, serve.workers: process, a fresh promote.watch_dir and
+     serve.supervisor.worker_heartbeat_timeout_s 3 (default 10). (a)
+     ``python -m distegnn_tpu_torch.serve.gateway`` on it: /readyz 200
+     with 3 worker children, each a process other than the gateway's, on
+     the card, with the parent's params digest; each child's pid, device,
+     digest, spawn seconds and memory printed. (b) 48 predicts from 4
+     closed-loop clients through the children, each within 1e-5 of an
+     in-process engine.predict; SIGTERM, exit 0; from each child's own
+     event stream (written at its exit): fused_edge_fwd_f32_kernel
+     launches exactly L x max_batch per executed batch, none on the
+     tensor-core kernel, its peak memory. (c) the same fleet in this
+     process behind a Gateway, two clients sending predicts throughout,
+     JAX's four-phase drill (testing/promote_drill.py): a candidate
+     promoted; a publisher child SIGKILLed mid-publish (orphan tmp, no
+     manifest, the conveyor unmoved, swept at the next publish); the
+     canary killed with kill9_replica (rolled_back / canary_died, the
+     supervisor respawns it); the live params x 2.25 (rolled_back /
+     drift); 0 lost, 0 errors, /readyz fleet_coherent, no replica
+     degraded. (d) sigstop_replica (heartbeat staleness, SIGKILL
+     escalation, a new pid) and spawn_failure(n=1) (degraded, the event
+     seen, a real child back at the next restart). (e) (b)'s p50 / p99 and
+     requests/s beside phase 12's thread-backend predicts.
+
 Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
 loader's first pass) with the native library and with the numpy layout.
 
@@ -4647,7 +4673,10 @@ def _gateway_phase(root, dev, tmp):
     ph_s = time.perf_counter() - t_phase
     print(f"gateway phase: {ph_s:.1f} s")
     return dict(fwd=fwd, blocked=bl_n, widths=bl_w, fill=fill,
-                rps=len(results) / wall, drain_s=drain_s)
+                rps=len(results) / wall, drain_s=drain_s,
+                predict_p50=pct(lat["predict"], 50),
+                predict_p99=pct(lat["predict"], 99),
+                predict_rps=len(lat["predict"]) / wall)
 
 
 def gateway_subprocess(root, path, bodies, long_scene, dev):
@@ -4693,6 +4722,16 @@ def gateway_subprocess(root, path, bodies, long_scene, dev):
             time.sleep(0.05)
         print(f"gateway entry point: ready on port {port} in "
               f"{time.perf_counter() - t0:.1f} s")
+        # as in (a): the rollout path's and the drained predicts' rung's
+        # first use (lazily loaded device code among it) before the drain
+        st1, _, ms1 = http_call(port, "POST", "/v1/models/rollout/rollout",
+                                rollout_body(long_scene, 1))
+        st2, _, ms2 = http_call(port, "POST", "/v1/models/fused/predict",
+                                bodies[0])
+        print(f"gateway entry point warm-up: K=1 rollout {st1} in "
+              f"{ms1:.1f} ms, predict {st2} in {ms2:.1f} ms")
+        check(st1 == 200 and st2 == 200, "gateway: the entry point's "
+              "warm-up failed")
         res = {}
 
         def go(key, path_, body):
@@ -4765,6 +4804,431 @@ def gateway_subprocess(root, path, bodies, long_scene, dev):
             proc.kill()
             proc.wait()
         err.close()
+
+
+# ---- phase 13: the promotion conveyor and process-isolated replicas ---------
+
+PR_SCENES = (1500, 3000, 6000)    # (b)'s predicts: phase 12's scene sizes
+PR_PREDICTS, PR_CLIENTS = 48, 4
+PR_DRILL_SCENES = (500, 1000)     # the drill's live traffic
+PR_HB_TIMEOUT_S = 3.0             # serve.supervisor.worker_heartbeat_timeout_s
+
+
+def promote_yaml(root, tmp, name, watch):
+    """configs/nbody_promote.yaml as published plus phase 12's ``fused``
+    model override, ``serve.workers: process``, a fresh
+    ``promote.watch_dir`` and the worker heartbeat timeout cut from its
+    default 10 s to PR_HB_TIMEOUT_S (the SIGSTOP drill's detection)."""
+    import yaml
+
+    with open(os.path.join(root, "configs", "nbody_promote.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["edge_impl"] = "fused"
+    raw.setdefault("data", {})["edge_block"] = BLOCK
+    raw["serve"]["workers"] = "process"
+    raw["serve"]["supervisor"] = {
+        "worker_heartbeat_timeout_s": PR_HB_TIMEOUT_S}
+    raw["promote"]["watch_dir"] = watch
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def compute_apps():
+    """pid -> MiB on the card of every process nvidia-smi lists ({} where
+    it lists none: a container may not see the host's process table)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return {}
+    apps = {}
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            try:
+                apps[int(parts[0])] = float(parts[1])
+            except ValueError:
+                pass
+    return apps
+
+
+def mib(n):
+    return "n/a" if n is None else f"{n / 2 ** 20:.1f} MiB"
+
+
+def promote_phase(root, dev, gate):
+    """Phase 13 (see the module docstring). Its files go to a temporary
+    directory that is removed afterwards."""
+    import tempfile
+
+    from distegnn_tpu_torch import obs
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_promote_") as tmp:
+        try:
+            return _promote_phase(root, dev, tmp, gate)
+        finally:
+            obs.configure(enable=False)     # the event file dies with tmp
+
+
+def _promote_phase(root, dev, tmp, gate):
+    import threading
+
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.serve import engine_with_params_from_config
+
+    t_phase = time.perf_counter()
+    path = promote_yaml(root, tmp, "fleet_a.yaml",
+                        os.path.join(tmp, "conveyor_a"))
+    cfg = load_config(path)
+    m, s, pm = cfg.model, cfg.serve, cfg.promote
+    L, B = int(m.n_layers), int(s.max_batch)
+    print(f"promote config: configs/nbody_promote.yaml as published (H="
+          f"{m.hidden_nf} L={L} C={m.virtual_channels}, replicas "
+          f"{s.replicas}, max_batch {B}, request_timeout_ms "
+          f"{s.request_timeout_ms}, warmup_nodes "
+          f"{list(s.gateway.warmup_nodes)}; promote interval_s "
+          f"{pm.interval_s}, shadow_sample {pm.shadow_sample}, min_shadow "
+          f"{pm.min_shadow}, gate_timeout_s {pm.gate_timeout_s}, "
+          f"drift_ceiling {pm.drift_ceiling}) + model.edge_impl fused, "
+          f"data.edge_block {BLOCK}, serve.workers process, "
+          f"serve.supervisor.worker_heartbeat_timeout_s {PR_HB_TIMEOUT_S} "
+          f"(default 10), a fresh promote.watch_dir")
+    _, direct = engine_with_params_from_config(cfg, device=dev)
+    digest = direct.params_digest()
+    kind = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    preds = [scene(n, seed=1300 + 10 * i + k)
+             for i, n in enumerate(PR_SCENES) for k in range(2)]
+    want = [direct.predict(g) for g in preds]
+    # (c)'s fleet comes up while (b)'s gateway drains and its children's
+    # records are read
+    fleet = {}
+
+    def bring_up():
+        try:
+            fleet["up"] = drill_fleet(root, dev, tmp)
+        except BaseException as exc:
+            fleet["error"] = exc
+
+    up = threading.Thread(target=bring_up, name="promote-fleet-c")
+    try:
+        sub = promote_subprocess(root, path, dev, tmp, preds, want, digest,
+                                 kind, L * B, before_sigterm=up.start)
+    finally:
+        if up.ident is not None:
+            up.join()
+    if "error" in fleet:
+        raise fleet["error"]
+    drill = promote_drill_phase(dev, tmp, digest, kind, *fleet["up"])
+    del direct
+    torch.cuda.empty_cache()
+    print(f"promote (e): predicts through 3 worker children (phase 13 (b), "
+          f"{PR_CLIENTS} closed-loop clients, scenes {PR_SCENES}) p50 "
+          f"{sub['p50']:.2f} ms, p99 {sub['p99']:.2f} ms, "
+          f"{sub['rps']:.1f} requests/s; phase 12's thread replica "
+          f"(7 closed-loop predict clients beside the rollouts, the same "
+          f"scene sizes) p50 {gate['predict_p50']:.2f} ms, p99 "
+          f"{gate['predict_p99']:.2f} ms, {gate['predict_rps']:.1f} "
+          f"predicts/s; a finding, not a claim (different loads)")
+    print(f"promote phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(fwd=sub["fwd"] + drill["fwd"], sub_fwd=sub["fwd"],
+                drill_fwd=drill["fwd"], p50=sub["p50"], p99=sub["p99"],
+                rps=sub["rps"])
+
+
+def promote_subprocess(root, path, dev, tmp, preds, want, digest, kind,
+                       per_batch, before_sigterm):
+    """Phase 13 (a) and (b): ``python -m distegnn_tpu_torch.serve.gateway``
+    with 3 worker children on the card; predicts through them; SIGTERM
+    (``before_sigterm`` is called once the predicts are checked)."""
+    import queue as pyqueue
+    import signal
+    import threading
+
+    import numpy as np
+
+    from distegnn_tpu_torch.obs.report import load_events
+
+    obs_dir = os.path.join(tmp, "gw_a")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=root)
+    err_path = os.path.join(tmp, "gateway_a.stderr")
+    err = open(err_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distegnn_tpu_torch.serve.gateway",
+         "--config_path", path, "--port", "0", "--obs-dir", obs_dir,
+         "--device", dev.type],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+
+    def stderr_tail():
+        err.flush()
+        with open(err_path) as f:
+            return f.read()[-3000:]
+
+    try:
+        port = None
+        for line in proc.stdout:
+            if "listening on http://" in line:
+                port = int(line.split("http://")[1].split()[0]
+                           .rsplit(":", 1)[1])
+                break
+        if port is None:
+            proc.kill()
+            fail(f"promote gateway printed no listening line: "
+                 f"{stderr_tail()}")
+        while True:
+            st, body, _ = http_call(port, "GET", "/readyz")
+            if st == 200:
+                break
+            check(time.perf_counter() - t0 < 300, "promote: /readyz never "
+                  "answered 200")
+            time.sleep(0.05)
+        t_ready = time.perf_counter() - t0
+        rz = json.loads(body)
+        _, body, _ = http_call(port, "GET", "/v1/models")
+        rows = json.loads(body)["models"][0]["replicas"]
+        apps = compute_apps()
+        print(f"promote (a): gateway pid {proc.pid} ready in {t_ready:.1f} "
+              f"s (3 children spawned side by side, then warmed); parent "
+              f"params digest {digest}")
+        for r in rows:
+            print(f"promote (a) child {r['replica']}: pid {r['pid']}, "
+                  f"backend {r['backend']}, degraded {r['degraded']}, "
+                  f"device {r.get('device')}, params digest "
+                  f"{r.get('params_digest')}, spawn {r.get('spawn_s')} s "
+                  f"(exec to ready; {r.get('init_s')} s of it after the "
+                  f"init message), on the card (nvidia-smi) "
+                  + (f"{apps[r['pid']]} MiB" if r["pid"] in apps else
+                     "not listed by nvidia-smi here"))
+        pids = {r["pid"] for r in rows}
+        check(len(rows) == 3 and len(pids) == 3
+              and all(r["backend"] == "process" and not r["degraded"]
+                      and r["pid"] not in (None, proc.pid) for r in rows),
+              f"promote: the children are not 3 live processes: {rows}")
+        check(all(r.get("params_digest") == digest for r in rows),
+              "promote: a child's params digest differs from the parent's")
+        check(all(r.get("device") == kind for r in rows),
+              f"promote: a child is not on the card: {rows}")
+        promo = rz.get("promote") or {}
+        check(promo.get("enable") and promo.get("state") == "idle"
+              and promo.get("fleet_coherent") is True,
+              f"promote: /readyz promote status {promo}")
+
+        # (b): closed-loop predicts through the children
+        bodies = [predict_body(g) for g in preds]
+        jobs = pyqueue.Queue()
+        for i in range(PR_PREDICTS):
+            jobs.put(i % len(preds))
+        results = []
+        lock = threading.Lock()
+
+        def client():
+            while True:
+                try:
+                    i = jobs.get_nowait()
+                except pyqueue.Empty:
+                    return
+                out = http_call(port, "POST", "/v1/models/default/predict",
+                                bodies[i])
+                with lock:
+                    results.append((i, out))
+
+        tb = time.perf_counter()
+        threads = [threading.Thread(target=client)
+                   for _ in range(PR_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - tb
+        check(len(results) == PR_PREDICTS, f"promote: {len(results)} of "
+              f"{PR_PREDICTS} predicts answered")
+        shed = [json.loads(o[1])["type"] for _, o in results if o[0] != 200]
+        ok = [(i, o) for i, o in results if o[0] == 200]
+        err_max = 0.0
+        for i, (_, body, _) in ok:
+            out = unb64(json.loads(body)["prediction"])
+            err_max = max(err_max, float(np.abs(out - want[i]).max()))
+        lat = [o[2] for _, o in ok]
+        print(f"promote (b): {len(ok)} of {PR_PREDICTS} predicts answered "
+              f"200 ({len(shed)} shed at the deadline {sorted(set(shed))}) "
+              f"in {wall:.3f} s; vs an in-process engine.predict: "
+              f"max_abs_err {err_max:.3e} tol {GW_TOL:.0e}")
+        check(set(shed) <= {"RequestTimeout"}, f"promote: predicts {shed}")
+        check({i for i, _ in ok} == set(range(len(preds))),
+              "promote: a scene was never answered")
+        check(err_max <= GW_TOL, "promote: a child disagrees with the "
+              "in-process engine")
+
+        before_sigterm()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        if code != 0:
+            fail(f"promote gateway exited {code}: {stderr_tail()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+
+    # each child's totals, from its own stream (written at its exit)
+    obs_path = os.path.join(obs_dir, "obs")
+    spawns = {e["pid"]: e for e in load_events(
+        os.path.join(obs_path, "events.jsonl"))[0]
+        if e.get("name") == "gateway/worker_spawn"}
+    fwd = 0
+    for r in rows:
+        wk, _ = load_events(os.path.join(
+            obs_path, f"events_worker_default_{r['replica']}.jsonl"))
+        ex = [e for e in wk if e.get("name") == "worker/exit"]
+        check(len(ex) == 1, f"promote: child {r['replica']} wrote "
+              f"{len(ex)} exit records")
+        ex = ex[0]
+        batches = sum(1 for e in wk if e.get("name") == "serve/execute"
+                      and "workload" not in e)
+        ln = ex.get("launches") or {}
+        sp = spawns.get(r["pid"], {})
+        print(f"promote (b) child {r['replica']} (pid {ex['pid']}, "
+              f"{ex.get('device_name', ex['device'])}): {batches} executed "
+              f"batches "
+              f"(the 2 warmup rungs included), fused_edge_fwd "
+              f"{ln.get('fused_edge_fwd')} launches, "
+              f"{ln.get('fused_edge_fwd_f32')} on fused_edge_fwd_f32_kernel "
+              f"(expected L x max_batch = {per_batch} per batch: "
+              f"{per_batch * batches}), {ln.get('fused_edge_fwd_tc')} on "
+              f"the tensor-core kernel; peak allocated "
+              f"{mib(ex.get('max_memory_allocated'))}, reserved "
+              f"{mib(ex.get('memory_reserved'))}; spawn event: digest "
+              f"{sp.get('params_digest')}, {sp.get('spawn_s')} s")
+        check(ln.get("fused_edge_fwd_f32") == per_batch * batches
+              and ln.get("fused_edge_fwd") == ln.get("fused_edge_fwd_f32")
+              and ln.get("fused_edge_fwd_tc") == 0 and batches > 2,
+              f"promote: child {r['replica']} launches {ln} for {batches} "
+              f"batches")
+        check(ex["pid"] == r["pid"] and sp.get("params_digest") == digest,
+              f"promote: child {r['replica']}'s records disagree")
+        fwd += int(ln["fused_edge_fwd"])
+    return dict(fwd=fwd, p50=pct(lat, 50), p99=pct(lat, 99),
+                rps=len(ok) / wall)
+
+
+def drill_fleet(root, dev, tmp):
+    """Phase 13 (c)'s fleet: the same config in this process, so the chaos
+    injectors reach its registry. Returns (config, registry, seconds to
+    warmed)."""
+    from distegnn_tpu_torch import obs
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.serve.registry import ModelRegistry
+
+    path = promote_yaml(root, tmp, "fleet_c.yaml",
+                        os.path.join(tmp, "conveyor_c"))
+    cfg = load_config(path)
+    obs.configure(log_dir=os.path.join(tmp, "obs_c"))
+    t0 = time.perf_counter()
+    reg = ModelRegistry.from_config(cfg, device=dev).start()
+    reg.warmup([int(n) for n in cfg.serve.gateway.warmup_nodes])
+    return cfg, reg, time.perf_counter() - t0
+
+
+def promote_drill_phase(dev, tmp, digest, kind, cfg, reg, up_s):
+    """Phase 13 (c) and (d) on :func:`drill_fleet`'s fleet: JAX's
+    four-phase drill under live traffic, then SIGSTOP and an armed spawn
+    failure."""
+    import threading
+
+    from distegnn_tpu_torch.obs.metrics import MetricsRegistry
+    from distegnn_tpu_torch.serve.transport import Gateway
+    from distegnn_tpu_torch.testing.promote_drill import (
+        DRIFT_SCALE, LiveTraffic, run_promote_drill, run_worker_faults)
+
+    check(reg.ready(), f"promote: fleet not ready: {reg.health()}")
+    entry = reg.get("default")
+    rows = entry.replicas.health()
+    print(f"promote (c) fleet in process: 3 children up and warmed in "
+          f"{up_s:.1f} s, started while (b)'s gateway drained: pids "
+          f"{[r['pid'] for r in rows]} (this process {os.getpid()})")
+    check(all(r["backend"] == "process" and not r["degraded"]
+              and r["pid"] not in (None, os.getpid())
+              and r.get("params_digest") == digest
+              and r.get("device") == kind
+              for r in rows), f"promote: in-process fleet rows {rows}")
+    gw = Gateway(reg, host="127.0.0.1", port=0,
+                 max_inflight=int(cfg.serve.gateway.max_inflight),
+                 drain_grace_s=float(cfg.serve.gateway.drain_grace_s),
+                 metrics_registry=MetricsRegistry(),
+                 promote=dict(cfg.promote))
+    server = threading.Thread(target=gw.serve_forever, daemon=True)
+    server.start()
+    try:
+        bodies = [predict_body(scene(n, seed=1400 + i))
+                  for i, n in enumerate(PR_DRILL_SCENES)]
+        traffic = LiveTraffic(gw.port, "default", bodies, clients=2,
+                              pause_s=0.005).start()
+        rec = run_promote_drill(
+            gw, reg, "default", bodies[0], os.path.join(tmp, "stage"),
+            traffic=traffic, log=lambda msg: print(f"promote (c) {msg}"))
+        check(rec.get("error") is None, f"promote: the drill raised "
+              f"{rec.get('error')}")
+        ph, t = rec["phases"], rec["traffic"]
+        print(f"promote (c) drill: {rec['drill_s']} s, {rec['published']} "
+              f"candidates published; live traffic {t['requests']} "
+              f"predicts, {t['completed']} answered 200, lost {t['lost']}, "
+              f"errors {t['errors']} {t['statuses']}; orphan swept "
+              f"{rec['tmp_swept']}; /readyz fleet_coherent "
+              f"{(rec['readyz'] or {}).get('fleet_coherent')}; the x"
+              f"{DRIFT_SCALE} candidate caught by the "
+              f"{ph['drift'].get('caught_by')}")
+        check(ph["promote"].get("outcome") == "promoted",
+              f"promote: phase 1 {ph['promote']}")
+        check(ph["publisher_kill"]["ok"], f"promote: phase 2 "
+              f"{ph['publisher_kill']}")
+        ck = ph["canary_kill"]
+        check((ck.get("outcome"), ck.get("reason"), ck.get("killed_via"))
+              == ("rolled_back", "canary_died", "kill9") and ck["respawned"]
+              and ck.get("new_pid") not in (None, ck.get("killed_pid"))
+              and not ck.get("degraded"), f"promote: phase 3 {ck}")
+        check((ph["drift"].get("outcome"), ph["drift"].get("reason"))
+              == ("rolled_back", "drift"), f"promote: phase 4 "
+              f"{ph['drift']}")
+        check(rec["ok"] and t["lost"] == 0 and t["errors"] == 0,
+              f"promote: the drill failed: {rec}")
+        rows = entry.replicas.health()
+        check(not any(r["degraded"] for r in rows), f"promote: a replica "
+              f"degraded with no spawn failure armed: {rows}")
+        # the children alive now: their launches since spawn (canaries and
+        # shadow predicts included; a killed child's count died with it)
+        fwd = 0
+        for r in entry.replicas.replicas:
+            st = r.queue.worker.call("stats")
+            fwd += int(st["launches"]["fused_edge_fwd"])
+            check(st["launches"]["fused_edge_fwd_tc"] == 0,
+                  f"promote: a child launched the tensor-core kernel {st}")
+        print(f"promote (c): fused_edge_fwd launches in the 3 children "
+              f"alive after the drill: {fwd} (canaries, fleet swaps, "
+              f"shadow and live predicts; the killed child's count died "
+              f"with it)")
+        faults = run_worker_faults(
+            reg, "default", 1, 0,
+            log=lambda msg: print(f"promote (d) {msg}"))
+        check(faults["ok"], f"promote: worker faults {faults}")
+        sg, sf = faults["sigstop"], faults["spawn_failure"]
+        print(f"promote (d): SIGSTOP caught by heartbeat staleness in "
+              f"{sg['detect_s']} s (timeout {PR_HB_TIMEOUT_S} s), "
+              f"SIGKILL-escalated {sg['escalated']}, respawned as pid "
+              f"{sg['new_pid']} {sg['respawn_s']} s after the stop; spawn "
+              f"failure degraded in {sf['degrade_s']} s (event seen "
+              f"{sf['degraded_event']}), a real child (pid "
+              f"{sf['new_pid']}) back {sf['recover_s']} s after the arm")
+    finally:
+        gw.drain()
+        gw.close()
+        server.join(30)
+    return dict(fwd=fwd)
 
 
 def main():
@@ -4843,8 +5307,10 @@ def main():
     preempt = preempt_phase(root, dev, clouds)
     data = data_phase(root, dev)
     gate = gateway_phase(root, dev)
+    promo = promote_phase(root, dev, gate)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
-          f"{gate['fwd']} (gateway) + "
+          f"{gate['fwd']} (gateway) + {promo['sub_fwd']} (worker children) "
+          f"+ {promo['drill_fwd']} (promotion drill children) + "
           f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
           f"backward) + {dist['launches'][0]} (distributed train, "
           f"{DIST_WS} ranks), fused_edge_bwd {train_bwd} (train) + "
@@ -4898,7 +5364,7 @@ def main():
          "distegnn_tpu/ops/cumsum.py:62"))
     kernels = [
         row("fused_edge_fwd_f32", "serve f32 N=8192", kres["f32"], fwd_tpu,
-            launches + gate["fwd"], source="fused_edge_fwd"),
+            launches + gate["fwd"] + promo["fwd"], source="fused_edge_fwd"),
         row(flagship["fused_edge_fwd"]["kernel"],
             f"train {flagship['fused_edge_fwd']['dtype']} "
             f"{flagship['fused_edge_fwd']['shape']}",

@@ -7,15 +7,16 @@ name (pure Python, no jax).
 The keys that the JAX package acts on and the port does not port yet
 (``train.scan_epochs``, the data and tensor axes ``parallel.mesh.data`` /
 ``data.data_parallel`` and ``parallel.mesh.tensor``, ``log.wandb.enable``,
-``serve.tiled.enable``, ``serve.workers``, ``serve.donate``,
-``promote.publish`` and ``promote.enable``) must keep their JAX defaults:
+``serve.tiled.enable`` and ``serve.donate``) must keep their JAX defaults:
 any other value raises ``NotImplementedError`` naming the key and the
 ROADMAP item that will port it, rather than run another program without a
 word. At their defaults the port runs the JAX program. Every other serving
 key acts as in JAX: the queue and gateway keys in ``serve/queue.py`` and
 ``serve/transport.py``, ``serve.cache_size`` as the engine's LRU of shape
-keys, ``serve.replicas`` / ``supervisor`` / ``autoscale`` in
-``serve/replica.py`` and its neighbours, ``slo`` in ``obs/slo.py``.
+keys, ``serve.replicas`` / ``workers`` / ``worker`` / ``supervisor`` /
+``autoscale`` in ``serve/replica.py``, ``serve/worker.py`` and their
+neighbours, ``slo`` in ``obs/slo.py``, ``promote`` in ``promote/`` (the
+publisher in the trainer, the promoter in the gateway).
 """
 
 from __future__ import annotations
@@ -206,11 +207,12 @@ _DEFAULTS: dict = {
         "session_cache_bytes": 1 << 30,
         # the tiled executor: not ported (see _UNPORTED)
         "tiled": {"enable": False},
-        # engine replicas per model (serve/replica.py); 'thread' is the only
-        # ported backend (see _UNPORTED)
+        # engine replicas per model (serve/replica.py): threads of the
+        # gateway, or one worker child process each ('process',
+        # serve/worker.py)
         "replicas": 1,
         "workers": "thread",
-        # the process backend's knobs, checked but not read (see _UNPORTED)
+        # the process backend's knobs (serve/worker.py)
         "worker": {
             "spawn_timeout_s": 120.0,
             "heartbeat_s": 0.5,
@@ -280,7 +282,8 @@ _DEFAULTS: dict = {
         "batch_fill_min": None,
         "session_hit_min": None,
     },
-    # the promotion conveyor: checked as in JAX, not ported (see _UNPORTED)
+    # the promotion conveyor (promote/): the trainer's publisher and the
+    # gateway's promoter
     "promote": {
         "enable": False,
         "publish": False,
@@ -357,13 +360,6 @@ _UNPORTED = (
      "wandb logging, not queued in ROADMAP.md: wandb is not installed"),
     ("serve.tiled.enable", (False, None),
      "the tiled executor, ROADMAP.md queue 1 item 6"),
-    ("promote.publish", (False, None),
-     "the promotion publisher (promote/), ROADMAP.md queue 1 item 6"),
-    ("promote.enable", (False, None),
-     "the promoter (promote/), ROADMAP.md queue 1 item 6"),
-    ("serve.workers", ("thread", None),
-     "the process backend (serve/worker.py), ROADMAP.md queue 1 item 6; "
-     "the port's replicas are threads"),
     ("serve.donate", ("auto", False),
      "buffer donation: eager PyTorch has none to give, ROADMAP.md queue 1 "
      "item 6; 'auto' is JAX's own no-op off a TPU"),

@@ -178,6 +178,27 @@ def _read_jax_payload(path: str) -> dict:
     return payload
 
 
+def params_from_checkpoint(path: str,
+                           model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The parameters of a JAX training checkpoint as ``model``'s
+    ``state_dict`` (its optimizer state ignored): what serving loads from a
+    candidate the JAX trainer published. Raises CheckpointCorruptError on a
+    file that is not a JAX checkpoint, ValueError on another architecture."""
+    payload = _read_jax_payload(path)
+    layout = _jax_layout(model)
+    leaves = payload["params_leaves"]
+    if len(leaves) != len(layout):
+        raise ValueError(f"{path}: {len(leaves)} parameter arrays, the model "
+                         f"has {len(layout)}: another architecture or config")
+    params = params_from_jax(_nest(layout, leaves))
+    own = model.state_dict()
+    for name, t in params.items():
+        if name not in own or tuple(own[name].shape) != tuple(t.shape):
+            raise ValueError(f"{path}: parameter {name} of shape "
+                             f"{tuple(t.shape)} does not fit the model")
+    return {name: params.get(name, own[name]) for name in own}
+
+
 def checkpoint_from_jax(path: str, state, config=None):
     """Continue a JAX training checkpoint (``distegnn_tpu.train.checkpoint
     .save_checkpoint``: a pickle of numpy leaves; read without jax or

@@ -4,6 +4,9 @@ drive them without a file system):
 
   - :func:`load_events`: parse a JSONL file, counting (not failing on)
     garbage lines: a crashed run can tear its last line;
+    :func:`load_run_events` adds the sibling ``events_worker_*.jsonl``
+    streams of serving worker children, so a request that crossed the
+    process boundary stitches into one waterfall (``--request``);
   - :func:`summarize`: step-time percentiles, the data-stall fraction,
     checkpoint activity, the fault timeline (divergence, rollback,
     preemption, resume, corrupt checkpoints) and per-rank event counts;
@@ -59,6 +62,29 @@ def load_events(path: str) -> Tuple[List[Dict[str, Any]], int]:
             else:
                 bad += 1
     return events, bad
+
+
+def load_run_events(path: str) -> Tuple[List[Dict[str, Any]], int,
+                                        List[str]]:
+    """Load one run's FULL stream: the named file plus any sibling
+    ``events_worker_*.jsonl`` files (serving worker children write their
+    own sinks next to the parent's — ``serve/worker.py``), merged and
+    ts-sorted so a request that crossed the process boundary stitches into
+    one waterfall. Returns (events, n_bad_lines, files)."""
+    import glob
+
+    files = [path]
+    sibling_glob = os.path.join(os.path.dirname(path) or ".",
+                                "events_worker_*.jsonl")
+    files.extend(sorted(p for p in glob.glob(sibling_glob) if p != path))
+    events: List[Dict[str, Any]] = []
+    bad = 0
+    for p in files:
+        evs, b = load_events(p)
+        events.extend(evs)
+        bad += b
+    events.sort(key=lambda e: float(e.get("ts", 0.0)))
+    return events, bad, files
 
 
 def _named(events, name):
@@ -391,6 +417,8 @@ def main(argv=None) -> int:
         return 2
     events, bad = load_events(args.events)
     if args.request is not None:
+        # the waterfall crosses into worker children: read their streams
+        events = load_run_events(args.events)[0]
         return _report_request(events, args.request, args.events,
                                args.as_json)
     if args.slo is not None:

@@ -206,19 +206,23 @@ def get_tracer() -> Tracer:
 def configure(log_dir: Optional[str] = None, enable: bool = True,
               per_host: bool = False, buffer_events: int = 256,
               flush_interval_s: float = 2.0,
-              tags: Optional[Dict[str, Any]] = None) -> Tracer:
+              tags: Optional[Dict[str, Any]] = None,
+              filename: Optional[str] = None) -> Tracer:
     """(Re)bind the global tracer.
 
     ``enable=False`` or ``log_dir=None`` installs a sinkless tracer: spans
     and events are no-ops and no file is created; ``log()`` still prints.
     Rank 0 writes ``<log_dir>/events.jsonl``; with ``per_host`` every rank
-    writes ``<log_dir>/events_p<rank>.jsonl``. Every record is tagged
-    ``proc``/``host`` (and ``tags``)."""
+    writes ``<log_dir>/events_p<rank>.jsonl``; ``filename`` names the file
+    instead (a serving worker child's ``events_worker_<model>_<idx>.jsonl``
+    beside its gateway's stream). Every record is tagged ``proc``/``host``
+    (and ``tags``)."""
     global _tracer
     pidx = _process_index()
     writer = None
     if enable and log_dir is not None and (per_host or pidx == 0):
-        name = f"events_p{pidx}.jsonl" if per_host else "events.jsonl"
+        name = filename or (f"events_p{pidx}.jsonl" if per_host
+                            else "events.jsonl")
         writer = EventWriter(os.path.join(log_dir, name),
                              buffer_events=buffer_events,
                              flush_interval_s=flush_interval_s)

@@ -8,8 +8,12 @@ ReplicaSet -> RequestQueue.submit(graph) -> bucket ladder -> micro-batcher
 one ServeMetrics; the gateway adds process-wide admission and latency
 series and a ``/metrics`` scrape endpoint.
 
-Not ported yet (ROADMAP.md queue 1 item 6): the process backend
-(``serve/worker.py``), the tiled executor and the promoter.
+Replicas run as threads of this process or, under ``serve.workers:
+process``, in worker children (``serve/worker.py``); the replica layer, the
+supervisor, the registry and the transport import lazily, so a worker child
+that imports this package never loads them.
+
+Not ported yet (ROADMAP.md queue 1 item 6): the tiled executor.
 """
 
 from __future__ import annotations
@@ -32,9 +36,6 @@ from distegnn_tpu_torch.serve.queue import (DispatcherCrashError,
                                             QueueFullError, RequestQueue,
                                             RequestTimeoutError, ServeFuture,
                                             StreamSink)
-from distegnn_tpu_torch.serve.replica import (ModelUnavailableError, Replica,
-                                              ReplicaSet)
-from distegnn_tpu_torch.serve.supervisor import ReplicaSupervisor
 
 __all__ = ["Bucket", "BucketLadder", "BucketOverflowError", "synthetic_graph",
            "CanaryError", "InferenceEngine", "MixedRolloutStepsError",
@@ -48,9 +49,18 @@ __all__ = ["Bucket", "BucketLadder", "BucketOverflowError", "synthetic_graph",
 
 
 def __getattr__(name):
-    # the transport and registry import lazily: the in-process serve stack
-    # does not need the HTTP layer, and registry -> engine_from_config would
+    # the transport, registry, replica layer and supervisor import lazily:
+    # the in-process serve stack does not need the HTTP layer, a worker
+    # child needs none of them, and registry -> engine_from_config would
     # otherwise be a load-time cycle through this package
+    if name in ("ModelUnavailableError", "Replica", "ReplicaSet"):
+        from distegnn_tpu_torch.serve import replica
+
+        return getattr(replica, name)
+    if name == "ReplicaSupervisor":
+        from distegnn_tpu_torch.serve import supervisor
+
+        return supervisor.ReplicaSupervisor
     if name in ("Gateway", "PayloadError"):
         from distegnn_tpu_torch.serve import transport
 

@@ -70,6 +70,19 @@ class MixedRolloutStepsError(ValueError):
 
 
 
+def params_digest(state_dict: Dict[str, torch.Tensor]) -> str:
+    """16-byte blake2b over a ``state_dict`` (shape- and dtype-tagged, in
+    its order): the same on every device."""
+    h = hashlib.blake2b(digest_size=16)
+    for name, t in state_dict.items():
+        arr = t.detach().cpu().numpy()
+        h.update(name.encode())
+        h.update(str(arr.shape).encode())
+        h.update(str(arr.dtype).encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
 class InferenceEngine:
     """Bucketed inference over one model on one device.
 
@@ -105,6 +118,11 @@ class InferenceEngine:
             raise ValueError("cache_size must be >= 1")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        # the params object the setter installed (or the module's
+        # state_dict, taken once): a stable identity per version, as JAX's
+        # params pytree is, so replicas on one version share one object
+        self._params: Optional[Dict[str, torch.Tensor]] = None
+        self._params_of: Optional[torch.nn.Module] = None
         self.ladder = ladder or BucketLadder()
         self.max_batch = int(max_batch)
         self.cache_size = int(cache_size)
@@ -161,12 +179,17 @@ class InferenceEngine:
     # ---- parameters -------------------------------------------------------
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        """The serving parameters (the module's ``state_dict``)."""
-        return self.model.state_dict()
+        """The serving parameters (the module's ``state_dict``): the same
+        object until the module changes, so ``is`` tells versions apart."""
+        if self._params_of is not self.model:
+            self._params, self._params_of = (self.model.state_dict(),
+                                             self.model)
+        return self._params
 
     @params.setter
     def params(self, new: Dict[str, torch.Tensor]) -> None:
         self.model = self._module_with(new)
+        self._params, self._params_of = new, self.model
 
     def _module_with(self, params: Dict[str, torch.Tensor]) -> torch.nn.Module:
         """A copy of the module holding ``params`` (the served one is never
@@ -178,14 +201,7 @@ class InferenceEngine:
     def params_digest(self) -> str:
         """16-byte blake2b over the parameters (shape- and dtype-tagged, in
         the ``state_dict``'s fixed order): the cross-replica fingerprint."""
-        h = hashlib.blake2b(digest_size=16)
-        for name, t in self.model.state_dict().items():
-            arr = t.detach().cpu().numpy()
-            h.update(name.encode())
-            h.update(str(arr.shape).encode())
-            h.update(str(arr.dtype).encode())
-            h.update(np.ascontiguousarray(arr).tobytes())
-        return h.hexdigest()
+        return params_digest(self.model.state_dict())
 
     # ---- one-step prediction ---------------------------------------------
     def predict_batch(self, graphs: Sequence[dict],

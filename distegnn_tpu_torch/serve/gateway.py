@@ -14,6 +14,10 @@ of ``serve/transport.py``:
 SIGTERM/SIGINT drain gracefully: /readyz flips to 503, the queues flush
 (every accepted request gets a real response), then the process exits 0.
 
+``serve.workers: process`` runs each replica in a worker child on the same
+device (``serve/worker.py``); ``promote.enable`` starts the promotion
+conveyor's promoter over ``promote.watch_dir`` (``promote/promoter.py``).
+
     python -m distegnn_tpu_torch.serve.gateway \\
         --config_path configs/nbody_serve.yaml [--device cpu]
 
@@ -96,7 +100,8 @@ def main(argv=None) -> int:
                            or 60.0),
         autoscale=dict(s.autoscale),
         priority=dict(s.priority),
-        stream_chunk_steps=int(s.stream.chunk_steps))
+        stream_chunk_steps=int(s.stream.chunk_steps),
+        promote=dict(cfg.get("promote") or {}))
     gateway.install_signal_handlers()
     host, port = gateway.address
     obs.log(f"gateway: listening on http://{host}:{port} "

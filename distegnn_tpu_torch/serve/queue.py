@@ -65,6 +65,15 @@ class DispatcherCrashError(RuntimeError):
     from a per-request failure (propagate to the caller)."""
 
 
+class WorkerLostError(RuntimeError):
+    """The out-of-process worker executing this queue's batches is gone
+    (dead pipe, SIGKILL'd child, missed deadline). Unlike a per-request
+    failure this poisons the WHOLE queue: the dispatcher kills itself so
+    every pending future carries :class:`DispatcherCrashError` and the
+    replica layer fails the work over — a lost child must never be
+    retried request-by-request against the same dead channel."""
+
+
 class _KilledError(Exception):
     """Internal control flow: the dispatcher observed its kill flag."""
 
@@ -257,6 +266,8 @@ class RequestQueue:
         ``request_timeout + result_margin``, so a wedged dispatcher is a
         typed RequestTimeoutError, not a hang.
     """
+
+    backend = "thread"  # executes in this process (WorkerQueue: a child)
 
     def __init__(self, engine: InferenceEngine, *,
                  batch_deadline_ms: float = 5.0, queue_capacity: int = 256,
@@ -634,6 +645,12 @@ class RequestQueue:
         t_start = time.perf_counter()
         try:
             outs = self._run_batch(key, reqs)
+        except WorkerLostError as exc:
+            # the executor itself is gone, not one bad graph: kill the queue
+            # (futures fail typed, the replica layer claims them for
+            # failover) and let the dispatcher die at its kill check
+            self.kill(reason=str(exc))
+            raise _KilledError() from None
         except Exception:
             # one bad graph fails the whole padded batch — retry each request
             # ALONE once, so a poison graph only takes down itself
@@ -665,6 +682,9 @@ class RequestQueue:
             t_start = time.perf_counter()
             try:
                 out = self._run_batch(key, [r])[0]
+            except WorkerLostError as exc:
+                self.kill(reason=str(exc))
+                raise _KilledError() from None
             except Exception as solo_exc:  # fails even alone: the poison graph
                 self.metrics.poison()
                 self.metrics.failed()

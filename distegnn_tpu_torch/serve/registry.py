@@ -19,6 +19,13 @@ Parameters come from ``model.checkpoint`` when set (``train/checkpoint.py``
 (``serve.engine_with_params_from_config``). :meth:`ModelRegistry.swap` is
 the blue/green path: a params-only load, a per-rung canary, one-replica-at-
 a-time flips and a rollback on any failure, without dropping the queue.
+
+``serve.workers`` picks the replica backend: ``thread`` replicas each hold
+an engine of this process; ``process`` replicas
+(:class:`~distegnn_tpu_torch.serve.replica.WorkerReplica`) each execute in
+a worker child that rebuilds the same params from the same config (the
+spawn handshake checks the digest), while the entry's engine stays the
+parent's reference handle.
 """
 
 from __future__ import annotations
@@ -63,10 +70,16 @@ class ModelEntry:
     def __init__(self, name: str, engine: InferenceEngine,
                  queue: RequestQueue, feat_nf: int, edge_attr_nf: int,
                  config=None, extra_replicas: Sequence = (),
-                 supervisor_opts: Optional[dict] = None):
+                 supervisor_opts: Optional[dict] = None,
+                 replica_objs: Optional[Sequence] = None):
         self.name = name
         self.engine = engine
-        members = [(engine, queue)] + list(extra_replicas)
+        if replica_objs is not None:
+            # process backend: pre-built WorkerReplica objects; ``engine``
+            # is the parent-side reference handle they all share
+            members = list(replica_objs)
+        else:
+            members = [(engine, queue)] + list(extra_replicas)
         self.replicas = ReplicaSet(name, members,
                                    supervisor_opts=supervisor_opts)
         self.feat_nf = int(feat_nf)
@@ -133,7 +146,12 @@ class ModelEntry:
         replica = self.replicas.add_replica(self.replica_factory,
                                             warm_sizes=warm_sizes)
         with self._swap_lock:   # blocks until any in-flight swap lands
-            if replica.engine.model is not self.engine.model:
+            if replica.backend == "process":
+                stale = (str(replica.current_checkpoint)
+                         != str(self.checkpoint))
+            else:
+                stale = replica.engine.model is not self.engine.model
+            if stale:
                 replica.swap_params(str(self.checkpoint),
                                     self.engine.params, list(self.warmed))
                 obs.event("gateway/scale_up_repin", model=self.name,
@@ -203,7 +221,11 @@ class ModelEntry:
                     f"swap canary failed for '{self.name}': {exc}; rolled "
                     f"back {len(flipped)} flipped replica(s)",
                     stage="canary", rolled_back=True) from exc
-            # ``self.engine`` is replica 0's engine: already flipped above
+            # the parent reference handle tracks the live version: it is the
+            # digest source for worker respawns and the module of degraded
+            # fallbacks (thread replica 0 is this engine, flipped above)
+            if self.engine.params is not new_params:
+                self.engine.params = new_params
             self.checkpoint = str(checkpoint)
             self.params_version += 1
             obs.event("gateway/swap_done", model=self.name,
@@ -286,14 +308,14 @@ class ModelRegistry:
                                               engine_with_params_from_config,
                                               queue_from_config)
         from distegnn_tpu_torch.serve.metrics import ServeMetrics
-        from distegnn_tpu_torch.serve.replica import Replica
+        from distegnn_tpu_torch.serve.replica import Replica, WorkerReplica
 
         n_replicas = max(1, int(cfg.serve.get("replicas", 1) or 1))
+        backend = str(cfg.serve.get("workers", "thread") or "thread")
         metrics = ServeMetrics()  # shared by every replica of this model
         # the deterministic recipe: seeded init, then an optional checkpoint
         model, engine = engine_with_params_from_config(cfg, device=device,
                                                        metrics=metrics)
-        queue = queue_from_config(cfg, engine)
         feat_nf = int(cfg.model.node_feat_nf)
         edge_nf = int(cfg.model.edge_attr_nf)
         ckpt = cfg.model.get("checkpoint")
@@ -311,18 +333,54 @@ class ModelRegistry:
             eng_i.prep_cache = engine.prep_cache
             return eng_i, queue_from_config(cfg, eng_i)
 
-        extra = [replica_pair(model) for _ in range(n_replicas - 1)]
-        entry = ModelEntry(name, engine, queue, feat_nf, edge_nf,
-                           config=cfg, extra_replicas=extra,
-                           supervisor_opts=supervisor_opts)
+        if backend == "process":
+            s = cfg.serve
+            queue_kw = dict(
+                batch_deadline_ms=float(s.batch_deadline_ms),
+                queue_capacity=int(s.queue_capacity),
+                request_timeout_ms=float(s.request_timeout_ms),
+                result_margin_s=float(s.get("result_margin_s", 30.0)),
+                metrics=metrics)
+            cfg_dict = copy.deepcopy(cfg.to_dict())
+            worker_opts = dict(cfg.serve.get("worker") or {})
+            if engine.device.type == "cuda":
+                # the parent builds the path's kernels before any child
+                # starts: the children then only load the libraries
+                engine.warmup([(2, 2)])
+
+            def fallback_factory(_engine=engine):
+                # spawn-failure degradation: a fresh in-process pair serving
+                # the parent handle's CURRENT module (post-swap correct)
+                return replica_pair(_engine.model)
+
+            def make(idx, checkpoint):
+                return WorkerReplica(
+                    idx, engine, model=name, queue_kw=queue_kw,
+                    worker_opts=worker_opts, cfg_dict=cfg_dict,
+                    fallback_factory=fallback_factory, checkpoint=checkpoint)
+
+            entry = ModelEntry(
+                name, engine, None, feat_nf, edge_nf, config=cfg,
+                replica_objs=[make(i, str(ckpt) if ckpt else None)
+                              for i in range(n_replicas)],
+                supervisor_opts=supervisor_opts)
+
+            def replica_factory(idx, _entry=entry):
+                # a fresh worker on the entry's CURRENT checkpoint
+                return make(idx, _entry.checkpoint)
+        else:
+            extra = [replica_pair(model) for _ in range(n_replicas - 1)]
+            entry = ModelEntry(name, engine, queue_from_config(cfg, engine),
+                               feat_nf, edge_nf,
+                               config=cfg, extra_replicas=extra,
+                               supervisor_opts=supervisor_opts)
+
+            def replica_factory(idx, _entry=entry):
+                # a fresh engine + queue on the entry's CURRENT module
+                # (post-swap correct)
+                return Replica(idx, *replica_pair(_entry.engine.model))
         if ckpt:
             entry.checkpoint = str(ckpt)
-
-        def replica_factory(idx, _entry=entry):
-            # a fresh engine + queue on the entry's CURRENT module
-            # (post-swap correct)
-            return Replica(idx, *replica_pair(_entry.engine.model))
-
         entry.replica_factory = replica_factory
         return entry
 
@@ -413,8 +471,9 @@ class ModelRegistry:
                 "error": e.error,
                 "replicas_available": e.replicas.available(),
                 "replicas_total": len(e.replicas.replicas),
-                # per-worker detail (threads report backend only; JAX's
-                # process backend adds pid and heartbeat)
+                # per-worker detail (pid/heartbeat for process backends;
+                # threads report backend only) — /readyz surfaces this and
+                # /metrics derives the heartbeat-age gauges from it
                 "workers": [
                     {"replica": h["replica"],
                      "backend": h.get("backend", "thread"),

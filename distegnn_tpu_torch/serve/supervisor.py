@@ -23,16 +23,29 @@ ticks every ``heartbeat_s`` and drives each replica's state machine:
     ``breaker_cooldown_s`` before the next (half-open) attempt. A replica
     healthy for ``healthy_reset_s`` gets its failure count cleared.
 
+Process-backed replicas (``serve.workers: process``) run under the SAME
+state machine with two additions: liveness also covers the child process
+(``WorkerQueue.alive()`` folds in a process poll, so a SIGKILL'd child is a
+plain **crash**), and a second wedge signal — heartbeat staleness. A
+SIGSTOPped or truly wedged child stops beating even when the queue is idle,
+which ``depth() > 0`` progress tracking can never see; when
+``Replica.heartbeat_age()`` (None for thread replicas) exceeds
+``worker_heartbeat_timeout_s`` the replica is marked down as a wedge. Every
+mark-down of a process replica kills its queue, which escalates SIGTERM →
+SIGKILL after ``serve.worker.kill_grace_s`` with zombie reaping
+(``WorkerQueue.kill``) — SIGKILL is what fells a stopped child, and what
+frees the CUDA context it still holds. The respawn path then goes through
+the same backoff/breaker math; a spawn failure degrades to an in-process
+queue (``gateway/worker_degraded``) inside ``restart_queue`` rather than
+shedding the model. Each tick also reconciles a running worker left on a
+stale checkpoint by a swap that raced its respawn.
+
 The first use of a CUDA kernel builds it (``nvcc``, tens of seconds): warm
 the engines (``ModelRegistry.warmup``) before traffic, or a first batch can
 sit past ``wedge_timeout_s`` and be restarted mid-build.
 
 Every transition emits a ``gateway/replica_*`` obs event. ``tick(now=)`` is
-public so tests drive the state machine with synthetic clocks. The
-``worker_heartbeat_timeout_s`` knob belongs to JAX's process backend
-(``serve/worker.py``, not ported; ``serve.workers: process`` is refused): it
-is accepted, as the config's ``serve.supervisor`` section carries it, and a
-thread replica has no heartbeat for it to bound.
+public so tests drive the state machine with synthetic clocks.
 """
 
 from __future__ import annotations
@@ -101,6 +114,8 @@ class ReplicaSupervisor:
             if r.state == "running":
                 if not r.queue.alive():
                     self._mark_down(r, "crash", now)
+                elif self._heartbeat_stale(r):
+                    self._mark_down(r, "wedge", now)
                 elif (r.queue.depth() > 0
                       and now - r.queue.last_progress > self.wedge_timeout_s):
                     self._mark_down(r, "wedge", now)
@@ -108,9 +123,21 @@ class ReplicaSupervisor:
                     r.failures = 0
                     obs.event("gateway/replica_breaker_close",
                               model=self.rset.model, replica=r.idx)
+                if r.state == "running":
+                    # process replicas: heal a worker left on a stale
+                    # checkpoint by a swap that raced its respawn
+                    r.reconcile_checkpoint()
             elif r.state in ("backoff", "broken"):
                 if now >= r.next_restart_at:
                     self._restart(r, now)
+
+    def _heartbeat_stale(self, r) -> bool:
+        """True when a process-backed replica's child has stopped beating
+        (SIGSTOP / hard wedge). A thread replica has no heartbeat (None
+        here). Ages are real ``monotonic``
+        seconds — synthetic test clocks don't apply to this signal."""
+        age = r.heartbeat_age()
+        return age is not None and age > self.worker_heartbeat_timeout_s
 
     def _mark_down(self, r, reason: str, now: float) -> None:
         r.last_reason = reason
@@ -132,8 +159,11 @@ class ReplicaSupervisor:
         # each record is claimed exactly once (supervisor vs done-callback);
         # per-request gateway/replica_failover events carry the detail
         self.rset.fail_over_replica(r, reason=reason)
-        if reason == "wedge":
-            # poison the stragglers so no future hangs
+        if reason == "wedge" or r.queue.backend == "process":
+            # wedge: poison the stragglers so no future hangs. Process
+            # backend: ALWAYS kill — WorkerQueue.kill escalates SIGTERM →
+            # SIGKILL (the only signal a SIGSTOPped child honours) and reaps
+            # the zombie, so a dead child never lingers between restarts
             r.queue.kill(reason=f"marked down ({reason}) by supervisor")
 
     def _restart(self, r, now: float) -> None:
@@ -148,8 +178,8 @@ class ReplicaSupervisor:
             self._mark_down(r, "restart_failed", now)
             return
         if not self.rset._supervised:
-            # a stop() raced us while restart_queue ran: never revive a
-            # queue after drain has begun
+            # a stop() raced us while restart_queue ran (a worker spawn
+            # takes seconds): never revive a queue after drain has begun
             r.queue.stop(drain=False, join_timeout_s=2.0)
             r.state = "stopped"
             obs.event("gateway/replica_restart_aborted",

@@ -44,7 +44,13 @@ rollouts ``bulk`` (header-overridable); bulk is capped at
 window is degraded. A
 :class:`~distegnn_tpu_torch.serve.autoscale.ReplicaAutoscaler` (opt-in via
 ``serve.autoscale.enable``) grows and shrinks each model's replicas from the
-same window.
+same window, and a :class:`~distegnn_tpu_torch.promote.promoter.Promoter`
+(opt-in via ``promote.enable``) canaries published candidates on one
+quarantined replica, fed by a sample of live predicts teed off the hot
+path after each live answer is in hand; ``/readyz`` carries its status and
+``/metrics`` its ``promote/*`` gauges. Over process-worker replicas
+(``serve.workers: process``) a streamed rollout is served buffered and
+re-chunked at the edge: same lines, no early first chunk.
 
 Every request runs inside an obs span (``serve/http`` with route and status)
 and lands in per-route latency reservoirs and shed/timeout counters of the
@@ -304,7 +310,8 @@ class Gateway:
                  slo_window_s: float = 60.0,
                  autoscale: Optional[dict] = None,
                  priority: Optional[dict] = None,
-                 stream_chunk_steps: int = 8):
+                 stream_chunk_steps: int = 8,
+                 promote: Optional[dict] = None):
         from distegnn_tpu_torch.obs.slo import SLOMonitor
 
         self.registry = registry
@@ -348,8 +355,14 @@ class Gateway:
             registry, self.slo_monitor, config=autoscale,
             metrics_registry=self._reg)
         self.autoscaler.start()
-        # JAX's promoter (promote.enable) is not ported: the config key is
-        # refused, so the gateway builds none
+        # the promotion conveyor's serving end (no-op unless promote.enable):
+        # watches the candidate directory, canaries on a quarantined replica,
+        # and reads its shadow sample off this gateway's predict hot path
+        from distegnn_tpu_torch.promote.promoter import Promoter
+        self.promoter = Promoter(
+            registry, self.slo_monitor, config=promote,
+            metrics_registry=self._reg)
+        self.promoter.start()
         self.httpd = _Server((host, int(port)), _make_handler(self))
 
     # ---- addresses -------------------------------------------------------
@@ -392,8 +405,10 @@ class Gateway:
             self._draining = True
         self._accepting = False
         self._ready_gauge.set(0.0)
-        # the autoscaler must not grow/shrink a fleet that is draining
+        # the autoscaler must not grow/shrink a fleet that is draining, and
+        # the promoter must not start (or hold) a canary across the drain
         self.autoscaler.stop()
+        self.promoter.stop()
         obs.event("gateway/drain_begin", inflight=self._inflight)
         # every admitted future resolves; models drain CONCURRENTLY, each
         # bounded by the grace budget (registry.stop). Signature-aware so a
@@ -418,6 +433,7 @@ class Gateway:
 
     def close(self) -> None:
         self.autoscaler.stop()
+        self.promoter.stop()
         self.httpd.server_close()
 
     def ready(self) -> bool:
@@ -497,10 +513,14 @@ class Gateway:
             health = self.registry.health()
             scale = (self.autoscaler.status()
                      if self.autoscaler.enable else None)
+            promo = (self.promoter.status()
+                     if self.promoter.enable else None)
             if fully_ready:
                 body = {"ready": True, "models": health}
                 if scale is not None:
                     body["autoscale"] = scale
+                if promo is not None:
+                    body["promote"] = promo
                 return self._send_json(h, 200, body)
             if self.registry.any_ready():
                 # degraded: the broken model 503s on its own routes while
@@ -508,6 +528,8 @@ class Gateway:
                 body = {"ready": True, "degraded": True, "models": health}
                 if scale is not None:
                     body["autoscale"] = scale
+                if promo is not None:
+                    body["promote"] = promo
                 return self._send_json(h, 200, body)
             return self._send_json(h, 503, {
                 "ready": False,
@@ -693,6 +715,12 @@ class Gateway:
                 h, 503, {"error": str(exc), "type": "ModelUnavailable",
                          "model": exc.model},
                 retry_after=exc.retry_after_s)
+        if self.promoter.enable:
+            # promotion shadow tee: mirror this (graph, live output) pair to
+            # the canary replica. Sampled + bounded inside tee, and the
+            # shadow response never reaches this client — the live `out` is
+            # already in hand and is what gets encoded below.
+            self.promoter.tee(name, graph, bucket, rid, out)
         if perm is not None:
             # the session plan served the model a Morton-relabeled graph;
             # answer in the client's original node order
@@ -801,6 +829,13 @@ class Gateway:
         chunk = self._stream_chunk(payload)
         scene = dict(scene)
         scene["chunk_steps"] = chunk
+        supports = getattr(entry.queue, "supports_streaming", None)
+        if callable(supports) and not supports():
+            # process-worker replicas can't push chunks over the IPC
+            # channel: serve one buffered rollout re-chunked at the edge —
+            # same wire contract, just without the early first chunk
+            return self._rollout_stream_fallback(h, name, entry, scene,
+                                                 encoding, rid, t0, chunk)
         sink = StreamSink()
         fut, status = self._submit_guarded(
             h, lambda: entry.queue.submit_rollout(scene, request_id=rid,
@@ -864,6 +899,57 @@ class Gateway:
             # skipped-step count), free the slot, and let dispatch record
             # the 499
             sink.cancel()
+            self._c["stream_cancelled"].add(1)
+            raise
+        return 200
+
+    def _rollout_stream_fallback(self, h, name: str, entry, scene: dict,
+                                 encoding: str, rid, t0, chunk: int) -> int:
+        """Streaming contract over a non-streaming backend: run the buffered
+        rollout, then replay it as NDJSON chunks. The same chunk lines, no
+        early first chunk (the backend can't provide one)."""
+        fut, status = self._submit_guarded(
+            h, lambda: entry.queue.submit_rollout(scene, request_id=rid),
+            entry)
+        if fut is None:
+            return status
+        try:
+            traj = fut.result()
+        except RequestTimeoutError as exc:
+            self._c["timeouts"].add(1)
+            return self._send_json(h, 504, {"error": str(exc),
+                                            "type": "RequestTimeout"})
+        except ModelUnavailableError as exc:
+            self._c["model_unavailable"].add(1)
+            return self._send_json(
+                h, 503, {"error": str(exc), "type": "ModelUnavailable",
+                         "model": exc.model},
+                retry_after=exc.retry_after_s)
+        except RolloutOverflowError as exc:
+            self._c["rollout_overflow"].add(1)
+            return self._send_json(h, 422, {"error": str(exc),
+                                            "type": "RolloutOverflow"})
+        steps = int(traj.shape[0])
+        self._begin_chunked(h, rid)
+        try:
+            done = 0
+            while done < steps:
+                c = min(chunk, steps - done)
+                self._write_chunk(h, json.dumps({
+                    "start_step": done, "steps": c,
+                    "chunk": encode_array(traj[done:done + c],
+                                          encoding)}) + "\n")
+                done += c
+            self._c["rollout_ok"].add(1)
+            self._c["stream_ok"].add(1)
+            self._write_chunk(h, json.dumps({
+                "done": True, "request_id": rid, "model": name,
+                "n": int(scene["loc"].shape[0]), "steps": steps,
+                "steps_total": steps, "cancelled": False,
+                "total_ms": round((time.perf_counter() - t0) * 1e3,
+                                  3)}) + "\n")
+            self._end_chunked(h)
+        except ConnectionError:
             self._c["stream_cancelled"].add(1)
             raise
         return 200
@@ -944,12 +1030,25 @@ class Gateway:
             self._inflight_gauge.set(self._inflight)
         self._ready_gauge.set(1.0 if self.ready() else 0.0)
         self.slo_monitor.export(self._reg, self.registry)
+        if self.promoter.enable:
+            self.promoter.export()   # conveyor + drift gauges stay fresh
         # per-replica health gauges: 1 = running with a live dispatcher
         for name, entry in self.registry.items():
             for rh in entry.replicas.health():
                 up = 1.0 if (rh["state"] == "running" and rh["alive"]) else 0.0
                 self._reg.gauge(
                     f"gateway/replica_{name}_{rh['replica']}_up").set(up)
+                if rh.get("backend") == "process":
+                    # per-worker liveness detail: a climbing heartbeat age
+                    # is the early-warning signal for a wedging child
+                    age = rh.get("heartbeat_age_s")
+                    self._reg.gauge(
+                        f"gateway/worker_{name}_{rh['replica']}_"
+                        f"heartbeat_age_s").set(
+                            float(age) if age is not None else -1.0)
+                    self._reg.gauge(
+                        f"gateway/worker_{name}_{rh['replica']}_"
+                        f"restarts").set(float(rh.get("restarts", 0)))
             self._reg.gauge(f"gateway/replicas_{name}_available").set(
                 entry.replicas.available())
         parts = [self._reg.render_prometheus(prefix="distegnn")]

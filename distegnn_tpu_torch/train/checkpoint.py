@@ -436,15 +436,25 @@ def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
     apart by the file's content: a trainer checkpoint (the payload of
     :func:`save_checkpoint`) through :func:`restore_params`, which verifies
     it first; a bare ``state_dict`` (e.g. of ``convert.params_from_jax``,
-    written with ``torch.save``) as it is. A file that does not load at all
-    is read as a damaged trainer checkpoint: :class:`CheckpointCorruptError`.
+    written with ``torch.save``) as it is; a JAX training checkpoint (a
+    pickle of numpy leaves: a candidate the JAX trainer published) through
+    ``convert.params_from_checkpoint``. A file that is none of these is
+    read as a damaged trainer checkpoint: :class:`CheckpointCorruptError`.
     Returns ``model``."""
     try:
         obj = torch.load(path, map_location="cpu", weights_only=True)
     except _LOAD_ERRORS:
         obj = None
-    if obj is None or (isinstance(obj, dict)
-                       and all(k in obj for k in _REQUIRED_KEYS)):
+    if obj is None:
+        from distegnn_tpu_torch.convert import params_from_checkpoint
+
+        try:
+            params = params_from_checkpoint(path, model)
+        except CheckpointCorruptError:
+            return restore_params(path, model)
+        model.load_state_dict(params)
+        return model
+    if isinstance(obj, dict) and all(k in obj for k in _REQUIRED_KEYS):
         return restore_params(path, model)
     model.load_state_dict(obj)
     return model

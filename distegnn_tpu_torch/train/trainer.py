@@ -15,7 +15,12 @@ The long run's durability, as in JAX:
     returns (``main`` exits 75, resumable);
   - a resumed run (``start_epoch``, ``start_step_in_epoch``) skips the
     micro-steps already applied: the loader order and the step generators
-    derive from (seed, epoch, step) only, so the schedule replays exactly.
+    derive from (seed, epoch, step) only, so the schedule replays exactly;
+  - the promotion conveyor's trainer end (``promote.publish``): rank 0
+    republishes every rotated cadence checkpoint as a candidate into
+    ``promote.watch_dir`` (``promote/publish.py``), with the latest
+    finite validation loss in its manifest; a failed publish never stops
+    training.
 
 The event stream (obs/): ``train/run_start``, ``train/resume``,
 ``train/step`` (each micro-step under ``obs.step_events``: its host time,
@@ -35,8 +40,7 @@ the epoch's ``batch_consistency`` must be exactly 0
 (:func:`assert_batch_consistency`), and under ``log.check_consistency``
 the parameters are checked bitwise replicated at every eval epoch.
 
-Not ported yet (ROADMAP.md): the promotion publisher, wandb and the epoch
-as one device program.
+Not ported yet (ROADMAP.md): wandb and the epoch as one device program.
 """
 
 from __future__ import annotations
@@ -159,11 +163,13 @@ class CadenceSaver:
     every ``interval_s`` seconds of training, ``step_<n>.ckpt`` with its
     (epoch, step_in_epoch), then rotation to the newest ``keep``.
     ``interval_s`` <= 0 or ``enabled=False`` (a rank other than 0) makes it
-    a no-op, so the loop never branches on the configuration."""
+    a no-op, so the loop never branches on the configuration. With a
+    ``publisher`` (``promote.publish``) each rotated checkpoint is also
+    published as a serving candidate."""
 
     def __init__(self, ckpt_dir: str, interval_s: float, keep: int,
                  config: Optional[dict], seed: Optional[int],
-                 enabled: bool = True):
+                 enabled: bool = True, publisher=None):
         self.ckpt_dir = ckpt_dir
         self.interval_s = float(interval_s or 0)
         self.keep = max(int(keep), 1)
@@ -172,6 +178,11 @@ class CadenceSaver:
         self.enabled = enabled and self.interval_s > 0
         self._last = time.monotonic()
         self.saves = 0
+        # promotion conveyor: None = training island only. The latest eval
+        # loss rides the candidate manifest so the promoter can attribute a
+        # candidate to its validation quality.
+        self.publisher = publisher
+        self.last_val_loss: Optional[float] = None
 
     def maybe_save(self, state, completed_epoch: int,
                    step_in_epoch: int) -> None:
@@ -184,6 +195,16 @@ class CadenceSaver:
         rotate_checkpoints(self.ckpt_dir, self.keep)
         self._last = time.monotonic()
         self.saves += 1
+        if self.publisher is not None:
+            try:
+                self.publisher.publish(path, step=int(state.step),
+                                       val_loss=self.last_val_loss,
+                                       config=self.config)
+            except Exception as exc:
+                # the conveyor never stops training: a full/unwritable
+                # watch_dir just delays promotion to the next rotation
+                obs.log(f"promote: candidate publish failed for step "
+                        f"{int(state.step)}: {exc!r}")
 
 
 def snapshot_state(state) -> dict:
@@ -416,9 +437,21 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
                       indent=4)
 
     guard = PreemptionGuard(axis_name, device).install()
+    # trainer end of the promotion conveyor: every rotated cadence
+    # checkpoint is republished as a candidate the gateway's promoter can
+    # canary. Rank 0 only, as the checkpoints themselves.
+    publisher = None
+    pm_cfg = config.get("promote") or {}
+    if (is_main and pm_cfg.get("publish")
+            and str(pm_cfg.get("watch_dir", "")).strip()):
+        from distegnn_tpu_torch.promote.publish import CandidatePublisher
+
+        publisher = CandidatePublisher(str(pm_cfg["watch_dir"]),
+                                       history=int(pm_cfg.get("history", 4)))
     cadence = CadenceSaver(
         ckpt_dir, train_cfg.get("checkpoint_interval_s", 0),
-        train_cfg.get("keep_checkpoints", 3), cfg, seed, enabled=is_main)
+        train_cfg.get("keep_checkpoints", 3), cfg, seed, enabled=is_main,
+        publisher=publisher)
     retries_left = int(train_cfg.get("divergence_retries", 0) or 0)
     lr_decay = float(train_cfg.get("divergence_lr_decay", 0.5) or 0.5)
     lr_scale = 1.0
@@ -548,6 +581,9 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
                              dur_s=round(time.perf_counter() - t_eval, 4),
                              loss_valid=float(loss_valid),
                              loss_test=float(loss_test))
+                if np.isfinite(loss_valid):
+                    # candidates published after this eval carry this loss
+                    cadence.last_val_loss = float(loss_valid)
                 if not warmup_marked:
                     # both the train and the eval step have run: the
                     # steady-state footprint

@@ -28,14 +28,11 @@ UNPORTED = [("train.scan_epochs", True),
             ("parallel.mesh.tensor", 2),
             ("log.wandb.enable", True),
             ("serve.tiled.enable", True),
-            ("promote.publish", True),
-            ("promote.enable", True),
-            ("serve.workers", "process"),
             ("serve.donate", True)]
 
 
 # published configs that set a key the port refuses: (file, the key)
-REFUSED = {"nbody_promote.yaml": "promote.enable"}
+REFUSED = {}
 
 
 @pytest.mark.parametrize("path", CONFIGS,
@@ -346,3 +343,72 @@ def test_serving_keys_are_checked_as_in_jax(tmp_path, key, value, refused):
     for p in key.split("."):
         node, jnode = node[p], jnode[p]
     assert node == jnode == value
+
+
+# the promotion conveyor and the process backend are ported: (dotted keys
+# and values, whether the JAX package's checks refuse them)
+CONVEYOR = [({"promote.enable": True}, True),
+            ({"promote.publish": True}, True),
+            ({"promote.enable": True,
+              "promote.watch_dir": "logs/promote/conveyor"}, False),
+            ({"promote.publish": True,
+              "promote.watch_dir": "logs/promote/conveyor"}, False),
+            ({"serve.workers": "process"}, False),
+            ({"serve.workers": "fork"}, True),
+            ({"serve.workers": "process", "serve.worker.kill_grace_s": 0.5},
+             False),
+            ({"serve.supervisor.worker_heartbeat_timeout_s": 2.0}, False)]
+
+
+@pytest.mark.parametrize("keys, refused", CONVEYOR)
+def test_conveyor_and_worker_keys_load_and_are_checked_as_in_jax(
+        tmp_path, keys, refused):
+    with open(SERVE) as f:
+        raw = yaml.safe_load(f)
+    for key, value in keys.items():
+        *path, last = key.split(".")
+        node = raw
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = value
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    if refused:
+        with pytest.raises(ValueError) as jerr:
+            jax_load_config(str(path))
+        with pytest.raises(ValueError) as perr:
+            load_config(str(path))
+        assert str(perr.value) == str(jerr.value)
+        return
+    cfg, jcfg = load_config(str(path)), jax_load_config(str(path))
+    for key, value in keys.items():
+        node, jnode = cfg, jcfg
+        for p in key.split("."):
+            node, jnode = node[p], jnode[p]
+        assert node == jnode == value
+
+
+def test_promote_config_builds_a_gateway_with_its_promoter(tmp_path):
+    """configs/nbody_promote.yaml as published (its watch directory moved
+    under the test's) builds a three-replica gateway whose promoter runs,
+    and /readyz-shaped status reports the fleet coherent."""
+    from distegnn_tpu_torch.serve.registry import ModelRegistry
+    from distegnn_tpu_torch.serve.transport import Gateway
+
+    cfg = load_config(os.path.join(REPO, "configs", "nbody_promote.yaml"),
+                      {"promote.watch_dir": str(tmp_path / "conveyor"),
+                       "model.hidden_nf": 16, "model.n_layers": 2})
+    assert cfg.promote.enable and cfg.serve.replicas == 3
+    reg = ModelRegistry.from_config(cfg, device="cpu")
+    gw = Gateway(reg, port=0, promote=dict(cfg.promote))
+    try:
+        assert gw.promoter.enable and gw.promoter._thread is not None
+        reg.start()
+        reg.warmup([48])
+        gw.promoter.tick()
+        st = gw.promoter.status()
+        assert st["state"] == "idle" and st["fleet_coherent"] is True
+        assert len(reg.get("default").replicas.replicas) == 3
+    finally:
+        gw.close()
+        reg.stop()

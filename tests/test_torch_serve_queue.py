@@ -10,6 +10,7 @@ counters and names, the cache and session hit/miss/eviction counts, the
 ``RepackPlan`` arrays and the prepared dicts.
 """
 
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -154,6 +155,16 @@ def test_shape_lru_counts_as_jax_cache(engines):
     assert list(peng.shapes_seen) == list(jeng._cache)
 
 
+def _settled_depth(q, limit_s=10.0):
+    """The queue's depth once its dispatcher has finished the pass that
+    resolved the futures (it answers a request before it drops it from
+    its pending map)."""
+    deadline = time.monotonic() + limit_s
+    while q.depth() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return q.depth()
+
+
 def test_queue_errors_match_jax(engines):
     jeng, peng = engines
     seen = {}
@@ -164,16 +175,19 @@ def test_queue_errors_match_jax(engines):
         # capacity: a wedged dispatcher absorbs nothing, the ingress fills
         q = Queue(eng, batch_deadline_ms=1.0, queue_capacity=2,
                   request_timeout_ms=60.0, metrics=eng.metrics)
-        q.wedge(0.3)
+        # (held until released, however slowly this host runs the test)
+        q.wedge(60.0)
         q.start()
         futs = [q.submit(scene(50, 1)), q.submit(scene(50, 2))]
         with pytest.raises(Full):
             q.submit(scene(50, 3))
         # the queued deadline passes while wedged
+        time.sleep(0.1)
+        q.wedge(0.0)
         for f in futs:
             with pytest.raises(Timeout):
                 f.result(timeout=60)
-        got.append(q.depth())
+        got.append(_settled_depth(q))
         # kill: every outstanding future fails typed, submits raise
         q.wedge(30.0)
         f = q.submit(scene(50, 4))
@@ -188,9 +202,10 @@ def test_queue_errors_match_jax(engines):
                   request_timeout_ms=60_000.0, metrics=eng.metrics)
         bad = scene(50, 6)
         bad["node_feat"] = np.ones((50, 3), np.float32)
-        q.wedge(0.2)
+        q.wedge(60.0)
         q.start()
         good, poison = q.submit(scene(50, 7)), q.submit(bad)
+        q.wedge(0.0)  # both wait in the ingress: one batch takes them
         good.result(timeout=60)
         with pytest.raises(Exception):
             poison.result(timeout=60)
