@@ -239,6 +239,23 @@ or of the JAX package. Phases (any failure exits nonzero):
      escalation, a new pid) and spawn_failure(n=1) (degraded, the event
      seen, a real child back at the next restart). (e) (b)'s p50 / p99 and
      requests/s beside phase 12's thread-backend predicts.
+  14. tiled serving of scenes above serve.max_nodes (ops/tiling.py,
+     serve/tiled.py): configs/nbody_serve.yaml + model.edge_impl=fused,
+     data.edge_block=512, serve.tiled.enable (H=64, L=4, C=3). (a) a
+     40000-node radius-graph scene at tile_nodes 8192 (at least 4 tiles)
+     through engine.predict_tiled, within 1e-5 scale-normalized of the
+     monolithic fused forward of the same module called directly, with
+     exactly L x T launches of fused_edge_fwd_f32_kernel (counts set to 0
+     just before, read just after). (b) JAX's million-node lattice (side
+     100: 10^6 nodes, ~1.98 M edges) POSTed to the HTTP gateway at the
+     default tile_nodes 65536: 200 (not 413), the engine holding one
+     tile_layer shape key; the streamed variant's L x T progress lines and
+     its answer within 1e-5 of the buffered one; a model routed with
+     serve.tiled.max_nodes 524288 answers 413 naming the knob; exactly
+     2 x L x T forward launches; the tiles, halo and stall fractions,
+     prep_ms, total_ms, the device's peak memory and the host's RSS
+     printed. (c) the forward kernel at the heaviest tile of (b)'s cached
+     plan, held against its plain version and timed beside its bound.
 
 Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
 loader's first pass) with the native library and with the numpy layout.
@@ -339,6 +356,22 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+@contextlib.contextmanager
+def phase_tmp(prefix):
+    """A temporary directory for one phase's files. A run in it binds the
+    process's event stream to a file there, so the stream is unbound before
+    the directory goes (a later phase's first event would find no file)."""
+    import tempfile
+
+    from distegnn_tpu_torch import obs
+
+    with tempfile.TemporaryDirectory(prefix=prefix) as tmp:
+        try:
+            yield tmp
+        finally:
+            obs.configure(enable=False)
 
 
 def nvidia_smi():
@@ -1066,9 +1099,7 @@ def train_phase(root, dev, clouds, profile=False):
     then the first optimizer update again with the kernels and with their
     plain versions. The run's logs and checkpoints go to a temporary
     directory that is removed afterwards."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as log_dir:
+    with phase_tmp("chip_smoke_train_") as log_dir:
         return _train_phase(root, dev, clouds, log_dir, profile)
 
 
@@ -1452,9 +1483,7 @@ def plain_serve_phase(root, dev, scenes):
 
 def plain_train_phase(root, dev, clouds, e_train, profile=False):
     """Phase 6 in a temporary log directory (see :func:`train_phase`)."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_plain_") as log_dir:
+    with phase_tmp("chip_smoke_plain_") as log_dir:
         return _plain_train_phase(root, dev, clouds, e_train, log_dir,
                                   profile)
 
@@ -1935,9 +1964,7 @@ def stack_serve_phase(root, dev, profile=False):
 
 def stack_train_phase(root, dev, clouds, profile=False):
     """Phase 7 in a temporary log directory (see :func:`train_phase`)."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_stack_") as log_dir:
+    with phase_tmp("chip_smoke_stack_") as log_dir:
         return _stack_train_phase(root, dev, clouds, log_dir, profile)
 
 
@@ -2567,9 +2594,7 @@ def rollout_profile(eng, reqs, reps=5):
 
 def blocked_train_phase(root, dev, clouds, profile=False):
     """Phase 8 in a temporary log directory (see :func:`train_phase`)."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_blocked_") as log_dir:
+    with phase_tmp("chip_smoke_blocked_") as log_dir:
         return _blocked_train_phase(root, dev, clouds, log_dir, profile)
 
 
@@ -3051,8 +3076,6 @@ def dist_phase(root, dev, clouds):
     """Phase 9: distributed training, the flagship config as published over
     graph parts (see the module docstring). Logs, checkpoints and shards go
     to a temporary directory that is removed afterwards."""
-    import tempfile
-
     import torch
 
     from distegnn_tpu_torch.config import load_config
@@ -3060,7 +3083,7 @@ def dist_phase(root, dev, clouds):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     flagship = os.path.join(root, "configs", "largefluid_distegnn.yaml")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+    with phase_tmp("chip_smoke_dist_") as tmp:
         cfg = load_config(flagship, {
             "data.world_size": DIST_WS, "train.epochs": DIST_EPOCHS,
             "log.log_dir": os.path.join(tmp, "logs")})
@@ -3412,9 +3435,7 @@ def preempt_phase(root, dev, clouds):
     """Phase 10: the preemption drill on the card (see the module
     docstring). Logs, checkpoints, events and traces go to a temporary
     directory that is removed afterwards."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_preempt_") as tmp:
+    with phase_tmp("chip_smoke_preempt_") as tmp:
         return _preempt_phase(root, dev, clouds, tmp)
 
 
@@ -3788,13 +3809,11 @@ def data_phase(root, dev):
     """Phase 11: the Water-3D and protein configs as published, on synthetic
     raw files in their published layout and per-frame size. Files, logs and
     shards go to a temporary directory that is removed afterwards."""
-    import tempfile
-
     import torch
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+    with phase_tmp("chip_smoke_data_") as tmp:
         t0 = time.perf_counter()
         w3d = write_water3d(os.path.join(tmp, "simulate"), 11)
         adk = write_adk(os.path.join(tmp, "mdanalysis"), 12)
@@ -4306,15 +4325,8 @@ def pct(vals, q):
 def gateway_phase(root, dev):
     """Phase 12 (see the module docstring). Its files go to a temporary
     directory that is removed afterwards."""
-    import tempfile
-
-    from distegnn_tpu_torch import obs
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_gateway_") as tmp:
-        try:
-            return _gateway_phase(root, dev, tmp)
-        finally:
-            obs.configure(enable=False)     # the event file dies with tmp
+    with phase_tmp("chip_smoke_gateway_") as tmp:
+        return _gateway_phase(root, dev, tmp)
 
 
 def _gateway_phase(root, dev, tmp):
@@ -4863,15 +4875,8 @@ def mib(n):
 def promote_phase(root, dev, gate):
     """Phase 13 (see the module docstring). Its files go to a temporary
     directory that is removed afterwards."""
-    import tempfile
-
-    from distegnn_tpu_torch import obs
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_promote_") as tmp:
-        try:
-            return _promote_phase(root, dev, tmp, gate)
-        finally:
-            obs.configure(enable=False)     # the event file dies with tmp
+    with phase_tmp("chip_smoke_promote_") as tmp:
+        return _promote_phase(root, dev, tmp, gate)
 
 
 def _promote_phase(root, dev, tmp, gate):
@@ -5231,6 +5236,278 @@ def promote_drill_phase(dev, tmp, digest, kind, cfg, reg, up_s):
     return dict(fwd=fwd)
 
 
+# ---- phase 14: tiled serving -------------------------------------------------
+
+TL_SCENE_N = 40000     # (a): a radius-graph scene above serve.max_nodes 16384
+TL_TILE_N = 8192       # (a)'s serve.tiled.tile_nodes: at least 4 tiles
+TL_SIDE = 100          # (b): JAX's lattice, side^3 = 10^6 nodes
+TL_BOUND = 524288      # (b): the `bounded` model's serve.tiled.max_nodes
+TL_TOL = 1e-5          # tests/test_torch_tiled.py's bound, scale-normalized
+
+
+def lattice_scene(side):
+    """JAX ``tests/test_tiled.py`` ``_lattice_scene``: side^3 nodes on a
+    jittered lattice with +/-x neighbour edges (~2 side^3 edges), the
+    distance twice as edge features."""
+    import numpy as np
+
+    n = side ** 3
+    idx = np.arange(n, dtype=np.int64)
+    x, y, z = idx // (side * side), (idx // side) % side, idx % side
+    loc = np.stack([x, y, z], axis=1).astype(np.float32)
+    loc += np.random.default_rng(0).uniform(-0.1, 0.1, loc.shape
+                                            ).astype(np.float32)
+    src = idx[x < side - 1]
+    dst = src + side * side
+    ei = np.concatenate([np.stack([src, dst]), np.stack([dst, src])],
+                        axis=1).astype(np.int32)
+    d = np.linalg.norm(loc[ei[0]] - loc[ei[1]], axis=1)[:, None]
+    vel = np.zeros_like(loc)
+    vel[:, 0] = 0.01
+    return {"node_feat": np.ones((n, 1), np.float32), "loc": loc,
+            "vel": vel, "edge_index": ei,
+            "edge_attr": np.repeat(d, 2, axis=1).astype(np.float32)}
+
+
+def tiled_yaml(root, tmp):
+    """configs/nbody_serve.yaml + the fused edge path + ``serve.tiled`` on
+    (its defaults: tile_nodes 65536), routed as ``tiled`` and as
+    ``bounded`` (serve.tiled.max_nodes TL_BOUND)."""
+    import yaml
+
+    with open(os.path.join(root, "configs", "nbody_serve.yaml")) as f:
+        raw = yaml.safe_load(f)
+    over = {"model": {"edge_impl": "fused"}, "data": {"edge_block": BLOCK}}
+    raw["serve"]["models"] = [
+        {"name": "tiled", "overrides": dict(
+            over, serve={"tiled": {"enable": True}})},
+        {"name": "bounded", "overrides": dict(
+            over, serve={"tiled": {"enable": True, "max_nodes": TL_BOUND}})}]
+    path = os.path.join(tmp, "tiled.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def rss_mib():
+    """(this process's resident MiB now, its peak so far)."""
+    import resource
+
+    now = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) / 1024
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def norm_err(a, b):
+    import numpy as np
+
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                 / np.abs(np.asarray(b)).max())
+
+
+def tiled_phase(root, dev):
+    """Phase 14 (see the module docstring). Its files go to a temporary
+    directory that is removed afterwards."""
+    with phase_tmp("chip_smoke_tiled_") as tmp:
+        return _tiled_phase(root, dev, tmp)
+
+
+def _tiled_phase(root, dev, tmp):
+    import threading
+
+    import numpy as np
+    import torch
+
+    from distegnn_tpu_torch import obs
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.obs.metrics import MetricsRegistry
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.ops.graph import pad_graphs
+    from distegnn_tpu_torch.serve import engine_with_params_from_config
+    from distegnn_tpu_torch.serve.registry import ModelRegistry
+    from distegnn_tpu_torch.serve.transport import Gateway
+
+    t_phase = time.perf_counter()
+    # (a) a 40000-node scene: the tiled predict against the monolithic
+    # fused forward of the same module, called on the model directly
+    cfg = load_config(os.path.join(root, "configs", "nbody_serve.yaml"),
+                      {"model.edge_impl": "fused", "data.edge_block": BLOCK,
+                       "serve.tiled.enable": True,
+                       "serve.tiled.tile_nodes": TL_TILE_N})
+    model, eng = engine_with_params_from_config(cfg, device=dev)
+    m = cfg.model
+    L = int(m.n_layers)
+    g = scene(TL_SCENE_N, seed=1400)
+    n = g["loc"].shape[0]
+    check(n > int(cfg.serve.max_nodes) and eng.tiled_enabled,
+          f"tiled (a): {n} nodes not above serve.max_nodes or tiled off")
+    with torch.no_grad():
+        batch = pad_graphs([g], edge_block=BLOCK, split_remote=True).to(dev)
+        mono = model(batch)[0][0, :n].cpu().numpy()
+    del batch
+    reset_fused_counts()
+    out = eng.predict_tiled(dict(g))
+    torch.cuda.synchronize()
+    T = out["tiles"]
+    fwd, tc = fwd_counts()
+    f32 = ep.fused_edge_layer.f32_launches
+    err = norm_err(out["prediction"], mono)
+    print(f"tiled (a): configs/nbody_serve.yaml + fused (H={m.hidden_nf} "
+          f"L={L} C={m.virtual_channels}), {n} nodes "
+          f"(serve.max_nodes {cfg.serve.max_nodes}), tile_nodes "
+          f"{TL_TILE_N}: {T} tiles, padded_nodes {out['padded_nodes']}, "
+          f"halo_fraction {out['halo_fraction']:.4f}; vs the monolithic "
+          f"forward max abs err / max |mono| = {err:.3e} (tol {TL_TOL}); "
+          f"fused_edge_fwd {fwd} (f32 kernel {f32}, tensor-core {tc}, want "
+          f"L x T = {L * T}); prep_ms {out['prep_ms']:.1f}, total_ms "
+          f"{out['total_ms']:.1f}")
+    check(T >= 4, f"tiled (a): {T} tiles < 4")
+    check(np.isfinite(out["prediction"]).all()
+          and out["prediction"].shape == (n, 3), "tiled (a): bad prediction")
+    check(err <= TL_TOL, f"tiled (a): {err:.3e} from the monolithic forward")
+    check((fwd, f32, tc) == (L * T, L * T, 0),
+          f"tiled (a): launches {(fwd, f32, tc)} != {(L * T, L * T, 0)}")
+    launches_a = fwd
+    del model, eng
+
+    # (b) the million-node lattice through the HTTP gateway
+    path = tiled_yaml(root, tmp)
+    cfg = load_config(path)
+    obs.configure(log_dir=os.path.join(tmp, "obs"))
+    reg = ModelRegistry.from_config(cfg, device=dev)
+    entry = reg.get("tiled")
+    eng = entry.engine
+    model = eng.model
+    reg.start()
+    reg.warmup([int(k) for k in cfg.serve.gateway.warmup_nodes])
+    gw = Gateway(reg, host="127.0.0.1", port=0,
+                 metrics_registry=MetricsRegistry())
+    threading.Thread(target=gw.serve_forever, daemon=True).start()
+    port = gw.port
+    try:
+        t0 = time.perf_counter()
+        g = lattice_scene(TL_SIDE)
+        n, e = g["loc"].shape[0], g["edge_index"].shape[1]
+        body = json.dumps({
+            "positions": b64(g["loc"]), "velocities": b64(g["vel"]),
+            "node_feat": b64(g["node_feat"]),
+            "edge_attr": b64(g["edge_attr"]),
+            "edge_index": b64(g["edge_index"], "<i4"), "encoding": "b64",
+            "session_id": "giant"}).encode()
+        rss0 = rss_mib()
+        print(f"tiled (b): lattice {n} nodes, {e} edges, request "
+              f"{len(body) / 2 ** 20:.1f} MiB, built in "
+              f"{time.perf_counter() - t0:.1f} s; host RSS "
+              f"{rss0[0]:.0f} MiB (peak so far {rss0[1]:.0f} MiB)")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_fused_counts()
+        status, raw, ms = http_call(port, "POST", "/v1/models/tiled/predict",
+                                    body, timeout=900)
+        check(status == 200, f"tiled (b): {status} {raw[:300]!r}")
+        resp = json.loads(raw)
+        st = resp["tiled"]
+        pred = unb64(resp["prediction"])
+        Tb = st["tiles"]
+        dev_peak = torch.cuda.max_memory_allocated()
+        rss1 = rss_mib()
+        print(f"tiled (b): 200 in {ms:.1f} ms; tiles {Tb}, layers "
+              f"{st['layers']}, padded_nodes {st['padded_nodes']}, "
+              f"halo_fraction {st['halo_fraction']:.6f}, work_imbalance "
+              f"{st['work_imbalance']}, stall_fraction "
+              f"{st['stall_fraction']:.6f}, prep_ms {st['prep_ms']:.1f}, "
+              f"total_ms {st['compute_ms']:.1f}; device peak "
+              f"{mib(dev_peak)}; host RSS {rss1[0]:.0f} MiB (peak "
+              f"{rss1[1]:.0f} MiB)")
+        check(pred.shape == (n, 3) and np.isfinite(pred).all(),
+              "tiled (b): bad prediction")
+        check(Tb >= 2 and resp["session"]["hit"] is False,
+              f"tiled (b): tiles {Tb}, session {resp['session']}")
+        status, lines, first_ms, s_ms = http_stream(
+            port, "/v1/models/tiled/predict?stream=1", body)
+        done = lines[-1] if lines else {}
+        progress = [ln for ln in lines[:-1] if "tile" in ln]
+        check(status == 200 and done.get("done") is True
+              and not done.get("cancelled"),
+              f"tiled (b) stream: {status} {str(done)[:300]}")
+        s_err = norm_err(unb64(done["prediction"]), pred)
+        print(f"tiled (b) stream: {len(progress)} progress lines (want "
+              f"L x T = {L * Tb}), first line {first_ms:.1f} ms, done "
+              f"{s_ms:.1f} ms, session hit {done['session']['hit']}, vs the "
+              f"buffered answer {s_err:.3e}")
+        check(len(progress) == L * Tb and done["session"]["hit"] is True,
+              "tiled (b) stream: progress lines or session")
+        check(s_err <= TL_TOL, f"tiled (b) stream: {s_err:.3e} from buffered")
+        status, raw, _ = http_call(port, "POST",
+                                   "/v1/models/bounded/predict", body,
+                                   timeout=900)
+        over = json.loads(raw)
+        print(f"tiled (b) bounded: {status} {over.get('type')}: "
+              f"{over.get('error')}")
+        check(status == 413 and "serve.tiled.max_nodes" in over["error"],
+              f"tiled (b) bounded: {status} {raw[:300]!r}")
+        torch.cuda.synchronize()
+        fwd, tc = fwd_counts()
+        f32 = ep.fused_edge_layer.f32_launches
+        keys = [k for k in eng.shapes_seen if k[0] == "tile_layer"]
+        print(f"tiled (b): fused_edge_fwd {fwd} (f32 kernel {f32}, "
+              f"tensor-core {tc}, want 2 x L x T = {2 * L * Tb}); "
+              f"tile_layer keys {keys}")
+        check((fwd, f32, tc) == (2 * L * Tb, 2 * L * Tb, 0),
+              f"tiled (b): launches {(fwd, f32, tc)}")
+        check(len(keys) == 1, f"tiled (b): tile_layer keys {keys}")
+        launches_b = fwd
+
+        # (c) the forward kernel at the tile shape: the session's cached
+        # plan, its heaviest tile as the executor builds it
+        plan, hit = eng.prep_cache.prepare_tile(
+            "giant", g, lambda: fail("tiled (c): the plan was not cached"))
+        spec = max(plan.tiles, key=lambda s: s.edge_index.shape[1])
+        p = plan.perm
+        tb = eng.tiled._tile_batch(
+            plan, spec, g["loc"][p], g["vel"][p], g["node_feat"][p], None,
+            g["loc"].mean(axis=0)[None]).to(dev)
+        arrs, N, E, active = kernel_inputs(tb)
+        H = int(m.hidden_nf)
+        pe = model.gcl[0].phi_e_fused
+        gen = torch.Generator(device=dev).manual_seed(14)
+        with torch.no_grad():
+            h = torch.randn((N, H), generator=gen, device=dev)
+            hr = (h @ pe.w1[:H]).contiguous()
+            hc = (h @ pe.w1[H:2 * H]).contiguous()
+            args = (tb.loc[0].contiguous(), hr, hc, *arrs, edge_weights(pe),
+                    BLOCK, "f32")
+            kerr = compare("tiled kernel", "f32", FWD_NAMES,
+                           ep.fused_edge_layer(*args),
+                           ep.fused_edge_layer_ref(*args))
+            k_ms = cuda_ms(lambda: ep.fused_edge_layer(*args))
+            graph_ms = cuda_ms_batches(lambda: ep.fused_edge_layer(*args),
+                                       launches=20, batches=3)
+            plain_ms = cuda_ms(lambda: ep.fused_edge_layer_ref(*args),
+                               reps=5)
+        nbytes, flops = fwd_work(N, E, active, H, 4)
+        b_ms, b_by = bound(nbytes, flops, "f32")
+        remote = int(tb.remote_edge_mask.sum())
+        print(f"tiled (c): tile {plan.tiles.index(spec)} N={N} "
+              f"E_slots={E} in_window={active} remote={remote} "
+              f"(own {spec.n_own}, halo {spec.n_halo}): kernel "
+              f"{k_ms:.4f} ms eagerly, {graph_ms:.4f} as CUDA-graph "
+              f"replays, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}: {nbytes} B, {flops} flop)")
+        row = dict(err=kerr, ms=k_ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+    finally:
+        gw.drain()
+        gw.close()
+    secs = time.perf_counter() - t_phase
+    print(f"tiled phase: {secs:.1f} s")
+    return {"launches": launches_a + launches_b, "row": row,
+            "shape": f"N={N}"}
+
+
 def main():
     import torch
 
@@ -5308,8 +5585,10 @@ def main():
     data = data_phase(root, dev)
     gate = gateway_phase(root, dev)
     promo = promote_phase(root, dev, gate)
+    tiled = tiled_phase(root, dev)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{gate['fwd']} (gateway) + {promo['sub_fwd']} (worker children) "
+          f"+ {tiled['launches']} (tiled serve) "
           f"+ {promo['drill_fwd']} (promotion drill children) + "
           f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
           f"backward) + {dist['launches'][0]} (distributed train, "
@@ -5365,6 +5644,9 @@ def main():
     kernels = [
         row("fused_edge_fwd_f32", "serve f32 N=8192", kres["f32"], fwd_tpu,
             launches + gate["fwd"] + promo["fwd"], source="fused_edge_fwd"),
+        row("fused_edge_fwd_f32", f"tiled serve f32 {tiled['shape']}",
+            tiled["row"], fwd_tpu, tiled["launches"],
+            source="fused_edge_fwd"),
         row(flagship["fused_edge_fwd"]["kernel"],
             f"train {flagship['fused_edge_fwd']['dtype']} "
             f"{flagship['fused_edge_fwd']['shape']}",

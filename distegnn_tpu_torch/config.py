@@ -5,18 +5,21 @@ the ``model``/``data``/``train``/``log``/``obs``/``serve``/``slo``/
 name (pure Python, no jax).
 
 The keys that the JAX package acts on and the port does not port yet
-(``train.scan_epochs``, the data and tensor axes ``parallel.mesh.data`` /
-``data.data_parallel`` and ``parallel.mesh.tensor``, ``log.wandb.enable``,
-``serve.tiled.enable`` and ``serve.donate``) must keep their JAX defaults:
-any other value raises ``NotImplementedError`` naming the key and the
-ROADMAP item that will port it, rather than run another program without a
-word. At their defaults the port runs the JAX program. Every other serving
-key acts as in JAX: the queue and gateway keys in ``serve/queue.py`` and
-``serve/transport.py``, ``serve.cache_size`` as the engine's LRU of shape
-keys, ``serve.replicas`` / ``workers`` / ``worker`` / ``supervisor`` /
-``autoscale`` in ``serve/replica.py``, ``serve/worker.py`` and their
-neighbours, ``slo`` in ``obs/slo.py``, ``promote`` in ``promote/`` (the
-publisher in the trainer, the promoter in the gateway).
+(``train.scan_epochs: true``, the data and tensor axes
+``parallel.mesh.data`` / ``data.data_parallel`` and ``parallel.mesh.tensor``,
+``log.wandb.enable`` and ``serve.donate: true``) must keep values that run
+the JAX program: any other value raises ``NotImplementedError`` naming the
+key and why, rather than run another program without a word.
+``train.scan_epochs: false`` is the port's eager loop, which is also what
+``'auto'`` runs. Every other serving key acts as in JAX: the queue and
+gateway keys in ``serve/queue.py`` and ``serve/transport.py``,
+``serve.cache_size`` as the engine's LRU of shape keys, ``serve.tiled`` in
+``serve/tiled.py`` and ``serve/mesh_tiled.py`` (scenes above
+``serve.max_nodes`` served as Morton tiles), ``serve.replicas`` /
+``workers`` / ``worker`` / ``supervisor`` / ``autoscale`` in
+``serve/replica.py``, ``serve/worker.py`` and their neighbours, ``slo`` in
+``obs/slo.py``, ``promote`` in ``promote/`` (the publisher in the trainer,
+the promoter in the gateway).
 """
 
 from __future__ import annotations
@@ -205,8 +208,26 @@ _DEFAULTS: dict = {
         # disables) and a byte bound (0 = entries only)
         "session_cache": 64,
         "session_cache_bytes": 1 << 30,
-        # the tiled executor: not ported (see _UNPORTED)
-        "tiled": {"enable": False},
+        # the tiled executor (serve/tiled.py): requests above
+        # serve.max_nodes served as fixed-shape Morton tiles with a host-side
+        # halo exchange instead of a 413; the values are
+        # serve/tiled.py TILED_DEFAULTS but for enable
+        "tiled": {
+            "enable": False,
+            # the tiled path's own bound (a 413 naming this knob above it)
+            "max_nodes": 4_194_304,
+            # own-node slots per tile; the halo and edge axes grow
+            # geometrically above their floors, so scenes share tile shapes
+            "tile_nodes": 65536,
+            "halo_floor": 1024,
+            "edge_floor": 8192,
+            "growth": 2.0,
+            # a tiled request's deadlines stretch by this factor
+            "timeout_factor": 8.0,
+            # tile rounds over devices (serve/mesh_tiled.py): 'auto' = every
+            # visible card, N clamped to what exists, 1 = one tile at a time
+            "devices": 1,
+        },
         # engine replicas per model (serve/replica.py): threads of the
         # gateway, or one worker child process each ('process',
         # serve/worker.py)
@@ -345,7 +366,7 @@ def apply_overrides(cfg: ConfigDict, overrides: Mapping) -> None:
 # Keys the JAX package acts on that the port does not port yet: (dotted
 # path, the values that run the JAX program on the port too, what ports it)
 _UNPORTED = (
-    ("train.scan_epochs", ("auto",),
+    ("train.scan_epochs", ("auto", False),
      "the epoch as CUDA graphs of the micro-step, ROADMAP.md queue 1 item "
      "1.3; the port's eager loop is its only mode"),
     ("parallel.mesh.data", (None, 1),
@@ -358,11 +379,9 @@ _UNPORTED = (
      "tensor parallelism, ROADMAP.md queue 1 item 7"),
     ("log.wandb.enable", (False,),
      "wandb logging, not queued in ROADMAP.md: wandb is not installed"),
-    ("serve.tiled.enable", (False, None),
-     "the tiled executor, ROADMAP.md queue 1 item 6"),
     ("serve.donate", ("auto", False),
-     "buffer donation: eager PyTorch has none to give, ROADMAP.md queue 1 "
-     "item 6; 'auto' is JAX's own no-op off a TPU"),
+     "buffer donation: eager PyTorch has none to give, not queued in "
+     "ROADMAP.md; 'auto' is JAX's own no-op off a TPU"),
 )
 
 

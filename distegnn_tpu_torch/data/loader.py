@@ -34,6 +34,7 @@ import pickle
 import queue
 import threading
 import time
+import zipfile
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -46,6 +47,48 @@ from distegnn_tpu_torch.ops.blocked import (prepare_blocked_graph,
 from distegnn_tpu_torch.ops.edge_pipeline import count_remote_edges
 from distegnn_tpu_torch.ops.graph import _round_up, pad_graphs
 from distegnn_tpu_torch.ops.order import morton_perm, reorder_graph
+
+# module-level open hook: every dataset read (a pickled dataset here, a
+# shard of data/stream.py) opens its file through it, so a fault harness can
+# swap it for a flaky or truncating open without a real filesystem fault
+_file_open = open
+
+# a read that fails transiently (a short read off a network file system) is
+# retried, the whole read and not only the open: open / read errors, a
+# pickle cut mid-payload, a truncated npz and numpy's header parse of
+# garbage; a file broken the same way on every attempt still fails after the
+# last one
+_READ_ATTEMPTS = 3
+_READ_BACKOFF_S = 0.1
+_READ_ERRORS = (OSError, EOFError, pickle.UnpicklingError,
+                zipfile.BadZipFile, ValueError)
+
+
+def _read_with_retry(path: str, reader: Callable, what: str = "dataset",
+                     retry_on: tuple = ()):
+    """``reader(file)`` of ``path`` opened through ``_file_open``, the whole
+    read tried ``_READ_ATTEMPTS`` times (0.1 s, 0.2 s backoff, each retry
+    logged). ``retry_on`` adds the caller's own errors (a shard's checksum
+    mismatch) to ``_READ_ERRORS``; the last failure propagates."""
+    errors = _READ_ERRORS + tuple(retry_on)
+    for attempt in range(_READ_ATTEMPTS):
+        try:
+            with _file_open(path, "rb") as f:
+                return reader(f)
+        except errors as e:
+            if attempt == _READ_ATTEMPTS - 1:
+                raise
+            delay = _READ_BACKOFF_S * (2 ** attempt)
+            obs.log(f"loader: {what} read {path} failed ({e!r}); retry "
+                    f"{attempt + 1}/{_READ_ATTEMPTS - 1} in {delay:.1f}s")
+            time.sleep(delay)
+
+
+def graphs_nbytes(graphs: Sequence[dict]) -> int:
+    """Resident bytes of a list of graph dicts (numpy payload only)."""
+    return sum(v.nbytes for g in graphs for v in g.values()
+               if isinstance(v, np.ndarray))
+
 
 # the counter this thread's collation time is charged to (None: the
 # trainer's data/stall_s)
@@ -72,13 +115,15 @@ class GraphDataset:
     """A list of graph dicts, from a pickle file or in memory.
 
     ``node_order='morton'`` relabels each graph's nodes along a Z curve of
-    its positions (the caller's list is not modified)."""
+    its positions (the caller's list is not modified). A pickle is read
+    through :func:`_read_with_retry`; the dataset's bytes go on the
+    ``data/host_bytes`` gauge."""
 
     def __init__(self, source: Union[str, Sequence[dict]],
                  node_order: Optional[str] = "none"):
         if isinstance(source, str):
-            with open(source, "rb") as f:
-                self.graphs: List[dict] = pickle.load(f)
+            self.graphs: List[dict] = _read_with_retry(
+                source, pickle.load, what="pickle")
         else:
             self.graphs = list(source)
         if node_order == "morton":
@@ -86,6 +131,10 @@ class GraphDataset:
                            for g in self.graphs]
         elif node_order not in ("none", None):
             raise ValueError(f"GraphDataset: unknown node_order {node_order!r}")
+        nbytes = graphs_nbytes(self.graphs)
+        obs.get_registry().gauge("data/host_bytes").add(nbytes)
+        obs.log(f"loader: GraphDataset[{len(self.graphs)} graphs] resident "
+                f"{nbytes / 2**20:.1f} MiB (data/host_bytes)")
 
     def __len__(self) -> int:
         return len(self.graphs)

@@ -14,7 +14,9 @@ unchanged and host memory stays bounded by the cache, not the dataset.
 distributed launcher opens every rank's shard through it.
 
 npz is lossless and a shard's arrays are served as views, so a streamed
-epoch is bitwise the in-memory one.
+epoch is bitwise the in-memory one. Every file is read through
+``data/loader.py``'s retried read and its open hook; a shard's checksum
+mismatch is retried too.
 """
 
 from __future__ import annotations
@@ -23,15 +25,13 @@ import collections
 import io
 import json
 import os
-import pickle
-import time
-import zipfile
 import zlib
-from typing import Callable, Sequence
+from typing import Sequence
 
 import numpy as np
 
 from distegnn_tpu_torch import obs
+from distegnn_tpu_torch.data import loader
 from distegnn_tpu_torch.data.loader import GraphDataset
 from distegnn_tpu_torch.ops.order import morton_perm, reorder_graph
 
@@ -45,16 +45,6 @@ _NODE_FIELDS = ("node_feat", "node_attr", "loc", "vel", "target")
 _EDGE_FIELDS = ("edge_attr",)
 _OPTIONAL = frozenset({"node_attr", "target", "edge_attr"})
 
-# a read that fails transiently (a short read off a network file system) is
-# retried: open / read errors, a truncated npz, numpy's header parse of
-# garbage, and a checksum mismatch; a file broken the same way every time
-# still fails after the last attempt
-_READ_ATTEMPTS = 3
-_READ_BACKOFF_S = 0.1
-_READ_ERRORS = (OSError, EOFError, pickle.UnpicklingError,
-                zipfile.BadZipFile, ValueError)
-
-
 class ShardChecksumError(RuntimeError):
     """A shard's bytes do not match the manifest's CRC32 (bit rot, a torn
     write, a partial copy). Retried a bounded number of times; persistent
@@ -63,22 +53,6 @@ class ShardChecksumError(RuntimeError):
 
 def _crc32(data: bytes) -> int:
     return zlib.crc32(data) & 0xFFFFFFFF
-
-
-def _read_with_retry(path: str, reader: Callable, what: str):
-    """``reader(open(path, 'rb'))`` with the whole read retried
-    ``_READ_ATTEMPTS`` times (0.1 s, 0.2 s backoff, each retry logged)."""
-    for attempt in range(_READ_ATTEMPTS):
-        try:
-            with open(path, "rb") as f:
-                return reader(f)
-        except (*_READ_ERRORS, ShardChecksumError) as e:
-            if attempt == _READ_ATTEMPTS - 1:
-                raise
-            delay = _READ_BACKOFF_S * (2 ** attempt)
-            obs.log(f"loader: {what} read {path} failed ({e!r}); retry "
-                    f"{attempt + 1}/{_READ_ATTEMPTS - 1} in {delay:.1f}s")
-            time.sleep(delay)
 
 
 def _present_fields(graphs: Sequence[dict]) -> dict:
@@ -203,7 +177,7 @@ class StreamedGraphDataset:
         self.shard_dir = shard_dir
         self.cache_shards = cache_shards
         self.verify = verify
-        self.manifest = _read_with_retry(
+        self.manifest = loader._read_with_retry(
             os.path.join(shard_dir, MANIFEST),
             lambda f: json.loads(f.read().decode("utf-8")), what="manifest")
         if self.manifest.get("format") != FORMAT:
@@ -248,7 +222,8 @@ class StreamedGraphDataset:
             with np.load(io.BytesIO(payload)) as z:
                 return {k: z[k] for k in z.files}
 
-        return _read_with_retry(path, reader, what="shard")
+        return loader._read_with_retry(path, reader, what="shard",
+                                       retry_on=(ShardChecksumError,))
 
     def _shard(self, si: int) -> dict:
         hit = self._cache.get(si)

@@ -34,6 +34,12 @@ makes the three node means of every layer global across the graph parts
 so under an axis ``fused_stack`` runs the per-layer ``fused`` path, as the
 JAX package does; the parameters are the same.
 
+Tiled serving (serve/tiled.py) runs one ``EGCLVel`` over one tile of a
+larger scene with ``tile_coord_mean`` / ``tile_partials=True``; the
+executor sums the tiles' partials and closes the virtual nodes once a layer
+with :func:`tiled_virtual_update` (:func:`reduce_tile_partials` sums one
+round of tiles over several devices).
+
 Layouts follow the JAX package at every public boundary: ``[B, N, ...]``
 node arrays, virtual coordinates ``[B, 3, C]`` and virtual features
 ``[B, H, C]``. Shape legend: B graphs, N padded nodes, E padded edges,
@@ -61,7 +67,7 @@ from distegnn_tpu_torch.ops.layer_pipeline import (DEFAULT_STACK_VMEM_BUDGET,
                                                    StackConfig,
                                                    fused_egnn_stack_batch,
                                                    stack_weight_shapes)
-from distegnn_tpu_torch.ops.segment import segment_sum
+from distegnn_tpu_torch.ops.segment import masked_sum, segment_sum
 from distegnn_tpu_torch.parallel.collectives import global_node_mean
 
 _FUSED_HEADS = ("edge_impl='fused' supports the flagship EGCL only: "
@@ -236,11 +242,22 @@ class EGCLVel(nn.Module):
         return agg, ops.agg_rows_mean(edge_feat)
 
     def forward(self, h, x, v, X, Hv, g: GraphBatch, fused_arrs=None,
-                gravity=None, slot=None, inv_deg=None, oh=None, plan=None):
+                gravity=None, slot=None, inv_deg=None, oh=None, plan=None,
+                tile_coord_mean=None, tile_partials: bool = False):
         """h [B,N,H], x/v [B,N,3], X [B,3,C], Hv [B,H,C], gravity [3] (with
         ``has_gravity``), and on a blocked batch the layer-invariant slot
         ids [B,E], 1/in-degree [B,N,1], einsum one-hot (or None) and the
-        slots' plan (or None) -> (h, x, Hv, X)."""
+        slots' plan (or None) -> (h, x, Hv, X).
+
+        Tiled serving (serve/tiled.py) runs the layer over ONE tile of a
+        larger scene: ``tile_coord_mean`` [B,3] is the scene's coordinate
+        mean of the layer input (a tile-local mean would be wrong), and
+        ``tile_partials=True`` returns ``(h, x, transX_part [B,3,C],
+        vef_part [B,C,H], count [B])``, the tile's masked sums towards the
+        two virtual-node means, without applying them: the executor sums
+        them over the tiles and closes X and Hv once a layer
+        (:func:`tiled_virtual_update`). Exact, because every cross-node
+        quantity of the layer derives from the layer-input X, Hv and x."""
         H, C = self.hidden_nf, self.virtual_channels
         node_mask = g.node_mask
         nm = node_mask[..., None]
@@ -255,7 +272,8 @@ class EGCLVel(nn.Module):
         virtual_radial = torch.linalg.norm(vcd, dim=2, keepdim=True)
 
         ax = self.axis_name
-        coord_mean = global_node_mean(x, node_mask, ax)        # [B, 3]
+        coord_mean = (tile_coord_mean if tile_coord_mean is not None
+                      else global_node_mean(x, node_mask, ax))  # [B, 3]
         Xc = X - coord_mean[:, :, None]                        # [B, 3, C]
         m_X = torch.einsum("bdc,bde->bce", Xc, Xc)             # [B, C, C]
 
@@ -280,7 +298,10 @@ class EGCLVel(nn.Module):
         x = x * nm
 
         trans_X = vcd * self.phi_X(vef).transpose(2, 3)        # [B, N, 3, C]
-        X = X + global_node_mean(trans_X, node_mask, ax)
+        if tile_partials:
+            transX_part = masked_sum(trans_X, node_mask, axis=1)  # [B, 3, C]
+        else:
+            X = X + global_node_mean(trans_X, node_mask, ax)
 
         agg_v = torch.mean(vef, dim=2)                         # [B, N, H]
         n_in = [h, agg_h, agg_v]
@@ -291,12 +312,50 @@ class EGCLVel(nn.Module):
         h = (h + out) if self.residual else out
         h = h * nm
 
+        if tile_partials:
+            # the numerators and the denominator of the two means, summed
+            # over the tiles by the executor; phi_hv is applied there
+            vef_part = masked_sum(vef.to(torch.float32), node_mask,
+                                  axis=1)                      # [B, C, H]
+            count = torch.sum(node_mask.to(torch.float32), dim=1)  # [B]
+            return h, x, transX_part, vef_part, count
         agg_Hv = global_node_mean(vef.to(torch.float32), node_mask,
                                   ax)                          # [B, C, H]
         hv_in = torch.cat([Hv.transpose(1, 2), agg_Hv], dim=-1)
         out_v = self.phi_hv(hv_in).transpose(1, 2)             # [B, H, C]
         Hv = (Hv + out_v) if self.residual else out_v
         return h, x, Hv, X
+
+
+def tiled_virtual_update(layer: EGCLVel, Hv, X, transX_sum, vef_sum, count):
+    """Close one tiled layer's virtual-node state from its tile partials.
+
+    ``transX_sum`` [B,3,C], ``vef_sum`` [B,C,H] and ``count`` [B] are the
+    sums of the ``tile_partials=True`` outputs over ALL tiles of the scene;
+    dividing by the total count gives the monolithic layer's two node means
+    (same numerator, same denominator, another summation order). Then the
+    layer's own ``phi_hv`` (the parameters of the monolithic forward) is
+    applied, once a layer instead of once a tile."""
+    cnt = torch.clamp(count, min=1.0)[:, None, None]
+    X = X + transX_sum / cnt
+    agg_Hv = vef_sum / cnt                                     # [B, C, H]
+    hv_in = torch.cat([Hv.transpose(1, 2), agg_Hv], dim=-1)
+    out_v = layer.phi_hv(hv_in).transpose(1, 2)                # [B, H, C]
+    Hv = (Hv + out_v) if layer.residual else out_v
+    return Hv, X
+
+
+def reduce_tile_partials(transX_part, vef_part, count, valid):
+    """One tile ROUND's virtual-node partials (serve/mesh_tiled.py): slot d
+    of the leading axis holds the ``tile_partials=True`` outputs of the tile
+    that ran on device d; masking by each slot's validity flag ``valid``
+    [D] (a ragged round's pad slots carry 0, and their node mask is all
+    zero as well) and summing over the slots gives the round's partials.
+    The JAX package sums across the round's devices with ``psum``; here the
+    slots have been gathered to one device, so it is a plain masked sum."""
+    v = valid.to(torch.float32)
+    return tuple(torch.sum(a * v.reshape((-1,) + (1,) * (a.ndim - 1)), dim=0)
+                 for a in (transX_part, vef_part, count))
 
 
 class FastEGNN(nn.Module):

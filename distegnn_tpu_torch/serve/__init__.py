@@ -13,7 +13,9 @@ process``, in worker children (``serve/worker.py``); the replica layer, the
 supervisor, the registry and the transport import lazily, so a worker child
 that imports this package never loads them.
 
-Not ported yet (ROADMAP.md queue 1 item 6): the tiled executor.
+A scene above ``serve.max_nodes`` is served through the tiled executor
+(``tiled.py``, ``mesh_tiled.py``) when ``serve.tiled.enable`` is set; above
+``serve.tiled.max_nodes`` it is a 413 (``TiledOverflowError``).
 """
 
 from __future__ import annotations
@@ -36,12 +38,14 @@ from distegnn_tpu_torch.serve.queue import (DispatcherCrashError,
                                             QueueFullError, RequestQueue,
                                             RequestTimeoutError, ServeFuture,
                                             StreamSink)
+from distegnn_tpu_torch.serve.tiled import TiledExecutor, TiledOverflowError
 
 __all__ = ["Bucket", "BucketLadder", "BucketOverflowError", "synthetic_graph",
            "CanaryError", "InferenceEngine", "MixedRolloutStepsError",
            "RolloutOverflowError", "ServeMetrics", "PrepPlan", "PrepResult",
            "SessionPrepCache", "DispatcherCrashError", "QueueFullError",
            "RequestQueue", "RequestTimeoutError", "ServeFuture", "StreamSink",
+           "TiledExecutor", "TiledOverflowError",
            "ModelUnavailableError", "Replica", "ReplicaSet",
            "ReplicaSupervisor", "engine_from_config", "queue_from_config",
            "engine_with_params_from_config", "Gateway", "PayloadError",
@@ -93,7 +97,9 @@ def engine_from_config(cfg, model: torch.nn.Module, device=None,
         layout_opts=layout,
         rollout_opts=dict(rollout) if rollout else None,
         session_cache=int(s.get("session_cache", 0) or 0),
-        session_cache_bytes=int(s.get("session_cache_bytes", 0) or 0))
+        session_cache_bytes=int(s.get("session_cache_bytes", 0) or 0),
+        tiled=(dict(s.tiled) if s.get("tiled") and s.tiled.get("enable")
+               else None))
 
 
 def queue_from_config(cfg, engine: InferenceEngine) -> RequestQueue:

@@ -68,7 +68,9 @@ class BucketLadder:
         if size > cap:
             raise BucketOverflowError(
                 f"request {axis}={size} exceeds the ladder cap {cap}; raise "
-                f"serve.max_{axis} or shard the request")
+                f"serve.max_{axis}, enable the tiled executor (serve.tiled, "
+                f"serves any node count through fixed-shape tiles), or "
+                f"shard the request")
         k = max(0, math.ceil(math.log(max(size, 1) / floor, self.growth)))
         # float log can land one rung low on exact powers — fix up locally
         while floor * self.growth ** k < size:

@@ -24,8 +24,13 @@ the old dict is exact, and a dispatcher mid-forward keeps the module it
 started with). :meth:`canary` runs candidate parameters on a copy of the
 module without installing them.
 
-Later slices of the port: CUDA graphs per (rung, steps) in place of the JAX
-engine's per-(rung, steps) jit cache, and the tiled executor.
+A scene above the ladder's cap runs through the tiled executor
+(serve/tiled.py) when the engine is built with a ``serve.tiled`` block:
+:meth:`predict_tiled`, whose tile, embedding and virtual-update shape keys
+land in the same LRU.
+
+Not ported yet: CUDA graphs per (rung, steps) in place of the JAX engine's
+per-(rung, steps) jit cache.
 """
 
 from __future__ import annotations
@@ -103,6 +108,8 @@ class InferenceEngine:
         ``rollout``.
       session_cache / session_cache_bytes: the session prep cache
         (serve/prep.py) as ``engine.prep_cache``; 0 entries disables it.
+      tiled: the ``serve.tiled`` config dict — builds the tiled executor
+        (serve/tiled.py) for scenes above the ladder cap; None disables.
     """
 
     def __init__(self, model: torch.nn.Module, device: torch.device, *,
@@ -111,7 +118,8 @@ class InferenceEngine:
                  metrics: Optional[ServeMetrics] = None,
                  layout_opts: Optional[dict] = None,
                  rollout_opts: Optional[dict] = None,
-                 session_cache: int = 0, session_cache_bytes: int = 0):
+                 session_cache: int = 0, session_cache_bytes: int = 0,
+                 tiled: Optional[dict] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if cache_size < 1:
@@ -138,6 +146,13 @@ class InferenceEngine:
                 max_bytes=int(session_cache_bytes))
         else:
             self.prep_cache = None
+        # the tiled executor: scenes above the ladder cap run as fixed-shape
+        # tiles instead of 413-rejecting
+        self.tiled = None
+        if tiled is not None:
+            from distegnn_tpu_torch.serve.tiled import TiledExecutor
+
+            self.tiled = TiledExecutor(self, tiled)
         # the shape key includes the edge path and, for fused_stack, the
         # depth, as the JAX executable's identity does
         impl = str(getattr(model, "edge_impl", "plain") or "plain")
@@ -254,6 +269,29 @@ class InferenceEngine:
                 warmed.append(b)
             sp.set(rungs=len(warmed))
         return warmed
+
+    # ---- tiled giant-scene path (serve/tiled.py) ------------------------
+    @property
+    def tiled_enabled(self) -> bool:
+        """True when scenes above the ladder cap dispatch to the tiled
+        executor instead of 413-rejecting."""
+        return self.tiled is not None and self.tiled.enable
+
+    def predict_tiled(self, graph: dict,
+                      request_id: Optional[str] = None,
+                      progress=None) -> dict:
+        """One giant scene through the tile executor. The transport stashes
+        a session-cached plan on the graph as ``_tile_plan``; absent (or
+        built for another layout) the executor plans inline. Plans carry no
+        device count, so one cached plan serves sequentially or as tile
+        rounds (``serve.tiled.devices``, serve/mesh_tiled.py)."""
+        if self.tiled is None:
+            raise RuntimeError(
+                "engine built without serve.tiled config; giant scenes "
+                "cannot be served")
+        plan = graph.pop("_tile_plan", None)
+        return self.tiled.predict(graph, plan=plan, request_id=request_id,
+                                  progress=progress)
 
     def _probe_feat_nf(self) -> int:
         return int(getattr(self.model, "node_feat_nf", 1) or 1)

@@ -29,8 +29,9 @@ Hits, misses and evictions are recorded on the engine's ``ServeMetrics``
 (``session_hits`` / ``session_misses`` / ``session_evictions``). Capacity is
 bounded by an entry count (``serve.session_cache``) and, independently, by
 the plans' bytes (``serve.session_cache_bytes``, :func:`nbytes_of`), exported
-as the ``serve/session_cache_bytes`` gauge. The tile plans of JAX's
-``prepare_tile`` wait with the tiled executor.
+as the ``serve/session_cache_bytes`` gauge. :meth:`SessionPrepCache.
+prepare_tile` keeps the tiled executor's plans (``ops/tiling.TilePlan``) in
+the same LRU and byte budget under a ``tile:<session>`` key.
 """
 
 from __future__ import annotations
@@ -255,3 +256,33 @@ class SessionPrepCache:
         obs.event("serve/prep", session=str(session_id), hit=hit,
                   dur_s=round(time.perf_counter() - t0, 6), **attrs)
         return result
+
+    # ---- tiled giant-scene plans (serve/tiled.py) ------------------------
+    def prepare_tile(self, session_id: str, graph: dict, build,
+                     request_id: Optional[str] = None):
+        """Session-cached tile plan for a giant scene: same fingerprint
+        contract and metrics as :meth:`prepare`, stored in the SAME LRU +
+        byte budget under a ``tile:`` key (tile plans are the entries the
+        byte bound exists for). ``build()`` makes the plan on a miss (the
+        tiled executor's ``plan``); returns ``(plan, hit)``."""
+        t0 = time.perf_counter()
+        fp = topology_fingerprint(graph["edge_index"], graph["loc"].shape[0])
+        key = "tile:" + str(session_id)
+        with self._lock:
+            ent = self._plans.get(key)
+            if ent is not None and ent[0] == fp:
+                self._plans.move_to_end(key)
+                plan, hit, evicted = ent[1], True, 0
+            else:
+                plan = None
+        if plan is None:
+            plan = build()
+            evicted = self._insert(key, (fp, plan))
+            hit = False
+        if self.metrics is not None:
+            self.metrics.session_event(hit=hit, evicted=evicted)
+        attrs = {"request_id": request_id} if request_id is not None else {}
+        obs.event("serve/prep", session=str(session_id), hit=hit,
+                  plan_kind="tile_plan",
+                  dur_s=round(time.perf_counter() - t0, 6), **attrs)
+        return plan, hit

@@ -419,13 +419,37 @@ class RequestQueue:
     def submit_tiled(self, graph: dict,
                      request_id: Optional[str] = None,
                      stream: Optional[StreamSink] = None) -> ServeFuture:
-        """The tiled executor's admission (JAX ``serve.tiled``): not ported,
-        so it raises as JAX does for an engine built without
-        ``serve.tiled``. The gateway never calls it here: a scene above the
-        ladder cap is refused at ``submit`` (BucketOverflowError, the
-        413)."""
-        raise RuntimeError("engine built without serve.tiled config; "
-                           "giant scenes cannot be served")
+        """Admit one GIANT scene for the tiled executor (serve/tiled.py) —
+        the path for ``n_nodes`` above the ladder cap, so it bypasses the
+        rung assignment entirely (``Bucket(0, 0)`` keys these requests into
+        their own dispatch group). Resolves to the executor's result dict
+        (prediction + tiling stats). Deadlines scale by
+        ``serve.tiled.timeout_factor``: a tiled scene is tens of tile
+        invocations, not one padded batch, and the queued-time deadline
+        must admit sitting behind another giant scene.
+
+        With ``stream`` (a :class:`StreamSink`), per-tile progress arrives
+        on the sink as ``(layer, tile)`` chunks — or per-ROUND
+        ``(layer, round)`` chunks when the executor runs device-parallel
+        rounds (``serve.tiled.devices`` > 1, serve/mesh_tiled.py) — and a
+        ``stream.cancel()`` stops the remaining compute at the next
+        tile/round boundary (the streamed-rollout disconnect contract)."""
+        if not self._started:
+            raise RuntimeError("RequestQueue not started (use start() or a "
+                               "with-block)")
+        tiled = getattr(self.engine, "tiled", None)
+        if tiled is None:
+            raise RuntimeError("engine built without serve.tiled config; "
+                               "giant scenes cannot be served")
+        tiled.check_admit(int(graph["loc"].shape[0]))  # TiledOverflowError
+        factor = max(float(tiled.timeout_factor), 1.0)
+        now = time.perf_counter()
+        req = _Request(graph, Bucket(0, 0),
+                       deadline=now + self.request_timeout * factor,
+                       hard_deadline=(now + self.request_timeout * factor
+                                      + self.result_margin * factor),
+                       kind="tiled", request_id=request_id, stream=stream)
+        return self._enqueue(req)
 
     def _enqueue(self, req: _Request) -> ServeFuture:
         try:
@@ -607,6 +631,8 @@ class RequestQueue:
         rids = _request_ids(reqs)
         if kind == "rollout_stream":
             return [self._run_stream(r) for r in reqs]
+        if kind == "tiled":
+            return [self._run_tiled(r) for r in reqs]
         if kind == "rollout":
             return self.engine.rollout_batch(graphs, request_ids=rids)
         return self.engine.predict_batch(graphs, bucket=bucket,
@@ -637,6 +663,41 @@ class RequestQueue:
                                      - summary["steps_done"]))
         sink.finish(summary)
         return summary
+
+    def _run_tiled(self, r: _Request) -> dict:
+        """Execute ONE giant scene through the tiled executor. Same
+        containment shape as :meth:`_run_stream`: failures resolve the
+        request's sink and future directly and never reach the solo-retry
+        path (a tiled request already IS solo, and its progress stream may
+        have partially emitted)."""
+        sink = r.stream
+        progress = None
+        if sink is not None:
+            seq = [0]
+
+            def progress(**info):
+                if sink.cancelled:
+                    return False        # client gone: stop at tile boundary
+                sink.put_chunk(seq[0], info)
+                seq[0] += 1
+                return True
+
+        try:
+            out = self.engine.predict_tiled(r.graph,
+                                            request_id=r.request_id,
+                                            progress=progress)
+        except Exception as exc:
+            self.metrics.failed()
+            if sink is not None:
+                sink.fail(exc)
+            r.future.set_exception(exc)
+            return {"error": repr(exc)}
+        if out.get("cancelled"):
+            obs.event("serve/tiled_cancelled", request_id=r.request_id,
+                      tiles=out["tiles"], layers=out["layers"])
+        if sink is not None:
+            sink.finish(out)
+        return out
 
     def _execute(self, key, reqs: List[_Request]) -> None:
         kind, bucket, steps = key

@@ -697,6 +697,16 @@ class ReplicaSet:
                        stream=None) -> ServeFuture:
         return self._admit("rollout", scene, None, request_id, stream=stream)
 
+    def submit_tiled(self, graph: dict,
+                     request_id: Optional[str] = None,
+                     stream=None) -> ServeFuture:
+        """Above-ladder predict through the tiled executor. Runs only on
+        in-process replicas (the host-side halo exchange loop can't cross
+        the worker IPC channel). ``serve.tiled.devices`` > 1 parallelizes
+        WITHIN one request (tile rounds over cards, serve/mesh_tiled.py) —
+        orthogonal to replica-level parallelism across requests."""
+        return self._admit("tiled", graph, None, request_id, stream=stream)
+
     # ---- elastic membership (autoscaler surface) -------------------------
     def add_replica(self, build_fn, warm_sizes=None) -> Replica:
         """Grow the set LIVE by one replica built by ``build_fn(idx) ->
@@ -804,8 +814,17 @@ class ReplicaSet:
     def _admit(self, kind: str, payload: dict, bucket, request_id,
                stream=None) -> ServeFuture:
         now = time.perf_counter()
+        factor = 1.0
+        if kind == "tiled":
+            # a tiled predict runs L x n_tiles tile forwards; its inner
+            # deadline is scaled by serve.tiled.timeout_factor, so the outer
+            # safety net must stretch by the same factor
+            tiled = getattr(self.replicas[0].engine, "tiled", None)
+            factor = max(float(getattr(tiled, "timeout_factor", 1.0) or 1.0),
+                         1.0)
         outer = ServeFuture(
-            hard_deadline=now + self.request_timeout + self.result_margin)
+            hard_deadline=now + (self.request_timeout + self.result_margin)
+            * factor)
         rec = _Tracked(kind, payload, bucket, request_id, outer,
                        stream=stream)
         self._dispatch(rec, admission=True)
@@ -826,8 +845,11 @@ class ReplicaSet:
 
     def _dispatch(self, rec: _Tracked, admission: bool) -> None:
         # streams need an in-process executor: the chunk conduit can't
-        # cross the worker IPC channel
-        replica = self._choose(rec.tried, thread_only=rec.stream is not None)
+        # cross the worker IPC channel; tiled predicts likewise — the halo
+        # exchange loop lives in the gateway's process
+        replica = self._choose(rec.tried,
+                               thread_only=(rec.stream is not None
+                                            or rec.kind == "tiled"))
         if replica is None:
             if not self._supervised and not rec.tried:
                 # pass-through: an unstarted/unsupervised set surfaces
@@ -847,6 +869,10 @@ class ReplicaSet:
         try:
             if rec.kind == "rollout":
                 inner = replica.queue.submit_rollout(
+                    rec.payload, request_id=rec.request_id,
+                    stream=rec.stream)
+            elif rec.kind == "tiled":
+                inner = replica.queue.submit_tiled(
                     rec.payload, request_id=rec.request_id,
                     stream=rec.stream)
             else:

@@ -26,9 +26,10 @@ request queues routed by a
 Routes, status codes and JSON bodies are the JAX gateway's. Admission is
 layered: a gateway-level ``max_inflight`` gate sheds (429) before a request
 touches a queue; a full ingress maps ``QueueFullError`` -> 429; an oversize
-graph maps ``BucketOverflowError`` -> 413 (the tiled executor is not
-ported); a queued- or hard-deadline expiry maps ``RequestTimeoutError`` ->
-504. Every error body is JSON (``{"error": str, "type": str}``). A kernel
+graph maps ``BucketOverflowError`` -> 413 (a scene above the ladder cap is
+served through the tiled executor when ``serve.tiled.enable`` is set, and is
+a 413 above ``serve.tiled.max_nodes``); a queued- or hard-deadline expiry
+maps ``RequestTimeoutError`` -> 504. Every error body is JSON (``{"error": str, "type": str}``). A kernel
 fault is a 500: no handler answers with a plain-PyTorch fallback.
 
 Graceful drain: SIGTERM flips ``/readyz`` to 503 and stops admitting (503),
@@ -686,8 +687,14 @@ class Gateway:
             raise PayloadError("'encoding' must be 'list' or 'b64'")
         t0 = time.perf_counter()
         rid = getattr(h, "request_id", None)
-        # a scene above the ladder cap is refused at submit (the 413): the
-        # tiled executor is not ported
+        if (int(graph["loc"].shape[0]) > entry.engine.ladder.max_nodes
+                and getattr(entry.engine, "tiled_enabled", False)):
+            # above the ladder cap: serve through the tiled executor (one
+            # fixed-shape tile program) instead of 413-rejecting. Branch
+            # BEFORE session prep — the monolithic prepare would raise
+            # BucketOverflowError while bucketing the plan.
+            return self._predict_tiled(h, name, entry, payload, graph,
+                                       encoding, rid, t0)
         session = None
         bucket = perm = None
         session_id = payload.get("session_id")
@@ -743,6 +750,159 @@ class Gateway:
         if session is not None:
             body["session"] = session
         return self._send_json(h, 200, body)
+
+    # ---- tiled predicts (above the ladder cap) ---------------------------
+    @staticmethod
+    def _tiled_stats(out: dict) -> dict:
+        stats = {
+            "tiles": out.get("tiles"),
+            "layers": out.get("layers"),
+            "devices": out.get("devices", 1),
+            "rounds": out.get("rounds"),
+            "padded_nodes": out.get("padded_nodes"),
+            "halo_fraction": round(float(out.get("halo_fraction", 0.0)), 6),
+            "work_imbalance": round(float(out.get("work_imbalance", 0.0)), 4),
+            "stall_fraction": round(float(out.get("stall_fraction", 0.0)), 6),
+            "prep_ms": out.get("prep_ms"),
+            "compute_ms": out.get("total_ms"),
+        }
+        # mesh-round extras (serve/mesh_tiled.py) when devices > 1
+        for key in ("round_ms", "halo_gather_ms", "round_imbalance"):
+            if key in out:
+                stats[key] = round(float(out[key]), 4)
+        return stats
+
+    def _predict_tiled(self, h, name: str, entry, payload: dict, graph: dict,
+                       encoding: str, rid, t0) -> int:
+        """Predict for a scene above the ladder cap: tile plan (session-
+        cached), tiled executor, buffered JSON — or NDJSON per-tile progress
+        on ``?stream=1``."""
+        engine = entry.engine
+        session = None
+        session_id = payload.get("session_id")
+        cache = getattr(engine, "prep_cache", None)
+        if session_id is not None and cache is not None:
+            plan, hit = cache.prepare_tile(
+                str(session_id), graph,
+                lambda: engine.tiled.plan(graph), request_id=rid)
+            graph["_tile_plan"] = plan
+            session = {"id": str(session_id), "hit": hit,
+                       "prep_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+        stream = self._wants_stream(h)
+        supports = getattr(entry.queue, "supports_streaming", None)
+        if stream and callable(supports) and not supports():
+            # no in-process replica to push progress chunks: fall back to a
+            # buffered response (same result, no per-tile lines)
+            stream = False
+        if not stream:
+            fut, status = self._submit_guarded(
+                h, lambda: entry.queue.submit_tiled(graph, request_id=rid),
+                entry)
+            if fut is None:
+                return status
+            try:
+                out = fut.result()        # bounded by the scaled deadline
+            except RequestTimeoutError as exc:
+                self._c["timeouts"].add(1)
+                return self._send_json(h, 504, {"error": str(exc),
+                                                "type": "RequestTimeout"})
+            except ModelUnavailableError as exc:
+                self._c["model_unavailable"].add(1)
+                return self._send_json(
+                    h, 503, {"error": str(exc), "type": "ModelUnavailable",
+                             "model": exc.model},
+                    retry_after=exc.retry_after_s)
+            meta = dict(fut.meta)
+            self._c["predict_ok"].add(1)
+            body = {
+                "request_id": rid,
+                "model": name,
+                "n": int(out["n"]),
+                "prediction": encode_array(out["prediction"], encoding),
+                "tiled": self._tiled_stats(out),
+                "queue_ms": meta.get("queue_ms"),
+                "compute_ms": meta.get("compute_ms"),
+                "total_ms": round((time.perf_counter() - t0) * 1e3, 3),
+            }
+            if session is not None:
+                body["session"] = session
+            return self._send_json(h, 200, body)
+        return self._tiled_streamed(h, name, entry, graph, encoding, rid,
+                                    t0, session)
+
+    def _tiled_streamed(self, h, name: str, entry, graph: dict,
+                        encoding: str, rid, t0, session) -> int:
+        """``POST .../predict?stream=1`` above the ladder cap: one NDJSON
+        progress line per completed tile (sequential) or per completed
+        ROUND of D tiles (serve.tiled.devices > 1), then a final line
+        carrying the prediction. A client disconnect cancels the executor
+        at the next tile/round boundary."""
+        sink = StreamSink()
+        fut, status = self._submit_guarded(
+            h, lambda: entry.queue.submit_tiled(graph, request_id=rid,
+                                                stream=sink), entry)
+        if fut is None:
+            return status
+        tiled = getattr(entry.engine, "tiled", None)
+        factor = max(float(getattr(tiled, "timeout_factor", 1.0) or 1.0), 1.0)
+        deadline = time.monotonic() + factor * (
+            float(getattr(entry.queue, "request_timeout", 30.0))
+            + float(getattr(entry.queue, "result_margin", 5.0)))
+        self._begin_chunked(h, rid)
+        err_line = None
+        try:
+            while True:
+                try:
+                    kind, a, b = sink.next(timeout=0.25)
+                except _pyqueue.Empty:
+                    if time.monotonic() > deadline:
+                        sink.cancel()
+                        self._c["timeouts"].add(1)
+                        err_line = {"error": "tiled stream timed out",
+                                    "type": "RequestTimeout"}
+                        break
+                    continue
+                if kind == "chunk":
+                    # per-tile lines from the sequential executor carry
+                    # "tile"; per-ROUND lines from the mesh executor
+                    # (serve.tiled.devices > 1) carry "round"/"n_rounds"
+                    info = dict(b or {})
+                    self._write_chunk(h, json.dumps(
+                        {k: info[k] for k in
+                         ("layer", "tile", "round", "n_layers", "n_tiles",
+                          "n_rounds") if k in info}) + "\n")
+                elif kind == "done":
+                    out = a or {}
+                    pred = out.get("prediction")
+                    self._c["predict_ok"].add(1)
+                    self._c["stream_ok"].add(1)
+                    line = {
+                        "done": True, "request_id": rid, "model": name,
+                        "n": out.get("n"),
+                        "prediction": (encode_array(pred, encoding)
+                                       if pred is not None else None),
+                        "tiled": self._tiled_stats(out),
+                        "cancelled": bool(out.get("cancelled", False)),
+                        "total_ms": round((time.perf_counter() - t0) * 1e3,
+                                          3),
+                    }
+                    if session is not None:
+                        line["session"] = session
+                    self._write_chunk(h, json.dumps(line) + "\n")
+                    break
+                else:           # ("error", exc, None)
+                    self._count_stream_error(a)
+                    err_line = {"error": str(a), "type": type(a).__name__}
+                    break
+            if err_line is not None:
+                err_line["request_id"] = rid
+                self._write_chunk(h, json.dumps(err_line) + "\n")
+            self._end_chunked(h)
+        except ConnectionError:
+            sink.cancel()
+            self._c["stream_cancelled"].add(1)
+            raise
+        return 200
 
     def _rollout_admitted(self, h, name: str, entry) -> int:
         if not entry.engine.rollout_enabled:

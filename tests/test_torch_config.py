@@ -22,12 +22,10 @@ DATA_KEYS = ("backbone", "test_rot", "test_trans", "stream_shard_cache")
 
 # (dotted key, a value off the JAX default)
 UNPORTED = [("train.scan_epochs", True),
-            ("train.scan_epochs", False),
             ("parallel.mesh.data", 2),
             ("data.data_parallel", 2),
             ("parallel.mesh.tensor", 2),
             ("log.wandb.enable", True),
-            ("serve.tiled.enable", True),
             ("serve.donate", True)]
 
 
@@ -89,7 +87,8 @@ def _yaml_with(tmp_path, key, value):
 
 # the durability, trace and obs keys are ported: (key, value, whether the
 # JAX package's checks refuse it); every case is loaded by both packages
-PORTED = [("train.resume", "auto", False),
+PORTED = [("train.scan_epochs", False, False),
+          ("train.resume", "auto", False),
           ("train.resume", "logs/run/state_dict/last_model.ckpt", False),
           ("train.resume", 3, True),
           ("train.checkpoint_interval_s", 600, False),
@@ -265,15 +264,14 @@ def test_main_trains_a_water3d_cpu_slice_shaped_config(tmp_path):
 
 
 def test_serving_defaults_are_the_jax_defaults():
-    """serve (but for the tiled executor's knobs, which stay refused), slo
-    and promote: the port's defaults equal JAX's key for key."""
+    """serve (the tiled executor's block included), slo and promote: the
+    port's defaults equal JAX's key for key."""
     from distegnn_tpu.config import _DEFAULTS as JAX_DEFAULTS
     from distegnn_tpu_torch.config import _DEFAULTS
+    from distegnn_tpu_torch.serve.tiled import TILED_DEFAULTS
 
-    serve = {k: v for k, v in _DEFAULTS["serve"].items() if k != "tiled"}
-    jserve = {k: v for k, v in JAX_DEFAULTS["serve"].items() if k != "tiled"}
-    assert serve == jserve
-    assert _DEFAULTS["serve"]["tiled"] == {"enable": False}
+    assert _DEFAULTS["serve"] == JAX_DEFAULTS["serve"]
+    assert _DEFAULTS["serve"]["tiled"] == dict(TILED_DEFAULTS, enable=False)
     for section in ("slo", "promote"):
         assert _DEFAULTS[section] == JAX_DEFAULTS[section], section
     cfg, jcfg = load_config(SERVE), jax_load_config(SERVE)
@@ -321,6 +319,14 @@ SERVING = [("serve.queue_capacity", 0, True),
            ("serve.gateway.port", 70000, True),
            ("serve.gateway.warmup_nodes", [1], True),
            ("serve.worker.spawn_timeout_s", 0.0, True),
+           ("serve.tiled.enable", True, False),
+           ("serve.tiled.enable", "yes", True),
+           ("serve.tiled.tile_nodes", 0, True),
+           ("serve.tiled.tile_nodes", 8192, False),
+           ("serve.tiled.devices", "auto", False),
+           ("serve.tiled.devices", 0, True),
+           ("serve.tiled.growth", 1.0, True),
+           ("serve.tiled.no_such_knob", 1, True),
            ("slo.routes", {"train": {"p99_ms": 1.0}}, True),
            ("slo.batch_fill_min", 0.5, False),
            ("slo.enable", "yes", True),

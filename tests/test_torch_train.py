@@ -488,6 +488,24 @@ def test_run_two_epochs_on_cpu_writes_jax_log_layout_and_checkpoints(
     assert losses["loss_valid"] == best["loss_valid"]
 
 
+def test_scan_epochs_false_trains_as_auto(tmp_path):
+    """``train.scan_epochs: false`` (JAX: no scan) loads and runs the
+    port's eager loop, the same steps as under ``'auto'``."""
+    ds = [GraphDataset([train_graph(s, n_real=3 * BLOCK) for s in
+                        range(k, k + n)])
+          for k, n in ((0, 4), (10, 1), (20, 1))]
+    losses = {}
+    for scan in ("auto", False):
+        cfg = _small_config(tmp_path / str(scan), **{
+            "train.scan_epochs": scan, "train.epochs": 1})
+        steps = []
+        pmain.run(cfg, *ds, device="cpu",
+                  on_step=lambda e, s, m: steps.append(float(m["loss"])))
+        losses[scan] = steps
+    assert len(losses[False]) == 4 and all(np.isfinite(losses[False]))
+    assert losses[False] == losses["auto"]
+
+
 def _fresh_model_and_optimizer(cfg):
     from distegnn_tpu_torch.models.registry import get_model
 
