@@ -898,7 +898,8 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
                                                needs_grad_clip,
                                                step_generator)
 
-    model = get_model(cfg.model, axis_name=axis_name)
+    model = get_model(cfg.model, dataset_name=cfg.data.dataset_name,
+                      axis_name=axis_name)
     model.load_state_dict(init_sd)
     model.to(dev)
     pname = {id(p): n for n, p in model.named_parameters()}
@@ -921,8 +922,10 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
 
     opt.adam.step = capture_then_step
     state = TrainState(model, opt)
-    step = make_train_step(model, opt, t.mmd.weight, t.mmd.sigma,
-                           t.mmd.samples, axis_name=axis_name)
+    # MMD applies to the virtual-node (Fast*) models only, as in main.py
+    mmd_w = t.mmd.weight if cfg.model.model_name.startswith("Fast") else 0.0
+    step = make_train_step(model, opt, mmd_w, t.mmd.sigma, t.mmd.samples,
+                           axis_name=axis_name)
     before = counts()
     with contextlib.ExitStack() as stack:
         for pt in patches:
@@ -1124,8 +1127,9 @@ def drive_train(cfg, ds, dev, reset_counts, read_counts, label):
     from distegnn_tpu_torch.main import run
     from distegnn_tpu_torch.models.registry import get_model
 
-    init_sd = get_model(cfg.model, generator=torch.Generator().manual_seed(
-        int(cfg.seed))).state_dict()
+    init_sd = get_model(
+        cfg.model, dataset_name=cfg.data.dataset_name,
+        generator=torch.Generator().manual_seed(int(cfg.seed))).state_dict()
     marks = []
 
     def on_step(epoch, step, metrics):
@@ -1377,31 +1381,8 @@ def scan_phase(dev, e_train, e_serve):
           f"(bitwise); worst kernel error over max |prefix| {worst:.3e}")
     del x, w, g
 
-    res = {}
-    for name, (B, E, F, dt, rev) in rows.items():
-        x = torch.randn((B, E, F), generator=gen, device=dev).to(dt)
-        out = CS._scan_cuda(x, rev)
-        plain = CS.prefix_sum_ref(x, rev)
-        err = float((out - plain).abs().max())
-        del out, plain
-        ms = cuda_ms(lambda: CS._scan_cuda(x, rev))
-        plain_ms = cuda_ms(lambda: CS.prefix_sum_ref(x, rev), reps=3, warm=1)
-        # one PyTorch call computes the prefix direction; none the suffix
-        lib_ms = (None if rev else cuda_ms(
-            lambda: torch.cumsum(x, 1, dtype=f32), reps=2, warm=1))
-        # [B, E, F] read once, written once as f32; one add per element
-        nbytes = B * E * F * (x.element_size() + 4)
-        b_ms, b_by = bound(nbytes, B * E * F, "f32")
-        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         err=err, bound_ms=b_ms, bound_by=b_by,
-                         shape=f"[{B}, {E}, {F}]")
-        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"scan time {name} [{B}, {E}, {F}]: {ms:.4f} ms/launch, plain "
-              f"{plain_ms:.4f} ms, torch.cumsum {lib} ms, bound {b_ms:.4f} "
-              f"ms ({b_by}: {nbytes} B), {b_ms / ms:.3f} of bound; max abs "
-              f"err vs plain {err:.3e}")
-        del x
-    return res
+    return {name: scan_row(dev, gen, B, E, F, dt, rev, label=f"{name} ")
+            for name, (B, E, F, dt, rev) in rows.items()}
 
 
 def plain_serve_phase(root, dev, scenes):
@@ -1557,33 +1538,7 @@ def _plain_train_phase(root, dev, clouds, e_train, log_dir, profile):
           and p["launches"] == (0, 0) and sc["launches"] == (0, 0),
           f"first update launches: kernel {k['launches']}, plain "
           f"{p['launches']}, scatter {sc['launches']}")
-    ek, pk = update_distance(k, sc)
-    ep_, pp = update_distance(p, sc)
-    ekp, pkp = update_distance(k, p)
-    ek["param"], ep_["param"], ekp["param"] = (
-        max(pk.values()), max(pp.values()), max(pkp.values()))
-    ratio = ("loss_with_mmd", "loss", "grad norm", "grad l2")
-    bounds = {"grad": TOL_TRAIN, "param": SCATTER_PARAM}
-    for key in ratio + tuple(bounds):
-        rule = (f"kernel <= {SCATTER_FACTOR} x plain + {SCATTER_FLOOR:.0e}"
-                if key in ratio else f"both <= {bounds[key]:.3e}")
-        kp_tol = SCATTER_PARAM if key == "param" else TOL_TRAIN
-        print(f"plain first update vs scatter, {key}: kernel {ek[key]:.3e}, "
-              f"plain version {ep_[key]:.3e} ({rule}); kernel vs plain "
-              f"version {ekp[key]:.3e} (<= {kp_tol:.3e})")
-    worst = sorted(pk.items(), key=lambda kv: -kv[1])
-    print("plain first update vs scatter, worst 6 parameters (kernel): "
-          + ", ".join(f"{nm} {v:.3e} (plain {pp[nm]:.3e})"
-                      for nm, v in worst[:6]))
-    bad = [key for key in ratio
-           if ek[key] > SCATTER_FACTOR * ep_[key] + SCATTER_FLOOR]
-    bad += [key for key, b in bounds.items() if max(ek[key], ep_[key]) > b]
-    # the kernel against its plain version directly, at the same bounds
-    bad += [f"kernel vs plain {key}" for key in ratio + ("grad",)
-            if ekp[key] > TOL_TRAIN]
-    bad += ["kernel vs plain param"] if ekp["param"] > SCATTER_PARAM else []
-    check(not bad, f"plain train: the cumsum lowering strays from the "
-          f"scatter lowering ({bad})")
+    cumsum_update_agrees("plain ", k, p, sc)
     med = step_times("plain ", k, n_real)
     med_s = step_times("plain scatter ", sc, n_real)
     return dict(widths=widths, suffix=n_suffix, ms=med, scatter_ms=med_s)
@@ -5508,6 +5463,500 @@ def _tiled_phase(root, dev, tmp):
             "shape": f"N={N}"}
 
 
+# ------------------------------------------------ phase 15: every model family
+
+FAMILIES = ("FastRF", "FastSchNet", "SchNet", "EGNN", "RF", "TFN",
+            "SE3Transformer", "FastTFN", "Linear")
+# systems a micro-step, 100 bodies each (9900 edges): the published 250
+# where the autograd state fits the card, cut where the per-edge tensors
+# saved for the backward would not. The SE(3) families' RadialFunc keeps
+# [E, m_out, m_in, 2 min(l_in, l_out) + 1] per degree pair and layer: at
+# nf 32 and degrees 0-1 that is 6144 f32, ~24.6 KB an edge and layer
+# (~60 GB at 250 systems). Peaks measured on an H100 (the first phase-15
+# run): TFN 19.1 GiB at 25 systems, SE3Transformer (its value and key
+# convs) 20.0 GiB at 10, so 50 and 20 stay under ~40 GiB; FastTFN 21.7 GiB
+# and SchNet (~2.8 KB an edge in each of 6 interactions) ran at 125 and
+# run the published 250.
+FAM_BATCH = {"TFN": 50, "SE3Transformer": 20}
+FAM_SYSTEMS = (500, 250, 250)      # train / valid / test trajectories
+FAM_TIMED = 3
+FAM_SERVE = ("FastRF", "FastSchNet", "FastTFN")
+FAM_SERVE_N = 1500
+
+
+def family_blocked_want(name, L, micro=0, evals=0):
+    """FastRF / FastSchNet launches on a blocked batch with the pairing
+    (hoist_edge_mlp, fuse_agg, f32), by (F, type), from the code: per
+    forward 1 blocked_plan; per layer a gather of x [E, 3] (its paired
+    column gather is a plain take) and a seg_sum of the translations [E, 3]
+    (FastRF: its only aggregation); FastSchNet adds the hoisted products'
+    row gathers, h @ W_e [E, H] and the gate's h @ W_g [E, 1], and the edge
+    features' mean [E, H] (agg_rows_pair is two seg_sums on a blocked
+    batch). The backward of a micro-step: a gather of each seg_sum's
+    cotangent (but FastSchNet's last edge-feature mean, which reaches only
+    the unused last h), and a seg_sum for each row gather and paired column
+    gather whose input needs a gradient: x in layers 1..L-1 (layer 0's is
+    the batch's), the gate's product in every layer, h @ W_e in layers
+    0..L-2 (the last layer's edge features reach only its h). Returns (seg
+    widths, gather widths, plans)."""
+    H = HIDDEN
+    seg, gat = collections.Counter(), collections.Counter()
+    n_fwd = micro + evals
+    seg[(3, "f32")] += L * n_fwd + 2 * (L - 1) * micro
+    gat[(3, "f32")] += L * n_fwd + L * micro
+    if name == "FastSchNet":
+        seg[(H, "f32")] += L * n_fwd + 2 * (L - 1) * micro
+        seg[(1, "f32")] += 2 * L * micro
+        gat[(H, "f32")] += L * n_fwd + (L - 1) * micro
+        gat[(1, "f32")] += L * n_fwd
+    return ({k: v for k, v in seg.items() if v},
+            {k: v for k, v in gat.items() if v}, n_fwd)
+
+
+def family_scan_want(name, L, micro=0, evals=0):
+    """FastRF / FastSchNet prefix scans on a plain paired batch, by
+    ("prefix", type, F), from the code: per forward and layer one packed
+    aggregation (FastRF: the [E, 3] translations and the count, F 4;
+    FastSchNet: agg_rows_pair's [E, 3 + H + 1]); the backward of a packed
+    sum is a gather, and each row gather / paired column gather whose input
+    needs a gradient is one scan: x [E, 3] in layers 1..L-1, FastSchNet's
+    h @ W_e [E, H] and gate h @ W_g [E, 1] in every layer (the packed
+    stream carries the last layer's edge features too, so their zero
+    cotangent runs the gathers' backward). No suffix scan."""
+    H = HIDDEN
+    n_fwd = micro + evals
+    if name == "FastRF":
+        want = {("prefix", "f32", 4): L * n_fwd,
+                ("prefix", "f32", 3): 2 * (L - 1) * micro}
+    else:
+        want = {("prefix", "f32", H + 4): L * n_fwd,
+                ("prefix", "f32", H): 2 * L * micro,
+                ("prefix", "f32", 1): 2 * L * micro,
+                ("prefix", "f32", 3): 2 * (L - 1) * micro}
+    return {k: v for k, v in want.items() if v}
+
+
+def loader_batches(cfg, ds, dev):
+    """The train loader's epoch-1 batches on the card."""
+    from distegnn_tpu_torch.main import make_loaders
+
+    loader = make_loaders(cfg, *ds)[0]
+    loader.set_epoch(1)
+    return [b.to(dev) for b in loader]
+
+
+def batch_equivariance(label, model, batch):
+    """One forward of ``model`` on ``batch`` and on the batch rotated and
+    translated (a random proper rotation and offset) on the card: the
+    predicted coordinates of the real nodes (and the virtual coordinates)
+    moved the same way, within TOL_EQUIV."""
+    import dataclasses
+
+    import torch
+
+    rng = torch.Generator().manual_seed(7)
+    q, r = torch.linalg.qr(torch.randn((3, 3), generator=rng,
+                                       dtype=torch.float64))
+    R = q * torch.sign(torch.diagonal(r))
+    # a proper rotation: TFN's degree-1 x degree-1 paths are SE(3)-, not
+    # reflection-, equivariant
+    R[:, 0] *= torch.sign(torch.linalg.det(R))
+    R = R.float().to(batch.loc.device)
+    t = torch.randn(3, generator=rng).to(batch.loc.device)
+    rot = dataclasses.replace(batch, loc=batch.loc @ R.T + t,
+                              vel=batch.vel @ R.T,
+                              target=batch.target @ R.T + t,
+                              loc_mean=batch.loc_mean @ R.T + t)
+    model.eval()
+    with torch.no_grad():
+        x, X = model(batch)
+        xr, Xr = model(rot)
+    m = batch.node_mask > 0
+    err = float((x @ R.T + t - xr)[m].abs().max())
+    if X is not None:
+        err = max(err, float((R @ X + t[:, None] - Xr).abs().max()))
+    print(f"{label}equivariance on the card (rotation + translation, "
+          f"{int(m.sum())} real nodes): max_abs_err={err:.3e} "
+          f"tol={TOL_EQUIV:.1e}")
+    check(math.isfinite(err) and err <= TOL_EQUIV,
+          f"{label}equivariance violated")
+
+
+# phase 15: a parameter gradient held against its own max |plain|, but
+# with a floor of this fraction of the model's largest gradient entry: the
+# f32 families' virtual-coordinate heads (FastRF's edge_mlp_vr) have
+# gradients that cancel over the nodes to ~0, where two summation orders
+# leave noise of the order of the summed terms (0.61 of their own max on
+# the CPU against the plain versions, 1e-7 of the model's max)
+FAM_GRAD_FLOOR = 1e-5
+
+
+def floored_param_errors(a, b, floor):
+    """Each parameter's max abs gradient error of update ``a`` against
+    ``b`` over max(its own max |b|, ``floor`` x b's largest entry), and that
+    largest entry."""
+    top = max(float(g.abs().max()) for g in b["grad"].values())
+    return {n: float((g - b["grad"][n]).abs().max())
+            / max(float(b["grad"][n].abs().max()), floor * top)
+            for n, g in a["grad"].items()}, top
+
+
+def update_agrees(label, k, other, name):
+    """A first update through the kernels against one through ``name``:
+    losses, gradient norm and max gradient entry within TOL_TRAIN, and each
+    parameter's gradient within TOL_TRAIN of max(its own max |plain|,
+    FAM_GRAD_FLOOR x the largest)."""
+    import torch
+
+    errs, _ = update_distance(k, other)
+    per, top = floored_param_errors(k, other, FAM_GRAD_FLOOR)
+    worst = sorted(per.items(), key=lambda kv: -kv[1])
+    print(f"{label}first update, kernels vs {name}: losses "
+          f"{errs['loss_with_mmd']:.3e} / {errs['loss']:.3e}, gradient norm "
+          f"{errs['grad norm']:.3e}, max abs / max {errs['grad']:.3e}, l2 "
+          f"{errs['grad l2']:.3e}; worst parameters (over max(own max, "
+          f"{FAM_GRAD_FLOOR:.0e} x {top:.3e})): "
+          + ", ".join(f"{nm} {v:.3e}" for nm, v in worst[:4])
+          + f" (tol {TOL_TRAIN:.0e})")
+    check(all(errs[key] <= TOL_TRAIN for key in
+              ("loss_with_mmd", "loss", "grad norm", "grad"))
+          and worst[0][1] <= TOL_TRAIN and torch.isfinite(
+              torch.tensor(worst[0][1])),
+          f"{label}first update: the kernels disagree with the {name}")
+
+
+def cumsum_update_agrees(label, k, p, sc, floor=0.0):
+    """Phase 6's rule for a first update through the scan kernel (``k``),
+    its plain version (``p``) and the exact scatter lowering (``sc``): the
+    kernel's aggregate distances from scatter at most SCATTER_FACTOR x the
+    plain version's + SCATTER_FLOOR, the gradient's max entry within
+    TOL_TRAIN and each parameter within SCATTER_PARAM, and the kernel within
+    those bounds of its plain version. ``floor`` > 0 holds each parameter
+    against max(its own max, floor x the largest gradient entry) instead of
+    its own max (phase 15: FAM_GRAD_FLOOR)."""
+    ek, pk = update_distance(k, sc)
+    ep_, pp = update_distance(p, sc)
+    ekp, pkp = update_distance(k, p)
+    if floor:
+        pk, pp, pkp = (floored_param_errors(a, b, floor)[0] for a, b in
+                       ((k, sc), (p, sc), (k, p)))
+    ek["param"], ep_["param"], ekp["param"] = (
+        max(pk.values()), max(pp.values()), max(pkp.values()))
+    ratio = ("loss_with_mmd", "loss", "grad norm", "grad l2")
+    bounds = {"grad": TOL_TRAIN, "param": SCATTER_PARAM}
+    for key in ratio + tuple(bounds):
+        rule = (f"kernel <= {SCATTER_FACTOR} x plain + {SCATTER_FLOOR:.0e}"
+                if key in ratio else f"both <= {bounds[key]:.3e}")
+        kp_tol = SCATTER_PARAM if key == "param" else TOL_TRAIN
+        print(f"{label}first update vs scatter, {key}: kernel "
+              f"{ek[key]:.3e}, plain version {ep_[key]:.3e} ({rule}); "
+              f"kernel vs plain version {ekp[key]:.3e} (<= {kp_tol:.3e})")
+    worst = sorted(pk.items(), key=lambda kv: -kv[1])
+    print(f"{label}first update vs scatter, worst 6 parameters (kernel): "
+          + ", ".join(f"{nm} {v:.3e} (plain {pp[nm]:.3e})"
+                      for nm, v in worst[:6]))
+    bad = [key for key in ratio
+           if ek[key] > SCATTER_FACTOR * ep_[key] + SCATTER_FLOOR]
+    bad += [key for key, b in bounds.items() if max(ek[key], ep_[key]) > b]
+    bad += [f"kernel vs plain {key}" for key in ratio + ("grad",)
+            if ekp[key] > TOL_TRAIN]
+    bad += ["kernel vs plain param"] if ekp["param"] > SCATTER_PARAM else []
+    check(not bad, f"{label}the cumsum lowering strays from the scatter "
+          f"lowering ({bad})")
+
+
+def scan_row(dev, gen, B, E, F, dt=None, rev=False, label=""):
+    """The scan kernel at [B, E, F] timed beside its plain version,
+    torch.cumsum (the prefix direction) and its bound; its max abs error
+    against the plain version."""
+    import torch
+
+    from distegnn_tpu_torch.ops import cumsum as CS
+
+    f32 = torch.float32
+    x = torch.randn((B, E, F), generator=gen, device=dev).to(dt or f32)
+    out = CS._scan_cuda(x, rev)
+    plain = CS.prefix_sum_ref(x, rev)
+    err = float((out - plain).abs().max())
+    del out, plain
+    ms = cuda_ms(lambda: CS._scan_cuda(x, rev))
+    plain_ms = cuda_ms(lambda: CS.prefix_sum_ref(x, rev), reps=3, warm=1)
+    # one PyTorch call computes the prefix direction; none the suffix
+    lib_ms = (None if rev else cuda_ms(
+        lambda: torch.cumsum(x, 1, dtype=f32), reps=2, warm=1))
+    # [B, E, F] read once, written once as f32; one add per element
+    nbytes = B * E * F * (x.element_size() + 4)
+    b_ms, b_by = bound(nbytes, B * E * F, "f32")
+    lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+    print(f"scan time {label}[{B}, {E}, {F}] {str(x.dtype)[6:]}: {ms:.4f} "
+          f"ms/launch, plain {plain_ms:.4f} ms, torch.cumsum {lib} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B), {b_ms / ms:.3f} of "
+          f"bound; max abs err vs plain {err:.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, err=err,
+                bound_ms=b_ms, bound_by=b_by, shape=f"[{B}, {E}, {F}]")
+
+
+def family_phase(root, dev):
+    """Phase 15: every family the factory serves, through the port's entry
+    points, on configs/nbody_fastegnn.yaml's model width (H=64, L=4, C=3)
+    and 100-body full graphs made by the port's n-body generator: (a) one
+    epoch of each family through main.run with finite losses, moved
+    parameters, an equivariant forward on the card and timed micro-steps;
+    (b) FastRF and FastSchNet on the blocked layout with the one-hot
+    kernels, exact launches by width, the first update against the plain
+    versions and the kernels timed at these shapes; (c) the same two with
+    segment_impl cumsum: the scan's launches by width, the first update
+    through the kernel, its plain version and scatter, the scan timed;
+    (d) three Fast* families served. Files and logs in a temporary
+    directory, removed afterwards."""
+    with phase_tmp("chip_smoke_families_") as tmp:
+        return _family_phase(root, dev, tmp)
+
+
+def _family_phase(root, dev, tmp):
+    import numpy as np
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.data.loader import GraphDataset
+    from distegnn_tpu_torch.data.nbody_sim import generate_nbody_files
+    from distegnn_tpu_torch.main import process_dataset_edge_cutoff
+    from distegnn_tpu_torch.ops import cumsum as CS
+    from distegnn_tpu_torch.ops.blocked import slot_ids
+    from distegnn_tpu_torch.serve import engine_with_params_from_config
+
+    t_phase = time.perf_counter()
+    path = os.path.join(root, "configs", "nbody_fastegnn.yaml")
+    data_dir = os.path.join(tmp, "data")
+    n_tr, n_va, n_te = FAM_SYSTEMS
+    base = load_config(path)
+    d0 = base.data
+    t0 = time.perf_counter()
+    # frames up to frame_T at the reference's sample_freq 100
+    generate_nbody_files(os.path.join(data_dir, d0.dataset_name),
+                         n_isolated=100, num_train=n_tr, num_valid=n_va,
+                         num_test=n_te, length=(d0.frame_T + 1) * 100,
+                         sample_freq=100, seed=43, device=dev)
+    t1 = time.perf_counter()
+    run_len = {"data.data_dir": data_dir, "train.epochs": 1,
+               "log.test_interval": 1,
+               "log.log_dir": os.path.join(tmp, "logs")}
+    cfg0 = load_config(path, run_len)
+    files = process_dataset_edge_cutoff(cfg0.data, seed=cfg0.seed)
+    graphs = [GraphDataset(f).graphs for f in files]
+    m = cfg0.model
+    print(f"15 families: {n_tr}/{n_va}/{n_te} 100-body systems by the "
+          f"port's generator in {t1 - t0:.1f} s, full graphs (E="
+          f"{graphs[0][0]['edge_index'].shape[1]}) in "
+          f"{time.perf_counter() - t1:.1f} s; H={m.hidden_nf} "
+          f"L={m.n_layers} C={m.virtual_channels} node_feat_nf="
+          f"{m.node_feat_nf} edge_attr_nf={m.edge_attr_nf} frames "
+          f"{cfg0.data.frame_0}->{cfg0.data.frame_T}")
+    check((m.hidden_nf, m.n_layers, m.virtual_channels) == (HIDDEN, 4, 3),
+          "configs/nbody_fastegnn.yaml's width changed")
+    L = m.n_layers
+
+    def datasets(B):
+        # 2 micro-steps, 1 valid and 1 test batch at B systems a batch
+        return [GraphDataset(g[:k]) for g, k in
+                zip(graphs, (2 * B, B, B))]
+
+    res = {"train": {}, "blocked": {}, "cumsum": {}, "serve": {}}
+    # (a) every family, as published but for the depth of the run
+    for name in FAMILIES:
+        B = FAM_BATCH.get(name, d0.batch_size)
+        label = f"15a {name} B={B}: "
+        cfg = load_config(path, {**run_len, "model.model_name": name,
+                                 "data.batch_size": B})
+        ds = datasets(B)
+        init_sd, state, _, micro, evals = drive_train(
+            cfg, ds, dev, lambda: None, lambda: None, label)
+        evb = loader_batches(cfg, [ds[1], ds[1], ds[1]], dev)[0]
+        batch_equivariance(label, state.model, evb)
+        del state, evb
+        batches = loader_batches(cfg, ds, dev)
+        n_real = float(batches[0].node_mask.sum())
+        k = first_update(cfg, init_sd, batches, dev, counts=lambda: (),
+                         time_extra=FAM_TIMED)
+        n_params = sum(v.numel() for v in init_sd.values())
+        res["train"][name] = dict(B=B, ms=step_times(label, k, n_real),
+                                  params=n_params, nodes=n_real,
+                                  edges=int(batches[0].edge_mask.sum()))
+        del batches, k
+        torch.cuda.empty_cache()
+
+    # (b) the blocked one-hot kernels
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for name in ("FastRF", "FastSchNet"):
+        label = f"15b {name} blocked: "
+        ov = {**run_len, "model.model_name": name,
+              "data.edge_block": RB_BLOCK, "model.blocked_impl": "pallas"}
+        cfg = load_config(path, ov)
+        ds = datasets(cfg.data.batch_size)
+
+        def read():
+            return blocked_counts(), blocked_widths()
+
+        # the main path: counts 0 just before, read just after
+        init_sd, _, (n, widths), micro, evals = drive_train(
+            cfg, ds, dev, reset_blocked_counts, read, label)
+        want = family_blocked_want(name, L, micro=micro, evals=evals)
+        print(f"{label}launches: blocked_seg_sum {n[0]} {widths[0]}, "
+              f"blocked_gather {n[1]} {widths[1]}, blocked_plan {n[2]} "
+              f"(expected {want}: {micro} micro-steps, {evals} eval "
+              f"forwards)")
+        check(widths == want[:2] and n == (sum(want[0].values()),
+                                           sum(want[1].values()), want[2]),
+              f"{label}launch counts {n} {widths} != {want}")
+        batches = loader_batches(cfg, ds, dev)
+        b0 = batches[0]
+        check(b0.edge_block == RB_BLOCK and b0.edge_pair is not None,
+              f"{label}the batch is not blocked with the pairing")
+        k = first_update(cfg, init_sd, batches, dev, counts=blocked_counts,
+                         time_extra=FAM_TIMED)
+        p = first_update(cfg, init_sd, batches, dev, counts=blocked_counts,
+                         patches=blocked_plain_patches())
+        per = family_blocked_want(name, L, micro=cfg.train.accumulation_steps)
+        check(k["launches"] == (sum(per[0].values()), sum(per[1].values()),
+                                per[2]) and p["launches"] == (0, 0, 0),
+              f"{label}first update launches: kernels {k['launches']}, "
+              f"plain {p['launches']}")
+        update_agrees(label, k, p, "plain versions")
+        n_real = float(b0.node_mask.sum())
+        rec = dict(launches=n, widths=widths,
+                   ms=step_times(label, k, n_real), shape=(
+                       b0.batch_size, b0.max_nodes, b0.max_edges))
+        if name == "FastSchNet":
+            # the kernels at these models' shapes (FastRF's widths are a
+            # subset; the two runs' batches are the same)
+            slot = slot_ids(b0.row, b0.edge_mask, b0.edge_block,
+                            b0.edges_per_block)
+            rec["rows"] = {(F, "f32"): blocked_case(
+                "15b", slot, b0.max_nodes, F,
+                torch.float32, gen, dev, timed=True)
+                for F in (1, 3, HIDDEN)}
+            del slot
+        res["blocked"][name] = rec
+        del batches, k, p
+        torch.cuda.empty_cache()
+
+    # (c) the scan
+    for name in ("FastRF", "FastSchNet"):
+        label = f"15c {name} cumsum: "
+        ov = {**run_len, "model.model_name": name,
+              "model.segment_impl": "cumsum"}
+        cfg = load_config(path, ov)
+        ds = datasets(cfg.data.batch_size)
+
+        def read():
+            return scan_counts() + (dict(CS.prefix_sum.launch_widths),)
+
+        init_sd, _, (n, n_suffix, widths), micro, evals = drive_train(
+            cfg, ds, dev, reset_scan_counts, read, label)
+        want = family_scan_want(name, L, micro=micro, evals=evals)
+        print(f"{label}prefix_scan launches={n} by width {widths}, suffix "
+              f"{n_suffix} (expected {want}, suffix 0: {micro} micro-steps, "
+              f"{evals} eval forwards)")
+        check(widths == want and n == sum(want.values()) and n_suffix == 0,
+              f"{label}scan launch count {n}/{n_suffix} {widths} != {want}")
+        batches = loader_batches(cfg, ds, dev)
+        b0 = batches[0]
+        check(b0.edge_pair is not None and b0.edges_sorted,
+              f"{label}the plain batch carries no pairing")
+        k = first_update(cfg, init_sd, batches, dev, counts=scan_counts,
+                         time_extra=FAM_TIMED)
+        p = first_update(cfg, init_sd, batches, dev, counts=scan_counts,
+                         patches=scan_plain_patches())
+        cfg_s = load_config(path, {**ov, "model.segment_impl": "scatter"})
+        sc = first_update(cfg_s, init_sd, batches, dev, counts=scan_counts,
+                          time_extra=FAM_TIMED)
+        per = sum(family_scan_want(
+            name, L, micro=cfg.train.accumulation_steps).values())
+        check(k["launches"] == (per, 0) and p["launches"] == (0, 0)
+              and sc["launches"] == (0, 0),
+              f"{label}first update launches: kernel {k['launches']}, plain "
+              f"{p['launches']}, scatter {sc['launches']}")
+        cumsum_update_agrees(label, k, p, sc, floor=FAM_GRAD_FLOOR)
+        n_real = float(b0.node_mask.sum())
+        B, E = b0.batch_size, b0.max_edges
+        res["cumsum"][name] = dict(
+            launches=n, widths=widths, ms=step_times(label, k, n_real),
+            scatter_ms=step_times(f"{label}scatter ", sc, n_real),
+            rows={key: scan_row(dev, gen, B, E, key[2], label=label)
+                  for key in want})
+        del batches, k, p, sc
+        torch.cuda.empty_cache()
+
+    # (d) serving
+    g = scene(FAM_SERVE_N, 15)
+    for name in FAM_SERVE:
+        label = f"15d {name} serve: "
+        cfg = load_config(os.path.join(root, "configs", "nbody_serve.yaml"),
+                          {"model.model_name": name})
+        _, eng = engine_with_params_from_config(cfg)
+        out = eng.predict(g)
+        check(out.shape == (FAM_SERVE_N, 3) and bool(np.isfinite(out).all()),
+              f"{label}non-finite or misshapen prediction")
+        check_equivariance(label, eng, g, out)
+        res["serve"][name] = predict_times(label, eng, [g])[0]
+        del eng
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"15 families: phase done in {res['seconds']:.1f} s")
+    return res
+
+
+def family_rows(fam, row):
+    """Phase 15's rows of the ``kernels`` line: for the FastRF and
+    FastSchNet paths, one row per launched (F, type) of each one-hot kernel
+    and of the scan, and the plan's, each with its launches on the main
+    path; ``row`` is main's row builder."""
+    fb, fc = fam["blocked"], fam["cumsum"]
+    frows = fb["FastSchNet"]["rows"]
+    out = []
+    for name in ("FastRF", "FastSchNet"):
+        n, widths = fb[name]["launches"], fb[name]["widths"]
+        for i, kname in enumerate(("blocked_seg_sum", "blocked_gather")):
+            for key, cnt in sorted(widths[i].items()):
+                r = frows[key][kname]
+                out.append(row(kname, f"{name} blocked train {r['shape']}",
+                               r, BLOCKED_TPU[kname], cnt,
+                               source="blocked_onehot"))
+        r = frows[min(frows)]["blocked_plan"]
+        out.append(row("blocked_plan", f"{name} blocked train {r['shape']}",
+                       r, BLOCKED_TPU["blocked_seg_sum"], n[2],
+                       source="blocked_onehot"))
+        for key, cnt in sorted(fc[name]["widths"].items()):
+            r = fc[name]["rows"][key]
+            out.append(row("prefix_scan", f"{name} cumsum train "
+                           f"{r['shape']} f32", r,
+                           "distegnn_tpu/ops/cumsum.py:38", cnt))
+    return out
+
+
+def family_summary(fam):
+    """Phase 15's launches and times on one line."""
+    fb, fc = fam["blocked"], fam["cumsum"]
+    return (
+        "families (phase 15): launches " + "; ".join(
+            f"{name} blocked_seg_sum {fb[name]['launches'][0]}, "
+            f"blocked_gather {fb[name]['launches'][1]}, blocked_plan "
+            f"{fb[name]['launches'][2]}, prefix_scan "
+            f"{sum(fc[name]['widths'].values())}" for name in fb)
+        + "; micro-step ms (nodes/s): " + "; ".join(
+            f"{name} B={r['B']} {r['ms']:.3f} "
+            f"({r['nodes'] / r['ms'] * 1e3:.0f})"
+            for name, r in fam["train"].items())
+        + "; blocked: " + "; ".join(f"{name} {fb[name]['ms']:.3f}"
+                                    for name in fb)
+        + "; cumsum: " + "; ".join(
+            f"{name} {fc[name]['ms']:.3f} (scatter "
+            f"{fc[name]['scatter_ms']:.3f})" for name in fc)
+        + f"; serve predict ms (n={FAM_SERVE_N}): " + "; ".join(
+            f"{name} {ms:.3f}" for name, ms in fam["serve"].items())
+        + f"; phase {fam['seconds']:.1f} s")
+
+
 def main():
     import torch
 
@@ -5586,6 +6035,7 @@ def main():
     gate = gateway_phase(root, dev)
     promo = promote_phase(root, dev, gate)
     tiled = tiled_phase(root, dev)
+    fam = family_phase(root, dev)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{gate['fwd']} (gateway) + {promo['sub_fwd']} (worker children) "
           f"+ {tiled['launches']} (tiled serve) "
@@ -5713,6 +6163,8 @@ def main():
         kernels.append(row("blocked_plan", f"{path} {r['shape']}", r,
                            BLOCKED_TPU["blocked_seg_sum"], n,
                            source="blocked_onehot"))
+    kernels += family_rows(fam, row)
+    print(family_summary(fam))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s, the kernels' build "
           f"included")

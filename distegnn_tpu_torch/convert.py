@@ -1,8 +1,12 @@
 """Parameter conversion from the JAX package's flax tree to the port's
-``state_dict`` (FastEGNN, ``edge_impl`` 'fused', 'fused_stack' or 'plain';
-a 'fused_stack' tree is the 'fused' tree).
+``state_dict``, for every family of the factory.
 
-The flax tree:
+Each port module mirrors its flax tree, so :func:`flax_layout` derives the
+flax path of every parameter from the module itself (the class attributes
+``FLAX_CHILD`` / ``FLAX_LIST`` / ``FLAX_PREFIX`` / ``FLAX_PARAM`` name what
+differs), and ``params_from_jax(tree, model)`` reads the tree there. A
+FastEGNN tree (``edge_impl`` 'fused', 'fused_stack' or 'plain'; a
+'fused_stack' tree is the 'fused' tree) also converts without the model:
 
   embedding_in/Dense_0/{kernel,bias}        -> embedding_in.{weight,bias}
   virtual_node_feat [1, H, C]               -> virtual_node_feat
@@ -32,7 +36,7 @@ kernel keep the JAX orientation.
 from __future__ import annotations
 
 import pickle
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,10 +68,22 @@ def _raw(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32).copy())
 
 
-def params_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax FastEGNN params (numpy leaves, with or without the top-level
-    ``params`` key) -> the port's FastEGNN ``state_dict``."""
+def params_from_jax(flax_params: Mapping,
+                    model: Optional[torch.nn.Module] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Flax params (numpy leaves, with or without the top-level ``params``
+    key) -> the port's ``state_dict``. With ``model`` (any family of the
+    factory, or a module of one) the tree is read at the flax path of each
+    of its parameters (:func:`flax_layout`); without it the tree is a
+    FastEGNN's, told apart by its own keys."""
     p = flax_params.get("params", flax_params)
+    if model is not None:
+        return _from_layout(p, flax_layout(model))
+    if "embedding_in" not in p or "virtual_node_feat" not in p or (
+            "gcl_0" in p and "phi_v" not in p["gcl_0"]):
+        raise ValueError(
+            "not a FastEGNN flax tree: pass the port model it belongs to "
+            "(params_from_jax(tree, model))")
     out: Dict[str, torch.Tensor] = {}
     out["virtual_node_feat"] = _raw(p["virtual_node_feat"])
     _dense(p["embedding_in"], "embedding_in", out)
@@ -100,50 +116,66 @@ def params_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-# ---- JAX training checkpoints ------------------------------------------------
+# ---- every family: the flax path of each port parameter ---------------------
 
-# modules whose flax tree nests a bare Dense_0 / an MLP_0 below their name
-_BARE_DENSE = ("embedding_in", "att", "att_v")
-_NESTED_MLP = ("phi_x",) + _COORD_MLPS
+def flax_layout(module: torch.nn.Module, prefix: str = "",
+                path: Tuple[str, ...] = ()) -> List[Tuple[str, tuple, bool]]:
+    """(port parameter name, its flax path under ``params``, whether the
+    flax leaf is the transpose) for every parameter of ``module``.
 
-
-def _flax_path(key: str) -> Tuple[Tuple[str, ...], bool]:
-    """A port ``state_dict`` key -> (its flax path under ``params``,
-    whether the flax leaf is the transpose): the inverse of
-    :func:`params_from_jax`'s mapping."""
-    parts, out, i = key.split("."), [], 0
-    while i < len(parts):
-        p = parts[i]
-        if p == "gcl":
-            out.append(f"gcl_{parts[i + 1]}")
-            i += 2
-            continue
-        if p == "layers":
-            out += [f"TorchDense_{parts[i + 1]}", "Dense_0"]
-            i += 2
-            continue
-        if p == "dense":
-            out += ["TorchDense_0", "Dense_0"]
-        elif p in _BARE_DENSE:
-            out += [p, "Dense_0"]
-        elif p in _NESTED_MLP:
-            out += [p, "MLP_0"]
-        elif p == "weight" and i == len(parts) - 1:
-            out.append("kernel")
-            return tuple(out), True
+    The port's modules mirror the flax trees: a child keeps its flax name
+    unless its class maps it (``FLAX_CHILD``: child -> path segments); a
+    ``ModuleList`` child ``name.i`` is flax's ``name_i`` unless the class
+    names the list otherwise (``FLAX_LIST``, MLP's ``TorchDense_{}``); a
+    class may nest all of its own entries below ``FLAX_PREFIX`` (CoordMLP's
+    ``MLP_0``), and map its own parameters (``FLAX_PARAM``: the TorchDense
+    and Dense kernels, transposed from ``nn.Linear``'s [out, in])."""
+    cls = type(module)
+    base = path + tuple(getattr(cls, "FLAX_PREFIX", ()))
+    own = getattr(cls, "FLAX_PARAM", {})
+    rows = []
+    for name, _ in module.named_parameters(recurse=False):
+        seg, transposed = own.get(name, ((name,), False))
+        rows.append((prefix + name, base + tuple(seg), transposed))
+    child_map = getattr(cls, "FLAX_CHILD", {})
+    lists = getattr(cls, "FLAX_LIST", {})
+    for name, child in module.named_children():
+        if isinstance(child, torch.nn.ModuleList):
+            fmt = lists.get(name, name + "_{}")
+            for i, c in enumerate(child):
+                rows += flax_layout(c, f"{prefix}{name}.{i}.",
+                                    base + (fmt.format(i),))
         else:
-            out.append(p)
-        i += 1
-    return tuple(out), False
+            rows += flax_layout(child, f"{prefix}{name}.",
+                                base + tuple(child_map.get(name, (name,))))
+    return rows
 
+
+def _leaf(tree: Mapping, path: Tuple[str, ...]):
+    node = tree
+    for k in path:
+        if not isinstance(node, Mapping) or k not in node:
+            raise KeyError(f"flax path {'/'.join(path)} is not in the tree")
+        node = node[k]
+    return node
+
+
+def _from_layout(p: Mapping, layout) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, path, transposed in layout:
+        a = np.asarray(_leaf(p, path), np.float32)
+        out[name] = torch.from_numpy(np.array(a.T if transposed else a,
+                                              order="C"))
+    return out
+
+
+# ---- JAX training checkpoints ------------------------------------------------
 
 def _jax_layout(model: torch.nn.Module) -> List[Tuple[str, tuple, bool]]:
     """(port parameter name, flax path, transposed) in the order of
     ``jax.tree.leaves`` of the flax tree: its dict keys sorted at every
     level, i.e. the paths sorted."""
-    rows = [(name,) + _flax_path(name) for name, _ in
-            model.named_parameters()]
-    return sorted(rows, key=lambda r: r[1])
+    return sorted(flax_layout(model), key=lambda r: r[1])
 
 
 def _nest(layout, leaves) -> dict:
@@ -190,7 +222,7 @@ def params_from_checkpoint(path: str,
     if len(leaves) != len(layout):
         raise ValueError(f"{path}: {len(leaves)} parameter arrays, the model "
                          f"has {len(layout)}: another architecture or config")
-    params = params_from_jax(_nest(layout, leaves))
+    params = params_from_jax(_nest(layout, leaves), model)
     own = model.state_dict()
     for name, t in params.items():
         if name not in own or tuple(own[name].shape) != tuple(t.shape):
@@ -254,7 +286,7 @@ def checkpoint_from_jax(path: str, state, config=None):
     updates = count if updates is None else updates
 
     def to_port(arrays) -> Dict[str, torch.Tensor]:
-        return params_from_jax(_nest(layout, arrays))
+        return params_from_jax(_nest(layout, arrays), model)
 
     params = to_port(leaves)
     own = dict(model.named_parameters())

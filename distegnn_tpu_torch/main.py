@@ -115,7 +115,8 @@ def run(config, ds_train: GraphDataset, ds_valid: GraphDataset,
     adopt_resume_seed(config)
     loaders = make_loaders(config, ds_train, ds_valid, ds_test)
     gen = torch.Generator().manual_seed(int(config.seed))
-    model = get_model(config.model, generator=gen).to(dev)
+    model = get_model(config.model, dataset_name=config.data.dataset_name,
+                      generator=gen).to(dev)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[train] Model: {config.model.model_name}, {n_params} parameters, "
           f"{len(ds_train)}/{len(ds_valid)}/{len(ds_test)} graphs, on {dev}",

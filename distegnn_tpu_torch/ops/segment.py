@@ -92,6 +92,48 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
     return total / _bcast(count, total)
 
 
+@_batched
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, mask=None,
+                initial: float = -1e30) -> torch.Tensor:
+    """Per-segment max; empty segments yield ``initial``. Masked rows are
+    replaced by ``initial`` first, so they never win."""
+    if mask is not None:
+        data = torch.where(_bcast(mask, data) > 0, data,
+                           data.new_full((), initial))
+    B, E = segment_ids.shape
+    idx = (segment_ids.long() + torch.arange(
+        B, device=segment_ids.device)[:, None] * num_segments).reshape(-1)
+    flat = data.reshape((B * E,) + tuple(data.shape[2:]))
+    idx = idx.reshape((-1,) + (1,) * (flat.ndim - 1)).expand(flat.shape)
+    out = flat.new_full((B * num_segments,) + tuple(data.shape[2:]),
+                        initial)
+    out = out.scatter_reduce(0, idx, flat, "amax", include_self=True)
+    return out.reshape((B, num_segments) + tuple(data.shape[2:]))
+
+
+def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int, mask=None) -> torch.Tensor:
+    """Numerically stable softmax over the rows sharing a segment id (the
+    JAX package's replacement for DGL's edge_softmax). Masked rows get
+    weight 0; a segment with no rows gives no weight. One graph or a
+    batch, as :func:`segment_sum`."""
+    if mask is not None:
+        # mask BEFORE the exp: a masked row's raw score may exceed its
+        # segment's real max, and exp(large) * 0 would be NaN
+        scores = torch.where(_bcast(mask, scores) > 0, scores,
+                             scores.new_full((), -1e30))
+    one = segment_ids.ndim == 1
+    ids = segment_ids[None] if one else segment_ids
+    s = scores[None] if one else scores
+    mx = segment_max(s, ids, num_segments)
+    shifted = torch.clamp(s - take_rows(mx, ids), min=-80.0)
+    e = torch.where(s > -1e29, torch.exp(shifted), s.new_zeros(()))
+    denom = segment_sum(e, ids, num_segments)
+    out = e / torch.clamp(take_rows(denom, ids), min=1e-30)
+    return out[0] if one else out
+
+
 def masked_sum(data: torch.Tensor, mask: torch.Tensor, axis: int):
     """Sum over ``axis`` counting only mask==1 elements (mask broadcasts from
     the left)."""

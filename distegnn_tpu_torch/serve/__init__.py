@@ -128,7 +128,8 @@ def engine_with_params_from_config(cfg, device=None,
 
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(cfg.get("seed", 0) or 0))
-    model = get_model(cfg.model, generator=gen)
+    model = get_model(cfg.model, dataset_name=cfg.data.dataset_name,
+                      generator=gen)
     ckpt = checkpoint if checkpoint is not None else cfg.model.get(
         "checkpoint")
     if ckpt:

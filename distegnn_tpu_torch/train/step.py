@@ -107,7 +107,13 @@ class Optimizer:
             return False
         if reduce_grads is not None:
             reduce_grads(self.params)
-        grads = [p.grad for p in self.params if p.grad is not None]
+        # a parameter no loss term reaches (the last layer's feature heads)
+        # has no gradient here and a zero one in optax, whose weight decay
+        # and Adam still move it: give it the zero gradient
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         self.last_grad_norm = norm.detach()
         if self.clip_norm is not None:

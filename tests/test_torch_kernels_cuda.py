@@ -10,6 +10,8 @@ It also holds the small blocked-graph builder that the CPU tests of the
 fused edge pipeline share.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1050,3 +1052,108 @@ def test_blocked_op_backwards_on_card(dtype):
         scale = float(b.float().abs().max())
         tol = 1e-6 if dtype == torch.float32 else 2 ** -8
         assert float((a.float() - b.float()).abs().max()) <= tol * scale
+
+
+# ------------------------------ FastRF and FastSchNet through the kernels
+
+def _fast_model_graphs(rng, sizes=(300, 260), radius=0.25):
+    """Symmetric radius graphs (rows ascending) in the unit cube, n-body
+    style features, for the FastRF / FastSchNet cases."""
+    from distegnn_tpu_torch.ops.radius import radius_graph_np
+
+    out = []
+    for n in sizes:
+        loc = rng.uniform(0, 1, size=(n, 3)).astype(np.float32)
+        vel = (rng.normal(size=(n, 3)) * 0.05).astype(np.float32)
+        ei = radius_graph_np(loc, radius).astype(np.int64)
+        d = np.linalg.norm(loc[ei[0]] - loc[ei[1]], axis=1)
+        out.append({"node_feat": rng.normal(size=(n, 2)).astype(np.float32),
+                    "loc": loc, "vel": vel, "target": loc + vel,
+                    "edge_index": ei,
+                    "edge_attr": np.repeat(d[:, None], 2, 1).astype(
+                        np.float32)})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowering", ["blocked", "cumsum"])
+@pytest.mark.parametrize("family", ["FastRF", "FastSchNet"])
+def test_fast_models_run_the_blocked_and_scan_kernels_on_card(family,
+                                                              lowering):
+    """FastRF / FastSchNet (H=16, L=2, C=2) forward and backward on the
+    card with ``blocked_impl: pallas`` on a blocked batch (blocked_plan,
+    blocked_seg_sum, blocked_gather) or ``segment_impl: cumsum`` on a plain
+    paired batch (the prefix scan): every kernel launched, and the output
+    and every gradient within 1e-6 / 1e-5 of scale of the same model
+    through the kernels' plain versions."""
+    from unittest import mock
+
+    from distegnn_tpu_torch.models.fast_rf import FastRF
+    from distegnn_tpu_torch.models.fast_schnet import FastSchNet
+    from distegnn_tpu_torch.ops import blocked as BL
+    from distegnn_tpu_torch.ops import cumsum as CS
+    from distegnn_tpu_torch.ops.graph import pad_graphs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    graphs = _fast_model_graphs(np.random.default_rng(3))
+    if lowering == "blocked":
+        batch = pad_graphs(graphs, edge_block=256)
+        kw = {"blocked_impl": "pallas"}
+        plain = (mock.patch.object(BL, "_seg_sum_cuda",
+                                   BL.blocked_segment_sum_ref),
+                 mock.patch.object(BL, "_gather_cuda", BL.blocked_gather_ref),
+                 mock.patch.object(BL, "_plan_cuda", BL.blocked_plan_ref))
+    else:
+        batch = pad_graphs(graphs, compute_pair=True)
+        kw = {"segment_impl": "cumsum"}
+        plain = (mock.patch.object(CS, "_scan_cuda", CS.prefix_sum_ref),)
+    batch = batch.to(dev)
+    gen = torch.Generator().manual_seed(1)
+    if family == "FastRF":
+        model = FastRF(edge_attr_nf=2, hidden_nf=16, virtual_channels=2,
+                       n_layers=2, generator=gen, **kw)
+    else:
+        model = FastSchNet(node_feat_nf=2, edge_attr_nf=2, hidden_nf=16,
+                           virtual_channels=2, n_layers=2, cutoff=1.0,
+                           generator=gen, **kw)
+    model = model.to(dev)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        x, X = model(batch)
+        loss = (torch.sum((x - batch.target) ** 2
+                          * batch.node_mask[..., None])
+                + 0.1 * torch.sum(X ** 2))
+        loss.backward()
+        torch.cuda.synchronize()
+        return x.detach(), X.detach(), {
+            n: p.grad.clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+    def counts():
+        return (BL.blocked_segment_sum.launches, BL.blocked_gather.launches,
+                BL.blocked_plan.launches, CS.prefix_sum.launches)
+
+    before = counts()
+    x, X, g = run()
+    n = [a - b for a, b in zip(counts(), before)]
+    if lowering == "blocked":
+        assert n[0] > 0 and n[1] > 0 and n[2] == 1 and n[3] == 0, n
+    else:
+        assert n[:3] == [0, 0, 0] and n[3] > 0, n
+    with contextlib.ExitStack() as stack:
+        for patch in plain:
+            stack.enter_context(patch)
+        xp, Xp, gp = run()
+    assert counts() == tuple(a + b for a, b in zip(before, n))
+    mask = batch.node_mask > 0
+    assert float((x - xp)[mask].abs().max()) <= 1e-6 * float(
+        xp[mask].abs().max())
+    assert float((X - Xp).abs().max()) <= 1e-6 * float(Xp.abs().max())
+    scale = max(float(v.abs().max()) for v in gp.values())
+    assert g.keys() == gp.keys()
+    for k in gp:
+        assert float((g[k] - gp[k]).abs().max()) <= 1e-5 * scale, k
+

@@ -130,7 +130,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'data.protein', 'data.stream', 'data.nbody_sim', 'utils.rotate', "
         "'serve.queue', 'serve.replica', 'serve.supervisor', "
         "'serve.registry', 'serve.autoscale', 'serve.metrics', "
-        "'serve.prep', 'serve.transport', 'serve.gateway', 'obs.slo')}\n"
+        "'serve.prep', 'serve.transport', 'serve.gateway', 'obs.slo', "
+        "'models.fast_rf', 'models.fast_schnet', 'models.fast_tfn', "
+        "'models.schnet', 'models.basic', 'models.eghn', 'models.se3', "
+        "'models.se3.so3', 'models.se3.fibers', 'models.se3.basis', "
+        "'models.se3.tfn', 'models.se3.attention', "
+        "'models.se3.dynamics')}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

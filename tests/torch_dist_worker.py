@@ -13,6 +13,7 @@ import torch
 
 from distegnn_tpu_torch.data.loader import GraphDataset, shard_loader
 from distegnn_tpu_torch.models.fast_egnn import FastEGNN
+from distegnn_tpu_torch.models.fast_schnet import FastSchNet
 from distegnn_tpu_torch.parallel.collectives import all_reduce
 from distegnn_tpu_torch.parallel.checks import assert_replicated
 from distegnn_tpu_torch.parallel.mesh import (GRAPH_AXIS, destroy_graph_group,
@@ -48,9 +49,12 @@ def _batch(job, rank):
     return next(iter(loader))
 
 
+FAMILIES = {"FastEGNN": FastEGNN, "FastSchNet": FastSchNet}
+
+
 def _model(job, sd, **over):
     kw = dict(job["model"], **over)
-    m = FastEGNN(axis_name=GRAPH_AXIS, **kw)
+    m = FAMILIES[job.get("family", "FastEGNN")](axis_name=GRAPH_AXIS, **kw)
     m.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     return m
 
