@@ -257,6 +257,37 @@ or of the JAX package. Phases (any failure exits nonzero):
      printed. (c) the forward kernel at the heaviest tile of (b)'s cached
      plan, held against its plain version and timed beside its bound.
 
+  16. the data and tensor axes of the mesh (parallel/mesh.py: the world
+     laid out as JAX's (data, graph, tensor) mesh, sub-groups by axis). (a)
+     both fused edge kernels at phi_x width HX = H / T (w3 [H, HX], b3 and
+     w4 [HX]: a tensor rank's slice) for HX = 32 and 16 at H = 64: the
+     forward on the tensor cores (bf16) and the f32 kernel, the backward on
+     the tensor cores (bf16) and the f32 FMA kernel, at phase 2's shape, at
+     phase 9's rank shape (its rank 0's part of 4 of a cloud) and at (b)'s
+     rank shape (a part of 2 of the same cloud: the shape (b) launches
+     them at), each held against its plain version at phases 2 / 2b's
+     bounds and timed beside its bound and plain version. (b)
+     configs/largefluid_distegnn.yaml as published (H=64, L=4, C=3, bf16,
+     remat, MSE + MMD, accumulation 4) + model.edge_impl=fused,
+     data.edge_block=512 and parallel.mesh {data 1, graph 2, tensor 2}: 4
+     ranks sharing the card over gloo, 1 epoch (the cut) of phase 9's
+     first cloud split in 2 (the cut: its parts make every batch of the
+     train, valid and test splits, so one partition serves the 4
+     micro-steps): exact fused launches a micro-step a rank, every one at
+     HX = 32 on the tensor-core kernels; exact all-reduces and all-gathers
+     a micro-step by kind (``mesh_micro_step_collectives``); the
+     parameters bitwise equal over the 4 ranks at the start and the end;
+     after the last micro-step, in the same world, the first update with
+     MMD off against the same run at tensor 1 (2 ranks) at phase 9's
+     bounds. (c) configs/simulation_distegnn.yaml as published +
+     parallel.mesh {data 2, graph 2} on phase 11's synthetic Water-3D files
+     (4 ranks, 1 epoch, data.max_samples cut): exact collectives; after the
+     last micro-step, in the same world, each rank's batch bitwise rows
+     [d B, (d + 1) B) of the data-1 draw at batch 2B, and the first update
+     with MMD off against data 1 at batch 2B at phase 9's bounds. Printed:
+     micro-step ms, the all-reduce and all-gather counts with their host
+     seconds, the phase's time.
+
 Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
 loader's first pass) with the native library and with the numpy layout.
 
@@ -469,24 +500,27 @@ def bound(nbytes, flops, dname):
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
-def fwd_work(N, E, active, H, elt):
+def fwd_work(N, E, active, H, elt, hx=None):
     """(bytes, flop) of one forward launch: inputs read once (edge stream,
     x, hr/hc of ``elt`` bytes, weights), the [N, H+8] sums written once;
-    the operations of the active edges only (two H x H products)."""
+    the operations of the active edges only (the H x H product and the
+    H x HX one; phi_x's width HX is H, or H / T on a tensor rank)."""
+    hx = H if hx is None else hx
     nbytes = (E * (3 * 4 + 8 * 4) + N * (3 * 4 + 2 * H * elt)
-              + (2 * H * H + 7 * H) * 4 + N * (H + 8) * 4)
-    return nbytes, active * (4 * H * H + 12 * H + 8)
+              + (H * H + H * hx + 4 * H + 3 * hx) * 4 + N * (H + 8) * 4)
+    return nbytes, active * (2 * H * H + 2 * H * hx + 12 * H + 8)
 
 
-def bwd_work(N, E, active, H, elt):
+def bwd_work(N, E, active, H, elt, hx=None):
     """(bytes, flop) of one backward launch: the forward's inputs and the
     [N, H+8] cotangent read once, the two [N, H+8] sums and the weight
-    gradients written once; per active edge six H x H products (12 H^2)
-    plus ~30 H of elementwise work."""
-    nw = 2 * H * H + 7 * H
+    gradients written once; per active edge six products (three H x H,
+    three H x HX: 12 H^2 at HX = H) plus ~30 H of elementwise work."""
+    hx = H if hx is None else hx
+    nw = H * H + H * hx + 4 * H + 3 * hx
     nbytes = (E * (3 * 4 + 8 * 4) + N * (3 * 4 + 2 * H * elt) + nw * 4
               + N * (H + 8) * 4 + 2 * N * (H + 8) * 4 + nw * 4)
-    return nbytes, active * (12 * H * H + 30 * H)
+    return nbytes, active * (6 * H * H + 6 * H * hx + 30 * H)
 
 
 def compare(label, dname, names, out, ref, verbose=True):
@@ -836,6 +870,8 @@ def reset_fused_counts():
     ep.fused_edge_layer.tc_launches = 0
     ep.fused_edge_layer.f32_launches = 0
     ep.fused_edge_layer.bwd_launches = 0
+    ep.fused_edge_layer.launch_widths.clear()
+    ep.fused_edge_layer.bwd_launch_widths.clear()
 
 
 def fwd_counts():
@@ -878,7 +914,7 @@ def scan_plain_patches():
 
 def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
                  time_extra=0, profile=False, axis_name=None, rank=None,
-                 profiler=None):
+                 profiler=None, tensor_axis=None, data_axis_name=None):
     """One optimizer update (accumulation_steps micro-steps) of the train
     step from ``init_sd`` over ``batches`` (on the card), with the per-step
     generators of epoch 1. Returns a dict: the micro-steps' losses with and
@@ -887,7 +923,8 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
     launches) over the update, and the micro-step ms of ``time_extra`` more
     timed micro-steps. ``patches`` (e.g. :func:`fused_plain_patches`) are
     entered around it all. ``axis_name`` / ``rank``: one rank of a
-    distributed run (the gradient is then the one summed over the ranks).
+    distributed run (the gradient is then the one summed over the ranks);
+    ``tensor_axis`` / ``data_axis_name`` its mesh's other axes.
     ``profile`` runs one more micro-step under ``profiler`` (default
     :func:`profile_step`), whose result is ``out["profile"]``."""
     import torch
@@ -899,7 +936,7 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
                                                step_generator)
 
     model = get_model(cfg.model, dataset_name=cfg.data.dataset_name,
-                      axis_name=axis_name)
+                      axis_name=axis_name, tensor_axis=tensor_axis)
     model.load_state_dict(init_sd)
     model.to(dev)
     pname = {id(p): n for n, p in model.named_parameters()}
@@ -925,7 +962,7 @@ def first_update(cfg, init_sd, batches, dev, patches=(), counts=fused_counts,
     # MMD applies to the virtual-node (Fast*) models only, as in main.py
     mmd_w = t.mmd.weight if cfg.model.model_name.startswith("Fast") else 0.0
     step = make_train_step(model, opt, mmd_w, t.mmd.sigma, t.mmd.samples,
-                           axis_name=axis_name)
+                           axis_name=axis_name, data_axis_name=data_axis_name)
     before = counts()
     with contextlib.ExitStack() as stack:
         for pt in patches:
@@ -2696,7 +2733,8 @@ class StepProbe:
 
         from distegnn_tpu_torch.ops import edge_pipeline as ep
         from distegnn_tpu_torch.ops import layer_pipeline as lp
-        from distegnn_tpu_torch.parallel.collectives import all_reduce
+        from distegnn_tpu_torch.parallel.collectives import (all_gather,
+                                                             all_reduce)
 
         cuda = torch.cuda.is_available()
         if cuda:
@@ -2707,6 +2745,12 @@ class StepProbe:
             "consistency": float(metrics["batch_consistency"]),
             "counts": dict(all_reduce.counts),
             "seconds": sum(all_reduce.seconds.values()),
+            "gathers": dict(all_gather.counts),
+            "gather_seconds": sum(all_gather.seconds.values()),
+            "widths": {f"{h}x{x}": n for (h, x), n in
+                       ep.fused_edge_layer.launch_widths.items()},
+            "bwd_widths": {f"{h}x{x}": n for (h, x), n in
+                           ep.fused_edge_layer.bwd_launch_widths.items()},
             "fwd": ep.fused_edge_layer.launches,
             "tc": ep.fused_edge_layer.tc_launches,
             "bwd": ep.fused_edge_layer.bwd_launches,
@@ -3031,6 +3075,8 @@ def dist_phase(root, dev, clouds):
     """Phase 9: distributed training, the flagship config as published over
     graph parts (see the module docstring). Logs, checkpoints and shards go
     to a temporary directory that is removed afterwards."""
+    import pickle
+
     import torch
 
     from distegnn_tpu_torch.config import load_config
@@ -3067,8 +3113,10 @@ def dist_phase(root, dev, clouds):
         launches = dist_j2(flagship, paths, dev, tmp, n_real, res,
                            cfg.model.n_layers)
         j0_meds = dist_j0(flagship, clouds, dev, tmp, n_real)
+        with open(paths[0][0], "rb") as f:
+            part = pickle.load(f)[0]   # rank 0's part of the first cloud
     print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "kernels": res[0]["kernels"],
+    return {"launches": launches, "kernels": res[0]["kernels"], "part": part,
             "j1_ms": j1_meds, "j0_ms": j0_meds}
 
 
@@ -5957,6 +6005,553 @@ def family_summary(fam):
         + f"; phase {fam['seconds']:.1f} s")
 
 
+# ------------------------------------------------ phase 16: the data and tensor axes
+
+# (b): the flagship split over 2 graph parts and 2 tensor ranks (4 ranks
+# sharing the card); (c): Water-3D over 2 data shards x 2 graph parts
+MESH_TP = (1, 2, 2)
+MESH_DP = (2, 2, 1)
+# the phi_x widths of the tensor axis at H = 64 held in (a): T = 2 and 4
+MESH_HX = (32, 16)
+FWD_TPU = "distegnn_tpu/ops/edge_pipeline.py:288"
+BWD_TPU = "distegnn_tpu/ops/edge_pipeline.py:314"
+
+
+def mesh_micro_step_collectives(L, remat, mmd, update, first=False,
+                                tensor=False):
+    """The collectives of one micro-step of the fused distributed train
+    step under a (data, graph, tensor) mesh, by kind: (all-reduces,
+    all-gathers), derived from the code. The graph axis's, the loss's, the
+    consistency pair, the gradient and the stop agreement are
+    :func:`micro_step_collectives`'s (the data axis changes their groups,
+    not their number). The tensor axis adds, per layer
+    (models/fast_egnn.py ``_fused_edges``, models/common.py ``MLP``): in
+    every forward, rerun by remat's recompute, two all-gathers of the
+    hoisted products (``tp_gather``) and two sums (``tp_reduce``: phi_x's
+    trans_sum, phi_h's output); in the backward, the cotangent sums of the
+    ``tp_copy`` inputs (11 a layer: the node features, the two gathered
+    products, the kernel's four and the remote tail's four replicated
+    weights; + x, but not layer 0's, the input positions; + phi_h's input,
+    but not the last layer's, whose h is unused) and the all-gathers of the
+    sliced weights' cotangents (``tp_slice``: w1's two column blocks, the
+    kernel's and the tail's w3, b3, w4; + phi_h's first Dense, kernel and
+    bias, and ``tp_slice_rows``, its second, but not the last layer's)."""
+    red = micro_step_collectives(L, remat, mmd, update, first)
+    gat = {}
+    if tensor:
+        fw = 2 if remat else 1
+        red.update(tp_reduce=2 * L * fw, tp_copy_bwd=11 * L + 2 * (L - 1))
+        gat = {"tp_gather": 2 * L * fw, "tp_slice_bwd": 8 * L + 2 * (L - 1),
+               "tp_slice_rows_bwd": L - 1}
+    return red, gat
+
+
+def mesh_kernel_case(label, arrs, N, E, active, x, w, H, hx, dev, gen):
+    """Phase 16 (a) at one shape and phi_x width ``hx``: the forward (bf16
+    on the tensor cores, f32 on the f32 kernel) and the backward (bf16
+    tensor cores, f32 FMA) with w3 [H, hx], b3 / w4 [hx] (a tensor rank's
+    slice), each held against its plain version at phases 2 / 2b's bounds
+    and timed (eagerly, as CUDA-graph replays, the plain version, the
+    bound). Returns {(kernel, dtype): row}."""
+    import torch
+
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+
+    ws = ep.EdgeWeights(w.ws, w.b1, w.w2, w.b2, w.w3[:, :hx].contiguous(),
+                        w.b3[:, :hx].contiguous(), w.w4[:, :hx].contiguous())
+    hr0 = torch.randn((N, H), generator=gen, device=dev) * 0.5
+    hc0 = torch.randn((N, H), generator=gen, device=dev) * 0.5
+    g_trans = torch.randn((N, 3), generator=gen, device=dev)
+    g_ef = torch.randn((N, H), generator=gen, device=dev)
+    res = {}
+    shape = f"N={N} E_slots={E} in_window={active} H={H} HX={hx}"
+    with torch.no_grad():
+        for dname in ("bf16", "f32"):
+            dt = torch.float32 if dname == "f32" else torch.bfloat16
+            hr, hc = hr0.to(dt).contiguous(), hc0.to(dt).contiguous()
+            fargs = (x, hr, hc, *arrs, ws, BLOCK, dname)
+            bargs = (x, hr, hc, *arrs, ws, g_trans, g_ef, BLOCK, dname)
+            for name, kern, plain, args, flat, names, work in (
+                    ("fused_edge_fwd", ep._fused_edge_layer_cuda,
+                     ep.fused_edge_layer_ref, fargs, list, FWD_NAMES,
+                     fwd_work),
+                    ("fused_edge_bwd", ep._fused_edge_bwd_cuda,
+                     ep.fused_edge_layer_bwd_ref, bargs, bwd_outputs,
+                     BWD_NAMES, bwd_work)):
+                wid = (ep.fused_edge_layer.launch_widths
+                       if name == "fused_edge_fwd"
+                       else ep.fused_edge_layer.bwd_launch_widths)
+                before = (wid[(H, hx)], ep.fused_edge_layer.tc_launches,
+                          ep.fused_edge_layer.f32_launches)
+                out = flat(kern(*args))
+                torch.cuda.synchronize()
+                tc = name == "fused_edge_fwd" and dname == "bf16"
+                f32 = name == "fused_edge_fwd" and dname == "f32"
+                check((wid[(H, hx)], ep.fused_edge_layer.tc_launches,
+                       ep.fused_edge_layer.f32_launches)
+                      == (before[0] + 1, before[1] + tc, before[2] + f32),
+                      f"{label} {name} {dname} HX={hx}: launch counts")
+                err = compare(f"{label} {name} HX={hx}", dname, names, out,
+                              flat(plain(*args)), verbose=False)
+                del out
+                ms = cuda_ms(lambda: kern(*args), reps=10)
+                graph_ms = cuda_ms_batches(lambda: kern(*args), launches=20,
+                                           batches=3)
+                plain_ms = cuda_ms(lambda: plain(*args), reps=3, warm=1)
+                nbytes, flops = work(N, E, active, H, hr.element_size(), hx)
+                b_ms, b_by = bound(nbytes, flops, dname)
+                kernel = ("fused_edge_fwd_tc" if tc else "fused_edge_fwd_f32"
+                          if f32 else "fused_edge_bwd")
+                res[(kernel, dname)] = dict(
+                    ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, err=err,
+                    bound_ms=b_ms, bound_by=b_by, shape=shape, hx=hx,
+                    dtype=dname)
+                print(f"{label} {kernel} {dname} HX={hx}: {ms:.4f} ms/launch "
+                      f"eagerly, {graph_ms:.4f} as CUDA-graph replays, plain "
+                      f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                      f"{nbytes} B, {flops} flop), {b_ms / graph_ms:.4f} of "
+                      f"bound (replays)")
+    return res
+
+
+def mesh_kernel_phase(dev, parts):
+    """Phase 16 (a): both fused edge kernels at phi_x widths HX = 32 and 16
+    (H = 64), at phase 2's shape and at each (label, part graph) of
+    ``parts``. Returns the rows by (shape label, kernel, dtype, HX)."""
+    import torch
+
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.ops.graph import _round_up, pad_graphs
+
+    H = HIDDEN
+    gen = torch.Generator(device=dev).manual_seed(16)
+    s = 0.3 / math.sqrt(H)
+    w = ep.EdgeWeights(*[torch.randn(shape, generator=gen, device=dev) * s
+                         for shape in ((3, H), (1, H), (H, H), (1, H),
+                                       (H, H), (1, H), (1, H))])
+    rows = {}
+    for label, g in (("(a) phase-2 shape", scene(KERNEL_N, seed=11)),
+                     *parts):
+        # at least the window's 3 blocks, as the loader pads
+        n = max(_round_up(g["loc"].shape[0], BLOCK), 3 * BLOCK)
+        batch = pad_graphs([g], edge_block=BLOCK, split_remote=True,
+                           max_nodes=n).to(dev)
+        arrs, N, E, active = kernel_inputs(batch)
+        x = batch.loc[0].contiguous()
+        for hx in MESH_HX:
+            for key, r in mesh_kernel_case(label, arrs, N, E, active, x, w,
+                                           H, hx, dev, gen).items():
+                rows[(label,) + key + (hx,)] = r
+    return rows
+
+
+def write_mesh_shards(cfg, cloud, out_dir, ws, n_train):
+    """(b)'s shards: ``cloud`` split once by the config's split mode into
+    ``ws`` parts, written as the train split (``n_train`` copies: one
+    update's micro-steps) and as the valid and test splits (one copy
+    each), in data/distribute.py's shard format. Returns (split paths, the
+    split's ms)."""
+    import pickle
+
+    from distegnn_tpu_torch.data.partition import split_graph
+
+    d = cfg.data
+    t0 = time.perf_counter()
+    parts = split_graph(cloud, ws, d.split_mode, d.inner_radius,
+                        outer_radius=d.outer_radius, seed=cfg.seed)
+    split_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(out_dir)
+    paths = []
+    for split, n in (("train", n_train), ("valid", 1), ("test", 1)):
+        paths.append([os.path.join(out_dir, f"fluid_{split}_{p}-{ws}.pkl")
+                      for p in range(ws)])
+        for p, path in enumerate(paths[-1]):
+            with open(path, "wb") as f:
+                pickle.dump([parts[p]] * n, f,
+                            protocol=pickle.HIGHEST_PROTOCOL)
+    return paths, split_ms
+
+
+def mesh_check_rank(rank, shape, cfgs, paths, out_dir, dev):
+    """A rank of phase 16's checks, run by :class:`MeshProbe` in the timed
+    run's world after its last micro-step. (b), ``shape`` (1, 2, 2): the
+    first update with MMD off of the tensor-parallel model and of the
+    model without the tensor axis (each tensor coordinate's graph group is
+    a 2-rank run at T = 1), its fused launches by phi_x width. (c),
+    ``shape`` (2, 2, 1): the rank's batches at data index d, the graph
+    group's batches of the D = 1 draw at batch 2B, and the first update
+    (MMD off) with the data axis and, per data coordinate, at D = 1 and
+    batch 2B. Writes ``check<rank>.pt``."""
+    import itertools
+
+    import torch
+
+    from distegnn_tpu_torch.models.registry import get_model
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.parallel.launch import rank_loaders
+    from distegnn_tpu_torch.parallel.mesh import (DATA_AXIS, GRAPH_AXIS,
+                                                  TENSOR_AXIS, mesh_coords)
+
+    d, g, _ = mesh_coords(rank, shape)
+    out = {}
+    t0 = time.perf_counter()
+
+    def batches_of(cfg, **kw):
+        loader = rank_loaders(cfg, paths, g, dev, **kw)[0]
+        loader.set_epoch(1)
+        return list(itertools.islice(loader, cfg.train.accumulation_steps))
+
+    H = cfgs["tp"].model.hidden_nf if "tp" in cfgs else 0
+    hx = H // shape[2]
+
+    def widths():
+        # fused launches (forward, backward) at phi_x width HX, then at H
+        fw = ep.fused_edge_layer.launch_widths
+        bw = ep.fused_edge_layer.bwd_launch_widths
+        return fw[(H, hx)], bw[(H, hx)], fw[(H, H)], bw[(H, H)]
+
+    def cpu(u):
+        u["grad"] = {n: t.cpu() for n, t in u["grad"].items()}
+        return u
+
+    if shape[2] > 1:
+        cfg = cfgs["tp"]
+        init = get_model(cfg.model, generator=torch.Generator()
+                         .manual_seed(int(cfg.seed))).state_dict()
+        b = batches_of(cfg)
+        out["tp"] = cpu(first_update(cfg, init, b, dev, counts=widths,
+                                     axis_name=GRAPH_AXIS, rank=g,
+                                     tensor_axis=TENSOR_AXIS))
+        out["t1"] = cpu(first_update(cfg, init, b, dev, counts=widths,
+                                     axis_name=GRAPH_AXIS, rank=g))
+    else:
+        cfg, cfg1 = cfgs["dp"], cfgs["dp1"]
+        init = get_model(cfg.model, generator=torch.Generator()
+                         .manual_seed(int(cfg.seed))).state_dict()
+        b = batches_of(cfg, data_parallel=shape[0], data_index=d)
+        b1 = batches_of(cfg1)
+        B = cfg.data.batch_size
+        same = all(
+            torch.equal(getattr(x, f), getattr(y, f)[d * B:(d + 1) * B])
+            for x, y in zip(b, b1) for f in vars(x)
+            if isinstance(getattr(x, f), torch.Tensor))
+        out["rows"] = (same, len(b), len(b1), b[0].batch_size,
+                       b1[0].batch_size)
+        out["dp"] = cpu(first_update(cfg, init, b, dev, time_extra=3,
+                                     axis_name=GRAPH_AXIS, rank=rank,
+                                     data_axis_name=DATA_AXIS))
+        out["d1"] = cpu(first_update(cfg1, init, b1, dev,
+                                     axis_name=GRAPH_AXIS, rank=g))
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(out_dir, f"check{rank}.pt"))
+
+
+class MeshProbe(StepProbe):
+    """Phase 16's ``on_step``: :class:`StepProbe`'s rows, and after the
+    run's micro-step ``after`` (its last) :func:`mesh_check_rank` in the
+    same world (the rows are written before it, so it moves no count or
+    time the phase reads from them)."""
+
+    def __init__(self, out_dir, after, shape, cfgs, paths):
+        super().__init__(out_dir)
+        self.after, self.shape, self.cfgs, self.paths = (after, shape, cfgs,
+                                                         paths)
+
+    def __call__(self, epoch, step, metrics):
+        import torch
+        import torch.distributed as dist
+
+        super().__call__(epoch, step, metrics)
+        if len(self.rows) == self.after:
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if torch.cuda.is_available() else torch.device("cpu"))
+            mesh_check_rank(dist.get_rank(), self.shape, self.cfgs,
+                            self.paths, self.out_dir, dev)
+
+
+def read_mesh_checks(label, out_dir, world):
+    import torch
+
+    res = [torch.load(os.path.join(out_dir, f"check{r}.pt"),
+                      weights_only=False) for r in range(world)]
+    print(f"({label}) checks in the run's world after its last micro-step: "
+          f"{max(r['seconds'] for r in res):.1f} s")
+    return res
+
+
+def report_mesh_run(label, cfg, rows, n_real, startup, gstartup,
+                    tensor=False):
+    """Per rank: exact all-reduces and all-gathers of every micro-step by
+    kind (:func:`mesh_micro_step_collectives`; the first also carries the
+    start-up's), batch_consistency 0, micro-step ms, the collectives' host
+    ms; the global nodes/s. Returns the medians."""
+    L, k = cfg.model.n_layers, cfg.train.accumulation_steps
+    mmd = bool(cfg.train.mmd.weight)
+    meds = []
+    for r, rr in enumerate(rows):
+        prev, prevg, prev_s = {}, {}, 0.0
+        for j, row in enumerate(rr):
+            want, wantg = mesh_micro_step_collectives(
+                L, cfg.model.remat, mmd, (j + 1) % k == 0, first=(j == 0),
+                tensor=tensor)
+            if j == 0:
+                for kind, n in startup.items():
+                    want[kind] = want.get(kind, 0) + n
+                for kind, n in gstartup.items():
+                    wantg[kind] = wantg.get(kind, 0) + n
+            for got_all, before, expect, what in (
+                    (row["counts"], prev, want, "all-reduces"),
+                    (row["gathers"], prevg, wantg, "all-gathers")):
+                got = {kind: n - before.get(kind, 0)
+                       for kind, n in got_all.items()
+                       if n - before.get(kind, 0)}
+                check(got == {kind: n for kind, n in expect.items() if n},
+                      f"{label}rank {r} micro-step {j}: {what} {got}, "
+                      f"expected {expect}")
+            secs = row["seconds"] + row["gather_seconds"]
+            row["coll_ms"] = (secs - prev_s) * 1e3
+            prev, prevg, prev_s = row["counts"], row["gathers"], secs
+            check(row["consistency"] == 0.0,
+                  f"{label}rank {r}: batch_consistency {row['consistency']}")
+            check(math.isfinite(row["loss"]), f"{label}non-finite loss")
+        steps = [(b["t"] - a["t"]) * 1e3 for a, b in zip(rr, rr[1:])
+                 if a["epoch"] == b["epoch"]]
+        med = sorted(steps)[len(steps) // 2] if steps else None
+        meds.append(med)
+        coll = [row["coll_ms"] for row in rr[1:]] or [rr[0]["coll_ms"]]
+        per, perg = mesh_micro_step_collectives(L, cfg.model.remat, mmd,
+                                                False, tensor=tensor)
+        print(f"{label}rank {r}: micro-step ms (host clock, loader "
+              f"included) " + (" ".join(f"{v:.1f}" for v in steps)
+                               + f", median {med:.1f}" if steps else
+                               "n/a (one micro-step)")
+              + "; a micro-step's all-reduces "
+              f"{sum(per.values())} {json.dumps(per)} (+1 gradient at each "
+              f"update) and all-gathers {sum(perg.values())} "
+              f"{json.dumps(perg)}, their host ms a micro-step "
+              + " ".join(f"{v:.1f}" for v in coll)
+              + f"; all-reduce host s {rr[-1]['seconds']:.3f}, all-gather "
+              f"host s {rr[-1]['gather_seconds']:.3f}; peak device memory "
+              f"{rr[-1]['peak'] / 2**30:.3f} GiB; batch_consistency 0 in "
+              f"all {len(rr)} micro-steps")
+    if all(v is not None for v in meds):
+        slow = max(meds)
+        print(f"{label}global: {n_real} real nodes / the slowest rank's "
+              f"median {slow:.1f} ms = {n_real / (slow / 1e3):.0f} nodes/s "
+              "(ranks sharing one card: the collectives' and the host's "
+              "overhead, not scaling)")
+    return meds
+
+
+def mesh_phase(root, dev, cloud, part4):
+    """Phase 16: the data and tensor axes of the mesh (see the module
+    docstring). ``cloud`` is phase 9's first cloud and ``part4`` phase 9's
+    rank 0's part of it. Shards, logs and data go to a temporary directory
+    that is removed afterwards."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with phase_tmp("chip_smoke_mesh_") as tmp:
+        out = _mesh_phase(root, dev, cloud, part4, tmp)
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _mesh_phase(root, dev, cloud, part4, tmp):
+    import copy
+    import pickle
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.data.loader import GraphDataset
+    from distegnn_tpu_torch.parallel.launch import (_dispatch_preprocess,
+                                                    run_distributed)
+
+    flagship = os.path.join(root, "configs", "largefluid_distegnn.yaml")
+    mesh_over = {"parallel.mesh.data": MESH_TP[0],
+                 "parallel.mesh.graph": MESH_TP[1],
+                 "parallel.mesh.tensor": MESH_TP[2]}
+    over = dict(mesh_over, **{"model.edge_impl": "fused",
+                              "data.edge_block": BLOCK, "train.epochs": 1,
+                              "log.log_dir": os.path.join(tmp, "logs")})
+    cfg = load_config(flagship, over)
+    m, t = cfg.model, cfg.train
+    micro = t.accumulation_steps
+    paths, split_ms = write_mesh_shards(cfg, cloud, os.path.join(tmp, "ws2"),
+                                        MESH_TP[1], micro)
+    print(f"(b) partitioned phase 9's first cloud into {MESH_TP[1]} parts in "
+          f"{split_ms:.0f} ms; its parts make the {micro} train batches (one "
+          "update) and the valid and test batches")
+    # (a) the kernels: phase 9's rank shape (a part of 4) and (b)'s (the
+    # part of 2 that rank g = 0 trains on)
+    with open(paths[0][0], "rb") as f:
+        part2 = pickle.load(f)[0]
+    krows = mesh_kernel_phase(dev, (("(a) phase-9 rank shape", part4),
+                                    ("(a) (b)'s rank shape", part2)))
+
+    # (b) the tensor axis at full width
+    print(f"(b) config: configs/largefluid_distegnn.yaml as published + "
+          f"{json.dumps(over)}: H={m.hidden_nf} L={m.n_layers} "
+          f"C={m.virtual_channels} {m.compute_dtype} remat={m.remat} mmd "
+          f"{t.mmd.weight} accumulation {t.accumulation_steps}; cut: "
+          f"train.epochs 1 (the published 2500), one cloud's parts for "
+          f"every batch")
+    n_real = cloud["loc"].shape[0]
+    L = m.n_layers
+    per, perg = mesh_micro_step_collectives(L, m.remat, bool(t.mmd.weight),
+                                            False, tensor=True)
+    print(f"(b) collectives a micro-step, derived: all-reduces "
+          f"{sum(per.values())} {json.dumps(per)} (+1 gradient at each "
+          f"update), all-gathers {sum(perg.values())} {json.dumps(perg)}")
+    probe_dir = os.path.join(tmp, "probe_b")
+    os.makedirs(probe_dir)
+    ucfg = load_config(flagship, dict(over, **{"train.mmd.weight": 0.0}))
+    t0 = time.perf_counter()
+    run_distributed(copy.deepcopy(cfg), split_paths=paths, device=dev,
+                    on_step=MeshProbe(probe_dir, micro, MESH_TP,
+                                      {"tp": ucfg}, paths))
+    world = MESH_TP[0] * MESH_TP[1] * MESH_TP[2]
+    print(f"(b) run_distributed, mesh data x graph x tensor = "
+          f"{' x '.join(map(str, MESH_TP))}: {world} ranks sharing the card "
+          f"over gloo, 1 epoch in {time.perf_counter() - t0:.1f} s (spawn, "
+          f"loading and the checks included); parameters bitwise equal "
+          f"across the {world} ranks at the start and the end "
+          f"(run_distributed's broadcast and compare over the whole mesh)")
+    rows = read_probe(probe_dir, world)
+    want_fwd, want_bwd = 2 * L * micro, L * micro
+    hx = f"{m.hidden_nf}x{m.hidden_nf // MESH_TP[2]}"
+    for r, rr in enumerate(rows):
+        last = rr[-1]
+        print(f"(b) rank {r}: fused_edge_fwd {last['fwd']} (expected {L} "
+              f"layers x {micro} micro-steps x 2 (remat) = {want_fwd}; "
+              f"{last['tc']} on the tensor cores; by H x HX "
+              f"{last['widths']}), fused_edge_bwd {last['bwd']} (expected "
+              f"{want_bwd}; {last['bwd_widths']}), fused_stack_fwd "
+              f"{last['stack']}")
+        check(len(rr) == micro and last["fwd"] == want_fwd
+              and last["tc"] == want_fwd and last["bwd"] == want_bwd
+              and last["widths"] == {hx: want_fwd}
+              and last["bwd_widths"] == {hx: want_bwd}
+              and last["stack"] == 0, f"(b) rank {r}: launch counts")
+    meds_b = report_mesh_run("(b) ", cfg, rows, n_real * MESH_TP[0],
+                             {"layout": 6, "replicated": 1},
+                             {"consensus": 1}, tensor=True)
+    launches = (sum(r[-1]["fwd"] for r in rows),
+                sum(r[-1]["bwd"] for r in rows))
+
+    res = read_mesh_checks("b", probe_dir, world)
+    for r, rr in enumerate(res):
+        tp, t1 = rr["tp"], rr["t1"]
+        # one update: accumulation_steps micro-steps of 2L forward (remat)
+        # and L backward launches, at HX = H / 2, then at HX = H
+        k = ucfg.train.accumulation_steps
+        check(tp["launches"] == (2 * L * k, L * k, 0, 0)
+              and t1["launches"] == (0, 0, 2 * L * k, L * k),
+              f"(b) rank {r}: first update launches (HX = H/2 fwd, bwd, "
+              f"HX = H fwd, bwd) {tp['launches']} / {t1['launches']}")
+        errs, per_t = update_distance(
+            dict(tp, loss_with_mmd=tp["loss"]),
+            dict(t1, loss_with_mmd=t1["loss"]))
+        worst = sorted(per_t.items(), key=lambda kv: -kv[1])
+        print(f"(b) rank {r} first update (MMD off), tensor 2 vs tensor 1 "
+              f"(2 ranks): losses max rel err {errs['loss']:.3e}, gradient "
+              f"norm {errs['grad norm']:.3e}, max {errs['grad']:.3e}, l2 "
+              f"{errs['grad l2']:.3e} (tol {TOL_TRAIN:.0e} each); worst "
+              f"tensor {worst[0][0]} {worst[0][1]:.3e}")
+        check(all(errs[key] <= TOL_TRAIN for key in ("loss", "grad norm",
+                                                     "grad", "grad l2")),
+              f"(b) rank {r}: the tensor-parallel update disagrees with "
+              "tensor 1's")
+
+    # (c) the data axis on Water-3D
+    data_dir = write_water3d(os.path.join(tmp, "simulate"), 16)
+    path = os.path.join(root, "configs", "simulation_distegnn.yaml")
+    cover = {"data.data_dir": data_dir, "parallel.mesh.data": MESH_DP[0],
+             "parallel.mesh.graph": MESH_DP[1],
+             "data.max_samples": W3D_DIST_SAMPLES, "train.epochs": 1,
+             "log.log_dir": os.path.join(tmp, "logs_c")}
+    dcfg = load_config(path, cover)
+    print_cuts("(c) ", dcfg, cover)
+    dpaths, _ = timed_preprocess(
+        "(c) ", lambda: _dispatch_preprocess(dcfg, MESH_DP[1]),
+        3 * W3D_DIST_SAMPLES)
+    parts = [GraphDataset(p) for p in dpaths[0]]
+    B = dcfg.data.batch_size
+    n_real_c = sum(q[i]["loc"].shape[0] for q in parts
+                   for i in range(MESH_DP[0] * B))
+    micro_c = len(parts[0]) // (MESH_DP[0] * B)
+    c_over = dict(cover, **{"train.mmd.weight": 0.0})
+    ccfg = load_config(path, c_over)
+    c1 = load_config(path, dict(c_over, **{
+        "parallel.mesh.data": 1, "data.batch_size": MESH_DP[0] * B}))
+    probe_dir = os.path.join(tmp, "probe_c")
+    os.makedirs(probe_dir)
+    t0 = time.perf_counter()
+    run_distributed(copy.deepcopy(dcfg), split_paths=dpaths, device=dev,
+                    on_step=MeshProbe(probe_dir, micro_c, MESH_DP,
+                                      {"dp": ccfg, "dp1": c1}, dpaths))
+    world = MESH_DP[0] * MESH_DP[1] * MESH_DP[2]
+    print(f"(c) run_distributed, mesh data x graph x tensor = "
+          f"{' x '.join(map(str, MESH_DP))}: {world} ranks, 1 epoch in "
+          f"{time.perf_counter() - t0:.1f} s (the checks included); "
+          f"parameters bitwise equal across the ranks at the start and the "
+          f"end")
+    rows_c = read_probe(probe_dir, world)
+    check(all(len(r) == micro_c and r[-1]["fwd"] == 0 for r in rows_c),
+          "(c) missing micro-steps or a fused launch")
+    meds_c = report_mesh_run("(c) ", dcfg, rows_c, n_real_c,
+                             {"layout": 3, "replicated": 1},
+                             {"consensus": 1})
+    res = read_mesh_checks("c", probe_dir, world)
+    for r, rr in enumerate(res):
+        same, nb, nb1, bs, bs1 = rr["rows"]
+        print(f"(c) rank {r}: {nb} batch(es) of {bs} graphs, bitwise rows "
+              f"[d B, (d + 1) B) of the data-1 draw of {bs1}: {same}")
+        check(same and nb == nb1 and bs == B and bs1 == MESH_DP[0] * B,
+              f"(c) rank {r}: the data shard's batches are not the D = 1 "
+              "draw's rows")
+        errs, _ = update_distance(dict(rr["dp"], loss_with_mmd=rr["dp"]["loss"]),
+                                  dict(rr["d1"], loss_with_mmd=rr["d1"]["loss"]))
+        ms = sorted(rr["dp"]["ms"])
+        meds_c[r] = ms[len(ms) // 2]
+        print(f"(c) rank {r}: micro-step ms (synchronised, step only, after "
+              f"the first update) " + " ".join(f"{v:.1f}" for v in ms)
+              + f", median {meds_c[r]:.1f}; global {n_real_c} real nodes / "
+              f"{meds_c[r]:.1f} ms = {n_real_c / (meds_c[r] / 1e3):.0f} "
+              "nodes/s")
+        print(f"(c) rank {r} first update (MMD off), data 2 x batch {B} vs "
+              f"data 1 x batch {MESH_DP[0] * B}: losses max rel err "
+              f"{errs['loss']:.3e}, gradient norm {errs['grad norm']:.3e}, "
+              f"max {errs['grad']:.3e}, l2 {errs['grad l2']:.3e} (tol "
+              f"{TOL_TRAIN:.0e} each)")
+        check(all(errs[key] <= TOL_TRAIN for key in ("loss", "grad norm",
+                                                     "grad", "grad l2")),
+              f"(c) rank {r}: the data-parallel update disagrees with "
+              "data 1's")
+    return {"kernels": krows, "launches": launches, "tp_ms": meds_b,
+            "dp_ms": meds_c}
+
+
+def mesh_rows(mesh, row):
+    """The kernels line's rows of phase 16 (a): each kernel at each phi_x
+    width and shape; the launches of (b)'s run on the row of its width and
+    kernels (HX = 32, bf16 on the tensor cores) at its own rank shape, 0
+    on the others."""
+    out = []
+    fwd, bwd = mesh["launches"]
+    for (label, kernel, dname, hx), r in sorted(mesh["kernels"].items()):
+        n = 0
+        if (dname == "bf16" and hx == HIDDEN // MESH_TP[2]
+                and label.startswith("(a) (b)'s")):
+            n = fwd if kernel == "fused_edge_fwd_tc" else bwd
+        out.append(row(kernel, f"tensor axis {dname} HX={hx} "
+                       f"{label[4:]} {r['shape']}", r,
+                       FWD_TPU if "fwd" in kernel else BWD_TPU, n,
+                       source="fused_edge_bwd" if kernel == "fused_edge_bwd"
+                       else "fused_edge_fwd"))
+    return out
+
+
 def main():
     import torch
 
@@ -6036,15 +6631,18 @@ def main():
     promo = promote_phase(root, dev, gate)
     tiled = tiled_phase(root, dev)
     fam = family_phase(root, dev)
+    mesh = mesh_phase(root, dev, clouds[0], dist["part"])
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{gate['fwd']} (gateway) + {promo['sub_fwd']} (worker children) "
           f"+ {tiled['launches']} (tiled serve) "
           f"+ {promo['drill_fwd']} (promotion drill children) + "
           f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
           f"backward) + {dist['launches'][0]} (distributed train, "
-          f"{DIST_WS} ranks), fused_edge_bwd {train_bwd} (train) + "
+          f"{DIST_WS} ranks) + {mesh['launches'][0]} (tensor axis, HX = "
+          f"{HIDDEN // MESH_TP[2]}), fused_edge_bwd {train_bwd} (train) + "
           f"{stack['launches'][2]} (stack train backward) + "
-          f"{dist['launches'][1]} (distributed train), prefix_scan "
+          f"{dist['launches'][1]} (distributed train) + "
+          f"{mesh['launches'][1]} (tensor axis), prefix_scan "
           f"{serve_scans} (serve cumsum) + "
           f"{sum(plain['widths'].values())} (plain train), suffix "
           f"{plain['suffix']}, fused_stack_fwd {serve_stacks} (serve) + "
@@ -6164,6 +6762,7 @@ def main():
                            BLOCKED_TPU["blocked_seg_sum"], n,
                            source="blocked_onehot"))
     kernels += family_rows(fam, row)
+    kernels += mesh_rows(mesh, row)
     print(family_summary(fam))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s, the kernels' build "

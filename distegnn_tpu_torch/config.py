@@ -5,11 +5,12 @@ the ``model``/``data``/``train``/``log``/``obs``/``serve``/``slo``/
 name (pure Python, no jax).
 
 The keys that the JAX package acts on and the port does not port yet
-(``train.scan_epochs: true``, the data and tensor axes
-``parallel.mesh.data`` / ``data.data_parallel`` and ``parallel.mesh.tensor``,
-``log.wandb.enable`` and ``serve.donate: true``) must keep values that run
-the JAX program: any other value raises ``NotImplementedError`` naming the
-key and why, rather than run another program without a word.
+(``train.scan_epochs: true``, ``log.wandb.enable`` and ``serve.donate:
+true``) must keep values that run the JAX program: any other value raises
+``NotImplementedError`` naming the key and why, rather than run another
+program without a word. The mesh (``parallel.mesh.{data,graph,tensor}``,
+``data.data_parallel``, ``data.world_size``) is checked as JAX checks it
+and acts in ``parallel/launch.py``.
 ``train.scan_epochs: false`` is the port's eager loop, which is also what
 ``'auto'`` runs. Every other serving key acts as in JAX: the queue and
 gateway keys in ``serve/queue.py`` and ``serve/transport.py``,
@@ -115,7 +116,8 @@ _DEFAULTS: dict = {
         "node_bucket": 8,
         "edge_bucket": 128,
         "edge_block": 0,
-        # the data axis of the JAX mesh: not ported (see _UNPORTED)
+        # the data axis of the mesh: data shards of every draw
+        # (parallel/launch.py); ranks = world_size x data_parallel x tensor
         "data_parallel": 1,
         # batches collated and copied ahead by a background thread in a
         # distributed run (0 = synchronous)
@@ -369,14 +371,6 @@ _UNPORTED = (
     ("train.scan_epochs", ("auto", False),
      "the epoch as CUDA graphs of the micro-step, ROADMAP.md queue 1 item "
      "1.3; the port's eager loop is its only mode"),
-    ("parallel.mesh.data", (None, 1),
-     "the data axis, ROADMAP.md queue 1 item 2.3; the port's distributed "
-     "run has the graph axis only"),
-    ("data.data_parallel", (1, None),
-     "the data axis, ROADMAP.md queue 1 item 2.3; the port's distributed "
-     "run has the graph axis only"),
-    ("parallel.mesh.tensor", (1, None),
-     "tensor parallelism, ROADMAP.md queue 1 item 7"),
     ("log.wandb.enable", (False,),
      "wandb logging, not queued in ROADMAP.md: wandb is not installed"),
     ("serve.donate", ("auto", False),
@@ -411,6 +405,55 @@ _VALID_NODE_ORDERS = ("none", "morton")
 _VALID_SPLIT_MODES = ("random", "metis", "spectral", "kmeans")
 
 
+def _check_mesh(cfg: ConfigDict) -> None:
+    """The JAX package's checks of ``parallel.mesh``: its keys, values >= 1,
+    and the tensor axis's constraints (T divides the hidden width, FastEGNN
+    with the hoisted phi_e and no tanh); ``parallel.mesh.data`` against
+    ``data.data_parallel``."""
+    par = cfg.get("parallel")
+    mesh = par.get("mesh") if par is not None else None
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mapping):
+        raise ValueError("parallel.mesh must be a mapping with optional "
+                         "keys data/graph/tensor")
+    for key in mesh:
+        if key not in ("data", "graph", "tensor"):
+            raise ValueError(f"parallel.mesh: unknown key {key!r} "
+                             "(valid: data, graph, tensor)")
+    for key in ("data", "graph", "tensor"):
+        val = mesh.get(key, None if key != "tensor" else 1)
+        if val is not None and int(val) < 1:
+            raise ValueError(f"parallel.mesh.{key} must be >= 1")
+    tensor = int(mesh.get("tensor", 1) or 1)
+    if tensor > 1:
+        hidden = int(cfg.model.hidden_nf)
+        if hidden % tensor:
+            raise ValueError(
+                f"parallel.mesh.tensor={tensor} must divide "
+                f"model.hidden_nf={hidden} (each rank owns a contiguous 1/T "
+                f"hidden slice)")
+        if cfg.model.model_name != "FastEGNN":
+            raise ValueError(
+                f"parallel.mesh.tensor > 1 is only implemented for "
+                f"FastEGNN, not model.model_name={cfg.model.model_name!r}")
+        if not bool(cfg.model.get("hoist_edge_mlp", True)):
+            raise ValueError(
+                "parallel.mesh.tensor > 1 requires model.hoist_edge_mlp=true "
+                "(phi_e's tensor collective is the node-level gather of the "
+                "hoisted products)")
+        if bool(cfg.model.get("tanh", False)):
+            raise ValueError(
+                "parallel.mesh.tensor > 1 does not support model.tanh "
+                "(phi_x's psum is deferred through linear ops only)")
+    mdata = mesh.get("data")
+    dp = int(cfg.data.data_parallel)
+    if mdata is not None and dp != 1 and int(mdata) != dp:
+        raise ValueError(
+            f"parallel.mesh.data={int(mdata)} conflicts with "
+            f"data.data_parallel={dp} — set one of them")
+
+
 def validate_config(cfg: ConfigDict) -> None:
     """The model/data/train/log/serve checks of the JAX package's
     validate_config, for the keys the port reads, and the refusal of the
@@ -431,6 +474,7 @@ def validate_config(cfg: ConfigDict) -> None:
         raise ValueError("data.prefetch_depth must be >= 0 (0 = synchronous)")
     if int(d.get("stream_shard_cache", 4)) < 1:
         raise ValueError("data.stream_shard_cache must be >= 1")
+    _check_mesh(cfg)
     graph = _get(cfg, "parallel.mesh.graph")
     ws = d.get("world_size")
     if graph is not None and ws is not None and int(graph) != int(ws):
@@ -787,6 +831,10 @@ CLI_FIELDS = {
     "outer_radius": ("data.outer_radius", float),
     "inner_radius": ("data.inner_radius", float),
     "world_size": ("data.world_size", int),
+    # the data axis's size (data.data_parallel) and the tensor axis's
+    # (parallel.mesh.tensor)
+    "data_parallel": ("data.data_parallel", int),
+    "tensor_parallel": ("parallel.mesh.tensor", int),
 }
 
 

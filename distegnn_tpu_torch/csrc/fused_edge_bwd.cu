@@ -27,6 +27,12 @@
 // Two kernels compute it. The bf16 path (the flagship's) runs
 // fused_edge_bwd_tc_kernel, the f32 path fused_edge_bwd_kernel.
 //
+// Under the tensor axis of the mesh both run at a phi_x width HX = H / T:
+// w3 is [H, HX], b3 and w4 [HX], so t3, y2 and d_t3 are [TE, HX], dw3 is
+// [H, HX] and the weight-gradient vector [dws 3H | db1 H | dw2 H*H | db2 H
+// | dw3 H*HX | db3 HX | dw4 HX]. Each is instantiated at HX in {H, H/2,
+// H/4} (at least 8); HX = H is the code it was before the axis.
+//
 // What bounds it on the H100. Per edge six H x H tile products (the two of
 // the recomputed forward, the two transposed products of the chain, the two
 // weight-gradient products), 12*H*H = 49 Kflop at H=64, plus ~30 H of
@@ -106,17 +112,17 @@ namespace {
 using namespace fused_edge;
 
 // layout of one weight-gradient vector (a block's partial, and the result):
-// [dws 3H | db1 H | dw2 H*H | db2 H | dw3 H*H | db3 H | dw4 H]
-template <int H>
+// [dws 3H | db1 H | dw2 H*H | db2 H | dw3 H*HX | db3 HX | dw4 HX]
+template <int H, int HX = H>
 struct WOff {
   static constexpr int dws = 0;
   static constexpr int db1 = 3 * H;
   static constexpr int dw2 = 4 * H;
   static constexpr int db2 = 4 * H + H * H;
   static constexpr int dw3 = 5 * H + H * H;
-  static constexpr int db3 = 5 * H + 2 * H * H;
-  static constexpr int dw4 = 6 * H + 2 * H * H;
-  static constexpr int total = 7 * H + 2 * H * H;
+  static constexpr int db3 = 5 * H + H * H + H * HX;
+  static constexpr int dw4 = 5 * H + H * H + H * HX + HX;
+  static constexpr int total = 5 * H + H * H + H * HX + 2 * HX;
 };
 
 template <int H>
@@ -139,29 +145,38 @@ __device__ __forceinline__ void red_add4(float* p, float4 v) {
 #endif
 }
 
-// acc[r][c] += sum_e A[e, ty + 16r] * B[e, tx + 16c] over the tile's edges:
-// thread (ty, tx)'s share of the [H, H] weight gradient A^T B
-template <int H>
+// acc[r][c] += sum_e A[e, ty + 16r] * B[e, j] over the tile's edges for
+// the columns j = tx + 16c < N of B (rows of LDA = H + 1): thread (ty,
+// tx)'s share of the [H, N] weight gradient A^T B, N = H or the phi_x
+// width HX
+template <int H, int N>
 __device__ __forceinline__ void tile_wgrad(const float* A, const float* B,
-                                           float (&acc)[H / 16][H / 16]) {
+                                           float (&acc)[H / 16][(N + 15) / 16]) {
   constexpr int LDA = H + 1;
   constexpr int CPT = H / 16;
+  constexpr int CPN = (N + 15) / 16;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll 4
   for (int e = 0; e < TE; ++e) {
-    float a[CPT], b[CPT];
+    float a[CPT], b[CPN];
 #pragma unroll
     for (int r = 0; r < CPT; ++r) a[r] = A[e * LDA + ty + 16 * r];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) b[c] = B[e * LDA + tx + 16 * c];
+    for (int c = 0; c < CPN; ++c) {
+      const int j = tx + 16 * c;
+      if constexpr (N % 16 == 0)
+        b[c] = B[e * LDA + j];
+      else
+        b[c] = j < N ? B[e * LDA + j] : 0.f;
+    }
 #pragma unroll
     for (int r = 0; r < CPT; ++r)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+      for (int c = 0; c < CPN; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
   }
 }
 
-template <int H>
+template <int H, int HX>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_edge_bwd_kernel(const int* __restrict__ row_t,
                       const int* __restrict__ col_l,
@@ -186,11 +201,12 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
   constexpr int EPG = TE / G;      // edges of one group per tile
   constexpr int Q4 = 2 + H / 4;    // float4 lanes of one column-side payload
   static_assert(THREADS % H == 0 && TE % G == 0, "H must divide THREADS");
-  using W = WOff<H>;
+  constexpr int CPX = (HX + 15) / 16;   // phi_x columns of a thread
+  using W = WOff<H, HX>;
 
   extern __shared__ float smem[];
   float* sW2 = smem;                 // [H, LDW]
-  float* sW3 = sW2 + H * LDW;        // [H, LDW]
+  float* sW3 = sW2 + H * LDW;        // [H, LDW], columns j < HX
   float* sP = sW3 + H * LDW;         // [TE, LDA] t1, then d_t1
   float* sQ = sP + TE * LDA;         // y1, then t3, then d_t3
   float* sR = sQ + TE * LDA;         // t2, then d_t2
@@ -216,21 +232,29 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
   for (int i = tid; i < H * H; i += THREADS) {
     const int k = i / H, j = i % H;
     sW2[k * LDW + j] = w2[i];
+  }
+  for (int i = tid; i < H * HX; i += THREADS) {
+    const int k = i / HX, j = i % HX;
     sW3[k * LDW + j] = w3[i];
   }
   for (int i = tid; i < 3 * H; i += THREADS) sWs[i] = ws[i];
   for (int i = tid; i < H; i += THREADS) {
     sB1[i] = b1[i];
     sB2[i] = b2[i];
+  }
+  for (int i = tid; i < HX; i += THREADS) {
     sB3[i] = b3[i];
     sW4[i] = w4[i];
   }
 
-  float acc_dw2[CPT][CPT], acc_dw3[CPT][CPT];
+  float acc_dw2[CPT][CPT], acc_dw3[CPT][CPX];
 #pragma unroll
-  for (int r = 0; r < CPT; ++r)
+  for (int r = 0; r < CPT; ++r) {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc_dw2[r][c] = acc_dw3[r][c] = 0.f;
+    for (int c = 0; c < CPT; ++c) acc_dw2[r][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPX; ++c) acc_dw3[r][c] = 0.f;
+  }
   float a_db1 = 0.f, a_db2 = 0.f, a_db3 = 0.f, a_dw4 = 0.f;
   float a_dws0 = 0.f, a_dws1 = 0.f, a_dws2 = 0.f;
 
@@ -303,7 +327,7 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
     // ---- forward: t2 -> sR, ef = silu(t2) -> sS
     {
       float acc[4][CPT];
-      tile_mm<H, LDW, false>(sQ, sW2, acc);
+      tile_mm<H, H, LDA, LDW, false>(sQ, sW2, acc);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -316,16 +340,16 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
     }
     __syncthreads();
 
-    // ---- forward: t3 -> sQ
+    // ---- forward: t3 -> sQ (columns j < HX)
     {
-      float acc[4][CPT];
-      tile_mm<H, LDW, false>(sS, sW3, acc);
+      float acc[4][CPX];
+      tile_mm<H, HX, LDA, LDW, false>(sS, sW3, acc);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
+        for (int c = 0; c < CPX; ++c) {
           const int e = ty + 16 * r, j = tx + 16 * c;
-          sQ[e * LDA + j] = dense_pre<false>(acc[r][c], sB3[j]);
+          if (j < HX) sQ[e * LDA + j] = dense_pre<false>(acc[r][c], sB3[j]);
         }
     }
     __syncthreads();
@@ -334,7 +358,7 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
     if (tid < TE) {
       float g = 0.f, dg = 0.f;
       if (sRow[tid] >= 0) {
-        for (int j = 0; j < H; ++j)
+        for (int j = 0; j < HX; ++j)
           g = __fadd_rn(g, __fmul_rn(silu<false>(sQ[tid * LDA + j]), sW4[j]));
         const float* c3 = sCd + 3 * tid;
         const float* t3 = sDt + 3 * tid;
@@ -348,25 +372,27 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
     __syncthreads();
 
     // ---- d_y2 = d_g w4; d_t3 = d_y2 silu'(t3) in place in sQ; dw4, db3
+    if (cj < HX) {
 #pragma unroll 4
-    for (int m = 0; m < EPG; ++m) {
-      const int el = cg + G * m;
-      const float t3 = sQ[el * LDA + cj];
-      const float dg = sDg[el];
-      const float d_y2 = __fmul_rn(dg, sW4[cj]);
-      const float d_t3 = __fmul_rn(d_y2, dsilu<false>(t3));
-      a_dw4 = fmaf(silu<false>(t3), dg, a_dw4);
-      a_db3 += d_t3;
-      sQ[el * LDA + cj] = d_t3;
+      for (int m = 0; m < EPG; ++m) {
+        const int el = cg + G * m;
+        const float t3 = sQ[el * LDA + cj];
+        const float dg = sDg[el];
+        const float d_y2 = __fmul_rn(dg, sW4[cj]);
+        const float d_t3 = __fmul_rn(d_y2, dsilu<false>(t3));
+        a_dw4 = fmaf(silu<false>(t3), dg, a_dw4);
+        a_db3 += d_t3;
+        sQ[el * LDA + cj] = d_t3;
+      }
     }
     __syncthreads();
 
     // ---- dw3 += ef^T d_t3; d_ef = g_ef[row] + d_t3 w3^T;
     //      d_t2 = d_ef silu'(t2) in place in sR
-    tile_wgrad<H>(sS, sQ, acc_dw3);
+    tile_wgrad<H, HX>(sS, sQ, acc_dw3);
     {
       float acc[4][CPT];
-      tile_mm<H, LDW, true>(sQ, sW3, acc);
+      tile_mm<HX, H, LDA, LDW, true>(sQ, sW3, acc);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int e = ty + 16 * r;
@@ -393,10 +419,10 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
     __syncthreads();
 
     // ---- dw2 += y1^T d_t2; d_y1 = d_t2 w2^T; d_t1 = d_y1 silu'(t1) in sP
-    tile_wgrad<H>(sS, sR, acc_dw2);
+    tile_wgrad<H, H>(sS, sR, acc_dw2);
     {
       float acc[4][CPT];
-      tile_mm<H, LDW, true>(sR, sW2, acc);
+      tile_mm<H, H, LDA, LDW, true>(sR, sW2, acc);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -488,13 +514,18 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
   // ---- this block's weight-gradient partial
   float* pb = part + (size_t)blockIdx.x * W::total;
 #pragma unroll
-  for (int r = 0; r < CPT; ++r)
+  for (int r = 0; r < CPT; ++r) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int i = ty + 16 * r, j = tx + 16 * c;
       pb[W::dw2 + i * H + j] = acc_dw2[r][c];
-      pb[W::dw3 + i * H + j] = acc_dw3[r][c];
     }
+#pragma unroll
+    for (int c = 0; c < CPX; ++c) {
+      const int i = ty + 16 * r, j = tx + 16 * c;
+      if (j < HX) pb[W::dw3 + i * HX + j] = acc_dw3[r][c];
+    }
+  }
   __syncthreads();  // sP is free: reduce the column accumulators over groups
   float* red = sP;  // [7, G, H]
   const float vals[7] = {a_dws0, a_dws1, a_dws2, a_db1, a_db2, a_db3, a_dw4};
@@ -506,6 +537,7 @@ fused_edge_bwd_kernel(const int* __restrict__ row_t,
                         W::db2, W::db3,     W::dw4};
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
+      if (q >= 5 && tid >= HX) continue;   // db3, dw4: HX columns
       float s = 0.f;
       for (int g = 0; g < G; ++g) s += red[(q * G + g) * H + tid];
       pb[off[q] + tid] = s;
@@ -546,7 +578,23 @@ struct TcLayout : TcTiles<H> {
   static constexpr int KPW = (TE / 16) / KSPLIT;   // k16 steps a warp
 };
 
-template <int H>
+// dw3 [H, HX]'s warp tiling at the phi_x width HX (at HX = H TcLayout's):
+// NTW n8 tiles of one m16 tile a warp, the edges split over KSPLIT warps
+// (at most TE / 16; the warps from KSPLIT x NUNITS on take no part)
+template <int H, int HX>
+struct TcWgradX {
+  static constexpr int NTW = HX == H ? TcLayout<H>::NTW
+                                     : (HX / 8 < 4 ? HX / 8 : 4);
+  static constexpr int NUNITS = (H / 16) * (HX / 8 / NTW);
+  static constexpr int KSPLIT = 8 / NUNITS < TE / 16 ? 8 / NUNITS : TE / 16;
+  static constexpr int KPW = (TE / 16) / KSPLIT;
+  static_assert(NTW == 1 || NTW % 2 == 0, "n8 tiles in pairs");
+  static_assert(HX != H || (NTW == TcLayout<H>::NTW &&
+                            KSPLIT == TcLayout<H>::KSPLIT),
+                "HX = H keeps dw2's tiling");
+};
+
+template <int H, int HX>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
                          const int* __restrict__ col_l,
@@ -575,25 +623,32 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
   constexpr int Q4 = 2 + H / 4;    // float4 lanes of one column-side payload
   constexpr int NTM = L::NTM;
   constexpr int NTW = L::NTW;
+  using X = TcWgradX<H, HX>;
+  // the phi_x products: n8 tiles a warp of t3 (column half HX / 2; at HX
+  // = 8 the first half takes all 8) and k16 steps of d_t3 w3^T
+  constexpr int NTX = HX >= 16 ? HX / 16 : 1;
+  constexpr int KSX = (HX + 15) / 16;
   static_assert(THREADS == 256 && TE == 64, "8 warps over 64-edge tiles");
   static_assert(THREADS % H == 0 && TE % G == 0, "H must divide THREADS");
   static_assert(NTM == 1 || NTM % 2 == 0, "n8 tiles in pairs");
-  static_assert(2 * L::KSPLIT * H * H + 7 * THREADS <=
+  static_assert(HX % 8 == 0 && H % HX == 0 && (NTX == 1 || NTX % 2 == 0),
+                "HX in {H, H/2, H/4}, at least 8");
+  static_assert((L::KSPLIT * H * H + X::KSPLIT * H * HX) + 7 * THREADS <=
                     (L::PAY + L::NTILES * L::TILE) / 2,
                 "the end-of-block reductions fit in the tile buffers");
   static_assert(L::EDGE == 12, "EdgeBuf's layout");
-  using W = WOff<H>;
+  using W = WOff<H, HX>;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sW2 = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [k][j]
-  __nv_bfloat16* sW3 = sW2 + L::WT;
+  __nv_bfloat16* sW3 = sW2 + L::WT;      // [k][j < HX]; 0 for HX <= j < 16
   __nv_bfloat16* tP = sW3 + L::WT;       // [TE, LDP] payload; t1, d_t1 at 8
   __nv_bfloat16* tS1 = tP + L::PAY;      // sigmoid(t1)
   __nv_bfloat16* tY1 = tS1 + L::TILE;    // y1, then the row side's one-hot
   __nv_bfloat16* tT2 = tY1 + L::TILE;    // t2, then d_t2
   __nv_bfloat16* tS2 = tT2 + L::TILE;    // sigmoid(t2)
   __nv_bfloat16* tEF = tS2 + L::TILE;    // ef
-  __nv_bfloat16* tD3 = tEF + L::TILE;    // d_t3
+  __nv_bfloat16* tD3 = tEF + L::TILE;    // d_t3; 0 for HX <= j < 16
   __nv_bfloat16* tY2 = tD3 + L::TILE;    // y2 = silu(t3)
   // the next tile's hr[row] / hc[col] rows [TE, H], staged while this
   // tile's last phases run, in ef's and sigmoid(t2)'s tiles (dead by then;
@@ -624,28 +679,51 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
   // this thread's accumulator rows and the column of its first element
   const int er0 = m0 + (lane >> 2), er1 = er0 + 8;
   const int jc = n0 + 2 * (lane & 3);
+  const int n0x = half * (HX / 2), jcx = n0x + 2 * (lane & 3);
   // the weight-gradient products: unit (m16 tile, NTW n8 tiles), k slice
   const int wu = warp % L::NUNITS, wk = warp / L::NUNITS;
   const int wm0 = 16 * (wu % (H / 16)), wn0 = 8 * NTW * (wu / (H / 16));
+  // ... and dw3's
+  const int xu = warp % X::NUNITS, xk = warp / X::NUNITS;
+  const int xm0 = 16 * (xu % (H / 16)), xn0 = 8 * X::NTW * (xu / (H / 16));
 
   for (int i = tid; i < H * H; i += THREADS) {
     const int k = i / H, j = i % H;
     sW2[k * LDS + j] = __float2bfloat16_rn(w2[i]);
+  }
+  for (int i = tid; i < H * HX; i += THREADS) {
+    const int k = i / HX, j = i % HX;
     sW3[k * LDS + j] = __float2bfloat16_rn(w3[i]);
+  }
+  if constexpr (HX < 16) {
+    // d_t3 w3^T takes whole k16 steps: the lanes HX..15 of w3's rows and
+    // of d_t3's rows are zero
+    for (int i = tid; i < H * (16 - HX); i += THREADS)
+      sW3[(i / (16 - HX)) * LDS + HX + i % (16 - HX)] =
+          __float2bfloat16_rn(0.f);
+    for (int i = tid; i < TE * (16 - HX); i += THREADS)
+      tD3[(i / (16 - HX)) * LDS + HX + i % (16 - HX)] =
+          __float2bfloat16_rn(0.f);
   }
   for (int i = tid; i < 3 * H; i += THREADS) sWs[i] = round_bf16(ws[i]);
   for (int i = tid; i < H; i += THREADS) {
     sB1[i] = round_bf16(b1[i]);
     sB2[i] = round_bf16(b2[i]);
+  }
+  for (int i = tid; i < HX; i += THREADS) {
     sB3[i] = round_bf16(b3[i]);
     sW4[i] = w4[i];
   }
 
-  float acc_dw2[NTW][4], acc_dw3[NTW][4];
+  float acc_dw2[NTW][4], acc_dw3[X::NTW][4];
 #pragma unroll
   for (int t = 0; t < NTW; ++t)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc_dw2[t][c] = acc_dw3[t][c] = 0.f;
+    for (int c = 0; c < 4; ++c) acc_dw2[t][c] = 0.f;
+#pragma unroll
+  for (int t = 0; t < X::NTW; ++t)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_dw3[t][c] = 0.f;
   float a_db1 = 0.f, a_db2 = 0.f, a_db3 = 0.f, a_dw4 = 0.f;
   float a_dws0 = 0.f, a_dws1 = 0.f, a_dws2 = 0.f;
 
@@ -752,28 +830,32 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
     // ---- forward: t3 = ef w3 + b3; y2 = silu(t3), the gate's partial sums;
     //      d_y2 = d_g w4, d_t3 = d_y2 silu'(t3)
     {
-      float acc[NTM][4] = {};
-      warp_mm<LDS, LDS, NTM, false, true>(tEF, sW3, m0, n0, 0, H / 16, acc);
       float gsum[2] = {0.f, 0.f};
-      const float dg[2] = {E.dg[er0], E.dg[er1]};
+      if (HX >= 16 || half == 0) {
+        float acc[NTX][4] = {};
+        warp_mm<LDS, LDS, NTX, false, true>(tEF, sW3, m0, n0x, 0, H / 16,
+                                            acc);
+        const float dg[2] = {E.dg[er0], E.dg[er1]};
 #pragma unroll
-      for (int t = 0; t < NTM; ++t)
+        for (int t = 0; t < NTX; ++t)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = h ? er1 : er0, j = jc + 8 * t;
-          float y[2], d[2];
+          for (int h = 0; h < 2; ++h) {
+            const int e = h ? er1 : er0, j = jcx + 8 * t;
+            float y[2], d[2];
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const float t3 = dense_pre<true>(acc[t][2 * h + u], sB3[j + u]);
-            const float s3 = sig_bf16(t3);
-            y[u] = silu_s(t3, s3);
-            gsum[h] = __fadd_rn(gsum[h], __fmul_rn(y[u], sW4[j + u]));
-            const float d_y2 = round_bf16(__fmul_rn(dg[h], sW4[j + u]));
-            d[u] = round_bf16(__fmul_rn(d_y2, dsilu_s(t3, s3)));
+            for (int u = 0; u < 2; ++u) {
+              const float t3 =
+                  dense_pre<true>(acc[t][2 * h + u], sB3[j + u]);
+              const float s3 = sig_bf16(t3);
+              y[u] = silu_s(t3, s3);
+              gsum[h] = __fadd_rn(gsum[h], __fmul_rn(y[u], sW4[j + u]));
+              const float d_y2 = round_bf16(__fmul_rn(dg[h], sW4[j + u]));
+              d[u] = round_bf16(__fmul_rn(d_y2, dsilu_s(t3, s3)));
+            }
+            st2(tY2 + e * LDS + j, y[0], y[1]);
+            st2(tD3 + e * LDS + j, d[0], d[1]);
           }
-          st2(tY2 + e * LDS + j, y[0], y[1]);
-          st2(tD3 + e * LDS + j, d[0], d[1]);
-        }
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         gsum[h] += __shfl_xor_sync(0xffffffffu, gsum[h], 1);
@@ -788,11 +870,12 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
 
     // ---- dw3 += ef^T d_t3; d_ef = g_ef[row] + d_t3 w3^T;
     //      d_t2 = d_ef silu'(t2) in place of t2
-    warp_mm<LDS, LDS, NTW, true, true>(tEF, tD3, wm0, wn0, wk * L::KPW, L::KPW,
-                                  acc_dw3);
+    if (xk < X::KSPLIT)
+      warp_mm<LDS, LDS, X::NTW, true, true>(tEF, tD3, xm0, xn0, xk * X::KPW,
+                                            X::KPW, acc_dw3);
     {
       float acc[NTM][4] = {};
-      warp_mm<LDS, LDS, NTM, false, false>(tD3, sW3, m0, n0, 0, H / 16, acc);
+      warp_mm<LDS, LDS, NTM, false, false>(tD3, sW3, m0, n0, 0, KSX, acc);
       const int rows[2] = {E.row[er0], E.row[er1]};
 #pragma unroll
       for (int t = 0; t < NTM; ++t)
@@ -899,8 +982,10 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
       a_dws1 = fmaf(E.sf[3 * el + 1], d1, a_dws1);
       a_dws2 = fmaf(E.sf[3 * el + 2], d1, a_dws2);
       a_db2 += __bfloat162float(tT2[o]);
-      a_db3 += __bfloat162float(tD3[o]);
-      a_dw4 = fmaf(__bfloat162float(tY2[o]), E.dg[el], a_dw4);
+      if (cj < HX) {
+        a_db3 += __bfloat162float(tD3[o]);
+        a_dw4 = fmaf(__bfloat162float(tY2[o]), E.dg[el], a_dw4);
+      }
     }
 
     // ---- row side: the payload [hi(d_cd), lo(d_cd), 0, 0, d_t1] summed
@@ -929,29 +1014,40 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
   // ---- this block's weight-gradient partial: the k slices' fragments
   //      summed in slice order, then the column accumulators over groups
   __syncthreads();  // the tile buffers are free
-  float* red = reinterpret_cast<float*>(tP);    // [2, KSPLIT, H, H]
-  float* redc = red + 2 * L::KSPLIT * H * H;    // [7, G, H]
+  float* red = reinterpret_cast<float*>(tP);     // [KSPLIT, H, H] dw2
+  float* red3 = red + L::KSPLIT * H * H;         // [X::KSPLIT, H, HX] dw3
+  float* redc = red3 + X::KSPLIT * H * HX;       // [7, G, H]
 #pragma unroll
   for (int t = 0; t < NTW; ++t)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int i = wm0 + (lane >> 2) + 8 * (c >> 1);
       const int j = wn0 + 8 * t + 2 * (lane & 3) + (c & 1);
-      red[(0 * L::KSPLIT + wk) * H * H + i * H + j] = acc_dw2[t][c];
-      red[(1 * L::KSPLIT + wk) * H * H + i * H + j] = acc_dw3[t][c];
+      red[wk * H * H + i * H + j] = acc_dw2[t][c];
     }
+  if (xk < X::KSPLIT) {
+#pragma unroll
+    for (int t = 0; t < X::NTW; ++t)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = xm0 + (lane >> 2) + 8 * (c >> 1);
+        const int j = xn0 + 8 * t + 2 * (lane & 3) + (c & 1);
+        red3[xk * H * HX + i * HX + j] = acc_dw3[t][c];
+      }
+  }
   const float vals[7] = {a_dws0, a_dws1, a_dws2, a_db1, a_db2, a_db3, a_dw4};
 #pragma unroll
   for (int q = 0; q < 7; ++q) redc[(q * G + cg) * H + cj] = vals[q];
   __syncthreads();
   float* pb = part + (size_t)blockIdx.x * W::total;
   for (int i = tid; i < H * H; i += THREADS) {
-    float s2 = 0.f, s3 = 0.f;
-    for (int k = 0; k < L::KSPLIT; ++k) {
-      s2 += red[(0 * L::KSPLIT + k) * H * H + i];
-      s3 += red[(1 * L::KSPLIT + k) * H * H + i];
-    }
+    float s2 = 0.f;
+    for (int k = 0; k < L::KSPLIT; ++k) s2 += red[k * H * H + i];
     pb[W::dw2 + i] = s2;
+  }
+  for (int i = tid; i < H * HX; i += THREADS) {
+    float s3 = 0.f;
+    for (int k = 0; k < X::KSPLIT; ++k) s3 += red3[k * H * HX + i];
     pb[W::dw3 + i] = s3;
   }
   if (tid < H) {
@@ -959,6 +1055,7 @@ fused_edge_bwd_tc_kernel(const int* __restrict__ row_t,
                         W::db2, W::db3,     W::dw4};
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
+      if (q >= 5 && tid >= HX) continue;   // db3, dw4: HX columns
       float s = 0.f;
       for (int g = 0; g < G; ++g) s += redc[(q * G + g) * H + tid];
       pb[off[q] + tid] = s;
@@ -1000,13 +1097,13 @@ struct Pick {
   int per_sm;
 };
 
-template <int H, bool BF16>
+template <int H, bool BF16, int HX>
 cudaError_t pick_uncached(Pick<BF16>& p) {
   if constexpr (BF16) {
-    p.kern = fused_edge_bwd_tc_kernel<H>;
+    p.kern = fused_edge_bwd_tc_kernel<H, HX>;
     p.smem = TcLayout<H>::kBytes;
   } else {
-    p.kern = fused_edge_bwd_kernel<H>;
+    p.kern = fused_edge_bwd_kernel<H, HX>;
     p.smem = smem_bytes<H>();
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -1019,7 +1116,7 @@ cudaError_t pick_uncached(Pick<BF16>& p) {
 
 // pick_uncached once per device: the attribute and the occupancy query cost
 // host time per launch
-template <int H, bool BF16>
+template <int H, bool BF16, int HX>
 cudaError_t pick(Pick<BF16>& p) {
   constexpr int kDevices = 64;
   static Pick<BF16> cache[kDevices];
@@ -1027,9 +1124,9 @@ cudaError_t pick(Pick<BF16>& p) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kDevices) return pick_uncached<H, BF16>(p);
+  if (dev < 0 || dev >= kDevices) return pick_uncached<H, BF16, HX>(p);
   if (!ready[dev]) {
-    err = pick_uncached<H, BF16>(cache[dev]);
+    err = pick_uncached<H, BF16, HX>(cache[dev]);
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
@@ -1044,17 +1141,17 @@ inline int grid_of(int per_sm, int n_sm, int n_edges) {
   return grid < n_tiles ? grid : n_tiles;
 }
 
-template <int H, bool BF16>
+template <int H, bool BF16, int HX>
 cudaError_t grid_for(int n_sm, int n_edges, int* grid) {
   Pick<BF16> p;
-  cudaError_t err = pick<H, BF16>(p);
+  cudaError_t err = pick<H, BF16, HX>(p);
   if (err != cudaSuccess) return err;
   if (p.per_sm < 1) return cudaErrorInvalidConfiguration;
   *grid = grid_of(p.per_sm, n_sm, n_edges);
   return cudaSuccess;
 }
 
-template <int H, bool BF16>
+template <int H, bool BF16, int HX>
 cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
                    const void* scal, const void* x, const void* hr,
                    const void* hc, const void* ws, const void* b1,
@@ -1065,7 +1162,7 @@ cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
                    int max_grid, cudaStream_t stream) {
   using Act = std::conditional_t<BF16, __nv_bfloat16, float>;
   Pick<BF16> p;
-  cudaError_t err = pick<H, BF16>(p);
+  cudaError_t err = pick<H, BF16, HX>(p);
   if (err != cudaSuccess) return err;
   if (p.per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = grid_of(p.per_sm, n_sm, n_edges);
@@ -1086,7 +1183,7 @@ cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  constexpr int total = WOff<H>::total;
+  constexpr int total = WOff<H, HX>::total;
   reduce_partials<<<(total + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(part), static_cast<float*>(dw),
       grid > 0 ? grid : 0, total);
@@ -1095,32 +1192,38 @@ cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
 
 }  // namespace
 
-// The grid a launch of (H, bf16) over n_edges edge slots on n_sm SMs uses,
-// into *grid: the wrapper sizes the weight-gradient partials with it.
+#define BWD_WIDTHS(CASE) \
+  CASE(16, 16)           \
+  CASE(16, 8)            \
+  CASE(32, 32)           \
+  CASE(32, 16)           \
+  CASE(32, 8)            \
+  CASE(64, 64)           \
+  CASE(64, 32)           \
+  CASE(64, 16)
+
+// The grid a launch of (H, HX, bf16) over n_edges edge slots on n_sm SMs
+// uses, into *grid: the wrapper sizes the weight-gradient partials with it.
 // Returns the cudaError_t of the occupancy query; cudaErrorInvalidConfiguration
-// when no block of the kernel fits on an SM.
-extern "C" int fused_edge_bwd_grid(int H, int bf16, int n_sm, int n_edges,
-                                   int* grid) {
-  switch (H) {
-    case 16:
-      return bf16 ? (int)grid_for<16, true>(n_sm, n_edges, grid)
-                  : (int)grid_for<16, false>(n_sm, n_edges, grid);
-    case 32:
-      return bf16 ? (int)grid_for<32, true>(n_sm, n_edges, grid)
-                  : (int)grid_for<32, false>(n_sm, n_edges, grid);
-    case 64:
-      return bf16 ? (int)grid_for<64, true>(n_sm, n_edges, grid)
-                  : (int)grid_for<64, false>(n_sm, n_edges, grid);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+// when no block of the kernel fits on an SM, cudaErrorInvalidValue for an
+// (H, HX) the kernels do not take.
+extern "C" int fused_edge_bwd_grid(int H, int HX, int bf16, int n_sm,
+                                   int n_edges, int* grid) {
+#define GRID_CASE(HH, XX)                                          \
+  if (H == HH && HX == XX)                                         \
+    return bf16 ? (int)grid_for<HH, true, XX>(n_sm, n_edges, grid) \
+                : (int)grid_for<HH, false, XX>(n_sm, n_edges, grid);
+  BWD_WIDTHS(GRID_CASE)
+  return (int)cudaErrorInvalidValue;
+#undef GRID_CASE
 }
 
 // Returns the cudaError_t of the launches (0 = success). gp [N, H+8] f32 is
 // the packed cotangent; out_row/out_col [N, H+8] f32 must be zeroed by the
 // caller; part is scratch for max_grid >= fused_edge_bwd_grid's
-// weight-gradient partials of 7H + 2H^2 floats each; dw [7H + 2H^2] f32 receives the reduced weight
-// gradients. hr/hc are f32 (bf16 == 0) or bf16 (bf16 == 1).
+// weight-gradient partials of 5H + H^2 + H*HX + 2HX floats each; dw (as many
+// f32) receives the reduced weight gradients. hr/hc are f32 (bf16 == 0) or
+// bf16 (bf16 == 1). H in {16, 32, 64}, HX in {H, H/2, H/4} and at least 8.
 extern "C" int fused_edge_bwd(const void* row_t, const void* col_l,
                               const void* kblk, const void* scal,
                               const void* x, const void* hr, const void* hc,
@@ -1129,27 +1232,23 @@ extern "C" int fused_edge_bwd(const void* row_t, const void* col_l,
                               const void* w4, const void* gp, void* out_row,
                               void* out_col, void* part, void* dw,
                               int n_nodes, int n_edges, int block, int H,
-                              int bf16, int n_sm, int max_grid,
+                              int HX, int bf16, int n_sm, int max_grid,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DEG_CASE(HH)                                                        \
-  case HH:                                                                  \
-    return bf16 ? (int)launch<HH, true>(row_t, col_l, kblk, scal, x, hr,    \
-                                        hc, ws, b1, w2, b2, w3, b3, w4, gp, \
-                                        out_row, out_col, part, dw,         \
-                                        n_nodes, n_edges, block, n_sm,      \
-                                        max_grid, s)                        \
-                : (int)launch<HH, false>(row_t, col_l, kblk, scal, x, hr,   \
-                                         hc, ws, b1, w2, b2, w3, b3, w4,    \
-                                         gp, out_row, out_col, part, dw,    \
-                                         n_nodes, n_edges, block, n_sm,     \
-                                         max_grid, s);
-  switch (H) {
-    DEG_CASE(16)
-    DEG_CASE(32)
-    DEG_CASE(64)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define DEG_CASE(HH, XX)                                                     \
+  if (H == HH && HX == XX)                                                   \
+    return bf16 ? (int)launch<HH, true, XX>(row_t, col_l, kblk, scal, x, hr, \
+                                            hc, ws, b1, w2, b2, w3, b3, w4,  \
+                                            gp, out_row, out_col, part, dw,  \
+                                            n_nodes, n_edges, block, n_sm,   \
+                                            max_grid, s)                     \
+                : (int)launch<HH, false, XX>(row_t, col_l, kblk, scal, x,    \
+                                             hr, hc, ws, b1, w2, b2, w3, b3, \
+                                             w4, gp, out_row, out_col, part, \
+                                             dw, n_nodes, n_edges, block,    \
+                                             n_sm, max_grid, s);
+  BWD_WIDTHS(DEG_CASE)
+  return (int)cudaErrorInvalidValue;
 #undef DEG_CASE
 }
+#undef BWD_WIDTHS

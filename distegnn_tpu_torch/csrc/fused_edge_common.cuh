@@ -58,28 +58,34 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
-// acc[r][c] = sum_k src[(ty + 16r) * LDA + k] * W'[k, tx + 16c] over the H
-// columns of the tile rows, where W' = W (W[k * LDW + j]) or, with WT, its
-// transpose (W[j * LDW + k]; LDW = H + 1 keeps that walk conflict-free).
-// The sum runs over k in order, one fmaf per term.
-template <int H, int LDW, bool WT>
+// acc[r][c] = sum_{k < K} src[(ty + 16r) * LDA + k] * W'[k, j] for the
+// columns j = tx + 16c < N (0 beyond N, where N is not a multiple of 16),
+// where W' = W (W[k * LDW + j]) or, with WT, its transpose (W[j * LDW + k];
+// LDW = H + 1 keeps that walk conflict-free). The sum runs over k in order,
+// one fmaf per term. K and N are H, or the phi_x width HX = H / T of the
+// tensor axis.
+template <int K, int N, int LDA, int LDW, bool WT>
 __device__ __forceinline__ void tile_mm(const float* src, const float* W,
-                                        float (&acc)[4][H / 16]) {
-  constexpr int LDA = H + 1;
-  constexpr int CPT = H / 16;
+                                        float (&acc)[4][(N + 15) / 16]) {
+  constexpr int CPT = (N + 15) / 16;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[r][c] = 0.0f;
 #pragma unroll 4
-  for (int k = 0; k < H; ++k) {
+  for (int k = 0; k < K; ++k) {
     float a[4], b[CPT];
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[r] = src[(ty + 16 * r) * LDA + k];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      b[c] = WT ? W[(tx + 16 * c) * LDW + k] : W[k * LDW + tx + 16 * c];
+    for (int c = 0; c < CPT; ++c) {
+      const int j = tx + 16 * c;
+      if constexpr (N % 16 == 0)
+        b[c] = WT ? W[j * LDW + k] : W[k * LDW + j];
+      else
+        b[c] = j < N ? (WT ? W[j * LDW + k] : W[k * LDW + j]) : 0.0f;
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -94,24 +100,26 @@ __device__ __forceinline__ float dense_pre(float acc, float bias) {
   return rnd<BF16>(rnd<BF16>(acc) + bias);
 }
 
-// dst[e, j] = silu(dense_pre(src[e, :] @ W[:, j], bias[j])), and with
-// head != nullptr the gate terms dst[e, j] * head[j] instead.
-template <int H, bool BF16, int LDW = H>
+// dst[e, j] = silu(dense_pre(src[e, :] @ W[:, j], bias[j])) for the N
+// columns j of W [H, N] (rows of N), and with head != nullptr the gate
+// terms dst[e, j] * head[j] instead
+template <int H, int N, bool BF16>
 __device__ __forceinline__ void tile_dense_silu(const float* src,
                                                 const float* W,
                                                 const float* bias,
                                                 const float* head,
                                                 float* dst) {
   constexpr int LDA = H + 1;
-  constexpr int CPT = H / 16;
+  constexpr int CPT = (N + 15) / 16;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float acc[4][CPT];
-  tile_mm<H, LDW, false>(src, W, acc);
+  tile_mm<H, N, LDA, N, false>(src, W, acc);
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int j = tx + 16 * c;
+      if (N % 16 != 0 && j >= N) continue;
       float y = silu<BF16>(dense_pre<BF16>(acc[r][c], bias[j]));
       if (head != nullptr) y *= head[j];
       dst[(ty + 16 * r) * LDA + j] = y;
@@ -129,6 +137,11 @@ __device__ __forceinline__ void tile_dense_silu(const float* src,
 // [bf16 hi(trans), bf16 lo(trans), 1, 0, bf16(ef)] row, and
 // fwd_aggregate_remote the remote tail's unrounded [trans, 1, ef] (EGCLVel's
 // dense tail), both by f32 atomicAdd at each row-segment end of the tile.
+//
+// HX is the width of phi_x's hidden layer: H, or H / T under the tensor
+// axis, where w3 is [H, HX] (rows of HX), b3 and w4 [HX], and the gate g is
+// the rank's partial sum over its HX columns. The buffers keep their H x H
+// size either way.
 
 template <int H>
 struct FwdTile {
@@ -170,21 +183,21 @@ struct FwdTile {
 
 // weights in the compute dtype (the TPU kernel casts them with astype); the
 // phi_x head w4 stays f32
-template <int H, bool BF16>
+template <int H, bool BF16, int HX = H>
 __device__ __forceinline__ void fwd_load_weights(
     const FwdTile<H>& s, const float* __restrict__ ws,
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3,
     const float* __restrict__ b3, const float* __restrict__ w4) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < H * H; i += THREADS) {
-    s.W2[i] = rnd<BF16>(w2[i]);
-    s.W3[i] = rnd<BF16>(w3[i]);
-  }
+  for (int i = tid; i < H * H; i += THREADS) s.W2[i] = rnd<BF16>(w2[i]);
+  for (int i = tid; i < H * HX; i += THREADS) s.W3[i] = rnd<BF16>(w3[i]);
   for (int i = tid; i < 3 * H; i += THREADS) s.Ws[i] = rnd<BF16>(ws[i]);
   for (int i = tid; i < H; i += THREADS) {
     s.B1[i] = rnd<BF16>(b1[i]);
     s.B2[i] = rnd<BF16>(b2[i]);
+  }
+  for (int i = tid; i < HX; i += THREADS) {
     s.B3[i] = rnd<BF16>(b3[i]);
     s.W4[i] = w4[i];
   }
@@ -279,7 +292,7 @@ __device__ __forceinline__ int fwd_setup_remote(
 }
 
 // the tile's MLPs: leaves ef in s.B and the gate g in s.G
-template <int H, bool BF16, typename Act>
+template <int H, bool BF16, typename Act, int HX = H>
 __device__ __forceinline__ void fwd_tile_mlp(const FwdTile<H>& s,
                                              const Act* __restrict__ hr,
                                              const Act* __restrict__ hc) {
@@ -303,16 +316,16 @@ __device__ __forceinline__ void fwd_tile_mlp(const FwdTile<H>& s,
   __syncthreads();
 
   // ef = silu(y1 @ w2 + b2)
-  tile_dense_silu<H, BF16>(s.A, s.W2, s.B2, nullptr, s.B);
+  tile_dense_silu<H, H, BF16>(s.A, s.W2, s.B2, nullptr, s.B);
   __syncthreads();
 
   // gate terms silu(ef @ w3 + b3) * w4 (into A, free again)
-  tile_dense_silu<H, BF16>(s.B, s.W3, s.B3, s.W4, s.A);
+  tile_dense_silu<H, HX, BF16>(s.B, s.W3, s.B3, s.W4, s.A);
   __syncthreads();
 
   if (tid < TE) {
     float g = 0.f;
-    for (int j = 0; j < H; ++j) g += s.A[tid * LDA + j];
+    for (int j = 0; j < HX; ++j) g += s.A[tid * LDA + j];
     s.G[tid] = g;
   }
   __syncthreads();

@@ -55,27 +55,34 @@ __device__ __forceinline__ float f32_silu(float t) {
 }
 
 // weights in f32; w2 / w3 with the columns of each thread contiguous:
-// sW[k][tc * CW + c] = w[k][tc + 16 c]
-template <int H>
+// sW[k][tc * CW + c] = w[k][tc + 16 c]. At the phi_x width HX < H (the
+// tensor axis: w3 [H, HX], b3 and w4 [HX]) w3's rows hold 16 CX columns,
+// CX = ceil(HX / 16), those from HX on zero, and b3 / w4 their first HX
+// entries.
+template <int H, int HX = H>
 __device__ __forceinline__ void f32_load_weights(
     float* sW2, float* sW3, float* sWs, const float* __restrict__ ws,
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3,
     const float* __restrict__ b3, const float* __restrict__ w4) {
-  constexpr int CW = H / 16;
+  constexpr int CW = H / 16, CX = (HX + 15) / 16;
   for (int i = threadIdx.x; i < H * H; i += F32_THREADS) {
     const int k = i / H, j = i % H;
-    const int p = k * H + (j % 16) * CW + j / 16;
-    sW2[p] = w2[i];
-    sW3[p] = w3[i];
+    sW2[k * H + (j % 16) * CW + j / 16] = w2[i];
+  }
+  for (int i = threadIdx.x; i < H * 16 * CX; i += F32_THREADS) {
+    const int k = i / (16 * CX), j = i % (16 * CX);
+    sW3[k * 16 * CX + (j % 16) * CX + j / 16] = j < HX ? w3[k * HX + j] : 0.f;
   }
   // ws [3, H], then b1, b2, b3, w4 [H]
   for (int i = threadIdx.x; i < 3 * H; i += F32_THREADS) sWs[i] = ws[i];
   for (int i = threadIdx.x; i < H; i += F32_THREADS) {
     sWs[3 * H + i] = b1[i];
     sWs[4 * H + i] = b2[i];
-    sWs[5 * H + i] = b3[i];
-    sWs[6 * H + i] = w4[i];
+    if (i < HX) {
+      sWs[5 * H + i] = b3[i];
+      sWs[6 * H + i] = w4[i];
+    }
   }
 }
 
@@ -105,12 +112,11 @@ __device__ __forceinline__ void load_cols(float (&b)[CW], const float* p) {
 }
 
 // acc[r][c] = sum_k At[k][8 te + r] * W[k][tc + 16 c] (W column-permuted,
-// see f32_load_weights), te = tid / 16, tc = tid % 16: over k in order,
-// one fmaf per term, from 0 — tile_mm's roundings
-template <int H>
+// rows of 16 CW, see f32_load_weights), te = tid / 16, tc = tid % 16: over
+// k in order, one fmaf per term, from 0 — tile_mm's roundings
+template <int H, int CW = H / 16>
 __device__ __forceinline__ void f32_tile_mm(const float* At, const float* W,
-                                            float (&acc)[8][H / 16]) {
-  constexpr int CW = H / 16;
+                                            float (&acc)[8][CW]) {
   const int te = threadIdx.x >> 4, tc = threadIdx.x & 15;
   const float* pa = At + 8 * te;
   const float* pb = W + CW * tc;
@@ -124,7 +130,7 @@ __device__ __forceinline__ void f32_tile_mm(const float* At, const float* W,
     const float4 a1 = *reinterpret_cast<const float4*>(pa + k * F32_LDT + 4);
     const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     float b[CW];
-    load_cols<CW>(b, pb + k * H);
+    load_cols<CW>(b, pb + k * 16 * CW);
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll

@@ -13,6 +13,13 @@
 // in f32 — the TPU kernel's roundings, kept even in f32 mode so that the two
 // agree to summation order.
 //
+// Under the tensor axis of the mesh the same function runs at a phi_x width
+// HX = H / T: w3 is [H, HX], b3 and w4 [HX], and g = y2 . w4 is this rank's
+// partial sum over its HX columns of phi_x's hidden layer (the caller sums
+// trans over the tensor ranks; ef and the count are the rank's whole).
+// Every kernel is instantiated at HX in {H, H/2, H/4} (at least 8); HX = H
+// is the code it was before the axis.
+//
 // Three kernels compute it, and the wrapper picks one by dtype and H:
 //  - fused_edge_fwd_tc_kernel<H>, bf16 at H in {16, 32, 64} (the flagship's
 //    path): the two H x H products on the tensor cores;
@@ -80,7 +87,7 @@ constexpr size_t smem_bytes() {
   return FwdTile<H>::kBytes;
 }
 
-template <int H, bool BF16>
+template <int H, bool BF16, int HX>
 __global__ void __launch_bounds__(THREADS)
 fused_edge_fwd_kernel(const int* __restrict__ row_t,
                       const int* __restrict__ col_l,
@@ -96,7 +103,7 @@ fused_edge_fwd_kernel(const int* __restrict__ row_t,
                       int n_nodes, int n_edges, int block) {
   extern __shared__ float smem[];
   const FwdTile<H> s(smem);
-  fwd_load_weights<H, BF16>(s, ws, b1, w2, b2, w3, b3, w4);
+  fwd_load_weights<H, BF16, HX>(s, ws, b1, w2, b2, w3, b3, w4);
 
   const int n_tiles = (n_edges + TE - 1) / TE;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -104,7 +111,9 @@ fused_edge_fwd_kernel(const int* __restrict__ row_t,
     const int active = fwd_setup_inwindow<H, BF16>(
         s, tile, row_t, col_l, kblk, scal, x, n_nodes, n_edges, block);
     if (!__syncthreads_or(active)) continue;  // all-padding tile
-    fwd_tile_mlp<H, BF16>(s, hr, hc);
+    fwd_tile_mlp<H, BF16,
+                 std::conditional_t<BF16, __nv_bfloat16, float>, HX>(s, hr,
+                                                                     hc);
     fwd_aggregate_inwindow<H>(s, out, H + 8);
   }
 }
@@ -138,6 +147,9 @@ fused_edge_fwd_kernel(const int* __restrict__ row_t,
 //   5. the row side: one-hot [segment, edge] x payload on the tensor cores,
 //      one f32 atomicAdd per (segment, column) (tc_row_side).
 // Each sigmoid is computed once (sig_bf16 / silu_s).
+// At HX < H phase 3 is [TE, H] x [H, HX]: each column half takes HX / 2
+// columns (HX / 16 n8 tiles a warp); at HX = 8 the first half takes all 8
+// and the second contributes 0 to g.
 
 template <int H>
 struct FwdTcLayout : TcTiles<H> {
@@ -154,7 +166,7 @@ struct FwdTcLayout : TcTiles<H> {
       TE * 4;
 };
 
-template <int H>
+template <int H, int HX>
 __global__ void __launch_bounds__(THREADS, 3)
 fused_edge_fwd_tc_kernel(const int* __restrict__ row_t,
                          const int* __restrict__ col_l,
@@ -178,10 +190,14 @@ fused_edge_fwd_tc_kernel(const int* __restrict__ row_t,
   constexpr int NTM = L::NTM;
   static_assert(THREADS == 256 && TE == 64, "8 warps over 64-edge tiles");
   static_assert(NTM == 1 || NTM % 2 == 0, "n8 tiles in pairs");
+  // phase 3's n8 tiles a warp and the column half's start
+  constexpr int NTX = HX >= 16 ? HX / 16 : 1;
+  static_assert(HX % 8 == 0 && H % HX == 0 && (NTX == 1 || NTX % 2 == 0),
+                "HX in {H, H/2, H/4}, at least 8");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sW2 = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [k][j]
-  __nv_bfloat16* sW3 = sW2 + L::WT;
+  __nv_bfloat16* sW3 = sW2 + L::WT;     // [k][j < HX]
   __nv_bfloat16* tP = sW3 + L::WT;      // [TE, LDP] payload; ef from col 8
   __nv_bfloat16* tEF = tP + 8;
   __nv_bfloat16* tY1 = tP + L::PAY;     // y1, then the row side's one-hot
@@ -203,6 +219,7 @@ fused_edge_fwd_tc_kernel(const int* __restrict__ row_t,
   const int m0 = 16 * (warp & 3), half = warp >> 2, n0 = half * (H / 2);
   const int er0 = m0 + (lane >> 2), er1 = er0 + 8;
   const int jc = n0 + 2 * (lane & 3);
+  const int n0x = half * (HX / 2), jcx = n0x + 2 * (lane & 3);
   // warps 2-3 stage the next tile, one edge slot a thread
   const bool stager = tid >= TE && tid < 2 * TE;
   const int sel = tid - TE;
@@ -210,12 +227,17 @@ fused_edge_fwd_tc_kernel(const int* __restrict__ row_t,
   for (int i = tid; i < H * H; i += THREADS) {
     const int k = i / H, j = i % H;
     sW2[k * LDS + j] = __float2bfloat16_rn(w2[i]);
+  }
+  for (int i = tid; i < H * HX; i += THREADS) {
+    const int k = i / HX, j = i % HX;
     sW3[k * LDS + j] = __float2bfloat16_rn(w3[i]);
   }
   for (int i = tid; i < 3 * H; i += THREADS) sWs[i] = round_bf16(ws[i]);
   for (int i = tid; i < H; i += THREADS) {
     sB1[i] = round_bf16(b1[i]);
     sB2[i] = round_bf16(b2[i]);
+  }
+  for (int i = tid; i < HX; i += THREADS) {
     sB3[i] = round_bf16(b3[i]);
     sW4[i] = w4[i];
   }
@@ -315,20 +337,23 @@ fused_edge_fwd_tc_kernel(const int* __restrict__ row_t,
 
     // ---- 3. y2 = silu(ef w3 + b3); the gate's sums of y2 * w4
     {
-      float acc[NTM][4] = {};
-      warp_mm<LDP, LDS, NTM, false, true>(tEF, sW3, m0, n0, 0, H / 16, acc);
       float gsum[2] = {0.f, 0.f};
+      if (HX >= 16 || half == 0) {
+        float acc[NTX][4] = {};
+        warp_mm<LDP, LDS, NTX, false, true>(tEF, sW3, m0, n0x, 0, H / 16,
+                                            acc);
 #pragma unroll
-      for (int t = 0; t < NTM; ++t)
+        for (int t = 0; t < NTX; ++t)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int j = jc + 8 * t + u;
-            const float t3 = dense_pre<true>(acc[t][2 * h + u], sB3[j]);
-            const float y2 = silu_s(t3, sig_bf16(t3));
-            gsum[h] = __fadd_rn(gsum[h], __fmul_rn(y2, sW4[j]));
-          }
+            for (int u = 0; u < 2; ++u) {
+              const int j = jcx + 8 * t + u;
+              const float t3 = dense_pre<true>(acc[t][2 * h + u], sB3[j]);
+              const float y2 = silu_s(t3, sig_bf16(t3));
+              gsum[h] = __fadd_rn(gsum[h], __fmul_rn(y2, sW4[j]));
+            }
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         gsum[h] += __shfl_xor_sync(0xffffffffu, gsum[h], 1);
@@ -406,8 +431,10 @@ fused_edge_fwd_tc_kernel(const int* __restrict__ row_t,
 // tensor-core kernel stages it (threads 0-63, one edge slot each): its
 // layout fields are loaded at the top of the tile, its x rows after phase 1,
 // and its edge data stored into the other of two edge buffers after phase 2.
+// At HX < H phase 3 runs over w3's CX = ceil(HX / 16) column groups a
+// thread, the columns from HX on (zero weights) left out of g.
 
-template <int H>
+template <int H, int HX>
 __global__ void __launch_bounds__(F32_THREADS)
 fused_edge_fwd_f32_kernel(const int* __restrict__ row_t,
                           const int* __restrict__ col_l,
@@ -449,7 +476,7 @@ fused_edge_fwd_f32_kernel(const int* __restrict__ row_t,
   const int te = tid >> 4, tc = tid & 15;
   const bool stager = tid < TE;
 
-  f32_load_weights<H>(sW2, sW3, sWs, ws, b1, w2, b2, w3, b3, w4);
+  f32_load_weights<H, HX>(sW2, sW3, sWs, ws, b1, w2, b2, w3, b3, w4);
 
   const int T = block;
   const int nb = n_nodes / T;
@@ -571,17 +598,20 @@ fused_edge_fwd_f32_kernel(const int* __restrict__ row_t,
     // ---- 3. y2 = silu(ef w3 + b3); g = sum_j y2 * w4, the 16 column
     //      groups' partial sums reduced by shuffles within the half-warp
     {
-      float acc[8][CW];
-      f32_tile_mm<H>(sT, sW3, acc);
+      constexpr int CX = (HX + 15) / 16;
+      float acc[8][CX];
+      f32_tile_mm<H, CX>(sT, sW3, acc);
       float gs[8];
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         gs[r] = 0.f;
 #pragma unroll
-        for (int c = 0; c < CW; ++c) {
+        for (int c = 0; c < CX; ++c) {
           const int j = tc + 16 * c;
-          const float y2 = f32_silu(acc[r][c] + sB3[j]);
-          gs[r] = __fadd_rn(gs[r], __fmul_rn(y2, sW4[j]));
+          if (j < HX) {
+            const float y2 = f32_silu(acc[r][c] + sB3[j]);
+            gs[r] = __fadd_rn(gs[r], __fmul_rn(y2, sW4[j]));
+          }
         }
       }
 #pragma unroll
@@ -598,7 +628,7 @@ fused_edge_fwd_f32_kernel(const int* __restrict__ row_t,
   }
 }
 
-template <int H, bool BF16>
+template <int H, bool BF16, int HX>
 cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
                    const void* scal, const void* x, const void* hr,
                    const void* hc, const void* ws, const void* b1,
@@ -607,7 +637,7 @@ cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
                    int n_edges, int block, int n_sm, cudaStream_t stream) {
   using Act = std::conditional_t<BF16, __nv_bfloat16, float>;
   constexpr size_t smem = smem_bytes<H>();
-  auto kern = fused_edge_fwd_kernel<H, BF16>;
+  auto kern = fused_edge_fwd_kernel<H, BF16, HX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -631,7 +661,7 @@ cudaError_t launch(const void* row_t, const void* col_l, const void* kblk,
   return cudaGetLastError();
 }
 
-template <int H>
+template <int H, int HX>
 cudaError_t launch_f32(const void* row_t, const void* col_l,
                        const void* kblk, const void* scal, const void* x,
                        const void* hr, const void* hc, const void* ws,
@@ -640,7 +670,7 @@ cudaError_t launch_f32(const void* row_t, const void* col_l,
                        void* out, int n_nodes, int n_edges, int block,
                        int n_sm, cudaStream_t stream) {
   constexpr size_t smem = F32Layout<H>::kBytes;
-  auto kern = fused_edge_fwd_f32_kernel<H>;
+  auto kern = fused_edge_fwd_f32_kernel<H, HX>;
   // the attribute and the occupancy query once per device: they cost host
   // time per launch
   constexpr int kDevices = 64;
@@ -680,7 +710,7 @@ cudaError_t launch_f32(const void* row_t, const void* col_l,
   return cudaGetLastError();
 }
 
-template <int H>
+template <int H, int HX>
 cudaError_t launch_tc(const void* row_t, const void* col_l, const void* kblk,
                       const void* scal, const void* x, const void* hr,
                       const void* hc, const void* ws, const void* b1,
@@ -688,7 +718,7 @@ cudaError_t launch_tc(const void* row_t, const void* col_l, const void* kblk,
                       const void* b3, const void* w4, void* out, int n_nodes,
                       int n_edges, int block, int n_sm, cudaStream_t stream) {
   constexpr size_t smem = FwdTcLayout<H>::kBytes;
-  auto kern = fused_edge_fwd_tc_kernel<H>;
+  auto kern = fused_edge_fwd_tc_kernel<H, HX>;
   // the attribute and the occupancy query once per device: they cost host
   // time per launch
   constexpr int kDevices = 64;
@@ -723,7 +753,7 @@ cudaError_t launch_tc(const void* row_t, const void* col_l, const void* kblk,
   return cudaGetLastError();
 }
 
-template <int H>
+template <int H, int HX>
 cudaError_t dispatch_dtype(int bf16, const void* row_t, const void* col_l,
                            const void* kblk, const void* scal, const void* x,
                            const void* hr, const void* hc, const void* ws,
@@ -732,12 +762,12 @@ cudaError_t dispatch_dtype(int bf16, const void* row_t, const void* col_l,
                            void* out, int n_nodes, int n_edges, int block,
                            int n_sm, cudaStream_t stream) {
   if (bf16)
-    return launch<H, true>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2,
-                           b2, w3, b3, w4, out, n_nodes, n_edges, block, n_sm,
-                           stream);
-  return launch_f32<H>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2, b2,
-                       w3, b3, w4, out, n_nodes, n_edges, block, n_sm,
-                       stream);
+    return launch<H, true, HX>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1,
+                               w2, b2, w3, b3, w4, out, n_nodes, n_edges,
+                               block, n_sm, stream);
+  return launch_f32<H, HX>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2,
+                           b2, w3, b3, w4, out, n_nodes, n_edges, block,
+                           n_sm, stream);
 }
 
 }  // namespace
@@ -745,40 +775,45 @@ cudaError_t dispatch_dtype(int bf16, const void* row_t, const void* col_l,
 // Returns the cudaError_t of the launch (0 = success). out [N, H+8] f32 must
 // be zeroed by the caller; hr/hc are f32 (bf16 == 0: the f32 kernel) or
 // bf16 (bf16 == 1: the bf16 FMA kernel; fused_edge_fwd_tc takes bf16 at H in
-// {16, 32, 64}).
+// {16, 32, 64}). HX: phi_x's width, w3 [H, HX], b3 and w4 [HX], HX in {H,
+// H/2, H/4} and at least 8 (cudaErrorInvalidValue otherwise).
 extern "C" int fused_edge_fwd(const void* row_t, const void* col_l,
                               const void* kblk, const void* scal,
                               const void* x, const void* hr, const void* hc,
                               const void* ws, const void* b1, const void* w2,
                               const void* b2, const void* w3, const void* b3,
                               const void* w4, void* out, int n_nodes,
-                              int n_edges, int block, int H, int bf16,
-                              int n_sm, void* stream) {
+                              int n_edges, int block, int H, int HX,
+                              int bf16, int n_sm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DEG_CASE(HH)                                                        \
-  case HH:                                                                  \
-    return (int)dispatch_dtype<HH>(bf16, row_t, col_l, kblk, scal, x, hr,   \
-                                   hc, ws, b1, w2, b2, w3, b3, w4, out,     \
-                                   n_nodes, n_edges, block, n_sm, s);
-  switch (H) {
-    DEG_CASE(16)
-    DEG_CASE(32)
-    DEG_CASE(48)
-    DEG_CASE(64)
-    DEG_CASE(80)
-    DEG_CASE(96)
-    DEG_CASE(112)
-    DEG_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define DEG_CASE(HH, XX)                                                    \
+  if (H == HH && HX == XX)                                                  \
+    return (int)dispatch_dtype<HH, XX>(bf16, row_t, col_l, kblk, scal, x,   \
+                                       hr, hc, ws, b1, w2, b2, w3, b3, w4,  \
+                                       out, n_nodes, n_edges, block, n_sm,  \
+                                       s);
+#define DEG_WIDTHS(HH)                                                      \
+  DEG_CASE(HH, HH)                                                          \
+  DEG_CASE(HH, HH / 2)                                                      \
+  DEG_CASE(HH, HH / 4)
+  DEG_CASE(16, 16)
+  DEG_CASE(16, 8)
+  DEG_WIDTHS(32)
+  DEG_WIDTHS(48)
+  DEG_WIDTHS(64)
+  DEG_WIDTHS(80)
+  DEG_WIDTHS(96)
+  DEG_WIDTHS(112)
+  DEG_WIDTHS(128)
+  return (int)cudaErrorInvalidValue;
+#undef DEG_WIDTHS
 #undef DEG_CASE
 }
 
 
-// The tensor-core kernel, for bf16 hr / hc at H in {16, 32, 64}; the same
-// arguments and result as fused_edge_fwd. Returns the cudaError_t of the
-// launch (0 = success).
+// The tensor-core kernel, for bf16 hr / hc at H in {16, 32, 64} and HX in
+// {H, H/2, H/4} (at least 8); the same arguments and result as
+// fused_edge_fwd. Returns the cudaError_t of the launch (0 = success).
 extern "C" int fused_edge_fwd_tc(const void* row_t, const void* col_l,
                                  const void* kblk, const void* scal,
                                  const void* x, const void* hr,
@@ -787,20 +822,21 @@ extern "C" int fused_edge_fwd_tc(const void* row_t, const void* col_l,
                                  const void* b2, const void* w3,
                                  const void* b3, const void* w4, void* out,
                                  int n_nodes, int n_edges, int block, int H,
-                                 int n_sm, void* stream) {
+                                 int HX, int n_sm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TC_CASE(HH)                                                        \
-  case HH:                                                                 \
-    return (int)launch_tc<HH>(row_t, col_l, kblk, scal, x, hr, hc, ws, b1, \
-                              w2, b2, w3, b3, w4, out, n_nodes, n_edges,   \
-                              block, n_sm, s);
-  switch (H) {
-    TC_CASE(16)
-    TC_CASE(32)
-    TC_CASE(64)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define TC_CASE(HH, XX)                                                    \
+  if (H == HH && HX == XX)                                                 \
+    return (int)launch_tc<HH, XX>(row_t, col_l, kblk, scal, x, hr, hc, ws, \
+                                  b1, w2, b2, w3, b3, w4, out, n_nodes,    \
+                                  n_edges, block, n_sm, s);
+  TC_CASE(16, 16)
+  TC_CASE(16, 8)
+  TC_CASE(32, 32)
+  TC_CASE(32, 16)
+  TC_CASE(32, 8)
+  TC_CASE(64, 64)
+  TC_CASE(64, 32)
+  TC_CASE(64, 16)
+  return (int)cudaErrorInvalidValue;
 #undef TC_CASE
 }
-

@@ -35,7 +35,7 @@ import queue
 import threading
 import time
 import zipfile
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -163,7 +163,8 @@ class GraphLoader:
     gathers' backward uses the pairing). ``split_remote`` adds the compact
     remote list of the fused edge kernel, with one ``remote_pad``, and then
     at least 3 blocks. The blockified graphs are cached across epochs while
-    they fit ``CACHE_BYTES``."""
+    they fit ``CACHE_BYTES``. ``rows=(a, b)`` keeps rows [a, b) of each
+    padded batch (a data-parallel rank's share of the draw)."""
 
     EDGE_TILE = 512
     CACHE_BYTES = 2 << 30
@@ -176,7 +177,8 @@ class GraphLoader:
                  max_edges: Optional[int] = None,
                  edges_per_block: Optional[int] = None,
                  max_in_degree: Optional[int] = None,
-                 remote_pad: Optional[int] = None):
+                 remote_pad: Optional[int] = None,
+                 rows: Optional[Tuple[int, int]] = None):
         if split_remote and not edge_block:
             raise ValueError("GraphLoader: split_remote requires edge_block "
                              "> 0 (the fused pipeline's window is defined on "
@@ -188,6 +190,7 @@ class GraphLoader:
         self.epoch = 0
         self.edge_block = edge_block
         self.split_remote = bool(split_remote)
+        self.rows = rows
         self._prepared_cache = None
         if len(self) == 0:
             raise ValueError(f"batch_size {batch_size} > dataset size "
@@ -282,6 +285,9 @@ class GraphLoader:
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
             batch = pad_graphs([self._graph(int(i)) for i in idx],
                                **self.pad_kwargs())
+            if self.rows is not None:
+                a, b = self.rows
+                batch = batch._map(lambda v: v[a:b])
             stall.add(time.perf_counter() - t0)
             yield batch
 
@@ -290,15 +296,21 @@ def shard_loader(dataset: GraphDataset, batch_size: int, axis_name: str,
                  device, shuffle: bool = False, seed: int = 0,
                  node_bucket: int = 8, edge_bucket: int = 128,
                  edge_block: int = 0, pairing: Optional[bool] = None,
-                 split_remote: bool = False) -> GraphLoader:
-    """This rank's loader over its own shard (part r of every graph), with
+                 split_remote: bool = False, data_parallel: int = 1,
+                 data_index: int = 0) -> GraphLoader:
+    """This rank's loader over its own shard (part g of every graph), with
     the layout the JAX package's ``ShardedGraphLoader`` computes over all
     shards: each rank scans its shard, and one MAX all-reduce over the axis
     (:mod:`parallel.collectives`, kind 'layout') gives the common node and
     edge maxima, edges per block, ELL in-degree and remote width, and the
     AND of the pairing decisions (blocked: every shard symmetric; plain
     with ``pairing``: every graph of every shard sorted and symmetric, else
-    no batch of the run carries a pairing, so all ranks lower alike)."""
+    no batch of the run carries a pairing, so all ranks lower alike).
+
+    ``data_parallel`` D > 1 (the data axis): the rank of data index d
+    draws D * ``batch_size`` graphs a step, pads them as one batch and
+    keeps rows [d B, (d + 1) B): JAX's [P, D B] -> [D, P, B] reshape of the
+    sharded stack."""
     import torch.distributed as dist
 
     from distegnn_tpu_torch.ops.blocked import pairing_perm_fast
@@ -311,6 +323,9 @@ def shard_loader(dataset: GraphDataset, batch_size: int, axis_name: str,
         return [int(v) for v in t.tolist()]
 
     n, e = dataset.size_maxima()
+    D = int(data_parallel)
+    rows = (None if D == 1 else
+            (data_index * batch_size, (data_index + 1) * batch_size))
 
     def graphs():
         # one graph at a time: a streamed dataset keeps its cache's bound
@@ -328,7 +343,7 @@ def shard_loader(dataset: GraphDataset, batch_size: int, axis_name: str,
         epb, er, asym = agree([_round_up(deg, GraphLoader.EDGE_TILE), er,
                                not sym])
         return GraphLoader(
-            dataset, batch_size, shuffle=shuffle, seed=seed,
+            dataset, D * batch_size, shuffle=shuffle, seed=seed, rows=rows,
             edge_block=edge_block, split_remote=split_remote, max_nodes=N,
             edges_per_block=epb,
             pairing=(not asym) if pairing is None else pairing,
@@ -344,7 +359,7 @@ def shard_loader(dataset: GraphDataset, batch_size: int, axis_name: str,
                 pairing_perm_fast(g["edge_index"].astype(np.int64)) is None)
     n, e, deg, unpaired = agree([n, e, deg, unpaired])
     return GraphLoader(
-        dataset, batch_size, shuffle=shuffle, seed=seed,
+        dataset, D * batch_size, shuffle=shuffle, seed=seed, rows=rows,
         pairing=bool(pairing) and not unpaired,
         max_nodes=_round_up(max(n, 1), node_bucket),
         max_edges=_round_up(max(e, 1), edge_bucket),

@@ -127,14 +127,15 @@ def run(config, ds_train: GraphDataset, ds_valid: GraphDataset,
 
 
 def train_model(config, model, loaders, dev, on_step=None, axis_name=None,
-                rank=None):
+                rank=None, data_axis_name=None):
     """The optimizer, the steps and the epoch loop over (train, valid, test)
     ``loaders`` for ``model`` (on ``dev``). ``train.resume`` restores its
     checkpoint first (the model, the optimizer's whole state and the
     (epoch, step) to continue from); otherwise ``model.checkpoint`` is
     restored when set. ``axis_name`` / ``rank``: one rank of a distributed
-    run, whose ranks must agree on the resume coordinates. Returns the
-    trainer's (state, best_state, best, log_dict)."""
+    run, whose ranks must agree on the resume coordinates;
+    ``data_axis_name`` its data axis, over which the loss and the gradient
+    sum too. Returns the trainer's (state, best_state, best, log_dict)."""
     loader_train, loader_valid, loader_test = loaders
     t = config.train
     total_steps = t.epochs * len(loader_train) // t.accumulation_steps
@@ -156,13 +157,19 @@ def train_model(config, model, loaders, dev, on_step=None, axis_name=None,
         state, start_epoch, _ = restore_checkpoint(config.model.checkpoint,
                                                    state)
     # every rank resolved its own candidate: the same one, or none steps
-    verify_resume_consensus(start_epoch, start_step, axis_name,
-                            path=None if resumed is None else resumed.path)
+    if axis_name is not None:
+        from distegnn_tpu_torch.parallel.mesh import WORLD_AXES
+
+        verify_resume_consensus(start_epoch, start_step, WORLD_AXES,
+                                path=None if resumed is None
+                                else resumed.path)
     # MMD applies to the virtual-node (Fast*) models only
     mmd_w = t.mmd.weight if config.model.model_name.startswith("Fast") else 0.0
     train_step = make_train_step(model, optimizer, mmd_w, t.mmd.sigma,
-                                 t.mmd.samples, axis_name=axis_name)
-    eval_step = make_eval_step(model, axis_name=axis_name)
+                                 t.mmd.samples, axis_name=axis_name,
+                                 data_axis_name=data_axis_name)
+    eval_step = make_eval_step(model, axis_name=axis_name,
+                               data_axis_name=data_axis_name)
     return train(state, train_step, eval_step, loader_train, loader_valid,
                  loader_test, config, dev, start_epoch=start_epoch,
                  on_step=on_step, rank=rank, start_step_in_epoch=start_step,

@@ -5,6 +5,13 @@ weights and biases U(+-1/sqrt(fan_in)); coordinate heads xavier_uniform with
 gain 1e-3 and no bias. Parameters are f32; ``dtype`` is the COMPUTE dtype
 (inputs and parameters are cast to it, the product and the bias add are
 rounded to it separately, as flax's ``nn.Dense(dtype=...)`` rounds them).
+
+``tensor_axis`` (the ``tensor`` axis of the mesh, parallel/mesh.py) splits
+the hidden width of ``MLP``, ``CoordMLP`` and ``HoistedEdgeMLP`` over the
+tensor ranks as the JAX package does: the parameters stay full and
+replicated, and each rank computes with its 1/T slice of them
+(parallel/collectives.py ``tp_*``), so the ``state_dict`` is the same with
+and without the axis.
 """
 
 from __future__ import annotations
@@ -14,6 +21,10 @@ from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
+
+from distegnn_tpu_torch.parallel.collectives import (tp_copy, tp_gather,
+                                                     tp_reduce, tp_slice,
+                                                     tp_slice_rows)
 
 
 def resolve_dtype(d) -> Optional[torch.dtype]:
@@ -83,15 +94,37 @@ class TorchDense(nn.Linear):
 
 class MLP(nn.Module):
     """Dense(+act) stack (silu by default); optionally ``act`` after the
-    last layer too."""
+    last layer too.
+
+    ``tensor_axis`` (2-layer MLPs only): the first Dense is column-parallel
+    (each tensor rank computes its contiguous 1/T slice of the hidden
+    width), the activation runs on the slice, and the second Dense is
+    row-parallel. ``tensor_out='reduce'`` closes with one sum over the axis;
+    ``'partial'`` returns the rank's partial sum, for a linear consumer that
+    defers the sum (phi_x's aggregation)."""
 
     FLAX_LIST = {"layers": "TorchDense_{}"}
 
     def __init__(self, fan_in: int, sizes: Sequence[int], *,
                  act_last: bool = False, use_bias_last: bool = True,
                  coord_head_last: bool = False, act: Callable = silu,
-                 dtype: Optional[torch.dtype] = None, generator=None):
+                 dtype: Optional[torch.dtype] = None, generator=None,
+                 tensor_axis: Optional[str] = None,
+                 tensor_out: str = "reduce"):
         super().__init__()
+        if tensor_axis is not None:
+            if len(sizes) != 2:
+                raise ValueError(
+                    f"tensor-parallel MLP supports exactly 2 dense layers, "
+                    f"got sizes={list(sizes)}")
+            if tensor_out not in ("reduce", "partial"):
+                raise ValueError(f"unknown tensor_out {tensor_out!r}")
+            if tensor_out == "partial" and use_bias_last:
+                raise ValueError(
+                    "tensor_out='partial' requires use_bias_last=False (a "
+                    "bias on a partial sum would be counted T times)")
+        self.tensor_axis, self.tensor_out = tensor_axis, tensor_out
+        self.dtype = dtype
         self.act = act
         layers, f = [], fan_in
         for i, s in enumerate(sizes):
@@ -105,12 +138,32 @@ class MLP(nn.Module):
         self.act_last = act_last
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tensor_axis is not None:
+            return self._tp_forward(x)
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < n - 1 or self.act_last:
                 x = self.act(x)
         return x
+
+    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        ax = self.tensor_axis
+        d0, d1 = self.layers
+        c = (lambda a: a.to(self.dtype)) if self.dtype is not None else \
+            (lambda a: a)
+        # column-parallel first Dense: this rank's columns of the [in, out]
+        # kernel; the activation is elementwise, so the slice stays exact
+        h = self.act(tp_copy(c(x), ax) @ tp_slice(c(d0.weight).t(), ax)
+                     + tp_slice(c(d0.bias), ax))
+        # row-parallel second Dense: the rank's partial contraction
+        y = h @ tp_slice_rows(c(d1.weight).t(), ax)
+        if self.tensor_out == "partial":
+            return y
+        y = tp_reduce(y, ax)
+        if d1.bias is not None:
+            y = y + c(d1.bias)
+        return self.act(y) if self.act_last else y
 
 
 class CoordMLP(MLP):
@@ -120,10 +173,20 @@ class CoordMLP(MLP):
     FLAX_PREFIX = ("MLP_0",)
 
     def __init__(self, fan_in: int, hidden_nf: int, *, tanh: bool = False,
-                 dtype: Optional[torch.dtype] = None, generator=None):
+                 dtype: Optional[torch.dtype] = None, generator=None,
+                 tensor_axis: Optional[str] = None):
+        # under the tensor axis the head returns the rank's PARTIAL scalar:
+        # the caller multiplies it into coord_diff and sums it to the node
+        # axis, all linear, and closes with one sum there; tanh is not
+        # linear in the partial sum
+        if tensor_axis is not None and tanh:
+            raise ValueError(
+                "CoordMLP: tanh=True cannot be tensor-parallel (the psum is "
+                "deferred through linear ops only) — use tanh=False or T=1")
         super().__init__(fan_in, [hidden_nf, 1], use_bias_last=False,
                          coord_head_last=True, dtype=dtype,
-                         generator=generator)
+                         generator=generator, tensor_axis=tensor_axis,
+                         tensor_out="partial")
         self.tanh = tanh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -144,15 +207,22 @@ class HoistedEdgeMLP(nn.Module):
     concat. Parameters: one ``kernel`` [2H+S, H] and ``bias`` [H] in the JAX
     package's [in, out] orientation, drawn at the full fan-in, then
     ``dense`` (the second Dense, H -> H). ``ops`` is the EdgeOps dispatch.
+
+    ``tensor_axis``: only the two node-axis products (h @ W[:H], h @ W[H:2H],
+    the dominant cost) are column-sliced, and one node-level all-gather a
+    product restores the full width before the per-edge work, which stays
+    replicated. Column slices and a tiled gather are exact.
     """
 
     FLAX_CHILD = {"dense": ("TorchDense_0",)}
 
     def __init__(self, hidden_nf: int, scalar_nf: int, *,
-                 dtype: Optional[torch.dtype] = None, generator=None):
+                 dtype: Optional[torch.dtype] = None, generator=None,
+                 tensor_axis: Optional[str] = None):
         super().__init__()
         H, fan_in = hidden_nf, 2 * hidden_nf + scalar_nf
         self.hidden_nf = H
+        self.tensor_axis = tensor_axis
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty((fan_in, H)))
         self.bias = nn.Parameter(torch.empty((H,)))
@@ -162,9 +232,20 @@ class HoistedEdgeMLP(nn.Module):
 
     def forward(self, h: torch.Tensor, scalars: torch.Tensor,
                 ops) -> torch.Tensor:
-        y = silu(hoisted_linear(self.kernel, self.bias, h, scalars, ops,
-                                self.hidden_nf, scalars_first=False,
-                                dtype=self.dtype))
+        ax, H = self.tensor_axis, self.hidden_nf
+        if ax is not None:
+            h, scalars, w, b = ((a.to(self.dtype) for a in (
+                h, scalars, self.kernel, self.bias)) if self.dtype is not None
+                else (h, scalars, self.kernel, self.bias))
+            hin = tp_copy(h, ax)
+            hr = tp_gather(hin @ tp_slice(w[:H], ax), ax)
+            hc = tp_gather(hin @ tp_slice(w[H:2 * H], ax), ax)
+            y = silu(ops.gather_rows(hr) + ops.gather_cols(hc)
+                     + scalars @ w[2 * H:] + b)
+        else:
+            y = silu(hoisted_linear(self.kernel, self.bias, h, scalars, ops,
+                                    H, scalars_first=False,
+                                    dtype=self.dtype))
         return silu(self.dense(y))
 
 

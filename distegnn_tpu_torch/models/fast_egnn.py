@@ -30,8 +30,16 @@ batch as ONE launch of the megakernel ``fused_egnn_stack_batch``
 
 ``axis_name`` (the ``graph`` axis of a distributed run, parallel/mesh.py)
 makes the three node means of every layer global across the graph parts
-(parallel/collectives.py). A collective cannot run inside the megakernel,
-so under an axis ``fused_stack`` runs the per-layer ``fused`` path, as the
+(parallel/collectives.py). ``tensor_axis`` (the ``tensor`` axis) splits the
+hidden width of phi_e, phi_x and phi_h over the tensor ranks, one
+collective an MLP, as the JAX package does: phi_e gathers its two hoisted
+node-axis products; phi_x's partial scalar rides coord_diff and the row
+aggregation to the node axis, where one sum of [B, N, 3] closes it; phi_h
+is split by columns, then rows, closed by one sum of [B, N, H]. The fused
+path feeds the same kernel 1/T slices of phi_x's weights (w3 [H, H/T], b3
+and w4 [H/T]). The virtual-node MLPs stay replicated, and the parameters
+stay full on every rank. A collective cannot run inside the megakernel, so
+under either axis ``fused_stack`` runs the per-layer ``fused`` path, as the
 JAX package does; the parameters are the same.
 
 Tiled serving (serve/tiled.py) runs one ``EGCLVel`` over one tile of a
@@ -68,7 +76,10 @@ from distegnn_tpu_torch.ops.layer_pipeline import (DEFAULT_STACK_VMEM_BUDGET,
                                                    fused_egnn_stack_batch,
                                                    stack_weight_shapes)
 from distegnn_tpu_torch.ops.segment import masked_sum, segment_sum
-from distegnn_tpu_torch.parallel.collectives import global_node_mean
+from distegnn_tpu_torch.parallel.collectives import (global_node_mean,
+                                                     tp_copy, tp_gather,
+                                                     tp_once, tp_reduce,
+                                                     tp_slice)
 
 _FUSED_HEADS = ("edge_impl='fused' supports the flagship EGCL only: "
                 "attention/normalize/tanh are baked out of the kernel — use "
@@ -115,7 +126,8 @@ class EGCLVel(nn.Module):
                  seg_impl: str = "scatter", fuse_agg: bool = True,
                  agg_dtype=None, edge_impl: str = "plain",
                  blocked_impl: str = "einsum",
-                 axis_name: Optional[str] = None, generator=None):
+                 axis_name: Optional[str] = None,
+                 tensor_axis: Optional[str] = None, generator=None):
         super().__init__()
         if edge_impl not in ("plain", "fused"):
             raise ValueError(f"unknown edge_impl {edge_impl!r}")
@@ -132,6 +144,12 @@ class EGCLVel(nn.Module):
             raise ValueError(
                 f"edge_impl='fused' requires edge_attr_nf=2 (the kernel "
                 f"scalar lanes are [radial, attr0, attr1]); got {edge_attr_nf}")
+        if tensor_axis is not None and not fused and not hoist_edge_mlp:
+            raise ValueError(
+                "tensor parallelism requires hoist_edge_mlp=True (phi_e's "
+                "collective is the node-level gather of the hoisted "
+                "products; the concat-shaped phi_e would need a per-edge "
+                "gather)")
         H, C = hidden_nf, virtual_channels
         self.hidden_nf, self.virtual_channels = H, C
         self.node_attr_nf, self.edge_attr_nf = node_attr_nf, edge_attr_nf
@@ -142,26 +160,27 @@ class EGCLVel(nn.Module):
         self.hoist_edge_mlp, self.seg_impl = hoist_edge_mlp, seg_impl
         self.fuse_agg, self.agg_dtype = fuse_agg, agg_dtype
         self.edge_impl, self.blocked_impl = edge_impl, blocked_impl
-        self.axis_name = axis_name
+        self.axis_name, self.tensor_axis = axis_name, tensor_axis
         self.dt = resolve_dtype(compute_dtype)
         kw = dict(dtype=self.dt, generator=generator)
+        tp = dict(tensor_axis=tensor_axis)
         if fused:
             self.phi_e_fused = FusedEdgeParams(H, 1 + edge_attr_nf,
                                                generator=generator)
         else:
             S = 1 + edge_attr_nf
-            self.phi_e = (HoistedEdgeMLP(H, S, **kw) if hoist_edge_mlp
+            self.phi_e = (HoistedEdgeMLP(H, S, **kw, **tp) if hoist_edge_mlp
                           else MLP(2 * H + S, [H, H], act_last=True, **kw))
             if attention:
                 self.att = TorchDense(H, 1, **kw)
-            self.phi_x = CoordMLP(H, H, tanh=tanh, **kw)
+            self.phi_x = CoordMLP(H, H, tanh=tanh, **kw, **tp)
         self.phi_ev = MLP(2 * H + 1 + C, [H, H], act_last=True, **kw)
         if attention:
             self.att_v = TorchDense(H, 1, **kw)
         self.phi_xv = CoordMLP(H, H, tanh=tanh, **kw)
         self.phi_X = CoordMLP(H, H, tanh=tanh, **kw)
         self.phi_v = MLP(H, [H, 1], **kw)
-        self.phi_h = MLP(3 * H + node_attr_nf, [H, H], **kw)
+        self.phi_h = MLP(3 * H + node_attr_nf, [H, H], **kw, **tp)
         self.phi_hv = MLP(2 * H, [H, H], **kw)
         if has_gravity:
             self.phi_g = MLP(H, [H, 1], **kw)
@@ -170,12 +189,46 @@ class EGCLVel(nn.Module):
         return a.to(self.dt) if self.dt is not None else a
 
     def _fused_edges(self, h, x, g: GraphBatch, fused_arrs):
-        """In-window kernel sums plus the remote tail -> (agg, agg_h)."""
-        H, c, p = self.hidden_nf, self._c, self.phi_e_fused
-        hr = c(h) @ c(p.w1[:H])              # hoisted node-axis products
-        hc = c(h) @ c(p.w1[H:2 * H])
-        kw = EdgeWeights(ws=p.w1[2 * H:], b1=p.b1[None], w2=p.w2,
-                         b2=p.b2[None], w3=p.w3, b3=p.b3[None], w4=p.w4.T)
+        """In-window kernel sums plus the remote tail -> (agg, agg_h).
+
+        Under ``tensor_axis`` the same kernel takes 1/T slices of phi_x's
+        weights (w3 [H, H/T], b3 and w4 [H/T]), so its trans_sum is the
+        rank's partial (closed by one sum over the axis) while count and
+        ef_sum come out alike on every rank. The kernel's inputs that carry
+        gradients are ``tp_copy`` wrapped (its cotangents mix the partial
+        phi_x path with the replicated phi_e path), and the replicated
+        outputs ``tp_once`` wrapped, so that the copies' sums count their
+        cotangent once. The remote tail runs under the same slicing."""
+        H, c, p, tx = self.hidden_nf, self._c, self.phi_e_fused, \
+            self.tensor_axis
+        w1 = p.w1
+        if tx is not None:
+            hcp = tp_copy(c(h), tx)
+            hr = tp_copy(tp_gather(hcp @ tp_slice(c(w1[:H]), tx), tx), tx)
+            hc = tp_copy(tp_gather(hcp @ tp_slice(c(w1[H:2 * H]), tx), tx),
+                         tx)
+            kw = EdgeWeights(ws=tp_copy(w1[2 * H:], tx),
+                             b1=tp_copy(p.b1, tx)[None],
+                             w2=tp_copy(p.w2, tx),
+                             b2=tp_copy(p.b2, tx)[None],
+                             w3=tp_slice(p.w3, tx),
+                             b3=tp_slice(p.b3, tx)[None],
+                             w4=tp_slice(p.w4.T, tx))
+            x = tp_copy(x, tx)
+            # the remote tail's weights, cast then wrapped as JAX does
+            cws, cb1 = tp_copy(c(w1[2 * H:]), tx), tp_copy(c(p.b1), tx)
+            cw2, cb2 = tp_copy(c(p.w2), tx), tp_copy(c(p.b2), tx)
+            cw3, cb3 = tp_slice(c(p.w3), tx), tp_slice(c(p.b3), tx)
+            w4r = tp_slice(p.w4.T, tx).T                       # [H/T, 1]
+        else:
+            hr = c(h) @ c(w1[:H])            # hoisted node-axis products
+            hc = c(h) @ c(w1[H:2 * H])
+            kw = EdgeWeights(ws=w1[2 * H:], b1=p.b1[None], w2=p.w2,
+                             b2=p.b2[None], w3=p.w3, b3=p.b3[None],
+                             w4=p.w4.T)
+            cws, cb1, cw2, cb2, cw3, cb3, w4r = (
+                c(w1[2 * H:]), c(p.b1), c(p.w2), c(p.b2), c(p.w3), c(p.b3),
+                p.w4)
         dname = "bf16" if self.dt is torch.bfloat16 else "f32"
         row_t, col_l, kblk, scal = fused_arrs
         outs = [fused_edge_layer(x[b], hr[b], hc[b], row_t[b], col_l[b],
@@ -193,17 +246,23 @@ class EGCLVel(nn.Module):
         radial_r = torch.sum(cd_r * cd_r, dim=-1, keepdim=True)
         sfeat = c(torch.cat([radial_r, g.remote_edge_attr[..., :2]], dim=-1))
         t1 = (gather_nodes(hr, rr) + gather_nodes(hc, rc)
-              + sfeat @ c(p.w1[2 * H:]) + c(p.b1))
+              + sfeat @ cws + cb1)
         y1 = t1 * torch.sigmoid(t1)
-        t2 = y1 @ c(p.w2) + c(p.b2)
+        t2 = y1 @ cw2 + cb2
         ef_r = t2 * torch.sigmoid(t2)                          # [B, R, H]
-        t3 = ef_r @ c(p.w3) + c(p.b3)
+        t3 = ef_r @ cw3 + cb3
         y2 = t3 * torch.sigmoid(t3)
-        g_r = (y2.to(torch.float32) @ p.w4) * rm               # [B, R, 1]
+        g_r = (y2.to(torch.float32) @ w4r) * rm                # [B, R, 1]
         N = h.shape[1]
         trans_sum = trans_sum + segment_sum(cd_r * g_r, rr, N)
         count = count + segment_sum(g.remote_edge_mask, rr, N)
         ef_sum = ef_sum + segment_sum(ef_r.to(torch.float32) * rm, rr, N)
+        if tx is not None:
+            # phi_x closes with its one node-level sum; ef_sum and count
+            # are the same on every tensor rank
+            trans_sum = tp_reduce(trans_sum, tx)
+            ef_sum = tp_once(ef_sum, tx)
+            count = tp_once(count, tx)
         cnt = torch.clamp(count, min=1.0)[..., None]
         agg = trans_sum / cnt if self.coords_agg == "mean" else trans_sum
         return agg, ef_sum / cnt
@@ -231,15 +290,22 @@ class EGCLVel(nn.Module):
             edge_feat = edge_feat * torch.sigmoid(self.att(edge_feat))
         edge_feat = edge_feat * g.edge_mask[..., None].to(edge_feat.dtype)
 
-        trans = coord_diff * self.phi_x(edge_feat)             # [B, E, 3]
+        # under the tensor axis phi_x's scalar is the rank's partial: it
+        # rides coord_diff (whose cotangent is then a partial, summed by
+        # tp_copy) and the row aggregation, all linear, and one sum of the
+        # [B, N, 3] aggregate closes it
+        tx = self.tensor_axis
+        trans = tp_copy(coord_diff, tx) * self.phi_x(edge_feat)   # [B, E, 3]
         if self.fuse_agg:
             # both per-layer aggregations and the count in one pass
-            return ops.agg_rows_pair(trans, edge_feat,
-                                     a_mean=self.coords_agg == "mean",
-                                     agg_dtype=self.agg_dtype)
-        agg = (ops.agg_rows_sum(trans) if self.coords_agg == "sum"
-               else ops.agg_rows_mean(trans))
-        return agg, ops.agg_rows_mean(edge_feat)
+            agg, agg_h = ops.agg_rows_pair(trans, edge_feat,
+                                           a_mean=self.coords_agg == "mean",
+                                           agg_dtype=self.agg_dtype)
+        else:
+            agg = (ops.agg_rows_sum(trans) if self.coords_agg == "sum"
+                   else ops.agg_rows_mean(trans))
+            agg_h = ops.agg_rows_mean(edge_feat)
+        return tp_reduce(agg, tx), agg_h
 
     def forward(self, h, x, v, X, Hv, g: GraphBatch, fused_arrs=None,
                 gravity=None, slot=None, inv_deg=None, oh=None, plan=None,
@@ -370,8 +436,9 @@ class FastEGNN(nn.Module):
     the 16 MiB default) bounds the ``fused_stack`` residency estimate;
     ``remat`` does not apply to ``fused_stack``, whose backward reruns each
     layer from its checkpoint anyway. ``axis_name`` makes the model one part
-    of a graph split over the process group of that axis (the module
-    docstring)."""
+    of a graph split over the process group of that axis, ``tensor_axis``
+    one slice of its hidden width (the module docstring; ``hidden_nf`` must
+    be divisible by the axis size)."""
 
     def __init__(self, node_feat_nf: int, node_attr_nf: int = 0,
                  edge_attr_nf: int = 0, hidden_nf: int = 64,
@@ -383,7 +450,8 @@ class FastEGNN(nn.Module):
                  blocked_impl: str = "einsum", segment_impl: str = "scatter",
                  remat: bool = False, fuse_agg: bool = True, agg_dtype=None,
                  edge_impl: str = "plain", stack_vmem_budget: int = 0,
-                 axis_name: Optional[str] = None, *,
+                 axis_name: Optional[str] = None,
+                 tensor_axis: Optional[str] = None, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if virtual_channels < 1:
@@ -396,7 +464,7 @@ class FastEGNN(nn.Module):
         self.residual = residual
         self.edge_impl, self.blocked_impl = edge_impl, blocked_impl
         self.remat = bool(remat)
-        self.axis_name = axis_name
+        self.axis_name, self.tensor_axis = axis_name, tensor_axis
         self.compute_dtype = resolve_dtype(compute_dtype)
         self.stack_vmem_budget = int(stack_vmem_budget)
         if edge_impl == "fused_stack":
@@ -421,7 +489,8 @@ class FastEGNN(nn.Module):
                     hoist_edge_mlp=hoist_edge_mlp, seg_impl=segment_impl,
                     fuse_agg=fuse_agg, agg_dtype=agg_dtype,
                     edge_impl=layer_impl, blocked_impl=blocked_impl,
-                    axis_name=axis_name, generator=generator)
+                    axis_name=axis_name, tensor_axis=tensor_axis,
+                    generator=generator)
             for _ in range(n_layers)])
 
     def _check_stack_model(self, attention, normalize, tanh):
@@ -474,8 +543,9 @@ class FastEGNN(nn.Module):
         h = self.embedding_in(g.node_feat)
         x, v = g.loc, g.vel
         gravity = self.gravity if self.has_gravity else None
-        # under an axis fused_stack runs its layers one by one (fused)
-        if self.edge_impl == "fused_stack" and self.axis_name is None:
+        # under a mesh axis fused_stack runs its layers one by one (fused)
+        if (self.edge_impl == "fused_stack" and self.axis_name is None
+                and self.tensor_axis is None):
             return self._fused_stack_forward(g, h, x, v, X, Hv, gravity,
                                              fused_arrs)
         # blocked layout: slot ids + in-degree reciprocal (+ the einsum

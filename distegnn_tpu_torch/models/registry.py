@@ -14,19 +14,25 @@ _SCHNET_CUTOFFS = {"nbody_100": 1.0, "protein": 10.0, "Water-3D": 0.035}
 def get_model(model_config, world_size: int = 1,
               dataset_name: Optional[str] = None,
               axis_name: Optional[str] = None,
-              generator: Optional[torch.Generator] = None
-              ) -> torch.nn.Module:
+              generator: Optional[torch.Generator] = None,
+              tensor_axis: Optional[str] = None) -> torch.nn.Module:
     """``model_config``: attribute-style ``model:`` section of a config.
 
     ``axis_name`` is the graph axis of a distributed run ('graph', see
     parallel/mesh.py), None on one device: the virtual-node families take
-    it (FastEGNN, FastRF, FastSchNet, as in JAX). ``dataset_name`` selects
+    it (FastEGNN, FastRF, FastSchNet, as in JAX). ``tensor_axis`` is the
+    tensor axis ('tensor' when ``parallel.mesh.tensor`` > 1, else None):
+    FastEGNN alone takes it, as in JAX. ``dataset_name`` selects
     the SchNet cutoff (FastSchNet, SchNet); ``world_size`` is the JAX
     signature's and selects nothing. The model is built on the CPU, with
     its parameters drawn from ``generator``; move it with ``.to(device)``.
     """
     m = model_config
     name = m.model_name
+    if tensor_axis is not None and name != "FastEGNN":
+        raise ValueError(
+            f"tensor parallelism (parallel.mesh.tensor > 1) is only "
+            f"implemented for FastEGNN, not {name!r}")
     gen = dict(generator=generator)
     if name == "FastEGNN":
         from distegnn_tpu_torch.models.fast_egnn import FastEGNN
@@ -45,7 +51,7 @@ def get_model(model_config, world_size: int = 1,
             agg_dtype=m.get("agg_dtype"),
             edge_impl=m.get("edge_impl", "plain"),
             stack_vmem_budget=int(m.get("stack_vmem_budget", 0) or 0),
-            axis_name=axis_name, **gen)
+            axis_name=axis_name, tensor_axis=tensor_axis, **gen)
     if name == "FastRF":
         from distegnn_tpu_torch.models.fast_rf import FastRF
 

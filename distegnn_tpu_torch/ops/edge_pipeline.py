@@ -28,6 +28,7 @@ payload are rounded to bf16 before an f32 sum.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
@@ -40,15 +41,17 @@ _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 class EdgeWeights(NamedTuple):
-    """phi_e (scalar part of the hoisted first Dense) + phi_x params, f32."""
+    """phi_e (scalar part of the hoisted first Dense) + phi_x params, f32.
+    HX, phi_x's hidden width, is H, or H / T on a rank of the tensor axis
+    (its 1/T slice of w3's columns, b3 and w4)."""
 
     ws: torch.Tensor   # [S, H] scalar part of the hoisted Dense (S = 3)
     b1: torch.Tensor   # [1, H]
     w2: torch.Tensor   # [H, H] phi_e second Dense
     b2: torch.Tensor   # [1, H]
-    w3: torch.Tensor   # [H, H] phi_x hidden Dense
-    b3: torch.Tensor   # [1, H]
-    w4: torch.Tensor   # [1, H] phi_x head (no bias)
+    w3: torch.Tensor   # [H, HX] phi_x hidden Dense
+    b3: torch.Tensor   # [1, HX]
+    w4: torch.Tensor   # [1, HX] phi_x head (no bias)
 
 
 # ---------------------------------------------------------------- layout
@@ -349,7 +352,7 @@ def _grid_fn():
     fn = LIBRARIES.get("fused_edge_bwd").fused_edge_bwd_grid
     if fn.argtypes is None:
         i = ctypes.c_int
-        fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return fn
 
@@ -366,16 +369,29 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
+def phi_x_widths(H: int) -> Tuple[int, ...]:
+    """The phi_x widths HX the kernels take at hidden width H: H, H/2 and
+    H/4 (the tensor axis at T = 1, 2, 4), those of at least 8."""
+    return tuple(hx for hx in (H, H // 2, H // 4) if hx >= 8 and H % hx == 0)
+
+
 def _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights: EdgeWeights,
                  block, dtype_name, kernel: str, sizes):
     """Check and lay out the inputs both kernels share; returns the
     contiguous (row_t, col_l, kblk, scal, x, hr, hc, ws, b1, w2, b2, w3, b3,
-    w4) tuple the C entry points take, and the edge-slot count."""
+    w4) tuple the C entry points take, the edge-slot count and phi_x's
+    width HX (w3's columns)."""
     T = block
     n_nodes, H = hr.shape
     nb = _check_grid(n_nodes, T)
     if H not in sizes:
         raise ValueError(f"{kernel} supports H in {sorted(sizes)}, got H={H}")
+    HX = weights.w3.shape[-1] if weights.w3.ndim == 2 else -1
+    if HX not in phi_x_widths(H):
+        raise ValueError(
+            f"{kernel} supports w3 [H, HX] with HX in {phi_x_widths(H)} at "
+            f"H={H} (the tensor axis at T = 1, 2, 4), got w3 of shape "
+            f"{tuple(weights.w3.shape)}")
     E = scal.shape[0]
     if E % nb or (E // nb) % T:
         raise ValueError(f"layout mismatch: N={n_nodes} E={E} block={T}")
@@ -398,11 +414,11 @@ def _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights: EdgeWeights,
              "w2", "b2", "w3", "b3", "w4"),
             (f32, dt, dt, i32, i32, i32, f32) + (f32,) * 7,
             ((n_nodes, 3), (n_nodes, H), (n_nodes, H), (E // T, T), (E, 1),
-             (E, 1), (E, XL), (3, H), (H,), (H, H), (H,), (H, H), (H,),
-             (H,))):
+             (E, 1), (E, XL), (3, H), (H,), (H, H), (H,), (H, HX), (HX,),
+             (HX,))):
         _check(t, name, dtype, shape, dev)
     # the C entry points take the edge layout first
-    return args[3:7] + args[0:3] + args[7:], E
+    return args[3:7] + args[0:3] + args[7:], E, HX
 
 
 _FWD_SIZES = frozenset(range(16, 129, 16))
@@ -428,8 +444,9 @@ def fwd_uses_f32_kernel(H: int, dtype_name: str) -> bool:
 
 def _fused_edge_layer_cuda(x, hr, hc, row_t, col_l, kblk, scal,
                            weights: EdgeWeights, block, dtype_name):
-    args, E = _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights,
-                           block, dtype_name, "fused_edge_fwd", _FWD_SIZES)
+    args, E, HX = _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights,
+                               block, dtype_name, "fused_edge_fwd",
+                               _FWD_SIZES)
     n_nodes, H = hr.shape
     dev = x.device
     out = torch.zeros((n_nodes, H + 8), dtype=torch.float32, device=dev)
@@ -438,18 +455,19 @@ def _fused_edge_layer_cuda(x, hr, hc, row_t, col_l, kblk, scal,
     ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
     tc = fwd_uses_tensor_cores(H, dtype_name)
     if tc:
-        fn = _lib_fn("fused_edge_fwd_tc", 15, 5, lib="fused_edge_fwd")
-        err = fn(*ptrs, n_nodes, E, block, H, n_sm, stream)
+        fn = _lib_fn("fused_edge_fwd_tc", 15, 6, lib="fused_edge_fwd")
+        err = fn(*ptrs, n_nodes, E, block, H, HX, n_sm, stream)
     else:
-        fn = _lib_fn("fused_edge_fwd", 15, 6)
-        err = fn(*ptrs, n_nodes, E, block, H, int(dtype_name == "bf16"),
-                 n_sm, stream)
+        fn = _lib_fn("fused_edge_fwd", 15, 7)
+        err = fn(*ptrs, n_nodes, E, block, H, HX,
+                 int(dtype_name == "bf16"), n_sm, stream)
     if err != 0:
         raise RuntimeError(f"fused_edge_fwd{'_tc' if tc else ''} launch "
                            f"failed: CUDA error {err}")
     fused_edge_layer.launches += 1
     fused_edge_layer.tc_launches += tc
     fused_edge_layer.f32_launches += fwd_uses_f32_kernel(H, dtype_name)
+    fused_edge_layer.launch_widths[(H, HX)] += 1
     return out[:, 0:3] + out[:, 3:6], out[:, 6], out[:, 8:]
 
 
@@ -459,8 +477,9 @@ def _fused_edge_bwd_cuda(x, hr, hc, row_t, col_l, kblk, scal,
     """Launch ``csrc/fused_edge_bwd.cu``: the same results as
     :func:`fused_edge_layer_bwd_ref` (column-side sums by f32 atomics, so
     their summation order changes from run to run)."""
-    args, E = _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights,
-                           block, dtype_name, "fused_edge_bwd", _BWD_SIZES)
+    args, E, HX = _kernel_args(x, hr, hc, row_t, col_l, kblk, scal, weights,
+                               block, dtype_name, "fused_edge_bwd",
+                               _BWD_SIZES)
     n_nodes, H = hr.shape
     dev = x.device
     f32 = torch.float32
@@ -473,28 +492,32 @@ def _fused_edge_bwd_cuda(x, hr, hc, row_t, col_l, kblk, scal,
     # the persistent grid the launch will use (every resident block), so
     # that part holds one partial per block
     grid = ctypes.c_int(0)
-    err = _grid_fn()(H, bf16, n_sm, E, ctypes.byref(grid))
+    err = _grid_fn()(H, HX, bf16, n_sm, E, ctypes.byref(grid))
     if err != 0:
-        raise RuntimeError(f"fused_edge_bwd: no launch of H={H} "
+        raise RuntimeError(f"fused_edge_bwd: no launch of H={H} HX={HX} "
                            f"{dtype_name} fits an SM: CUDA error {err}")
     max_grid = max(grid.value, 1)
-    n_w = 7 * H + 2 * H * H        # one weight-gradient vector
+    # one weight-gradient vector: [dws 3H | db1 H | dw2 H*H | db2 H |
+    # dw3 H*HX | db3 HX | dw4 HX]
+    sizes = [3 * H, H, H * H, H, H * HX, HX, HX]
+    n_w = sum(sizes)
     scratch = torch.empty(((max_grid + 1) * n_w,), dtype=f32, device=dev)
     part, dw = scratch[:max_grid * n_w], scratch[max_grid * n_w:]
-    fn = _lib_fn("fused_edge_bwd", 19, 7)
+    fn = _lib_fn("fused_edge_bwd", 19, 8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*(a.data_ptr() for a in args), g_pack.data_ptr(),
              drow.data_ptr(), dcol.data_ptr(), part.data_ptr(), dw.data_ptr(),
-             n_nodes, E, block, H, bf16, n_sm, max_grid, stream)
+             n_nodes, E, block, H, HX, bf16, n_sm, max_grid, stream)
     if err != 0:
         raise RuntimeError(f"fused_edge_bwd launch failed: CUDA error {err}")
     fused_edge_layer.bwd_launches += 1
+    fused_edge_layer.bwd_launch_widths[(H, HX)] += 1
     d_x, d_hr, d_hc = _combine_bwd(drow, dcol, H)
-    o = np.cumsum([0, 3 * H, H, H * H, H, H * H, H, H])
+    o = np.cumsum([0] + sizes)
     dws, db1, dw2, db2, dw3, db3, dw4 = (dw[o[k]:o[k + 1]] for k in range(7))
     d_w = EdgeWeights(dws.reshape(3, H), db1.reshape(1, H), dw2.reshape(H, H),
-                      db2.reshape(1, H), dw3.reshape(H, H), db3.reshape(1, H),
-                      dw4.reshape(1, H))
+                      db2.reshape(1, H), dw3.reshape(H, HX),
+                      db3.reshape(1, HX), dw4.reshape(1, HX))
     return d_x, d_hr, d_hc, d_w
 
 
@@ -555,7 +578,9 @@ def fused_edge_layer(x, hr, hc, row_t, col_l, kblk, scal,
       hr   [N, H] hoisted row features (h @ W_row, node axis)
       hc   [N, H] hoisted col features
       row_t/col_l/kblk/scal — ``build_edge_blocks`` output for one graph
-      weights — EdgeWeights (f32)
+      weights — EdgeWeights (f32); w3 [H, HX], b3 / w4 [1, HX] with HX in
+        :func:`phi_x_widths` (H, or a rank's slice under the tensor axis:
+        trans_sum is then the rank's partial)
       dtype_name — 'f32' or 'bf16': the MLPs' compute dtype
     Returns (trans_sum [N, 3] f32, count [N] f32, ef_sum [N, H] f32): the
     un-normalised in-window segment sums; the caller adds the remote tail.
@@ -568,7 +593,9 @@ def fused_edge_layer(x, hr, hc, row_t, col_l, kblk, scal,
     launches; ``fused_edge_layer.tc_launches`` the forward launches that ran
     the tensor-core kernel (bf16 at H in 16 / 32 / 64,
     :func:`fwd_uses_tensor_cores`) and ``fused_edge_layer.f32_launches``
-    those that ran the f32 FMA kernel (:func:`fwd_uses_f32_kernel`).
+    those that ran the f32 FMA kernel (:func:`fwd_uses_f32_kernel`);
+    ``fused_edge_layer.launch_widths`` / ``.bwd_launch_widths`` count them
+    by (H, HX).
     """
     return FusedEdgeLayer.apply(x, hr, hc, row_t, col_l, kblk, scal,
                                 *weights, block, dtype_name)
@@ -578,3 +605,5 @@ fused_edge_layer.launches = 0
 fused_edge_layer.tc_launches = 0
 fused_edge_layer.f32_launches = 0
 fused_edge_layer.bwd_launches = 0
+fused_edge_layer.launch_widths = collections.Counter()
+fused_edge_layer.bwd_launch_widths = collections.Counter()

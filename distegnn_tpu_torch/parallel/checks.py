@@ -7,9 +7,10 @@ collective, loader drift, a corrupted shard. These checks make the
 invariant executable:
 
 - :func:`assert_replicated`: every rank's parameters equal rank 0's bit
-  for bit (one broadcast, one MIN of the verdict over the graph group).
-  ``parallel/launch.py`` runs it at the start and the end of a run, and the
-  trainer at every eval epoch under ``log.check_consistency``.
+  for bit (one broadcast, one MIN of the verdict over the axis's group).
+  ``parallel/launch.py`` runs it over the whole mesh at the start and the
+  end of a run, and the trainer at every eval epoch under
+  ``log.check_consistency``.
 - :func:`batch_fingerprint`: a digest of a batch's tensors; ranks feeding
   the same logical batch in lockstep produce the same fingerprint.
 """
@@ -25,7 +26,7 @@ from distegnn_tpu_torch.parallel.collectives import all_reduce
 from distegnn_tpu_torch.parallel.mesh import axis_group
 
 
-def assert_replicated(model: torch.nn.Module, axis_name: str,
+def assert_replicated(model: torch.nn.Module, axis_name,
                       when: str) -> None:
     """Raise on every rank unless every rank's parameters equal rank 0's
     bit for bit (one broadcast of the flattened parameters, one MIN of the

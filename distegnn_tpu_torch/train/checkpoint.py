@@ -120,15 +120,25 @@ def _mesh_of(config) -> Optional[dict]:
 
 def check_mesh_restore_compat(payload: dict, config=None) -> None:
     """A checkpoint written under one mesh restores under another: the
-    parameters are saved full on every rank, so a change of world size is
-    a plain load, recorded as a ``ckpt/reshard`` event. (The tensor axis,
-    whose degree must divide the hidden width in JAX, is not ported.)"""
+    parameters are saved full on every rank (the tensor axis slices them
+    at compute time), so a change of mesh is a plain load, recorded as a
+    ``ckpt/reshard`` event. The one constraint, as in JAX: the restoring
+    mesh's tensor degree must divide the saved model's hidden width, else
+    a ValueError here rather than a shape error in the first step."""
     saved_mesh = payload.get("mesh") or _mesh_of(payload.get("config"))
     target_mesh = _mesh_of(config.to_dict() if hasattr(config, "to_dict")
                            else config)
-    if target_mesh is None or saved_mesh is None:
+    if target_mesh is None:
         return
-    if saved_mesh != target_mesh:
+    tp = target_mesh["tensor"]
+    saved_cfg = payload.get("config") or {}
+    model_cfg = saved_cfg.get("model") if isinstance(saved_cfg, dict) else None
+    hidden = (model_cfg or {}).get("hidden_nf")
+    if tp > 1 and hidden is not None and int(hidden) % tp != 0:
+        raise ValueError(
+            f"checkpoint incompatible with mesh: saved hidden_nf={hidden} is "
+            f"not divisible by restoring parallel.mesh.tensor={tp}")
+    if saved_mesh is not None and saved_mesh != target_mesh:
         obs.event("ckpt/reshard", saved=saved_mesh, target=target_mesh)
         obs.log(f"restore: checkpoint saved under mesh {saved_mesh} onto "
                 f"mesh {target_mesh} (the parameters are full on every "
@@ -159,18 +169,17 @@ class ResumeConsensusError(RuntimeError):
             "same state_dict/ contents, then relaunch.")
 
 
-def _all_gather_coords(local: np.ndarray, axis_name: str) -> np.ndarray:
+def _all_gather_coords(local: np.ndarray, axis_name) -> np.ndarray:
     import torch.distributed as dist
 
+    from distegnn_tpu_torch.parallel.collectives import all_gather
     from distegnn_tpu_torch.parallel.mesh import axis_group
 
     group = axis_group(axis_name)
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend(group) == "nccl" else torch.device("cpu"))
     t = torch.as_tensor(local, dtype=torch.int64, device=dev)
-    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(out, t, group=group)
-    return torch.stack(out).cpu().numpy()
+    return all_gather(t[None], axis_name, "consensus", dim=0).cpu().numpy()
 
 
 def verify_resume_consensus(epoch: int, step_in_epoch: int,

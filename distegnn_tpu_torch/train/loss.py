@@ -83,7 +83,8 @@ def weighted_local_loss(local_loss: torch.Tensor, node_mask: torch.Tensor,
                         axis_name: Optional[str] = None) -> torch.Tensor:
     """This part's node-weighted share of the global loss,
     local_loss * node_cnt / total_node_cnt (the count summed over the
-    axis). Not summed across parts: each rank differentiates its own share
+    axis, a name or a tuple of names). Not summed across parts: each rank
+    differentiates its own share
     and the step sums the parameter gradients. On one device it is
     ``local_loss`` itself."""
     node_cnt = torch.sum(node_mask)

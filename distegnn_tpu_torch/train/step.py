@@ -27,6 +27,18 @@ each micro-step's is equal in exact arithmetic. The logged losses are
 summed over the axis, and ``batch_consistency`` is max |loc_mean - its min
 over the ranks|, reduced with MAX: 0 iff every rank fed the same graphs.
 The MMD draw is independent per rank (the rank joins the generator's seed).
+
+With the data axis (``data_axis_name``, a data-parallel shard of the batch
+per rank) the loss's node weighting, the logged sums and the gradient sum
+span both axes, (data, graph): every rank holds a part of some graph of
+the global batch, and the global loss is the node-weighted sum over all of
+them. The model's virtual-node sums stay on the graph axis (the data axis
+holds other graphs), and so does the min of ``batch_consistency``, whose
+max spans (data, graph). The tensor axis is in neither: the ``tp_*``
+collectives (parallel/collectives.py) already hand every tensor rank the
+whole parameter gradient with each loss term counted once, so the loss is
+replicated over the tensor ranks and the sum over (data, graph) stays exact
+(JAX's ``_reduce_axes``).
 """
 
 from __future__ import annotations
@@ -204,11 +216,24 @@ def step_generator(seed: int, epoch: int, step: int, device: torch.device,
         int(s.generate_state(1, np.uint64)[0]))
 
 
+def reduce_axes(axis_name: Optional[str],
+                data_axis_name: Optional[str] = None):
+    """The axes the loss and the gradient sum over: the graph axis, with
+    the data axis before it when there is one (a tuple), or None on one
+    device."""
+    if data_axis_name is None:
+        return axis_name
+    return tuple(a for a in (data_axis_name, axis_name) if a is not None)
+
+
 def make_loss_fn(model, mmd_weight: float, mmd_sigma: float,
-                 mmd_samples: int, axis_name: Optional[str] = None) -> Callable:
+                 mmd_samples: int, axis_name: Optional[str] = None,
+                 data_axis_name: Optional[str] = None) -> Callable:
     """loss(batch, generator=None, mmd_idx=None) -> (loss to differentiate,
     logged node-weighted MSE). Under ``axis_name`` both are this rank's
-    node-weighted shares (the train step sums them for logging)."""
+    node-weighted shares (the train step sums them for logging), weighted
+    over (data, graph) with ``data_axis_name``."""
+    axis_name = reduce_axes(axis_name, data_axis_name)
 
     def loss_fn(batch: GraphBatch, generator=None, mmd_idx=None):
         loc_pred, virtual_loc = model(batch)
@@ -226,7 +251,7 @@ def make_loss_fn(model, mmd_weight: float, mmd_sigma: float,
     return loss_fn
 
 
-def sum_gradients(params, axis_name: str) -> None:
+def sum_gradients(params, axis_name) -> None:
     """Sum the parameters' ``.grad`` over the axis in one flattened buffer
     (one collective, not one a tensor). A missing gradient counts as zero
     and every parameter gets the sum, so all ranks hold the same gradients
@@ -241,30 +266,36 @@ def sum_gradients(params, axis_name: str) -> None:
         off += n
 
 
-def batch_consistency(loc_mean: torch.Tensor, axis_name: str) -> torch.Tensor:
-    """max |loc_mean - its min over the ranks|, the max over the ranks: 0
-    iff every rank's batch carries the same graphs' means."""
+def batch_consistency(loc_mean: torch.Tensor, axis_name: str,
+                      max_axes=None) -> torch.Tensor:
+    """max |loc_mean - its min over the graph axis|, the max over
+    ``max_axes`` (default the graph axis; (data, graph) under the data
+    axis, whose shards hold other graphs): 0 iff every graph part of a data
+    shard carries the same graphs' means."""
     low = all_reduce(loc_mean.detach().clone(), axis_name, "consistency",
                      op=dist.ReduceOp.MIN)
     resid = torch.max(torch.abs(loc_mean - low)).reshape(1)
-    return all_reduce(resid, axis_name, "consistency",
-                      op=dist.ReduceOp.MAX)[0]
+    return all_reduce(resid, axis_name if max_axes is None else max_axes,
+                      "consistency", op=dist.ReduceOp.MAX)[0]
 
 
 def make_train_step(model, optimizer: Optimizer, mmd_weight: float,
                     mmd_sigma: float, mmd_samples: int,
-                    axis_name: Optional[str] = None) -> Callable:
+                    axis_name: Optional[str] = None,
+                    data_axis_name: Optional[str] = None) -> Callable:
     """Returns step(state, batch, generator=None, mmd_idx=None) -> (state,
     metrics) for the state holding ``model`` and ``optimizer``: one
     micro-step (forward, loss / k backward, and every k-th micro-step the
     optimizer update). The metrics are detached device scalars; under
-    ``axis_name`` the losses are summed over the axis and
-    ``batch_consistency`` is added (the module docstring)."""
+    ``axis_name`` the losses are summed over the axis ((data, graph) with
+    ``data_axis_name``) and ``batch_consistency`` is added (the module
+    docstring)."""
     loss_fn = make_loss_fn(model, mmd_weight, mmd_sigma, mmd_samples,
-                           axis_name)
+                           axis_name, data_axis_name)
+    axes = reduce_axes(axis_name, data_axis_name)
     k = optimizer.accumulation_steps
     reduce_grads = (None if axis_name is None
-                    else lambda params: sum_gradients(params, axis_name))
+                    else lambda params: sum_gradients(params, axes))
 
     def step(state: TrainState, batch: GraphBatch, generator=None,
              mmd_idx=None):
@@ -277,18 +308,20 @@ def make_train_step(model, optimizer: Optimizer, mmd_weight: float,
         if axis_name is not None:
             sums = all_reduce(torch.stack([metrics["loss"],
                                            metrics["loss_with_mmd"]]),
-                              axis_name, "loss")
+                              axes, "loss")
             metrics = {"loss": sums[0], "loss_with_mmd": sums[1],
                        "batch_consistency": batch_consistency(
-                           batch.loc_mean, axis_name)}
+                           batch.loc_mean, axis_name, axes)}
         return state, metrics
 
     return step
 
 
-def make_eval_step(model, axis_name: Optional[str] = None) -> Callable:
+def make_eval_step(model, axis_name: Optional[str] = None,
+                   data_axis_name: Optional[str] = None) -> Callable:
     """Returns eval(batch) -> the node-weighted global MSE (no MMD), no
-    autograd."""
+    autograd; summed over (data, graph) with ``data_axis_name``."""
+    axis_name = reduce_axes(axis_name, data_axis_name)
 
     def eval_step(batch: GraphBatch):
         model.eval()

@@ -83,16 +83,17 @@ class PreemptionGuard:
     ``signal.signal`` raises), and :meth:`uninstall` restores the previous
     ones.
 
-    Under a graph axis each rank reacts to its own signal, but the stop is
-    agreed: :meth:`stop_agreed` takes the MAX of the ranks' flags over the
-    axis after every micro-step, so a signal that reaches one rank stops
+    In a distributed run each rank reacts to its own signal, but the stop
+    is agreed: :meth:`stop_agreed` takes the MAX of the ranks' flags over
+    the axes (the trainer passes the whole mesh's) after every micro-step,
+    so a signal that reaches one rank stops
     every rank after the same micro-step, and the preempt checkpoint's
     (epoch, step_in_epoch) is one value. On one device it is the local
     flag: no collective and no device sync."""
 
     SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
-    def __init__(self, axis_name: Optional[str] = None, device=None):
+    def __init__(self, axis_name=None, device=None):
         self.requested = False
         self.agreed = False        # the last stop_agreed's answer
         self.signum: Optional[int] = None
@@ -376,7 +377,10 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
     the run. ``start_step_in_epoch``: steps of epoch ``start_epoch + 1``
     already applied to ``state`` (a mid-epoch checkpoint). ``rank`` /
     ``axis_name``: this process's rank and the graph axis of a distributed
-    run (None on one device); only rank 0 prints and writes. ``tracer``:
+    run (None on one device); only rank 0 prints and writes. The stop
+    agreement and the replication check span the whole mesh, and the
+    ranks of one tensor group draw the same MMD samples (their loss is one
+    replicated value). ``tracer``:
     the run's event stream when the caller bound it already
     (:func:`configure_obs`), else it is bound here."""
     train_cfg, log_cfg = config.train, config.log
@@ -407,10 +411,15 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
     cudaprobe.configure(bool(obs_cfg.get("jax_probe", True)), device)
     step_events = bool(obs_cfg.get("step_events", True))
     stall_c = obs.get_registry().counter("data/stall_s")
-    pmesh = (config.get("parallel") or {}).get("mesh") or {}
-    world = dist.get_world_size() if axis_name is not None else 1
-    mesh_tag = "x".join(str(int(v)) for v in (
-        pmesh.get("data") or 1, world, pmesh.get("tensor") or 1))
+    shape, world_axes, draw_rank = (1, 1, 1), None, rank
+    if axis_name is not None:
+        from distegnn_tpu_torch.parallel.mesh import WORLD_AXES, mesh_shape
+
+        shape, world_axes = mesh_shape(), WORLD_AXES
+        # the MMD draw: one a (data, graph) coordinate
+        draw_rank = rank // shape[2]
+    world = shape[0] * shape[1] * shape[2]
+    mesh_tag = "x".join(str(int(v)) for v in shape)
     tracer.event("train/run_start", start_epoch=start_epoch,
                  epochs=int(train_cfg.epochs), scan_epochs=False,
                  devices=(torch.cuda.device_count() if device.type == "cuda"
@@ -436,7 +445,7 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
             json.dump([best, _sanitize_nonfinite(log_dict), cfg], f,
                       indent=4)
 
-    guard = PreemptionGuard(axis_name, device).install()
+    guard = PreemptionGuard(world_axes, device).install()
     # trainer end of the promotion conveyor: every rotated cadence
     # checkpoint is republished as a candidate the gateway's promoter can
     # canary. Rank 0 only, as the checkpoints themselves.
@@ -499,7 +508,7 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
             guard.interrupted, guard.steps_done = False, 0
             state, loss_train = run_epoch_train(
                 train_step, state, loader_train, seed, epoch, device,
-                on_step, rank, start_step=resume_step, guard=guard,
+                on_step, draw_rank, start_step=resume_step, guard=guard,
                 cadence=cadence, tracer=tracer, step_events=step_events)
             resume_step = 0    # only the first resumed epoch skips steps
             if trace is not None:
@@ -596,7 +605,7 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
                     from distegnn_tpu_torch.parallel.checks import \
                         assert_replicated
 
-                    assert_replicated(state.model, axis_name,
+                    assert_replicated(state.model, world_axes,
                                       f"eval of epoch {epoch}")
                 log_dict["epochs"].append(epoch)
                 log_dict["loss"].append(loss_test)

@@ -2,7 +2,10 @@
 validates in the port as in the JAX package; the keys the JAX package acts
 on and the port does not port yet raise ``NotImplementedError`` naming the
 key when a YAML or an override sets them off their JAX defaults, and pass
-at those defaults."""
+at those defaults. The mesh keys (``parallel.mesh.{data,graph,tensor}``,
+``data.data_parallel``, the ``--data_parallel`` / ``--tensor_parallel``
+flags) are checked as JAX checks them, and a checkpoint crosses meshes as
+in JAX (the tensor degree must divide the saved hidden width)."""
 
 import glob
 import os
@@ -22,9 +25,6 @@ DATA_KEYS = ("backbone", "test_rot", "test_trans", "stream_shard_cache")
 
 # (dotted key, a value off the JAX default)
 UNPORTED = [("train.scan_epochs", True),
-            ("parallel.mesh.data", 2),
-            ("data.data_parallel", 2),
-            ("parallel.mesh.tensor", 2),
             ("log.wandb.enable", True),
             ("serve.donate", True)]
 
@@ -141,11 +141,129 @@ def test_ported_defaults_are_the_jax_defaults():
 def test_unported_key_off_its_default_raises_from_yaml(tmp_path):
     with open(SERVE) as f:
         raw = yaml.safe_load(f)
-    raw["parallel"] = {"mesh": {"data": 1, "graph": 1, "tensor": 4}}
-    path = tmp_path / "tp.yaml"
+    raw.setdefault("train", {})["scan_epochs"] = True
+    path = tmp_path / "scan.yaml"
     path.write_text(yaml.safe_dump(raw))
-    with pytest.raises(NotImplementedError, match=r"parallel\.mesh\.tensor"):
+    with pytest.raises(NotImplementedError, match=r"train\.scan_epochs"):
         load_config(str(path))
+
+
+NBODY = os.path.join(REPO, "configs", "nbody_fastegnn.yaml")
+
+# JAX's mesh checks (tests/test_tensor_parallel.py): (edits to
+# nbody_fastegnn.yaml, H=64; the error both packages raise, or None)
+MESH_CASES = {
+    "tensor_divides_hidden": ({"parallel": {"mesh": {"tensor": 2}}}, None),
+    "tensor_must_divide": ({"parallel": {"mesh": {"tensor": 3}}},
+                           "must divide"),
+    "unknown_key": ({"parallel": {"mesh": {"pipeline": 2}}}, "unknown key"),
+    "at_least_one": ({"parallel": {"mesh": {"data": 0}}}, ">= 1"),
+    "fastegnn_only": ({"parallel": {"mesh": {"tensor": 2}},
+                       "model": {"model_name": "EGNN"}}, "FastEGNN"),
+    "hoisted_phi_e": ({"parallel": {"mesh": {"tensor": 2}},
+                       "model": {"hoist_edge_mlp": False}}, "hoist_edge_mlp"),
+    "no_tanh": ({"parallel": {"mesh": {"tensor": 2}},
+                 "model": {"tanh": True}}, "tanh"),
+    "data_conflicts": ({"parallel": {"mesh": {"data": 2}},
+                        "data": {"data_parallel": 4}}, "conflicts"),
+    "data_agrees": ({"parallel": {"mesh": {"data": 2}},
+                     "data": {"data_parallel": 2}}, None),
+    "data_parallel": ({"data": {"data_parallel": 2}}, None),
+    "mesh_3d": ({"parallel": {"mesh": {"data": 2, "graph": 2,
+                                       "tensor": 4}}}, None),
+}
+
+
+def _merged(raw, edits):
+    for k, v in edits.items():
+        if isinstance(v, dict):
+            raw[k] = _merged(dict(raw.get(k) or {}), v)
+        else:
+            raw[k] = v
+    return raw
+
+
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_mesh_keys_are_checked_as_in_jax(tmp_path, case):
+    edits, error = MESH_CASES[case]
+    with open(NBODY) as f:
+        raw = _merged(yaml.safe_load(f), edits)
+    path = tmp_path / "mesh.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            jax_load_config(str(path))
+        with pytest.raises(ValueError, match=error):
+            load_config(str(path))
+        return
+    j, p = jax_load_config(str(path)), load_config(str(path))
+    assert dict(p.parallel.mesh) == dict(j.parallel.mesh)
+    assert p.data.data_parallel == j.data.data_parallel
+
+
+@pytest.mark.parametrize("flag, path", [
+    ("data_parallel", ("data", "data_parallel")),
+    ("tensor_parallel", ("parallel", "mesh", "tensor"))])
+def test_mesh_cli_flags_set_the_keys_as_in_jax(flag, path):
+    from distegnn_tpu_torch.config import build_arg_parser, cli_overrides
+
+    args = build_arg_parser().parse_args(["--config_path", NBODY,
+                                          f"--{flag}", "2"])
+    p = load_config(NBODY, cli_overrides(args))
+    j = jax_load_config(NBODY, overrides={flag: 2})
+    for node in (p, j):
+        for k in path:
+            node = node[k]
+        assert int(node) == 2
+
+
+def test_checkpoint_crosses_meshes_and_gates_the_tensor_degree(tmp_path,
+                                                               monkeypatch):
+    """Saved at 2 x 2 x 2: restores at 1 x 2 x 1 (a plain load, the
+    parameters equal, a ckpt/reshard event with both meshes, as JAX's
+    test_checkpoint_records_mesh_and_restores_across_meshes); a tensor
+    degree that does not divide the saved hidden width raises before any
+    state changes (JAX's test_restore_rejects_indivisible_tensor_degree)."""
+    import torch
+
+    from distegnn_tpu_torch.train import checkpoint as ckpt
+    from distegnn_tpu_torch.train.step import TrainState, make_optimizer
+
+    def cfg(d, g, t):
+        return {"parallel": {"mesh": {"data": d, "graph": g, "tensor": t}},
+                "model": {"hidden_nf": 16}}
+
+    def state(fill):
+        m = torch.nn.Linear(3, 2)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.fill_(fill)
+        return TrainState(m, make_optimizer(m.parameters(), 1e-3))
+
+    events = []
+    monkeypatch.setattr(ckpt.obs, "event",
+                        lambda name, **kw: events.append((name, kw)))
+    path = str(tmp_path / "last_model.ckpt")
+    ckpt.save_checkpoint(path, state(2.5), epoch=4, seed=7, step_in_epoch=2,
+                         config=cfg(2, 2, 2))
+    assert ckpt.verify_checkpoint(path)["mesh"] == {"data": 2, "graph": 2,
+                                                     "tensor": 2}
+    target = state(0.0)
+    r = ckpt.restore_for_resume(path, target, config=cfg(1, 2, 1))
+    assert (r.epoch, r.step_in_epoch, r.seed) == (4, 2, 7)
+    assert all(torch.equal(p, torch.full_like(p, 2.5))
+               for p in target.model.parameters())
+    reshard = [kw for name, kw in events if name == "ckpt/reshard"]
+    assert reshard == [{"saved": {"data": 2, "graph": 2, "tensor": 2},
+                        "target": {"data": 1, "graph": 2, "tensor": 1}}]
+    untouched = state(0.0)
+    with pytest.raises(ValueError, match="not divisible"):
+        ckpt.restore_for_resume(path, untouched, config=cfg(1, 2, 3))
+    assert all(torch.equal(p, torch.zeros_like(p))
+               for p in untouched.model.parameters())
+    with pytest.raises(ValueError, match="hidden_nf"):
+        ckpt.check_mesh_restore_compat({"config": {"model": {
+            "hidden_nf": 16}}}, config=cfg(1, 1, 5))
 
 
 def test_unported_keys_pass_at_their_jax_defaults():

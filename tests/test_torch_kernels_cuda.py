@@ -257,10 +257,101 @@ def test_fused_edge_fwd_fma_kernel_cases_on_card(Hn, dtype_name):
     assert torch.equal(out[1], ref[1])
 
 
+def _sliced_phi_x(w, hx):
+    """A tensor rank's phi_x weights: the first hx columns of w3, b3, w4."""
+    ws, b1, w2, b2, w3, b3, w4 = w
+    return [ws, b1, w2, b2] + [np.ascontiguousarray(a[:, :hx])
+                               for a in (w3, b3, w4)]
+
+
+# (H, phi_x width HX): the tensor axis at T = 2 and 4, every H of the
+# tensor-core and backward kernels, and an H of the FMA forwards only
+PHI_X_CASES = [(16, 8), (32, 16), (32, 8), (64, 32), (64, 16), (48, 24),
+               (48, 12), (128, 64), (128, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["bf16", "f32"])
+@pytest.mark.parametrize("Hn, hx", PHI_X_CASES)
+def test_fused_edge_kernels_at_a_sliced_phi_x_width_on_card(Hn, hx,
+                                                            dtype_name):
+    """w3 [H, HX], b3 and w4 [HX] (a tensor rank's slice, HX = H/2 or H/4):
+    the forward (the tensor-core kernel for bf16 at H in 16 / 32 / 64, the
+    bf16 FMA kernel at other H, the f32 kernel) and, at the backward's H,
+    the backward (the tensor-core kernel for bf16, the FMA kernel for f32),
+    each one launch counted at (H, HX), within 2^-7 of each output's scale
+    of its plain version (the bounds above), the edge count exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    row, col, ea, em, n, x, hr, hc, w, gt, ge = _bwd_case(Hn, 90 + Hn + hx)
+    dev = torch.device("cuda")
+    pa = [a.to(dev) for a in P.build_edge_blocks(*_t(row, col, ea, em),
+                                                  block=T, n_nodes=n)]
+    xd, hrd, hcd, gtd, ged = (a.to(dev) for a in _t(x, hr, hc, gt, ge))
+    dt = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    hrd, hcd = hrd.to(dt), hcd.to(dt)
+    wt = P.EdgeWeights(*[a.to(dev) for a in _t(*_sliced_phi_x(w, hx))])
+    fwd = P.fused_edge_layer.launch_widths[(Hn, hx)]
+    tc = P.fused_edge_layer.tc_launches
+    args = (xd, hrd, hcd, *pa, wt, T, dtype_name)
+    out = P._fused_edge_layer_cuda(*args)
+    torch.cuda.synchronize()
+    assert P.fused_edge_layer.launch_widths[(Hn, hx)] == fwd + 1
+    assert P.fused_edge_layer.tc_launches == tc + P.fwd_uses_tensor_cores(
+        Hn, dtype_name)
+    ref = P.fused_edge_layer_ref(*args)
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2 ** -7 * scale
+    assert torch.equal(out[1], ref[1])
+    if Hn not in (16, 32, 64):
+        return
+    bwd = P.fused_edge_layer.bwd_launch_widths[(Hn, hx)]
+    bargs = (xd, hrd, hcd, *pa, wt, gtd, ged, T, dtype_name)
+    out = P._fused_edge_bwd_cuda(*bargs)
+    torch.cuda.synchronize()
+    assert P.fused_edge_layer.bwd_launch_widths[(Hn, hx)] == bwd + 1
+    assert out[3].w3.shape == (Hn, hx) and out[3].w4.shape == (1, hx)
+    ref = P.fused_edge_layer_bwd_ref(*bargs)
+    for a, b in zip((*out[:3], *out[3]), (*ref[:3], *ref[3])):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert float((a - b).abs().max()) <= 2 ** -7 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_fused_edge_kernels_refuse_an_unsupported_phi_x_width_on_card(
+        kernel):
+    """w3 [64, 8] (H/8) or [64, 24] (not a divisor's slice): a ValueError
+    naming the widths the kernels take, and no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    row, col, ea, em, n, x, hr, hc, w, gt, ge = _bwd_case(64, 95)
+    dev = torch.device("cuda")
+    pa = [a.to(dev) for a in P.build_edge_blocks(*_t(row, col, ea, em),
+                                                  block=T, n_nodes=n)]
+    xd, hrd, hcd, gtd, ged = (a.to(dev) for a in _t(x, hr, hc, gt, ge))
+    hrd, hcd = hrd.to(torch.bfloat16), hcd.to(torch.bfloat16)
+    before = (P.fused_edge_layer.launches, P.fused_edge_layer.bwd_launches)
+    for hx in (8, 24):
+        wt = P.EdgeWeights(*[a.to(dev) for a in _t(*_sliced_phi_x(w, hx))])
+        with pytest.raises(ValueError, match=r"HX in \(64, 32, 16\)"):
+            if kernel == "fwd":
+                P._fused_edge_layer_cuda(xd, hrd, hcd, *pa, wt, T, "bf16")
+            else:
+                P._fused_edge_bwd_cuda(xd, hrd, hcd, *pa, wt, gtd, ged, T,
+                                       "bf16")
+    assert (P.fused_edge_layer.launches,
+            P.fused_edge_layer.bwd_launches) == before
+
+
 @pytest.mark.cuda
 def test_fused_edge_fwd_tc_kernel_is_built_on_hmma_on_card():
-    """The built library's SASS of fused_edge_fwd_tc_kernel<64> holds HMMA
-    (tensor-core) instructions."""
+    """The built library's SASS of fused_edge_fwd_tc_kernel<64, HX> holds
+    HMMA (tensor-core) instructions at every phi_x width HX."""
     import os
     import shutil
     import subprocess
@@ -276,18 +367,19 @@ def test_fused_edge_fwd_tc_kernel_is_built_on_hmma_on_card():
     lib = build._build("fused_edge_fwd")[0]
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    # one section per kernel, headed by its mangled name
+    # one section per kernel, headed by its mangled name: at H = 64 one an
+    # phi_x width HX (64, 32, 16)
     tc = [f for f in sass.split("Function : ")[1:]
           if "fused_edge_fwd_tc_kernelILi64E" in f.split()[0]]
-    assert len(tc) == 1
-    assert "HMMA" in tc[0]
+    assert len(tc) == 3
+    assert all("HMMA" in f for f in tc)
 
 
 @pytest.mark.cuda
 def test_fused_edge_fwd_f32_kernel_is_built_on_ffma_on_card():
-    """The built library's SASS of fused_edge_fwd_f32_kernel<64> holds FFMA
-    (CUDA-core f32 FMA) instructions and no HMMA: its products stay in
-    f32, not TF32."""
+    """The built library's SASS of fused_edge_fwd_f32_kernel<64, HX> holds
+    FFMA (CUDA-core f32 FMA) instructions and no HMMA at every phi_x width
+    HX: its products stay in f32, not TF32."""
     import os
     import shutil
     import subprocess
@@ -305,10 +397,10 @@ def test_fused_edge_fwd_f32_kernel_is_built_on_ffma_on_card():
                           text=True, check=True).stdout
     f32 = [f for f in sass.split("Function : ")[1:]
            if "fused_edge_fwd_f32_kernelILi64E" in f.split()[0]]
-    assert len(f32) == 1
+    assert len(f32) == 3      # one a phi_x width HX (64, 32, 16)
     # a k step of one product is 8 edges x 4 columns = 32 FMAs a thread
-    assert f32[0].count("FFMA") >= 4 * 32
-    assert "HMMA" not in f32[0]
+    assert all(f.count("FFMA") >= 4 * 32 for f in f32)
+    assert not any("HMMA" in f for f in f32)
 
 
 # ------------------------------------------------------------ prefix scan
