@@ -287,6 +287,28 @@ or of the JAX package. Phases (any failure exits nonzero):
      with MMD off against data 1 at batch 2B at phase 9's bounds. Printed:
      micro-step ms, the all-reduce and all-gather counts with their host
      seconds, the phase's time.
+  17. the scanned epoch (train/scan_epoch.py: the epoch on staged device
+     data, the micro-step replayed from CUDA graphs). (a) cell (d)
+     (phase 5's config and clouds, 2 epochs) twice eagerly and once
+     scanned through main.run: the scanned losses and parameters within
+     2x the eager runs' own distance (floor 1e-6 of scale), each captured
+     micro-step 8 forward + 4 backward launches and the replayed launches
+     (captured x replays) equal to the eager counts; the micro-step ms
+     eagerly and replayed, the capture ms, the graph pool's bytes and the
+     device idle share of one scanned epoch. (d) restore_state under the
+     live runner: an eager epoch from a snapshot, the snapshot restored, a
+     scanned epoch from it, within (a)'s bound. (b) configs/
+     nbody_fastegnn.yaml as published under train.scan_epochs 'auto' (it
+     must scan), then + model.segment_impl cumsum and FastSchNet +
+     phase 15 (p)'s one-hot kernels, each scanned once and run twice
+     eagerly (launches equal, within (a)'s kind of bound). (c) cell (g)
+     the same way. Each of these bounds must sit below what the eager
+     run moved the parameters. (e) configs/simulation_distegnn.yaml at
+     parallel.mesh {data 1, graph 2} over gloo, 2 epochs (one update),
+     the eager loop on the staged loaders (no capture) against it on the
+     loaders: parameters within 1e-6 of scale, below the update's move,
+     and the best losses within 1e-6. Phases 5-11, 15 and 16 set
+     train.scan_epochs: false and print it.
 
 Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
 loader's first pass) with the native library and with the numpy layout.
@@ -310,6 +332,7 @@ nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 import collections
 import contextlib
+import copy
 import json
 import math
 import os
@@ -344,6 +367,9 @@ TOL_PLAIN = 1e-4
 # accumulation, TRAIN_EPOCHS epochs with one evaluation at the end
 FLUID_N, FLUID_RADIUS, FLUID_DEGREE = 113140, 0.075, 15
 TRAIN_EPOCHS = 2
+# the phases that time or probe single micro-steps (5-11, 15, 16) run the
+# eager loop; phase 17 scans (train/scan_epoch.py)
+EAGER = {"train.scan_epochs": False}
 TRAIN_TIMED = 6
 # kernels vs plain versions over one optimizer update of the bf16 model:
 # relative error of each micro-step loss (with and without MMD), of the
@@ -856,6 +882,12 @@ def fluid_cloud(seed, n=FLUID_N):
         "edge_attr": np.repeat(d[:, None], 2, axis=1).astype(np.float32)}
 
 
+def print_mode(label, cfg):
+    """The train loop a phase runs: ``train.scan_epochs`` (EAGER's false,
+    the eager loop)."""
+    print(f"{label}train.scan_epochs: {cfg.train.scan_epochs}")
+
+
 def fused_counts():
     from distegnn_tpu_torch.ops import edge_pipeline as ep
 
@@ -1174,6 +1206,7 @@ def drive_train(cfg, ds, dev, reset_counts, read_counts, label):
         marks.append((epoch, step, time.perf_counter(),
                       float(metrics["loss_with_mmd"])))
 
+    print_mode(label, cfg)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -1264,7 +1297,7 @@ def _train_phase(root, dev, clouds, log_dir, profile):
     cfg = load_config(
         os.path.join(root, "configs", "largefluid_distegnn.yaml"),
         {"model.edge_impl": "fused", "data.edge_block": BLOCK,
-         "data.accelerate_mode": "cutoff_edges",
+         "data.accelerate_mode": "cutoff_edges", **EAGER,
          "train.epochs": TRAIN_EPOCHS, "log.test_interval": TRAIN_EPOCHS,
          "log.log_dir": log_dir})
     m = cfg.model
@@ -1515,7 +1548,7 @@ def _plain_train_phase(root, dev, clouds, e_train, log_dir, profile):
                "log.test_interval": TRAIN_EPOCHS, "log.log_dir": log_dir}
     ov = {"data.accelerate_mode": "cutoff_edges",
           "model.segment_impl": "cumsum"}
-    cfg = load_config(path, {**ov, **run_len})
+    cfg = load_config(path, {**ov, **run_len, **EAGER})
     m, d = cfg.model, cfg.data
     print(f"plain train config: edge_impl={m.edge_impl} segment_impl="
           f"{m.segment_impl} edge_block={d.edge_block} "
@@ -1967,7 +2000,7 @@ def _stack_train_phase(root, dev, clouds, log_dir, profile):
     path = os.path.join(root, "configs", "fluid_fused_stack.yaml")
     run_len = {"train.epochs": TRAIN_EPOCHS,
                "log.test_interval": TRAIN_EPOCHS, "log.log_dir": log_dir}
-    cfg = load_config(path, run_len)
+    cfg = load_config(path, {**run_len, **EAGER})
     m, d = cfg.model, cfg.data
     print(f"stack train config: edge_impl={m.edge_impl} H={m.hidden_nf} "
           f"L={m.n_layers} C={m.virtual_channels} node_feat_nf="
@@ -2601,7 +2634,7 @@ def _blocked_train_phase(root, dev, clouds, log_dir, profile):
                "log.test_interval": TRAIN_EPOCHS, "log.log_dir": log_dir}
     ov = {"data.edge_block": RB_BLOCK, "data.accelerate_mode": "cutoff_edges",
           "model.blocked_impl": "pallas"}
-    cfg = load_config(path, {**ov, **run_len})
+    cfg = load_config(path, {**ov, **run_len, **EAGER})
     m, d = cfg.model, cfg.data
     print(f"blocked train config: edge_impl={m.edge_impl} blocked_impl="
           f"{m.blocked_impl} edge_block={d.edge_block} node_order="
@@ -3086,7 +3119,7 @@ def dist_phase(root, dev, clouds):
     flagship = os.path.join(root, "configs", "largefluid_distegnn.yaml")
     with phase_tmp("chip_smoke_dist_") as tmp:
         cfg = load_config(flagship, {
-            "data.world_size": DIST_WS, "train.epochs": DIST_EPOCHS,
+            "data.world_size": DIST_WS, "train.epochs": DIST_EPOCHS, **EAGER,
             "log.log_dir": os.path.join(tmp, "logs")})
         d, m = cfg.data, cfg.model
         print(f"dist config: {d.accelerate_mode} split_mode={d.split_mode} "
@@ -3129,6 +3162,7 @@ def dist_j1(cfg, paths, dev, tmp, n_real):
     probe_dir = os.path.join(tmp, "probe_j1")
     os.makedirs(probe_dir)
     t0 = time.perf_counter()
+    print_mode("phase 9 (j1) ", cfg)
     best = run_distributed(copy.deepcopy(cfg), split_paths=paths, device=dev,
                            on_step=StepProbe(probe_dir))
     print(f"(j1) run_distributed: {DIST_WS} ranks x {DIST_EPOCHS} epochs in "
@@ -3159,8 +3193,8 @@ def dist_checks(flagship, paths, dev, tmp):
     from distegnn_tpu_torch.models.registry import get_model
 
     def cfg_of(over):
-        return load_config(flagship, dict({"data.world_size": DIST_WS},
-                                          **over))
+        return load_config(flagship, dict({"data.world_size": DIST_WS,
+                                           **EAGER}, **over))
 
     cfgs = {"j1": cfg_of({}), "union": cfg_of({"train.mmd.weight": 0.0}),
             "fused": cfg_of({"model.edge_impl": "fused",
@@ -3245,12 +3279,13 @@ def dist_j2(flagship, paths, dev, tmp, n_real, res, L):
     from distegnn_tpu_torch.parallel.launch import run_distributed
 
     cfg2 = load_config(flagship, {
-        "data.world_size": DIST_WS, "model.edge_impl": "fused",
+        "data.world_size": DIST_WS, "model.edge_impl": "fused", **EAGER,
         "data.edge_block": BLOCK, "train.epochs": 1,
         "log.log_dir": os.path.join(tmp, "logs")})
     probe_dir = os.path.join(tmp, "probe_j2")
     os.makedirs(probe_dir)
     t0 = time.perf_counter()
+    print_mode("phase 9 (j2) ", cfg2)
     run_distributed(cfg2, split_paths=paths, device=dev,
                     on_step=StepProbe(probe_dir))
     rows2 = read_probe(probe_dir, DIST_WS)
@@ -3313,7 +3348,7 @@ def dist_j0(flagship, clouds, dev, tmp, n_real):
     from distegnn_tpu_torch.parallel.mesh import backend_for
 
     cfg0 = derive_runtime_fields(load_config(
-        flagship, {"train.epochs": 1,
+        flagship, {"train.epochs": 1, **EAGER,
                    "log.log_dir": os.path.join(tmp, "logs")}))
     ws0 = cfg0.data.world_size
     check(ws0 == max(1, torch.cuda.device_count()),
@@ -3340,6 +3375,7 @@ def dist_j0(flagship, clouds, dev, tmp, n_real):
     all_reduce.counts.clear()
     all_reduce.seconds.clear()
     t0 = time.perf_counter()
+    print_mode("phase 9 (j0) ", cfg0)
     run_distributed(cfg0, split_paths=paths1, device=dev,
                     on_step=StepProbe(probe_dir))
     print(f"(j0) run_distributed at world size {ws0} (derived: "
@@ -3463,7 +3499,7 @@ def _preempt_phase(root, dev, clouds, tmp):
               "log.log_dir": os.path.join(tmp, log_dir),
               "log.exp_name": name}
         ov.update(over)
-        return load_config(flagship, ov)
+        return load_config(flagship, {**ov, **EAGER})
 
     ds = fluid_datasets(clouds, "none")
 
@@ -3471,6 +3507,7 @@ def _preempt_phase(root, dev, clouds, tmp):
         probe = PreemptProbe(kill_at)
         reset_fused_counts()
         t0 = time.perf_counter()
+        print_mode("phase 10 ", cfg)
         state, best, _ = pmain.run(cfg, *ds, device=dev, on_step=probe)
         wall = time.perf_counter() - t0
         counts = (ep.fused_edge_layer.launches,
@@ -3843,7 +3880,7 @@ def water3d_cutoff_phase(root, dev, data_dir, tmp):
     path = os.path.join(root, "configs", "water3d_fastegnn.yaml")
     over = {"data.data_dir": data_dir, "data.max_samples": W3D_SAMPLES,
             "train.epochs": 2, "log.log_dir": os.path.join(tmp, "logs")}
-    cfg = load_config(path, over)
+    cfg = load_config(path, {**over, **EAGER})
     print_cuts("(a) ", cfg, over)
     files, prep_ms = timed_preprocess(
         "(a) ", lambda: process_dataset_edge_cutoff(cfg.data, seed=cfg.seed),
@@ -3870,7 +3907,7 @@ def water3d_cutoff_phase(root, dev, data_dir, tmp):
 
     over_b = dict(over, **{"model.edge_impl": "fused",
                            "data.edge_block": BLOCK, "train.epochs": 1})
-    cfg_b = load_config(path, over_b)
+    cfg_b = load_config(path, {**over_b, **EAGER})
     print_cuts("(b) ", cfg_b, over_b)
     ds = datasets()
     init_sd, state, (fwd, bwd, f32), micro, evals = drive_train(
@@ -3999,7 +4036,7 @@ def water3d_dist_phase(root, dev, data_dir, tmp):
     over = {"data.data_dir": data_dir, "data.world_size": DIST_WS,
             "data.max_samples": W3D_DIST_SAMPLES, "train.epochs": 2,
             "log.log_dir": os.path.join(tmp, "logs")}
-    cfg = load_config(path, over)
+    cfg = load_config(path, {**over, **EAGER})
     print_cuts("(c) ", cfg, over)
     d = cfg.data
     print(f"(c) split_mode {d.split_mode} outer/inner radius "
@@ -4022,6 +4059,7 @@ def water3d_dist_phase(root, dev, data_dir, tmp):
     probe_dir = os.path.join(tmp, "probe_c")
     os.makedirs(probe_dir)
     t0 = time.perf_counter()
+    print_mode("phase 11 (c) ", cfg)
     best = run_distributed(copy.deepcopy(cfg), split_paths=paths, device=dev,
                            on_step=StepProbe(probe_dir))
     print(f"(c) run_distributed: {DIST_WS} ranks x {cfg.train.epochs} "
@@ -4111,7 +4149,7 @@ def protein_phase(root, dev, data_dir, tmp):
     path = os.path.join(root, "configs", "protein_fastegnn.yaml")
     over = {"data.data_dir": data_dir, "data.max_samples": ADK_SAMPLES,
             "train.epochs": 2, "log.log_dir": os.path.join(tmp, "logs")}
-    cfg = load_config(path, over)
+    cfg = load_config(path, {**over, **EAGER})
     print_cuts("(d) ", cfg, over)
     files, prep_ms = timed_preprocess(
         "(d) ", lambda: process_dataset_edge_cutoff(cfg.data, seed=cfg.seed),
@@ -5814,7 +5852,8 @@ def _family_phase(root, dev, tmp):
     for name in FAMILIES:
         B = FAM_BATCH.get(name, d0.batch_size)
         label = f"15a {name} B={B}: "
-        cfg = load_config(path, {**run_len, "model.model_name": name,
+        cfg = load_config(path, {**run_len, **EAGER,
+                                 "model.model_name": name,
                                  "data.batch_size": B})
         ds = datasets(B)
         init_sd, state, _, micro, evals = drive_train(
@@ -5839,7 +5878,7 @@ def _family_phase(root, dev, tmp):
         label = f"15b {name} blocked: "
         ov = {**run_len, "model.model_name": name,
               "data.edge_block": RB_BLOCK, "model.blocked_impl": "pallas"}
-        cfg = load_config(path, ov)
+        cfg = load_config(path, {**ov, **EAGER})
         ds = datasets(cfg.data.batch_size)
 
         def read():
@@ -5893,7 +5932,7 @@ def _family_phase(root, dev, tmp):
         label = f"15c {name} cumsum: "
         ov = {**run_len, "model.model_name": name,
               "model.segment_impl": "cumsum"}
-        cfg = load_config(path, ov)
+        cfg = load_config(path, {**ov, **EAGER})
         ds = datasets(cfg.data.batch_size)
 
         def read():
@@ -6374,7 +6413,7 @@ def _mesh_phase(root, dev, cloud, part4, tmp):
     over = dict(mesh_over, **{"model.edge_impl": "fused",
                               "data.edge_block": BLOCK, "train.epochs": 1,
                               "log.log_dir": os.path.join(tmp, "logs")})
-    cfg = load_config(flagship, over)
+    cfg = load_config(flagship, {**over, **EAGER})
     m, t = cfg.model, cfg.train
     micro = t.accumulation_steps
     paths, split_ms = write_mesh_shards(cfg, cloud, os.path.join(tmp, "ws2"),
@@ -6407,6 +6446,7 @@ def _mesh_phase(root, dev, cloud, part4, tmp):
     os.makedirs(probe_dir)
     ucfg = load_config(flagship, dict(over, **{"train.mmd.weight": 0.0}))
     t0 = time.perf_counter()
+    print_mode("phase 16 (a) ", cfg)
     run_distributed(copy.deepcopy(cfg), split_paths=paths, device=dev,
                     on_step=MeshProbe(probe_dir, micro, MESH_TP,
                                       {"tp": ucfg}, paths))
@@ -6470,7 +6510,7 @@ def _mesh_phase(root, dev, cloud, part4, tmp):
              "parallel.mesh.graph": MESH_DP[1],
              "data.max_samples": W3D_DIST_SAMPLES, "train.epochs": 1,
              "log.log_dir": os.path.join(tmp, "logs_c")}
-    dcfg = load_config(path, cover)
+    dcfg = load_config(path, {**cover, **EAGER})
     print_cuts("(c) ", dcfg, cover)
     dpaths, _ = timed_preprocess(
         "(c) ", lambda: _dispatch_preprocess(dcfg, MESH_DP[1]),
@@ -6487,6 +6527,7 @@ def _mesh_phase(root, dev, cloud, part4, tmp):
     probe_dir = os.path.join(tmp, "probe_c")
     os.makedirs(probe_dir)
     t0 = time.perf_counter()
+    print_mode("phase 16 (c) ", dcfg)
     run_distributed(copy.deepcopy(dcfg), split_paths=dpaths, device=dev,
                     on_step=MeshProbe(probe_dir, micro_c, MESH_DP,
                                       {"dp": ccfg, "dp1": c1}, dpaths))
@@ -6549,6 +6590,462 @@ def mesh_rows(mesh, row):
                        FWD_TPU if "fwd" in kernel else BWD_TPU, n,
                        source="fused_edge_bwd" if kernel == "fused_edge_bwd"
                        else "fused_edge_fwd"))
+    return out
+
+
+# ------------------------------------------------ phase 17: the scanned epoch
+SCAN_EPOCHS = 2
+SCAN_FLOOR = 1e-6       # of the parameters' (or the loss's) scale
+SCAN_NBODY = (500, 250, 250)   # phase 15's trajectories: 2 micro-steps
+
+
+def reset_all_counts():
+    """Every kernel's launch counters to 0."""
+    from distegnn_tpu_torch.ops import layer_pipeline as lp
+
+    reset_fused_counts()
+    reset_scan_counts()
+    reset_blocked_counts()
+    lp.fused_egnn_stack.launches = 0
+
+
+def scan_runs(cfg, ds, dev, modes, label, keep=False):
+    """``main.run`` of ``cfg`` once per ``train.scan_epochs`` value in
+    ``modes``, every count set to 0 just before each and read just after.
+    Returns one dict a run: the parameters (CPU) at the start and the end,
+    the log, the counts, the replayed launches and, with ``keep``, the
+    trainer's state and the runner main built (None: eager); else both
+    go, with the runner's graph pool, before the next run."""
+    import gc
+
+    import torch
+
+    from distegnn_tpu_torch import main as pmain
+    from distegnn_tpu_torch.train.scan_epoch import _launch_counts
+
+    real, real_train = pmain.make_scan_runner, pmain.train_model
+    out = []
+    for mode in modes:
+        built, init = [], []
+
+        def grab(*a, **kw):
+            r, loaders = real(*a, **kw)
+            built.append(r)
+            return r, loaders
+
+        def grab_init(config, model, *a, **kw):
+            init.append(cpu_params(model))
+            return real_train(config, model, *a, **kw)
+
+        c = copy.deepcopy(cfg)
+        c.train.scan_epochs = mode
+        reset_all_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(pmain, "make_scan_runner", grab), \
+                mock.patch.object(pmain, "train_model", grab_init):
+            state, _, log = pmain.run(c, *ds, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _launch_counts().items() if v}
+        runner = built[0] if built else None
+        params = cpu_params(state.model)
+        check(all(math.isfinite(v) for v in log["loss_train"] + log["loss"]),
+              f"{label}scan_epochs={mode}: non-finite epoch loss")
+        replayed = runner.launches() if runner is not None else {}
+        print(f"{label}scan_epochs={mode}: runner "
+              f"{type(runner).__name__ if runner else None}, {wall:.1f} s; "
+              f"loss_train {log['loss_train']} test {log['loss']}; counts "
+              f"{counts}; replayed {replayed}")
+        out.append(dict(params=params, init=init[0], log=log, counts=counts,
+                        replayed=replayed, mode=mode,
+                        captured=getattr(runner, "captured", None),
+                        state=state if keep else None,
+                        runner=runner if keep else None,
+                        runner_kind=type(runner).__name__ if runner else None))
+        del state, runner, built
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cpu_params(model):
+    """A CPU copy of ``model``'s state_dict."""
+    return {k: v.detach().cpu().clone()
+            for k, v in model.state_dict().items()}
+
+
+def param_distance(a, b):
+    """max |a - b| over two state_dicts' tensors."""
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def scan_distance(a, b):
+    """(max |parameter difference|, max over the epoch losses of the
+    absolute difference) between two scan_runs results."""
+    dp = param_distance(a["params"], b["params"])
+    la = a["log"]["loss_train"] + a["log"]["loss"]
+    lb = b["log"]["loss_train"] + b["log"]["loss"]
+    return dp, max(abs(x - y) for x, y in zip(la, lb))
+
+
+def scan_agrees(label, scanned, eager, eager2):
+    """The scanned run against the eager one within 2x the two eager
+    runs' own distance (floor SCAN_FLOOR of the scale), the parameter
+    bound below what the eager run moved the parameters (so a run whose
+    updates never landed cannot pass). Returns the (parameter, loss)
+    bounds."""
+    scale = max(float(v.abs().max()) for v in eager["params"].values())
+    lscale = max(abs(v) for v in eager["log"]["loss_train"]
+                 + eager["log"]["loss"])
+    dp, dl = scan_distance(scanned, eager)
+    ep, el = scan_distance(eager, eager2)
+    bp, bl = max(2 * ep, SCAN_FLOOR * scale), max(2 * el,
+                                                  SCAN_FLOOR * lscale)
+    moved = param_distance(eager["params"], eager["init"])
+    print(f"{label}scanned vs eager: parameters max abs diff {dp:.3e}, "
+          f"losses {dl:.3e}; eager vs eager {ep:.3e} / {el:.3e}, bounds 2x "
+          f"(floor {SCAN_FLOOR:.0e} of scale {scale:.3e} / {lscale:.3e}) = "
+          f"{bp:.3e} / {bl:.3e}; the eager run moved the parameters "
+          f"{moved:.3e}")
+    check(dp <= bp and dl <= bl,
+          f"{label}the scanned run disagrees with the eager loop")
+    check(bp < moved, f"{label}the parameter bound {bp:.3e} is not below "
+          f"the run's move {moved:.3e}")
+    return bp, bl
+
+
+def replay_agrees(label, scanned, eager):
+    """The replayed launches equal the eager run's counted ones (per
+    kernel counter, eval forwards included)."""
+    want = eager["counts"]
+    got = scanned["replayed"]
+    print(f"{label}launches replayed {got} vs eager {want}")
+    check(got == want, f"{label}replayed launches {got} != eager {want}")
+
+
+def scan_times(label, runner, state, epoch):
+    """The micro-step ms eagerly (the runner's own train step on a staged
+    batch) and replayed (one scanned epoch over its steps), both
+    synchronised, on the runner's state; the capture ms and the pool's
+    bytes; the device's busy / idle share of one more scanned epoch under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from distegnn_tpu_torch.train.scan_epoch import pick
+    from distegnn_tpu_torch.train.step import step_generator
+
+    sp = runner.train
+    S = runner.num_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.train_epoch(state, epoch)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / S
+    batch = pick(sp.data, sp.perm[0])
+    ms = []
+    for i in range(S):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.train_step(state, batch, step_generator(
+            runner.seed, epoch, i, runner.device))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    eager_ms = sorted(ms)[len(ms) // 2]
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.train_epoch(state, epoch + 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    out = dict(eager_ms=eager_ms, replay_ms=replay_ms,
+               capture_ms=runner.capture_ms, pool_bytes=runner.pool_bytes,
+               idle=1 - busy / wall if busy > 0 else None, busy_ms=busy,
+               wall_ms=wall)
+    idle = ("not measured (the profiler saw no device time in the "
+            "replays)" if out["idle"] is None else
+            f"{out['idle']:.4f} (device {busy:.3f} ms of {wall:.3f} ms)")
+    print(f"{label}micro-step ms: eager {eager_ms:.3f} (median of {S}), "
+          f"replayed {replay_ms:.3f} (one scanned epoch of {S}); capture "
+          f"{runner.capture_ms:.1f} ms, graph pool {runner.pool_bytes} "
+          f"bytes; device idle share of one scanned epoch {idle}")
+    return out
+
+
+def scan_epoch_phase(root, dev, clouds, stack_clouds):
+    """Phase 17: the scanned epoch on the card (train/scan_epoch.py), each
+    run against the eager loop from the same seed: (a) cell (d) twice
+    eagerly and once scanned, within 2x the eager runs' distance, the
+    replayed launches equal to the eager counts, micro-step ms both ways;
+    (b) configs/nbody_fastegnn.yaml under 'auto' (scans), with
+    segment_impl cumsum, and FastSchNet on the one-hot kernels (15 (p));
+    (c) cell (g)'s stack training; (d) restore_state under a live runner,
+    then a scanned epoch against an eager one from the same snapshot; (e)
+    (u)'s config at {data 1, graph 2} over gloo, the eager loop on the
+    staged loaders (no capture) against it on the loaders, parameters
+    and best losses. Every scanned run's parameter bound sits below what
+    the run moved the parameters. Files and logs in a temporary
+    directory."""
+    with phase_tmp("chip_smoke_scan_") as tmp:
+        return _scan_epoch_phase(root, dev, clouds, stack_clouds, tmp)
+
+
+def _scan_epoch_phase(root, dev, clouds, stack_clouds, tmp):
+    import gc
+
+    import torch
+
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.data.loader import GraphDataset
+    from distegnn_tpu_torch.data.nbody_sim import generate_nbody_files
+    from distegnn_tpu_torch.main import (make_loaders,
+                                         process_dataset_edge_cutoff)
+    from distegnn_tpu_torch.parallel.launch import (_dispatch_preprocess,
+                                                    run_distributed)
+    from distegnn_tpu_torch.models.registry import get_model
+    from distegnn_tpu_torch.parallel.mesh import GRAPH_AXIS
+    from distegnn_tpu_torch.train.checkpoint import verify_checkpoint
+    from distegnn_tpu_torch.train.trainer import (restore_state, run_dir,
+                                                  run_epoch_train,
+                                                  snapshot_state)
+
+    t_phase = t_part = time.perf_counter()
+    res, parts = {}, {}
+    logs = os.path.join(tmp, "logs")
+    run_len = {"train.epochs": SCAN_EPOCHS,
+               "log.test_interval": SCAN_EPOCHS, "log.log_dir": logs}
+
+    # (a) cell (d): the flagship + the fused kernels, full width
+    cfg = load_config(os.path.join(root, "configs",
+                                   "largefluid_distegnn.yaml"),
+                      {"model.edge_impl": "fused", "data.edge_block": BLOCK,
+                       "data.accelerate_mode": "cutoff_edges", **run_len})
+    m = cfg.model
+    print(f"17a cell (d): H={m.hidden_nf} L={m.n_layers} "
+          f"C={m.virtual_channels} {m.compute_dtype} remat={m.remat} MMD "
+          f"{cfg.train.mmd.weight} accumulation "
+          f"{cfg.train.accumulation_steps}, {SCAN_EPOCHS} epochs on "
+          f"{len(clouds)} clouds of {FLUID_N} nodes")
+    ds = fluid_datasets(clouds, cfg.data.node_order)
+    e1, e2, sc = scan_runs(cfg, ds, dev, (False, False, True), "17a ",
+                           keep=True)
+    runner = sc["runner"]
+    check(type(runner).__name__ == "ScanEpochRunner"
+          and runner.graphs is not None, "17a: no captured runner")
+    L = m.n_layers
+    per = {"fused_edge_fwd": 2 * L, "fused_edge_bwd": L,
+           "fused_edge_fwd_tc": 2 * L}
+    print(f"17a captured launches by graph: {runner.captured} (a micro-step "
+          f"{per}); replays {dict(runner.replays)}")
+    check(runner.captured["update"] == per
+          and runner.captured["accumulate"] == per,
+          f"17a: a captured micro-step holds {runner.captured}, not {per}")
+    replay_agrees("17a ", sc, e1)
+    bp, _ = scan_agrees("17a ", sc, e1, e2)
+    res["a"] = dict(replayed=sc["replayed"], captured=runner.captured)
+    res["a"].update(scan_times("17a ", runner, sc["state"], SCAN_EPOCHS + 1))
+
+    parts["a"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (d) restore_state under the live runner: an eager epoch from a
+    # snapshot, the snapshot restored, then a scanned epoch from it (a
+    # capture still pointing at replaced tensors would train on others)
+    state = sc["state"]
+    snap = snapshot_state(state)
+    state, _ = run_epoch_train(runner.train_step, state,
+                               runner.loader, cfg.seed, SCAN_EPOCHS + 3, dev)
+    eager = {k: v.detach().cpu().clone()
+             for k, v in state.model.state_dict().items()}
+    restore_state(state, snap)
+    state, _ = runner.train_epoch(state, SCAN_EPOCHS + 3)
+    scanned = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+    moved = max(float((scanned[k] - snap["model"][k].cpu()).abs().max())
+                for k in scanned)
+    dd = max(float((scanned[k] - eager[k]).abs().max()) for k in scanned)
+    print(f"17d restore_state under a live runner, then epoch "
+          f"{SCAN_EPOCHS + 3}: scanned vs eager parameters max abs diff "
+          f"{dd:.3e} (bound {bp:.3e}, 17a's); the epoch moved them "
+          f"{moved:.3e}")
+    check(dd <= bp and moved > bp,
+          "17d: the scanned epoch after a restore disagrees with the eager "
+          "one (a stale capture trains on the old values)")
+    del e1, e2, sc, state, runner, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    parts["d"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (b) n-body as published under 'auto'; cumsum; FastSchNet blocked
+    path = os.path.join(root, "configs", "nbody_fastegnn.yaml")
+    base = load_config(path)
+    data_dir = os.path.join(tmp, "data")
+    n_tr, n_va, n_te = SCAN_NBODY
+    t0 = time.perf_counter()
+    generate_nbody_files(os.path.join(data_dir, base.data.dataset_name),
+                         n_isolated=100, num_train=n_tr, num_valid=n_va,
+                         num_test=n_te, length=(base.data.frame_T + 1) * 100,
+                         sample_freq=100, seed=43, device=dev)
+    nb_len = {"data.data_dir": data_dir, "train.epochs": 1,
+              "log.test_interval": 1, "log.log_dir": logs}
+    files = process_dataset_edge_cutoff(load_config(path, nb_len).data,
+                                        seed=base.seed)
+    nds = [GraphDataset(f) for f in files]
+    print(f"17b n-body: {n_tr}/{n_va}/{n_te} systems in "
+          f"{time.perf_counter() - t0:.1f} s, batch {base.data.batch_size}")
+    auto, ea, ea2 = scan_runs(load_config(path, nb_len), nds, dev,
+                              ("auto", False, False), "17b as published ")
+    check(auto["runner_kind"] == "ScanEpochRunner",
+          "17b: 'auto' did not scan the published n-body config on the card")
+    scan_agrees("17b as published ", auto, ea, ea2)
+    del ea, ea2
+    res["b"] = {}
+    for key, ov in (("cumsum", {"model.segment_impl": "cumsum"}),
+                    ("FastSchNet blocked", {
+                        "model.model_name": "FastSchNet",
+                        "data.edge_block": RB_BLOCK,
+                        "model.blocked_impl": "pallas"})):
+        label = f"17b {key} "
+        sc, ea, ea2 = scan_runs(load_config(path, {**nb_len, **ov}), nds,
+                                dev, (True, False, False), label)
+        replay_agrees(label, sc, ea)
+        scan_agrees(label, sc, ea, ea2)
+        res["b"][key] = sc["replayed"]
+        del sc, ea, ea2
+    # the scan at the cumsum batch's widest width, [B, E, H + 4] f32
+    ld = make_loaders(load_config(path, {**nb_len,
+                                         "model.segment_impl": "cumsum"}),
+                      *nds)[0]
+    res["scan_row"] = scan_row(dev, torch.Generator(device=dev).manual_seed(
+        17), ld.batch_size, ld.max_edges, HIDDEN + 4, label="17b ")
+    del auto, nds, ld
+    torch.cuda.empty_cache()
+
+    parts["b"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (c) cell (g): the stack, its backward's per-layer kernels
+    cfg = load_config(os.path.join(root, "configs", "fluid_fused_stack.yaml"),
+                      run_len)
+    sds = fluid_datasets(stack_clouds, cfg.data.node_order)
+    sc, ea, ea2 = scan_runs(cfg, sds, dev, (True, False, False), "17c ",
+                            keep=True)
+    replay_agrees("17c ", sc, ea)
+    scan_agrees("17c ", sc, ea, ea2)
+    res["c"] = dict(replayed=sc["replayed"])
+    res["c"].update(scan_times("17c ", sc["runner"], sc["state"],
+                               SCAN_EPOCHS + 1))
+    del sc, ea, ea2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    parts["c"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (e) (u)'s config at {data 1, graph 2} over gloo: the eager loop on
+    # the staged loaders (no capture) against it on the rank's loaders; 2
+    # epochs of 2 micro-steps, so that accumulation 4 updates once
+    data_dir = write_water3d(os.path.join(tmp, "simulate"), 17)
+    wpath = os.path.join(root, "configs", "simulation_distegnn.yaml")
+    over = {"data.data_dir": data_dir, "parallel.mesh.data": 1,
+            "parallel.mesh.graph": 2, "data.max_samples": W3D_DIST_SAMPLES,
+            "train.epochs": 2, "log.test_interval": 2}
+    wcfg = load_config(wpath, over)
+    paths = _dispatch_preprocess(wcfg, 2)
+    best, params, res["e"] = {}, {}, {}
+    for mode in (False, True):
+        c = load_config(wpath, {**over, "train.scan_epochs": mode,
+                                "log.log_dir": os.path.join(tmp, f"w{mode}")})
+        t0 = time.perf_counter()
+        best[mode] = run_distributed(c, split_paths=paths, device=dev)
+        wall = time.perf_counter() - t0
+        names, recs = run_events(c)
+        start = [r for r in recs if r["name"] == "train/run_start"]
+        check(start and start[0].get("scan_epochs") is mode,
+              f"17e: scan_epochs={mode} did not reach the trainer")
+        epoch_s = [r["dur_s"] for r in recs if r["name"] == "train/epoch"]
+        params[mode] = verify_checkpoint(os.path.join(
+            run_dir(c), "state_dict", "last_model.ckpt"))["model"]
+        res["e"][mode] = dict(seconds=wall, epoch_s=epoch_s)
+        print(f"17e {wpath.split(os.sep)[-1]} mesh data 1 graph 2, "
+              f"scan_epochs={mode} ({'staged loaders' if mode else 'loaders'}"
+              f"): {wall:.1f} s the run, epoch {epoch_s} s; best "
+              f"{json.dumps(best[mode])}")
+    # the ranks' initial parameters: the config's seed, as train_rank
+    init = get_model(c.model, world_size=2,
+                     dataset_name=c.data.dataset_name, axis_name=GRAPH_AXIS,
+                     generator=torch.Generator().manual_seed(int(c.seed))
+                     ).state_dict()
+    scale = max(float(v.abs().max()) for v in params[False].values())
+    dp = param_distance(params[True], params[False])
+    moved = param_distance(params[False], init)
+    dl = max(abs(best[True][k] - best[False][k]) / abs(best[False][k])
+             for k in ("loss_train", "loss_valid", "loss_test"))
+    print(f"17e staged vs loaders: parameters max abs diff {dp:.3e} (bound "
+          f"{SCAN_FLOOR:.0e} of scale {scale:.3e} = {SCAN_FLOOR * scale:.3e}"
+          f"; the run's update moved them {moved:.3e}), best losses max "
+          f"rel diff {dl:.3e} (bound {SCAN_FLOOR:.0e})")
+    check(dp <= SCAN_FLOOR * scale and dl <= SCAN_FLOOR
+          and SCAN_FLOOR * scale < moved,
+          "17e: the staged-loader run disagrees with the loaders' run")
+    parts["e"] = time.perf_counter() - t_part
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17 took {res['seconds']:.1f} s (by cell: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return res
+
+
+def scanned_epoch_rows(scan, flagship, stack, fam, row):
+    """Phase 17's rows of the ``kernels`` line: each kernel replayed from
+    the scanned epoch's CUDA graphs, its launches as captured x replays,
+    with the numbers of the same kernel at the same shape measured by the
+    phase that drives that cell eagerly (5, 7, 15)."""
+    fwd_tpu = "distegnn_tpu/ops/edge_pipeline.py:288"
+    bwd_tpu = "distegnn_tpu/ops/edge_pipeline.py:314"
+    a, c = scan["a"]["replayed"], scan["c"]["replayed"]
+    out = []
+    for name, k, rep, tpu, src in (
+            (flagship["fused_edge_fwd"]["kernel"], flagship["fused_edge_fwd"],
+             a["fused_edge_fwd"], fwd_tpu, "fused_edge_fwd"),
+            ("fused_edge_bwd", flagship["fused_edge_bwd"],
+             a["fused_edge_bwd"], bwd_tpu, "fused_edge_bwd")):
+        out.append(row(name, f"scanned epoch (graph replays) train "
+                       f"{k['dtype']} {k['shape']}", k, tpu, rep,
+                       source=src))
+    ef, eb = stack["edge_rows"]["fused_edge_fwd"], \
+        stack["edge_rows"]["fused_edge_bwd"]
+    out += [row("fused_stack_fwd", f"scanned epoch (graph replays) stack "
+                f"train {stack['row']['dtype']} {stack['row']['shape']}",
+                stack["row"], STACK_TPU, c["fused_stack_fwd"]),
+            row(ef["kernel"], f"scanned epoch (graph replays) stack train "
+                f"backward {ef['dtype']} {ef['shape']}", ef, fwd_tpu,
+                c["fused_edge_fwd"], source="fused_edge_fwd"),
+            row("fused_edge_bwd", f"scanned epoch (graph replays) stack "
+                f"train backward {eb['dtype']} {eb['shape']}", eb, bwd_tpu,
+                c["fused_edge_bwd"])]
+    r = scan["scan_row"]
+    out.append(row("prefix_scan", f"scanned epoch (graph replays) n-body "
+                   f"cumsum train {r['shape']} f32 (launches at every "
+                   f"width)", r, "distegnn_tpu/ops/cumsum.py:38",
+                   scan["b"]["cumsum"]["prefix_scan"]))
+    frows = fam["blocked"]["FastSchNet"]["rows"]
+    rep = scan["b"]["FastSchNet blocked"]
+    for kname, key in (("blocked_seg_sum", "blocked_seg_sum"),
+                       ("blocked_gather", "blocked_gather"),
+                       ("blocked_plan", "blocked_plan")):
+        r = frows[(HIDDEN, "f32")][kname]
+        out.append(row(kname, f"scanned epoch (graph replays) FastSchNet "
+                       f"blocked train {r['shape']} (launches at every "
+                       f"width)", r,
+                       BLOCKED_TPU.get(kname,
+                                       BLOCKED_TPU["blocked_seg_sum"]),
+                       rep[key], source="blocked_onehot"))
     return out
 
 
@@ -6632,6 +7129,7 @@ def main():
     tiled = tiled_phase(root, dev)
     fam = family_phase(root, dev)
     mesh = mesh_phase(root, dev, clouds[0], dist["part"])
+    scan = scan_epoch_phase(root, dev, clouds, stack_clouds)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{gate['fwd']} (gateway) + {promo['sub_fwd']} (worker children) "
           f"+ {tiled['launches']} (tiled serve) "
@@ -6660,7 +7158,9 @@ def main():
           f"{preempt['launches'][0]}, fused_edge_bwd "
           f"{preempt['launches'][1]}; Water-3D fused train (phase 11 (b)): "
           f"fused_edge_fwd {data['launches'][0]} (all on the f32 kernel), "
-          f"fused_edge_bwd {data['launches'][1]}")
+          f"fused_edge_bwd {data['launches'][1]}; scanned epoch (phase 17, "
+          f"graph replays): cell (d) {scan['a']['replayed']}, n-body "
+          f"{scan['b']}, stack {scan['c']['replayed']}")
 
     # one row per kernel and path, with the numbers of the dtype and shape
     # that path launches the kernel at: serving f32 at phase 2's shape,
@@ -6763,6 +7263,7 @@ def main():
                            source="blocked_onehot"))
     kernels += family_rows(fam, row)
     kernels += mesh_rows(mesh, row)
+    kernels += scanned_epoch_rows(scan, flagship, stack, fam, row)
     print(family_summary(fam))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s, the kernels' build "

@@ -5,14 +5,16 @@ the ``model``/``data``/``train``/``log``/``obs``/``serve``/``slo``/
 name (pure Python, no jax).
 
 The keys that the JAX package acts on and the port does not port yet
-(``train.scan_epochs: true``, ``log.wandb.enable`` and ``serve.donate:
-true``) must keep values that run the JAX program: any other value raises
+(``log.wandb.enable`` and ``serve.donate: true``) must keep values that
+run the JAX program: any other value raises
 ``NotImplementedError`` naming the key and why, rather than run another
 program without a word. The mesh (``parallel.mesh.{data,graph,tensor}``,
 ``data.data_parallel``, ``data.world_size``) is checked as JAX checks it
 and acts in ``parallel/launch.py``.
-``train.scan_epochs: false`` is the port's eager loop, which is also what
-``'auto'`` runs. Every other serving key acts as in JAX: the queue and
+``train.scan_epochs`` acts as in JAX (train/scan_epoch.py): ``true`` runs
+the epochs on staged device data (replayed from CUDA graphs on the card),
+``false`` the eager loop, ``'auto'`` the former on the card when the data
+fit and the latter on the CPU. Every other serving key acts as in JAX: the queue and
 gateway keys in ``serve/queue.py`` and ``serve/transport.py``,
 ``serve.cache_size`` as the engine's LRU of shape keys, ``serve.tiled`` in
 ``serve/tiled.py`` and ``serve/mesh_tiled.py`` (scenes above
@@ -138,7 +140,8 @@ _DEFAULTS: dict = {
         # the divergence rollback (train/trainer.py)
         "divergence_retries": 2,
         "divergence_lr_decay": 0.5,
-        # the epoch as one device program: not ported (see _UNPORTED)
+        # the epoch on staged device data (train/scan_epoch.py): 'auto' on
+        # the card when the data fit, never on the CPU
         "scan_epochs": "auto",
         # resume: null (a fresh run) | 'auto' (the newest valid checkpoint
         # under log.log_dir) | a checkpoint path
@@ -368,9 +371,6 @@ def apply_overrides(cfg: ConfigDict, overrides: Mapping) -> None:
 # Keys the JAX package acts on that the port does not port yet: (dotted
 # path, the values that run the JAX program on the port too, what ports it)
 _UNPORTED = (
-    ("train.scan_epochs", ("auto", False),
-     "the epoch as CUDA graphs of the micro-step, ROADMAP.md queue 1 item "
-     "1.3; the port's eager loop is its only mode"),
     ("log.wandb.enable", (False,),
      "wandb logging, not queued in ROADMAP.md: wandb is not installed"),
     ("serve.donate", ("auto", False),

@@ -17,9 +17,11 @@ ranks over gloo on the CPU).
 checkpoint under ``log.log_dir``, a mid-epoch one included, with its seed;
 ``train.checkpoint_interval_s`` writes mid-epoch checkpoints. A SIGTERM or
 SIGINT checkpoints the run after the in-flight micro-step and exits with
-code 75 (resumable). The run's events land in
-``<exp_dir>/obs/events.jsonl``; ``python -m distegnn_tpu_torch.obs.report``
-renders them.
+code 75 (resumable). ``train.scan_epochs`` (default ``auto``: on the card
+when the staged data fit) runs the epochs on staged device data, the
+micro-step replayed from CUDA graphs (train/scan_epoch.py). The run's
+events land in ``<exp_dir>/obs/events.jsonl``; ``python -m
+distegnn_tpu_torch.obs.report`` renders them.
 """
 
 from __future__ import annotations
@@ -170,10 +172,47 @@ def train_model(config, model, loaders, dev, on_step=None, axis_name=None,
                                  data_axis_name=data_axis_name)
     eval_step = make_eval_step(model, axis_name=axis_name,
                                data_axis_name=data_axis_name)
-    return train(state, train_step, eval_step, loader_train, loader_valid,
-                 loader_test, config, dev, start_epoch=start_epoch,
+    scan_runner, loaders = make_scan_runner(config, train_step, eval_step,
+                                            loaders, dev, rank)
+    return train(state, train_step, eval_step, *loaders, config, dev, start_epoch=start_epoch,
                  on_step=on_step, rank=rank, start_step_in_epoch=start_step,
-                 axis_name=axis_name, tracer=tracer)
+                 axis_name=axis_name, tracer=tracer, scan_runner=scan_runner)
+
+
+def make_scan_runner(config, train_step, eval_step, loaders, dev,
+                     rank=None):
+    """The scanned epoch (train/scan_epoch.py) when ``train.scan_epochs``
+    turns it on for the staged data on this process's card, as JAX's
+    ``main.py`` and ``parallel.launch`` build theirs. Returns (runner,
+    loaders): on one process a ``ScanEpochRunner`` (else None) and the
+    loaders unchanged; on a rank of a distributed run (``rank``) no runner
+    and the loaders replaced by ``DistributedScanRunner``s, the staged
+    loaders the eager loop runs on. Under 'auto' the budget holds the
+    bytes of every rank on the card (``card_nbytes``)."""
+    from distegnn_tpu_torch.train.scan_epoch import (DistributedScanRunner,
+                                                     ScanEpochRunner,
+                                                     card_nbytes,
+                                                     dataset_nbytes,
+                                                     scan_enabled)
+
+    flag = config.train.get("scan_epochs", "auto")
+    if flag is False or (flag == "auto" and dev.type != "cuda"):
+        return None, loaders
+    total = sum(dataset_nbytes(ld) for ld in loaders)
+    card = card_nbytes(total, dev) if flag == "auto" else total
+    if not scan_enabled(flag, card, dev):
+        return None, loaders
+    loader_train, loader_valid, loader_test = loaders
+    gib = f"{total / 2**30:.2f} GiB device-resident"
+    if rank is None:
+        obs.log(f"[train] scan_epochs: on ({gib})")
+        return ScanEpochRunner(train_step, eval_step, loader_train,
+                               config.seed, loader_valid=loader_valid,
+                               loader_test=loader_test), loaders
+    if rank == 0:
+        obs.log(f"[train] scan_epochs: on ({gib} a rank, "
+                f"{card / 2**30:.2f} GiB on its card)")
+    return None, tuple(DistributedScanRunner(ld, dev) for ld in loaders)
 
 
 def point_at_events() -> None:

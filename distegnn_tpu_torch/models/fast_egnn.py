@@ -555,10 +555,13 @@ class FastEGNN(nn.Module):
                    if self.edge_impl == "plain" else (None,) * 4)
         for layer in self.gcl:
             if self.remat and torch.is_grad_enabled():
-                # keep only the layer's inputs; the backward reruns it
+                # keep only the layer's inputs; the backward reruns it.
+                # The layers draw no random numbers, so no RNG state is
+                # saved (reading it is refused while a CUDA graph captures)
                 h, x, Hv, X = checkpoint(layer, h, x, v, X, Hv, g,
                                          fused_arrs, gravity, *blocked,
-                                         use_reentrant=False)
+                                         use_reentrant=False,
+                                         preserve_rng_state=False)
             else:
                 h, x, Hv, X = layer(h, x, v, X, Hv, g, fused_arrs, gravity,
                                     *blocked)

@@ -14,11 +14,13 @@ bytes.
 - :class:`TransferMeter` counts the bytes a loader hands to the device
   (``xfer/h2d_bytes``) and fetches back (``xfer/d2h_bytes``).
 
-The JAX module's other half, the compile watcher, has no counterpart: an
-eager PyTorch program compiles no device program per shape, so there is no
-recompile to catch (the CUDA kernels are built once, before the first
-launch). The ``obs.jax_probe`` key keeps its name and its default and
-switches this probe on or off (:func:`configure`).
+The JAX module's other half, the compile watcher, has its counterpart in
+the scanned epoch (train/scan_epoch.py): each capture of its CUDA graphs
+adds to the ``scan/captures`` counter and writes a ``scan/capture`` event,
+one per runner, so a later one is a recapture to look into. The eager loop
+compiles no device program per shape (the CUDA kernels are built once,
+before the first launch). The ``obs.jax_probe`` key keeps its name and its
+default and switches this probe on or off (:func:`configure`).
 """
 
 from __future__ import annotations

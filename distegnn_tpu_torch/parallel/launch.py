@@ -146,7 +146,11 @@ def train_rank(config, split_paths, rank: int, world_size: int,
     g, data shard d), the model from the config's seed (replicated; slice
     t of its hidden width under the tensor axis), and the shared trainer.
     ``world_size`` is the whole mesh's, laid out as ``parallel.mesh``.
-    Returns the trainer's best."""
+    Under ``train.scan_epochs`` (on the card when the staged data of the
+    card's ranks fit) the eager loop runs on staged device data without
+    capture (``train.scan_epoch.DistributedScanRunner`` in place of the
+    loaders, from ``main.make_scan_runner``). Returns the trainer's
+    best."""
     from distegnn_tpu_torch.main import train_model
     from distegnn_tpu_torch.models.registry import get_model
     from distegnn_tpu_torch.utils.seed import fix_seed

@@ -10,8 +10,9 @@ C virtual-node positions and ``samples * C`` target positions per graph,
 loss = l_vv - l_rv. When the padded node axis is no longer than
 ``samples * C`` every real node is used once (no sampling); otherwise the
 indices are a uniform draw over each graph's real-node prefix, taken from a
-``torch.Generator`` the caller passes in, or injected (``idx``) so that a
-test can feed the indices JAX drew.
+``torch.Generator`` the caller passes in, or from uniforms the caller drew
+(``u``: the scanned epoch draws them outside its CUDA graph), or injected
+(``idx``) so that a test can feed the indices JAX drew.
 """
 
 from __future__ import annotations
@@ -46,13 +47,15 @@ def rbf_kernel_sum(x: torch.Tensor, y: torch.Tensor, sigma: float,
 def mmd_loss(virtual_loc: torch.Tensor, target: torch.Tensor,
              node_mask: torch.Tensor, sigma: float, samples: int,
              generator: Optional[torch.Generator] = None,
-             idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+             idx: Optional[torch.Tensor] = None,
+             u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """virtual_loc [B, 3, C], target [B, N, 3], node_mask [B, N].
 
     The l_rv denominator is always ``samples * C``, as in the reference.
     Sampling branch (N > samples * C): ``idx`` [B, samples * C] node indices,
-    or drawn as min(floor(u * n), N - 1) with u uniform from ``generator``;
-    a graph with n < samples * C real nodes is weighted n / (samples * C)."""
+    or drawn as min(floor(u * n), N - 1) with u [B, samples * C] given, or
+    uniform from ``generator``; a graph with n < samples * C real nodes is
+    weighted n / (samples * C)."""
     B, N, _ = target.shape
     C = virtual_loc.shape[2]
     num_sample = samples * C
@@ -63,8 +66,9 @@ def mmd_loss(virtual_loc: torch.Tensor, target: torch.Tensor,
     else:
         n = torch.sum(node_mask, dim=1)                       # [B]
         if idx is None:
-            u = torch.rand((B, num_sample), generator=generator,
-                           device=target.device)
+            if u is None:
+                u = torch.rand((B, num_sample), generator=generator,
+                               device=target.device)
             idx = torch.clamp((u * n[:, None]).to(torch.int64), max=N - 1)
         picked = torch.gather(target, 1,
                               idx.long()[..., None].expand(-1, -1, 3))

@@ -39,6 +39,18 @@ collectives (parallel/collectives.py) already hand every tensor rank the
 whole parameter gradient with each loss term counted once, so the loss is
 replicated over the tensor ranks and the sum over (data, graph) stays exact
 (JAX's ``_reduce_axes``).
+
+The scanned epoch (train/scan_epoch.py) replays the micro-step from CUDA
+graphs, which hold every tensor they touch by address. For it the
+optimizer can keep its gradients in place (:meth:`Optimizer.stage`: the
+accumulation adds into fixed ``.grad`` tensors, the update zeroes them and
+a load copies into them); the train step splits into the device work a
+graph can hold (:meth:`TrainStep.loss_backward`, :meth:`Optimizer.clip`)
+and the host's part (:meth:`Optimizer.adam_step`, whose rate and Adam step
+count are numbers on the host, and :meth:`Optimizer.count`), and the MMD
+draw can come in as ``mmd_u``, drawn outside the graph with the step's
+generator and the same ``torch.rand`` call
+(:meth:`TrainStep.mmd_draw_shape`), so that the draws are the eager loop's.
 """
 
 from __future__ import annotations
@@ -100,6 +112,7 @@ class Optimizer:
         self.updates = 0
         self.lr_scale = 1.0
         self.last_grad_norm: Optional[torch.Tensor] = None
+        self.in_place = False   # set by stage()
 
     def lr_at(self, count: int) -> float:
         """optax.cosine_decay_schedule(lr, total_steps) at update ``count``
@@ -110,13 +123,26 @@ class Optimizer:
         t = min(count, self.total_steps) / self.total_steps
         return lr * 0.5 * (1.0 + math.cos(math.pi * t))
 
-    def micro_step(self, reduce_grads: Optional[Callable] = None) -> bool:
-        """Count one micro-step; on every ``accumulation_steps``-th, call
-        ``reduce_grads(params)`` (the distributed step's gradient sum), then
-        clip and update."""
-        self.micro += 1
-        if self.micro < self.accumulation_steps:
-            return False
+    def stage(self) -> None:
+        """Keep the gradients in place from now on (the scanned epoch's
+        CUDA graphs hold them by address): every parameter gets a fixed
+        ``.grad`` (zero where none has accumulated), which the backward
+        adds into, the update zeroes and a load copies into. Idempotent."""
+        if not self.in_place:
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.in_place = True
+
+    def next_is_update(self) -> bool:
+        """Whether the next micro-step ends in the optimizer update."""
+        return self.micro + 1 >= self.accumulation_steps
+
+    def clip(self, reduce_grads: Optional[Callable] = None) -> None:
+        """The update's gradient work, with no host read (a CUDA graph
+        can hold it): call ``reduce_grads(params)`` (the distributed
+        step's gradient sum), then clip the accumulated gradient by its
+        global norm."""
         if reduce_grads is not None:
             reduce_grads(self.params)
         # a parameter no loss term reaches (the last layer's feature heads)
@@ -134,13 +160,36 @@ class Optimizer:
                                 torch.ones_like(norm), self.clip_norm / norm)
             for g in grads:
                 g.mul_(scale)
+
+    def adam_step(self) -> None:
+        """The rate of update ``updates`` (a number the host computes),
+        the Adam step (its step count on the host) and the gradients
+        cleared (zeroed in place after :meth:`stage`)."""
+        lr = self.lr_at(self.updates)
         for group in self.adam.param_groups:
-            group["lr"] = self.lr_at(self.updates)
+            group["lr"] = lr
         self.adam.step()
-        self.adam.zero_grad(set_to_none=True)
-        self.micro = 0
-        self.updates += 1
-        return True
+        self.adam.zero_grad(set_to_none=not self.in_place)
+
+    def count(self, updated: bool) -> None:
+        """The host's counting of one micro-step that did (or did not) end
+        in the update."""
+        if updated:
+            self.micro = 0
+            self.updates += 1
+        else:
+            self.micro += 1
+
+    def micro_step(self, reduce_grads: Optional[Callable] = None) -> bool:
+        """Count one micro-step; on every ``accumulation_steps``-th, call
+        ``reduce_grads(params)`` (the distributed step's gradient sum), then
+        clip and update."""
+        updated = self.next_is_update()
+        if updated:
+            self.clip(reduce_grads)
+            self.adam_step()
+        self.count(updated)
+        return updated
 
     def state_dict(self) -> dict:
         """The whole accumulation state, as optax's MultiSteps state holds
@@ -173,15 +222,24 @@ class Optimizer:
         parameters' ``.grad``). A payload without ``grads`` (written before
         the accumulation state was saved) loads only at ``micro == 0``,
         where nothing has accumulated; at any other ``micro`` it raises
-        ValueError rather than resume with a wrong gradient."""
+        ValueError rather than resume with a wrong gradient. After
+        :meth:`stage` the gradients are copied into the fixed ones (a
+        missing one zeroes its tensor)."""
         self.check_state_dict(sd)
         micro, grads = int(sd["micro"]), sd.get("grads")
         if grads is None:
             grads = [None] * len(self.params)
         self.adam.load_state_dict(sd["adam"])
-        for p, g in zip(self.params, grads):
-            p.grad = None if g is None else g.detach().to(
-                device=p.device, dtype=p.dtype).clone()
+        with torch.no_grad():
+            for p, g in zip(self.params, grads):
+                if self.in_place:
+                    if g is None:
+                        p.grad.zero_()
+                    else:
+                        p.grad.copy_(g)
+                else:
+                    p.grad = None if g is None else g.detach().to(
+                        device=p.device, dtype=p.dtype).clone()
         self.micro, self.updates = micro, int(sd["updates"])
 
 
@@ -229,13 +287,16 @@ def reduce_axes(axis_name: Optional[str],
 def make_loss_fn(model, mmd_weight: float, mmd_sigma: float,
                  mmd_samples: int, axis_name: Optional[str] = None,
                  data_axis_name: Optional[str] = None) -> Callable:
-    """loss(batch, generator=None, mmd_idx=None) -> (loss to differentiate,
-    logged node-weighted MSE). Under ``axis_name`` both are this rank's
-    node-weighted shares (the train step sums them for logging), weighted
-    over (data, graph) with ``data_axis_name``."""
+    """loss(batch, generator=None, mmd_idx=None, mmd_u=None) -> (loss to
+    differentiate, logged node-weighted MSE). Under ``axis_name`` both are
+    this rank's node-weighted shares (the train step sums them for
+    logging), weighted over (data, graph) with ``data_axis_name``.
+    ``mmd_u``: the MMD draw's uniforms, drawn by the caller
+    (:meth:`TrainStep.mmd_draw_shape`)."""
     axis_name = reduce_axes(axis_name, data_axis_name)
 
-    def loss_fn(batch: GraphBatch, generator=None, mmd_idx=None):
+    def loss_fn(batch: GraphBatch, generator=None, mmd_idx=None,
+                mmd_u=None):
         loc_pred, virtual_loc = model(batch)
         mse = masked_mse(loc_pred, batch.target, batch.node_mask)
         loss = weighted_local_loss(mse, batch.node_mask, axis_name)
@@ -243,7 +304,7 @@ def make_loss_fn(model, mmd_weight: float, mmd_sigma: float,
         if mmd_weight:
             lm = mmd_loss(virtual_loc, batch.target, batch.node_mask,
                           mmd_sigma, mmd_samples, generator=generator,
-                          idx=mmd_idx)
+                          idx=mmd_idx, u=mmd_u)
             loss = loss + mmd_weight * weighted_local_loss(
                 lm, batch.node_mask, axis_name)
         return loss, logged
@@ -279,42 +340,70 @@ def batch_consistency(loc_mean: torch.Tensor, axis_name: str,
                       "consistency", op=dist.ReduceOp.MAX)[0]
 
 
+class TrainStep:
+    """One micro-step for the state holding ``model`` and ``optimizer``:
+    ``step(state, batch, generator=None, mmd_idx=None) -> (state,
+    metrics)`` runs the forward, the loss / k backward and, every k-th
+    micro-step, the optimizer update. The metrics are detached device
+    scalars; under ``axis_name`` the losses are summed over the axis
+    ((data, graph) with ``data_axis_name``) and ``batch_consistency`` is
+    added (the module docstring). The scanned epoch drives the parts:
+    :meth:`loss_backward`, the optimizer's update and its counting."""
+
+    def __init__(self, model, optimizer: Optimizer, mmd_weight: float,
+                 mmd_sigma: float, mmd_samples: int,
+                 axis_name: Optional[str] = None,
+                 data_axis_name: Optional[str] = None):
+        self.model, self.optimizer = model, optimizer
+        self.mmd_weight, self.mmd_samples = mmd_weight, int(mmd_samples)
+        self.axis_name = axis_name
+        self.axes = reduce_axes(axis_name, data_axis_name)
+        self.loss_fn = make_loss_fn(model, mmd_weight, mmd_sigma,
+                                    mmd_samples, axis_name, data_axis_name)
+        self.reduce_grads = (None if axis_name is None else
+                             lambda params: sum_gradients(params, self.axes))
+
+    def mmd_draw_shape(self, batch: GraphBatch) -> Optional[tuple]:
+        """The shape of the MMD draw's uniforms on ``batch``, or None where
+        the loss draws nothing (no MMD, or every real node used once)."""
+        C = getattr(self.model, "virtual_channels", None)
+        ns = self.mmd_samples * (C or 0)
+        if not self.mmd_weight or C is None or batch.max_nodes <= ns:
+            return None
+        return (batch.batch_size, ns)
+
+    def loss_backward(self, batch: GraphBatch, generator=None,
+                      mmd_idx=None, mmd_u=None):
+        """The forward and the loss / k backward (the gradients add into
+        ``.grad``); returns (loss, logged)."""
+        self.model.train()
+        loss, logged = self.loss_fn(batch, generator, mmd_idx, mmd_u)
+        (loss / self.optimizer.accumulation_steps).backward()
+        return loss, logged
+
+    def __call__(self, state: TrainState, batch: GraphBatch, generator=None,
+                 mmd_idx=None):
+        loss, logged = self.loss_backward(batch, generator, mmd_idx)
+        self.optimizer.micro_step(self.reduce_grads)
+        state.step += 1
+        metrics = {"loss": logged.detach(), "loss_with_mmd": loss.detach()}
+        if self.axis_name is not None:
+            sums = all_reduce(torch.stack([metrics["loss"],
+                                           metrics["loss_with_mmd"]]),
+                              self.axes, "loss")
+            metrics = {"loss": sums[0], "loss_with_mmd": sums[1],
+                       "batch_consistency": batch_consistency(
+                           batch.loc_mean, self.axis_name, self.axes)}
+        return state, metrics
+
+
 def make_train_step(model, optimizer: Optimizer, mmd_weight: float,
                     mmd_sigma: float, mmd_samples: int,
                     axis_name: Optional[str] = None,
-                    data_axis_name: Optional[str] = None) -> Callable:
-    """Returns step(state, batch, generator=None, mmd_idx=None) -> (state,
-    metrics) for the state holding ``model`` and ``optimizer``: one
-    micro-step (forward, loss / k backward, and every k-th micro-step the
-    optimizer update). The metrics are detached device scalars; under
-    ``axis_name`` the losses are summed over the axis ((data, graph) with
-    ``data_axis_name``) and ``batch_consistency`` is added (the module
-    docstring)."""
-    loss_fn = make_loss_fn(model, mmd_weight, mmd_sigma, mmd_samples,
-                           axis_name, data_axis_name)
-    axes = reduce_axes(axis_name, data_axis_name)
-    k = optimizer.accumulation_steps
-    reduce_grads = (None if axis_name is None
-                    else lambda params: sum_gradients(params, axes))
-
-    def step(state: TrainState, batch: GraphBatch, generator=None,
-             mmd_idx=None):
-        model.train()
-        loss, logged = loss_fn(batch, generator, mmd_idx)
-        (loss / k).backward()
-        optimizer.micro_step(reduce_grads)
-        state.step += 1
-        metrics = {"loss": logged.detach(), "loss_with_mmd": loss.detach()}
-        if axis_name is not None:
-            sums = all_reduce(torch.stack([metrics["loss"],
-                                           metrics["loss_with_mmd"]]),
-                              axes, "loss")
-            metrics = {"loss": sums[0], "loss_with_mmd": sums[1],
-                       "batch_consistency": batch_consistency(
-                           batch.loc_mean, axis_name, axes)}
-        return state, metrics
-
-    return step
+                    data_axis_name: Optional[str] = None) -> TrainStep:
+    """The :class:`TrainStep` of ``model`` and ``optimizer``."""
+    return TrainStep(model, optimizer, mmd_weight, mmd_sigma, mmd_samples,
+                     axis_name, data_axis_name)
 
 
 def make_eval_step(model, axis_name: Optional[str] = None,

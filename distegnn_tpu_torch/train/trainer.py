@@ -40,7 +40,15 @@ the epoch's ``batch_consistency`` must be exactly 0
 (:func:`assert_batch_consistency`), and under ``log.check_consistency``
 the parameters are checked bitwise replicated at every eval epoch.
 
-Not ported yet (ROADMAP.md): wandb and the epoch as one device program.
+``scan_runner`` (train/scan_epoch.py, ``train.scan_epochs`` on one
+process): each epoch runs on staged device data (on the card, replayed
+from CUDA graphs), as JAX's scanned epoch: a resumed partial epoch runs
+through the eager loop first, the stop check is at the epoch boundary, and
+there are no per-step cadence saves, ``on_step`` calls or ``train/step``
+events under the scan. In distribute mode the scan's staged loaders
+(``DistributedScanRunner``) take the loaders' place in the eager loop.
+
+Not ported yet (ROADMAP.md): wandb.
 """
 
 from __future__ import annotations
@@ -222,7 +230,10 @@ def snapshot_state(state) -> dict:
 
 def restore_state(state, snap: dict) -> None:
     """Load a :func:`snapshot_state` into ``state`` in place (the snapshot
-    stays intact: a second rollback to it restores the same values)."""
+    stays intact: a second rollback to it restores the same values). The
+    parameters are copied into their tensors, and so are the gradients once
+    the optimizer is staged for a scanned epoch (``Optimizer.stage``), whose
+    CUDA graphs hold them by address."""
     state.model.load_state_dict(snap["model"])
     state.optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
     state.step = snap["step"]
@@ -370,7 +381,7 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
           loader_valid, loader_test, config, device: torch.device,
           start_epoch: int = 0, on_step: Optional[Callable] = None,
           rank: Optional[int] = None, start_step_in_epoch: int = 0,
-          axis_name: Optional[str] = None, tracer=None):
+          axis_name: Optional[str] = None, tracer=None, scan_runner=None):
     """Full training run. Returns (state, best_state, best, log_dict):
     ``best_state`` is a CPU copy of the model's state_dict at the best
     validation loss; ``best['preempted']`` is set when a signal stopped
@@ -382,7 +393,9 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
     ranks of one tensor group draw the same MMD samples (their loss is one
     replicated value). ``tracer``:
     the run's event stream when the caller bound it already
-    (:func:`configure_obs`), else it is bound here."""
+    (:func:`configure_obs`), else it is bound here. ``scan_runner``: a
+    ``train.scan_epoch`` runner over ``state``'s model and optimizer (the
+    module docstring)."""
     train_cfg, log_cfg = config.train, config.log
     seed = config.seed
     is_main = rank is None or rank == 0
@@ -421,7 +434,9 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
     world = shape[0] * shape[1] * shape[2]
     mesh_tag = "x".join(str(int(v)) for v in shape)
     tracer.event("train/run_start", start_epoch=start_epoch,
-                 epochs=int(train_cfg.epochs), scan_epochs=False,
+                 epochs=int(train_cfg.epochs),
+                 scan_epochs=(scan_runner is not None
+                              or getattr(loader_train, "staged", False)),
                  devices=(torch.cuda.device_count() if device.type == "cuda"
                           else 1),
                  processes=world, mesh=mesh_tag)
@@ -506,10 +521,17 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
                 trace = _EpochTrace(os.path.join(exp_dir, "trace"), epoch,
                                     device)
             guard.interrupted, guard.steps_done = False, 0
-            state, loss_train = run_epoch_train(
-                train_step, state, loader_train, seed, epoch, device,
-                on_step, draw_rank, start_step=resume_step, guard=guard,
-                cadence=cadence, tracer=tracer, step_events=step_events)
+            # a resumed partial epoch replays its rest through the eager
+            # loop (the same steps: the scan shares the order and the
+            # generators)
+            scanned = scan_runner is not None and resume_step == 0
+            if scanned:
+                state, loss_train = scan_runner.train_epoch(state, epoch)
+            else:
+                state, loss_train = run_epoch_train(
+                    train_step, state, loader_train, seed, epoch, device,
+                    on_step, draw_rank, start_step=resume_step, guard=guard,
+                    cadence=cadence, tracer=tracer, step_events=step_events)
             resume_step = 0    # only the first resumed epoch skips steps
             if trace is not None:
                 log(f"profiler trace of epoch {epoch} written to "
@@ -576,16 +598,23 @@ def train(state, train_step: Callable, eval_step: Callable, loader_train,
                            len(log_dict["loss_train"]),
                            len(log_dict["epochs"]))
 
-            # a signal at the epoch boundary (it landed on the last step):
-            # checkpoint the completed epoch and exit before the evaluation
-            if guard.stop_at_boundary():
+            # a signal at the epoch boundary (it landed on the last step,
+            # or during a scanned epoch, whose ranks agree here): checkpoint
+            # the completed epoch and exit before the evaluation
+            if guard.stop_agreed() if scanned else guard.stop_at_boundary():
                 preempt_exit(epoch, 0)
                 break
 
             if epoch % log_cfg.test_interval == 0:
                 t_eval = time.perf_counter()
-                loss_valid = run_epoch_eval(eval_step, loader_valid, device)
-                loss_test = run_epoch_eval(eval_step, loader_test, device)
+                if scan_runner is not None:
+                    loss_valid = scan_runner.eval_epoch(state.model, "valid")
+                    loss_test = scan_runner.eval_epoch(state.model, "test")
+                else:
+                    loss_valid = run_epoch_eval(eval_step, loader_valid,
+                                                device)
+                    loss_test = run_epoch_eval(eval_step, loader_test,
+                                               device)
                 tracer.event("train/eval", epoch=epoch,
                              dur_s=round(time.perf_counter() - t_eval, 4),
                              loss_valid=float(loss_valid),

@@ -17,6 +17,7 @@ Tolerances:
               bf16 bound, tests/test_torch_plain_egnn.py).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

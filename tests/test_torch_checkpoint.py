@@ -10,6 +10,7 @@ Tolerance: 0. The served model is the trained one, so the predictions are
 bitwise equal.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 
 import jax

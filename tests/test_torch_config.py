@@ -7,6 +7,7 @@ at those defaults. The mesh keys (``parallel.mesh.{data,graph,tensor}``,
 flags) are checked as JAX checks them, and a checkpoint crosses meshes as
 in JAX (the tensor degree must divide the saved hidden width)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import glob
 import os
 
@@ -24,8 +25,7 @@ SERVE = os.path.join(REPO, "configs", "nbody_serve.yaml")
 DATA_KEYS = ("backbone", "test_rot", "test_trans", "stream_shard_cache")
 
 # (dotted key, a value off the JAX default)
-UNPORTED = [("train.scan_epochs", True),
-            ("log.wandb.enable", True),
+UNPORTED = [("log.wandb.enable", True),
             ("serve.donate", True)]
 
 
@@ -88,6 +88,7 @@ def _yaml_with(tmp_path, key, value):
 # the durability, trace and obs keys are ported: (key, value, whether the
 # JAX package's checks refuse it); every case is loaded by both packages
 PORTED = [("train.scan_epochs", False, False),
+          ("train.scan_epochs", True, False),
           ("train.resume", "auto", False),
           ("train.resume", "logs/run/state_dict/last_model.ckpt", False),
           ("train.resume", 3, True),
@@ -141,10 +142,10 @@ def test_ported_defaults_are_the_jax_defaults():
 def test_unported_key_off_its_default_raises_from_yaml(tmp_path):
     with open(SERVE) as f:
         raw = yaml.safe_load(f)
-    raw.setdefault("train", {})["scan_epochs"] = True
-    path = tmp_path / "scan.yaml"
+    raw.setdefault("serve", {})["donate"] = True
+    path = tmp_path / "donate.yaml"
     path.write_text(yaml.safe_dump(raw))
-    with pytest.raises(NotImplementedError, match=r"train\.scan_epochs"):
+    with pytest.raises(NotImplementedError, match=r"serve\.donate"):
         load_config(str(path))
 
 

@@ -36,6 +36,7 @@ rank 0 alone writes, the resume agrees and ends bitwise at the
 uninterrupted run's parameters, and disagreeing resume coordinates raise.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 
@@ -363,11 +364,10 @@ def test_collectives_are_counted(runs):
     assert counts[0]["grad"] == len(LOWERINGS) + 2
 
 
-def test_main_cli_trains_distribute_mode_at_world_size_2(tmp_path):
-    """main dispatches accelerate_mode: distribute to run_distributed: the
-    n-body processor writes metis shards, 2 gloo ranks train 2 epochs (the
-    parameters checked bitwise equal across the ranks at the end), rank 0
-    writes the log."""
+def _cli_config(tmp_path, **train):
+    """configs/nbody_fastegnn.yaml cut to a 40-body toy set in distribute
+    mode (metis, 2 parts), written to ``tmp_path``; ``train`` overrides
+    its train keys."""
     _write_nbody(str(tmp_path / "data" / "nbody_t"), n_body=40,
                  samples=(4, 2, 2))
     with open(os.path.join(REPO, "configs", "nbody_fastegnn.yaml")) as f:
@@ -377,10 +377,19 @@ def test_main_cli_trains_distribute_mode_at_world_size_2(tmp_path):
                        max_samples=10, frame_0=2, frame_T=8, batch_size=2,
                        accelerate_mode="distribute", outer_radius=1.5,
                        inner_radius=1.5, split_mode="metis")
-    raw["train"].update(accumulation_steps=2)
+    raw["train"].update(accumulation_steps=2, **train)
     raw["log"].update(log_dir=str(tmp_path / "logs"), test_interval=1)
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(raw))
+    return path
+
+
+def test_main_cli_trains_distribute_mode_at_world_size_2(tmp_path):
+    """main dispatches accelerate_mode: distribute to run_distributed: the
+    n-body processor writes metis shards, 2 gloo ranks train 2 epochs (the
+    parameters checked bitwise equal across the ranks at the end), rank 0
+    writes the log."""
+    path = _cli_config(tmp_path)
     best = pmain.main(["--config_path", str(path), "--epochs", "2",
                        "--world_size", "2", "--device", "cpu"])
     assert best["epoch_index"] in (1, 2) and np.isfinite(best["loss_valid"])
@@ -392,6 +401,27 @@ def test_main_cli_trains_distribute_mode_at_world_size_2(tmp_path):
         best_logged, log, _ = json.load(f)
     assert len(log["loss_train"]) == 2
     assert best_logged["epoch_index"] == best["epoch_index"]
+
+
+def test_main_cli_trains_distribute_mode_on_staged_loaders(tmp_path):
+    """``train.scan_epochs: true`` in distribute mode: every rank's eager
+    loop runs on its staged loaders (``DistributedScanRunner``), the run's
+    start event says so, and its best equals the run on the loaders."""
+    best, starts = {}, {}
+    for scan in (False, True):
+        sub = tmp_path / str(scan)
+        sub.mkdir()
+        path = _cli_config(sub, scan_epochs=scan)
+        best[scan] = pmain.main(["--config_path", str(path), "--epochs", "2",
+                                 "--world_size", "2", "--device", "cpu"])
+        (exp,) = os.listdir(sub / "logs")
+        with open(sub / "logs" / exp / "obs" / "events.jsonl") as f:
+            starts[scan] = [json.loads(line) for line in f
+                            if '"train/run_start"' in line][0]
+    assert starts[True]["scan_epochs"] is True
+    assert starts[False]["scan_epochs"] is False
+    for key in ("epoch_index", "loss_train", "loss_valid", "loss_test"):
+        assert best[True][key] == best[False][key], key
 
 
 class _Batches:

@@ -10,6 +10,7 @@ the parameters, the Adam state and the gradient accumulated between updates
 (bitwise), and the learning rate of the next update (0.5 x).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 
 import jax

@@ -16,6 +16,7 @@ Tolerances, relative to each output's max |jax| ("scale"):
          every op.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,7 @@ The CUDA kernel itself is compared with the plain version on the card in
 tests/test_torch_kernels_cuda.py.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ the fused sums); only the summation order of sums and matmuls differs, and
 it compounds through the layers without exceeding 1e-5 here.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ everything else exact — status codes, JSON keys, error types, the swap's
 bodies and the set of ``/metrics`` names (their values may differ).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import base64
 import http.client
 import json

@@ -3,6 +3,7 @@ radius graphs, Morton ordering and the blocked ``split_remote`` padding are
 required to be BITWISE equal (they are numpy copies; any difference would
 move edges between the fused kernel and the remote tail)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

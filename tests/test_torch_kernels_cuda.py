@@ -10,6 +10,7 @@ It also holds the small blocked-graph builder that the CPU tests of the
 fused edge pipeline share.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import contextlib
 
 import numpy as np
@@ -1249,3 +1250,75 @@ def test_fast_models_run_the_blocked_and_scan_kernels_on_card(family,
     for k in gp:
         assert float((g[k] - gp[k]).abs().max()) <= 1e-5 * scale, k
 
+
+
+@pytest.mark.cuda
+def test_replayed_scan_runner_equals_the_eager_loop_on_card():
+    """The scanned epoch replayed from CUDA graphs against the eager loop
+    (tests/test_torch_scan_epoch.py's toy set, FastEGNN H=8 L=2 C=2 on
+    the blocked layout with the one-hot kernels, clip, accumulation 2, MMD
+    on its sampling branch, 2 epochs): losses and parameters within 2x the
+    distance of two eager runs (floor 1e-6 of scale; the kernels' sums are
+    in a fixed order, the plain ops' scatters are not), and each kernel's
+    replayed launches (captured x replays) equal to its eager count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    from test_torch_scan_epoch import toy_graphs
+
+    from distegnn_tpu_torch.data.loader import GraphDataset, GraphLoader
+    from distegnn_tpu_torch.models.fast_egnn import FastEGNN
+    from distegnn_tpu_torch.train.scan_epoch import (ScanEpochRunner,
+                                                     _launch_counts)
+    from distegnn_tpu_torch.train.step import (TrainState, make_eval_step,
+                                               make_optimizer,
+                                               make_train_step)
+    from distegnn_tpu_torch.train.trainer import (run_epoch_eval,
+                                                  run_epoch_train)
+
+    dev = torch.device("cuda")
+    ds = GraphDataset(toy_graphs(np.random.default_rng(7)))
+    loader = lambda shuffle: GraphLoader(ds, 4, shuffle=shuffle, seed=11,
+                                         edge_block=16)
+    kw = dict(node_feat_nf=1, edge_attr_nf=2, hidden_nf=8,
+              virtual_channels=2, n_layers=2, blocked_impl="pallas")
+    sd = FastEGNN(**kw, generator=torch.Generator().manual_seed(0)
+                  ).state_dict()
+    runs = []
+    for scanned in (False, False, True):
+        model = FastEGNN(**kw).to(dev)
+        model.load_state_dict(sd)
+        opt = make_optimizer(model.parameters(), 1e-3, weight_decay=1e-4,
+                             clip_norm=0.3, accumulation_steps=2)
+        step = make_train_step(model, opt, 0.01, 1.5, 2)
+        ev = make_eval_step(model)
+        state = TrainState(model, opt)
+        before = _launch_counts()
+        runner = (ScanEpochRunner(step, ev, loader(True), 11,
+                                  loader_valid=loader(False))
+                  if scanned else None)
+        losses = []
+        for epoch in (1, 2):
+            if runner is None:
+                state, loss = run_epoch_train(step, state, loader(True), 11,
+                                              epoch, dev)
+            else:
+                state, loss = runner.train_epoch(state, epoch)
+            losses.append(loss)
+        losses.append(run_epoch_eval(ev, loader(False), dev)
+                      if runner is None else runner.eval_epoch(model, "valid"))
+        counts = {k: v - before[k] for k, v in _launch_counts().items()
+                  if v != before[k]}
+        runs.append((losses, {k: v.detach().cpu() for k, v in
+                              model.state_dict().items()}, counts, runner))
+    (la, pa, ca, _), (lb, pb, _, _), (ls, ps, _, runner) = runs
+    assert runner.graphs is not None and set(runner.graphs) == {
+        "update", "accumulate", "eval_valid"}
+    assert ca and runner.launches() == ca
+    assert runner.replays == {"update": 3, "accumulate": 3, "eval_valid": 3}
+    scale = max(float(v.abs().max()) for v in pa.values())
+    ep = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+    sp = max(float((pa[k] - ps[k]).abs().max()) for k in pa)
+    assert sp <= max(2 * ep, 1e-6 * scale), (sp, ep, scale)
+    el = max(abs(x - y) for x, y in zip(la, lb))
+    sl = max(abs(x - y) for x, y in zip(la, ls))
+    assert sl <= max(2 * el, 1e-6 * max(abs(v) for v in la)), (sl, el)

@@ -22,6 +22,7 @@ port rounds each op, so single bf16 ulps of MLP outputs differ; gravity
 (-9.8 times phi_g's bf16 output) carries such a flip into x.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ truncated payload) still load the dataset equal to an undisturbed read and
 to JAX's under the same faults; a failure on every attempt raises after the
 third; the dataset's bytes land on the ``data/host_bytes`` gauge."""
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import io
 import pickle
 

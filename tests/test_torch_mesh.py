@@ -30,6 +30,7 @@ interpret mode), forward and every gradient, at the tolerances of
 tests/test_torch_edge_pipeline.py and tests/test_torch_edge_backward.py.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ invariant's bounds in tests/test_torch_distributed.py); serving
 equivariance 1e-4.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import tempfile
 

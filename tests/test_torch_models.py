@@ -23,6 +23,7 @@ there: ``test_port_gradients_are_finite_on_padded_batches``), and their
 padded forward on its own.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

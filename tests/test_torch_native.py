@@ -5,6 +5,7 @@ bit: the partition labels, the edge cut, the blocked edge layout and the
 reverse-edge pairing. Also: where the library lands, the build's lock
 across concurrent builders, and the numpy fallback without a compiler."""
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import threading
 import time

@@ -12,6 +12,7 @@ test's draw) and are held to 1e-14. The files feed ``process_nbody_cutoff``
 of both packages alike.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 
 import numpy as np

@@ -8,6 +8,7 @@ report over the port's events, and the loaders' stall accounting.
 Tolerance: 0 (the same pure-Python arithmetic on the same values).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import threading

@@ -10,6 +10,7 @@ Tolerances:
          (2^-8 relative) differ.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

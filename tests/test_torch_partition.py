@@ -5,6 +5,7 @@ ratios, and the shard files of ``process_nbody_distribute`` and
 ``process_large_fluid_distribute`` (Fluid113K sims written by both
 packages' ``write_fluid_sim``, which write the same bytes)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import pickle
 

@@ -18,6 +18,7 @@ Tolerances (f32, unit-cube scenes, H=32, L=2, C=3):
              through the layers.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 
 import jax

@@ -11,6 +11,7 @@ the keys of its ``status()`` equal JAX's on the same inputs; the drill's
 four outcomes as in ``tests/test_promote.py``, 0 lost requests, 0 errors.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import copy
 import glob
 import json

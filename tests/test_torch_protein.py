@@ -12,6 +12,7 @@ in f32 within 1e-6 of scale, and a protein_cpu_slice-shaped run of the
 port's ``main`` on the CPU.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 
 import numpy as np

@@ -13,6 +13,7 @@ once, the supervisor's states, failure counts, restart times and breaker,
 and the autoscaler's decisions and gauges.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import time
 
 import numpy as np

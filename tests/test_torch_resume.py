@@ -18,6 +18,7 @@ accumulated gradient as loaded within 1e-6 of its largest entry (a mean
 rescaled to a sum).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import shutil

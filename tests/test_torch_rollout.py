@@ -11,6 +11,7 @@ over 3 steps) with equal overflow flags; batched vs unbatched 1e-6 (the same
 arithmetic per scene; only the batch shape of the products differs).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ port draws the constraint's rotations bit for bit as the JAX package does,
 so the SVD picks the same sign).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ Tolerances:
   layout (pairing, max_in_degree)  bitwise.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ Tolerance: 1e-5 absolute on predicted coordinates (unit-cube scenes), the
 model parity bound of tests/test_torch_fast_egnn.py.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import subprocess
 import sys

@@ -10,6 +10,7 @@ counters and names, the cache and session hit/miss/eviction counts, the
 ``RepackPlan`` arrays and the prepared dicts.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import time
 from collections import OrderedDict
 

@@ -6,6 +6,7 @@ Bound: exact equality everywhere (stats, results, verdict text, window
 snapshots under the same synthetic clock, the stitched waterfall).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 

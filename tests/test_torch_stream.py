@@ -12,6 +12,7 @@ pickle shards, and trains ``configs/simulation_distegnn.yaml`` (narrow
 widths, 2 ranks) from them.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import os
 

@@ -17,6 +17,7 @@ plain version (the wrapper picks it for CPU tensors), JAX's its interpret
 mode.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import base64
 import functools
 import http.client

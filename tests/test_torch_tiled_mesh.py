@@ -10,6 +10,7 @@ sequential path on the same plan, plain and fused; one tile-layer key per
 boundary (rounds); ``resolve_devices`` clamps with an event and never
 raises. The sizes and models are ``tests/test_torch_tiled.py``'s."""
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import pytest
 import torch
 

@@ -17,6 +17,7 @@ Tolerances:
   loader, data  bitwise (numpy copies of the same host code)
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 

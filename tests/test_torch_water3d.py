@@ -15,6 +15,7 @@ eval step and the port's, with the weights carried across by
 ``convert.params_from_jax``, in f32 within 1e-6 of scale.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import pickle
 

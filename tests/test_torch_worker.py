@@ -14,6 +14,7 @@ Bounds: frames byte-identical; predictions bitwise equal; the params digest
 equal; no child alive after teardown.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import os
 import pickle

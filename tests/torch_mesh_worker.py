@@ -106,7 +106,65 @@ def _tp_job(job, rank):
     return out
 
 
-JOBS = {"step": _step_job, "tp": _tp_job}
+def _scan_job(job, rank):
+    """The same run twice from one state through the trainer's
+    ``run_epoch_train`` / ``run_epoch_eval``: on the rank's loaders
+    (eager) and on their staged stand-ins (``DistributedScanRunner``); the
+    losses, eval loss and parameters of each."""
+    from distegnn_tpu_torch.train.scan_epoch import DistributedScanRunner
+    from distegnn_tpu_torch.train.trainer import (run_epoch_eval,
+                                                  run_epoch_train)
+
+    D = job["mesh"][0]
+    d, g, _ = mesh_coords(rank, job["mesh"])
+    data_axis = DATA_AXIS if D > 1 else None
+    out = {}
+    for mode in ("eager", "scan"):
+        train, valid = (shard_loader(
+            GraphDataset(job["shards"][g]), job["batch_size"], GRAPH_AXIS,
+            CPU, shuffle=shuffle, seed=job["seed"], data_parallel=D,
+            data_index=d) for shuffle in (True, False))
+        if mode == "scan":
+            train, valid = (DistributedScanRunner(ld, CPU)
+                            for ld in (train, valid))
+        model = FastEGNN(axis_name=GRAPH_AXIS, **job["model"])
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in job["state_dict"].items()})
+        h = job["hyper"]
+        opt = make_optimizer(model.parameters(), h["lr"], clip_norm=0.3,
+                             accumulation_steps=h["k"])
+        step = make_train_step(model, opt, h["mmd_weight"], 1.5,
+                               h["mmd_samples"], axis_name=GRAPH_AXIS,
+                               data_axis_name=data_axis)
+        ev = make_eval_step(model, GRAPH_AXIS, data_axis)
+        state = TrainState(model, opt)
+        losses = []
+        for epoch in (1, 2):
+            state, loss = run_epoch_train(step, state, train, job["seed"],
+                                          epoch, CPU, rank=rank)
+            losses.append(loss)
+        out[mode] = {
+            "losses": losses, "eval": run_epoch_eval(ev, valid, CPU),
+            "params": {k: _np(v) for k, v in model.state_dict().items()}}
+    return out
+
+
+def _card_job(job, rank):
+    """``card_nbytes`` of this rank's ``job["nbytes"][rank]`` on one shared
+    card, and the 'auto' policy on it under a patched memory query."""
+    from distegnn_tpu_torch.train import scan_epoch
+
+    card = scan_epoch.card_nbytes(job["nbytes"][rank], "cuda:0")
+    props = mock.Mock(total_memory=job["total_memory"])
+    with mock.patch("torch.cuda.get_device_properties", return_value=props):
+        return {"card": card,
+                "alone": scan_epoch.scan_enabled(
+                    "auto", job["nbytes"][rank], "cuda:0"),
+                "auto": scan_epoch.scan_enabled("auto", card, "cuda:0")}
+
+
+JOBS = {"step": _step_job, "tp": _tp_job, "scan": _scan_job,
+        "card": _card_job}
 
 
 def run_rank(rank, mesh, init_method, in_path, out_dir):
