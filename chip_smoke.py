@@ -124,8 +124,9 @@ or of the JAX package. Phases (any failure exits nonzero):
      phase 5's aggregate bounds and phase 6's per-tensor bound; micro-step ms,
      nodes/s and peak device memory.
 
-  9. distributed training (parallel/launch.py ``run_distributed``): the six
-     clouds partitioned into 4 parts each by the native metis partitioner
+  9. distributed training (parallel/launch.py ``run_distributed``): 2
+     train clouds (the cut: phase 5 trains 4), the valid and the test
+     cloud, partitioned into 4 parts each by the native metis partitioner
      (data/distribute.py; asserted native, within its 3 % balance cap, a
      cut below a random split's; partition ms and local edges per part
      printed). (j1) configs/largefluid_distegnn.yaml as published +
@@ -307,8 +308,42 @@ or of the JAX package. Phases (any failure exits nonzero):
      parallel.mesh {data 1, graph 2} over gloo, 2 epochs (one update),
      the eager loop on the staged loaders (no capture) against it on the
      loaders: parameters within 1e-6 of scale, below the update's move,
-     and the best losses within 1e-6. Phases 5-11, 15 and 16 set
+     and the best losses within 1e-6. Phases 5-11, 15, 16 and 18 set
      train.scan_epochs: false and print it.
+  18. Fluid113K from synthesized scenes, and the training fault kit. (a)
+     sims 1, 101 and 121 (the first of each split), each made by
+     ``python -m distegnn_tpu_torch.data.fluid_scenes generate --seed S
+     --num-objects 2 --const-fluid-particles 113140 --radius 0.025
+     --simulator-bin <stand-in>`` (the three started together, with
+     (b)'s runs, beside the kernel build of phase 1, and waited for before
+     phase 2: no measured phase runs beside them); the stand-in simulator,
+     written here, exports 22 partio frames per fluid
+     (the fewest delta_t 20 allows), the particles advanced along their
+     start velocities, shuffled, with ids. The H100 machine has no
+     zstandard, so the shards are neither packed nor read here: a
+     ``read_sim`` of the exports through the port's bgeo codec
+     (``scene_sim``: the arrays ``pack_scene_records`` stores) feeds
+     ``run_distributed`` (the distribute branch of the port's ``main``) on
+     configs/largefluid_distegnn.yaml as published + model.edge_impl
+     fused, data.edge_block 512, data.max_samples 2, train.epochs 1,
+     log.test_interval 1, at the world size from the card count (1 rank
+     over nccl): the positions equal the stand-in's frames within 1e-6,
+     viscosity and mass per fluid the scene's; exactly 2L fused forwards
+     and L backwards a micro-step and L forwards an eval forward (all on
+     the tensor cores); finite losses; the first update with the kernels
+     against the plain versions at phase 5's bounds; both kernels held and
+     timed at the batch's shape. (b) ``python -m
+     distegnn_tpu_torch.testing.tiny_run`` on the card: two controls, a
+     SIGKILL after step 6 with a cadence save every step (the newest step
+     checkpoint truncated, then --resume auto: "resume: skipping" and
+     "resume: restored"), a SIGTERM after step 2 (exit 75, the preempt
+     checkpoint and marker, then --resume auto), both resumes within
+     max(2 x the controls' distance, 1e-6 x |loss|) of the control's final
+     loss; a NaN batch at step 5 with 2 retries (one divergence event,
+     finite, not diverged). tiny_run launches no kernel (plain scatter).
+     Printed: each scene's seconds and particles, the read and
+     preprocessing seconds, the mean degree, the micro-step ms, nodes/s,
+     peak memory and each drill run's seconds.
 
 Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
 loader's first pass) with the native library and with the numpy layout.
@@ -330,14 +365,18 @@ Output: timing lines, then one JSON line ``{"kernels": [...]}``, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -2741,8 +2780,11 @@ def _blocked_train_phase(root, dev, clouds, log_dir, profile):
 # ------------------------------------------------ phase 9: distributed training
 
 DIST_WS = 4
-# j1 trains 2 epochs over the 4 / 1 / 1 clouds, j2 and j0 one
+# j1 trains 2 epochs over DIST_TRAIN / 1 / 1 of the clouds, j2 one; j0 one
+# over the 4 / 1 / 1 unpartitioned. The cut (to keep the script inside its
+# time): 2 train clouds, not phase 5's 4, so 4 clouds are partitioned
 DIST_EPOCHS = 2
+DIST_TRAIN = 2
 # the native partitioner's balance cap (native/partition.cpp k-way refine)
 PART_CAP = 1.03
 # a rank's f32 forward against the union graph's, of the max |coordinate|
@@ -2814,7 +2856,8 @@ def micro_step_collectives(L, remat, mmd, update, first=False):
 
 
 def write_dist_shards(cfg, clouds, out_dir, ws):
-    """The 4 / 1 / 1 clouds partitioned by the config's split mode into
+    """The clouds as train / valid / test (all but the last two, then one
+    each) partitioned by the config's split mode into
     ``ws`` parts and written as shard files (data/distribute.py, the
     preprocessing path of a distribute run). Returns (split paths, (each
     cloud's partition ms: the outer-radius graph and the labels; the
@@ -2841,8 +2884,9 @@ def write_dist_shards(cfg, clouds, out_dir, ws):
             partition.assign_partitions, part_ms)), mock.patch.object(
             native, "native_partition", timed(native.native_partition,
                                               label_ms)):
-        for split, graphs in (("train", clouds[:4]), ("valid", clouds[4:5]),
-                              ("test", clouds[5:])):
+        for split, graphs in (("train", clouds[:-2]),
+                              ("valid", clouds[-2:-1]),
+                              ("test", clouds[-1:])):
             paths.append(write_partitioned_split(
                 graphs, out_dir, f"fluid_{split}", ws, d.split_mode,
                 d.inner_radius, d.outer_radius, seed=cfg.seed))
@@ -3129,12 +3173,14 @@ def dist_phase(root, dev, clouds):
               f"compute_dtype={m.compute_dtype} remat={m.remat} "
               f"mmd={cfg.train.mmd.weight} accumulation="
               f"{cfg.train.accumulation_steps} node_order={d.node_order}")
+        dclouds = clouds[:DIST_TRAIN] + clouds[4:]
         paths, part_ms, split_ms = write_dist_shards(
-            cfg, clouds, os.path.join(tmp, "ws4"), DIST_WS)
-        print(f"partitioned and wrote 6 clouds x {DIST_WS} parts in "
-              f"{split_ms:.0f} ms (each: the outer-radius graph, the labels, "
-              f"{DIST_WS} local inner-radius graphs)")
-        check_partitions(clouds, paths, part_ms, DIST_WS)
+            cfg, dclouds, os.path.join(tmp, "ws4"), DIST_WS)
+        print(f"partitioned and wrote {len(dclouds)} clouds ({DIST_TRAIN} / "
+              f"1 / 1) x {DIST_WS} parts in {split_ms:.0f} ms (each: the "
+              f"outer-radius graph, the labels, {DIST_WS} local inner-radius "
+              "graphs)")
+        check_partitions(dclouds, paths, part_ms, DIST_WS)
         n_real = clouds[0]["loc"].shape[0]   # a batch: one cloud, all ranks
         per = micro_step_collectives(cfg.model.n_layers, cfg.model.remat,
                                      bool(cfg.train.mmd.weight), False)
@@ -3172,7 +3218,7 @@ def dist_j1(cfg, paths, dev, tmp, n_real):
           f"compare)")
     check(math.isfinite(best["loss_valid"]), "(j1) non-finite eval loss")
     rows = read_probe(probe_dir, DIST_WS)
-    check(all(len(r) == DIST_EPOCHS * 4 for r in rows),
+    check(all(len(r) == DIST_EPOCHS * DIST_TRAIN for r in rows),
           "(j1) missing micro-steps")
     check(all(r[-1]["fwd"] == 0 and r[-1]["stack"] == 0 for r in rows),
           "(j1) the plain path launched a fused kernel")
@@ -3292,7 +3338,7 @@ def dist_j2(flagship, paths, dev, tmp, n_real, res, L):
     print(f"(j2) run_distributed fused: {DIST_WS} ranks x 1 epoch in "
           f"{time.perf_counter() - t0:.1f} s (no evaluation: test_interval "
           f"{cfg2.log.test_interval})")
-    micro = 4
+    micro = DIST_TRAIN
     want_fwd, want_bwd = 2 * L * micro, L * micro
     for r, rr in enumerate(rows2):
         last = rr[-1]
@@ -3306,9 +3352,10 @@ def dist_j2(flagship, paths, dev, tmp, n_real, res, L):
               and last["stack"] == 0, f"(j2) rank {r}: launch counts")
     report_dist_run("(j2) ", cfg2, rows2, n_real,
                     {"layout": 6, "replicated": 1})
+    acc = cfg2.train.accumulation_steps    # the first update's micro-steps
     for r, rr in enumerate(res):
         k, p = rr["fused"]["k"], rr["fused"]["p"]
-        check(k["launches"] == (want_fwd, want_bwd)
+        check(k["launches"] == (2 * L * acc, L * acc)
               and p["launches"] == (0, 0),
               f"rank {r}: first update launches {k['launches']} / "
               f"{p['launches']}")
@@ -7049,6 +7096,579 @@ def scanned_epoch_rows(scan, flagship, stack, fam, row):
     return out
 
 
+# ------------------------------------- phase 18: Fluid113K scenes, the fault kit
+
+# (a) the first sim of each split (data/fluid113k.py SIM_SPLITS), each made
+# by the port's command line at the flagship's node count
+SCENE_SIMS = (1, 101, 121)
+SCENE_PARTICLES = FLUID_N
+SCENE_MIN_PARTICLES = 100_000    # the command line's default budget floor
+SCENE_RADIUS = 0.025
+# the fewest frames delta_t 20 allows (data/fluid113k.py: hi_f =
+# min(FRAME_RANGE, T - delta_t - 1) > 0)
+SCENE_FRAMES = 22
+# The reader (a) takes, fixed: the H100 machine this script is run on has
+# no zstandard (python3 -c "import msgpack, zstandard, scipy" fails there),
+# without which the shards can be neither packed (pack_scene_records) nor
+# read (read_sim). So (a) reads the stand-in's partio exports with the
+# port's bgeo codec: the arrays pack stores and read_sim returns
+# (scene_sim). The shard round trip is held on the CPU
+# (tests/test_torch_fluid_scenes.py).
+SCENE_READER = "bgeo exports (numpy_from_bgeo), no shards"
+SCENE_TIMED = 4
+# (b) tiny_run's final train loss: the resumed run's distance from a
+# control within max(DRILL_FACTOR x the two controls' distance,
+# DRILL_FLOOR x |loss|) (the plain scatter's atomics sum in no fixed order)
+DRILL_FACTOR = 2.0
+DRILL_FLOOR = 1e-6
+
+# A stand-in for SPlisHSPlasH's DynamicBoundarySimulator, written into the
+# phase's directory: run_simulator's argv in, SCENE_FRAMES partio frames per
+# fluid out, the particles advanced along their start velocities at the
+# scene's particleFPS, shuffled and carrying ids, as the simulator's
+# exports arrive. It loads the port's bgeo codec by its path (no torch).
+STANDIN_SIM = '''#!{python}
+import importlib.util, json, os, sys, time
+import numpy as np
+t0 = time.perf_counter()
+spec = importlib.util.spec_from_file_location("bgeo", {bgeo!r})
+bgeo = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(bgeo)
+args = sys.argv[1:]
+if args[:3] != ["--no-cache", "--no-gui", "--no-initial-pause"]:
+    sys.exit("stand-in simulator: unexpected argv %r" % (args,))
+out = args[args.index("--output-dir") + 1]
+with open(args[-1]) as f:
+    scene = json.load(f)
+dt = 1.0 / scene["Configuration"]["particleFPS"]
+partio = os.path.join(out, "partio")
+os.makedirs(partio, exist_ok=True)
+n = 0
+for k, fm in enumerate(scene["FluidModels"]):
+    pos0, vel0 = bgeo.numpy_from_bgeo(os.path.join(out, fm["particleFile"]))
+    n += pos0.shape[0]
+    for t in range({frames}):
+        perm = np.random.default_rng([k, t]).permutation(pos0.shape[0])
+        bgeo.write_bgeo(
+            os.path.join(partio, "ParticleData_%s_%d.bgeo" % (fm["id"], t)),
+            (pos0 + np.float32(t * dt) * vel0)[perm],
+            dict(velocity=vel0[perm], id=perm.astype(np.int64)))
+print("stand-in simulator: %d particles x %d frames in %.2f s"
+      % (n, {frames}, time.perf_counter() - t0), flush=True)
+'''
+
+
+def write_standin(tmp, root):
+    import stat
+
+    path = os.path.join(tmp, "standin_simulator")
+    with open(path, "w") as f:
+        f.write(STANDIN_SIM.format(
+            python=sys.executable, frames=SCENE_FRAMES,
+            bgeo=os.path.join(root, "distegnn_tpu_torch", "data",
+                              "bgeo.py")))
+    os.chmod(path, os.stat(path).st_mode | stat.S_IXUSR)
+    return path
+
+
+def scene_sim(scene_dir, radius=SCENE_RADIUS):
+    """``read_sim``'s (pos [T, N, 3], vel [T, N, 3], viscosity [N], mass
+    [N]) of a scene directory's partio exports, read with the port's bgeo
+    codec: per frame the arrays ``pack_scene_records`` stores (the fluids
+    in ``list_partio_frames`` order, each sorted by id; per-particle mass
+    density0 (2r)^3), float32."""
+    import numpy as np
+
+    from distegnn_tpu_torch.data.bgeo import (list_partio_frames,
+                                              numpy_from_bgeo)
+
+    with open(os.path.join(scene_dir, "scene.json")) as f:
+        scene = json.load(f)
+    frames = list_partio_frames(os.path.join(scene_dir, "partio"))
+    counts = {len(v) for v in frames.values()}
+    check(len(frames) > 0 and len(counts) == 1,
+          f"{scene_dir}: no partio exports, or fluids with different frame "
+          f"counts {counts}")
+    pos, vel = [], []
+    for t in range(counts.pop()):
+        read = [numpy_from_bgeo(paths[t]) for paths in frames.values()]
+        check(all(v is not None for _, v in read),
+              f"{scene_dir}: frame {t} has no velocity attribute")
+        pos.append(np.concatenate([p for p, _ in read]).astype(np.float32))
+        vel.append(np.concatenate([v for _, v in read]).astype(np.float32))
+    n = [p.shape[0] for p, _ in read]
+    visc = np.concatenate([np.full(k, scene[f]["viscosity"], np.float32)
+                           for f, k in zip(frames, n)])
+    mass = (np.concatenate([np.full(k, scene[f]["density0"], np.float32)
+                            for f, k in zip(frames, n)])
+            * (2 * radius) ** 3).astype(np.float32)
+    return (np.stack(pos).astype(np.float32),
+            np.stack(vel).astype(np.float32), visc, mass)
+
+
+class Background:
+    """Commands started together (cwd the checkout, the port importable,
+    at nice 10), each one's output into a file, left running while the
+    script goes on; :meth:`results` waits for them. Whatever still runs
+    when the script exits is killed (``_kill_background``)."""
+
+    live = []
+
+    def __init__(self, cmds, root, tmp, tag):
+        env = dict(os.environ, PYTHONPATH=root)
+        self.logs = [os.path.join(tmp, f"{tag}_{i}.log")
+                     for i in range(len(cmds))]
+        # below the build's priority: nvcc's critical path keeps its cores
+        nice = shutil.which("nice")
+        prefix = [nice, "-n", "10"] if nice else []
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for cmd, path in zip([prefix + c for c in cmds], self.logs):
+            with open(path, "w") as log:
+                self.procs.append(subprocess.Popen(
+                    cmd, cwd=root, env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        self.ends = [None] * len(cmds)
+        Background.live.append(self)
+        # each command's exit time, seen while the script goes on
+        threading.Thread(target=self._watch, daemon=True).start()
+
+    def _watch(self):
+        while any(e is None for e in self.ends):
+            for i, p in enumerate(self.procs):
+                if self.ends[i] is None and p.poll() is not None:
+                    self.ends[i] = time.perf_counter() - self.t0
+            time.sleep(0.05)
+
+    def results(self, timeout=900):
+        """Per command (exit code, output, wall seconds from the common
+        start to its exit); raises TimeoutError past ``timeout`` s, with
+        every command killed."""
+        while any(e is None for e in self.ends):
+            if time.perf_counter() - self.t0 > timeout:
+                self.kill()
+                raise TimeoutError(f"commands still running after "
+                                   f"{timeout} s: {self.logs}")
+            time.sleep(0.05)
+        out = []
+        for p, path, end in zip(self.procs, self.logs, self.ends):
+            with open(path) as f:
+                out.append((p.returncode, f.read(), end))
+        return out
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _kill_background():
+    for b in Background.live:
+        b.kill()
+
+
+class DrillRuns(threading.Thread):
+    """Phase 18 (b)'s tiny_run subprocesses, run on a thread beside the
+    script (they need no kernel): two controls, SIGKILL after step 6 with a
+    cadence save every step, SIGTERM after step 2 and a NaN batch at step 5
+    with 2 retries, started together; then the newest step checkpoint of
+    the killed run truncated, and the two resumes together. The checks are
+    :func:`drill_phase`'s, in the main thread."""
+
+    def __init__(self, root, tmp):
+        super().__init__(daemon=True)
+        self.root, self.tmp = root, tmp
+        self.dirs = {k: os.path.join(tmp, "drill", k)
+                     for k in ("c1", "c2", "kill", "term", "poison")}
+        self.first = self.second = self.steps = self.error = None
+        self.seconds = None
+        self.t0 = time.perf_counter()
+        self.start()
+
+    def run(self):
+        import glob
+
+        from distegnn_tpu_torch.testing.faults import corrupt_checkpoint
+
+        try:
+            d = self.dirs
+            self.first = Background(
+                [tiny_cmd(d["c1"]), tiny_cmd(d["c2"]),
+                 tiny_cmd(d["kill"], "--interval-s", 0.001, "--kill-at-step",
+                          6),
+                 tiny_cmd(d["term"], "--sigterm-at-step", 2),
+                 tiny_cmd(d["poison"], "--poison-at-step", 5, "--retries",
+                          2)], self.root, self.tmp, "drill1").results(600)
+            self.steps = sorted(glob.glob(os.path.join(
+                d["kill"], "run", "state_dict", "step_*.ckpt")))
+            if len(self.steps) >= 2:
+                corrupt_checkpoint(self.steps[-1], mode="truncate")
+            self.second = Background(
+                [tiny_cmd(d["kill"], "--resume", "auto"),
+                 tiny_cmd(d["term"], "--resume", "auto")],
+                self.root, self.tmp, "drill2").results(600)
+        except Exception as e:   # reported by drill_phase in the main thread
+            self.error = e
+        self.seconds = time.perf_counter() - self.t0
+
+
+def start_scene_work(root):
+    """Phase 18's host work, started beside the kernel build (nvcc keeps
+    five cores busy; nothing is measured there): the three scenes'
+    ``generate`` with the stand-in simulator, and the drills. Returns what
+    :func:`scene_phase` joins."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scenes_")
+    # at exit (last registered, first run): the processes, then their files
+    atexit.register(shutil.rmtree, tmp, True)
+    atexit.register(_kill_background)
+    standin = write_standin(tmp, root)
+    scenes = os.path.join(tmp, "scenes")
+    gen = Background(
+        [[sys.executable, "-m", "distegnn_tpu_torch.data.fluid_scenes",
+          "generate", "--output", scenes, "--seed", str(s), "--num-objects",
+          "2", "--const-fluid-particles", str(SCENE_PARTICLES),
+          "--min-fluid-particles", str(SCENE_MIN_PARTICLES), "--radius",
+          str(SCENE_RADIUS), "--simulator-bin", standin]
+         for s in SCENE_SIMS], root, tmp, "generate")
+    print(f"phase 18: started {len(SCENE_SIMS)} scene generations and the "
+          "tiny_run drills beside the kernel build")
+    return {"tmp": tmp, "scenes": scenes, "gen": gen,
+            "drills": DrillRuns(root, tmp)}
+
+
+def join_scene_work(work, t_build):
+    """Wait, after the build, for phase 18's host work, so that none of it
+    runs beside a measured phase."""
+    try:
+        work["gen_out"] = work["gen"].results()
+    except TimeoutError as e:
+        fail(f"phase 18 generate: {e}")
+    work["drills"].join(1200)
+    check(not work["drills"].is_alive(),
+          "phase 18: the drills still run after 1200 s")
+    waited = time.perf_counter() - t_build
+    print(f"phase 18's host work done {waited:.1f} s after the build "
+          f"(generate {max(w for _, _, w in work['gen_out']):.1f} s, the "
+          f"drills {work['drills'].seconds:.1f} s, from their start)")
+
+
+def scene_phase(root, dev, work):
+    """Phase 18: (a) Fluid113K from the synthesized scenes through the
+    distribute path, (b) the kill-and-resume drills' checks. The scenes,
+    exports, shards, logs and checkpoints are removed afterwards."""
+    from distegnn_tpu_torch import obs
+
+    t0 = time.perf_counter()
+    try:
+        res = scene_train_phase(root, dev, work)
+        res["drill_s"] = drill_phase(work["drills"])
+    finally:
+        obs.configure(enable=False)
+        shutil.rmtree(work["tmp"], ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"phase 18: {res['seconds']:.1f} s here ((a) {res['a_s']:.1f}), "
+          f"its host work beside the build: generate "
+          f"{res['gen_s']:.1f} s, the drills {res['drill_s']:.1f} s")
+    return res
+
+
+def scene_train_phase(root, dev, work):
+    import itertools
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from distegnn_tpu_torch.config import derive_runtime_fields, load_config
+    from distegnn_tpu_torch.data import fluid113k
+    from distegnn_tpu_torch.data.bgeo import numpy_from_bgeo
+    from distegnn_tpu_torch.models.registry import get_model
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.parallel import launch
+    from distegnn_tpu_torch.parallel.collectives import (all_gather,
+                                                         all_reduce)
+    from distegnn_tpu_torch.parallel.mesh import (GRAPH_AXIS, backend_for,
+                                                  destroy_graph_group,
+                                                  init_graph_group)
+
+    t_a = time.perf_counter()
+    tmp = work["tmp"]
+    print(f"phase 18 (a): Fluid113K scenes {SCENE_SIMS}, reader: "
+          f"{SCENE_READER}")
+    gen = work["gen_out"]
+    gen_s = max(wall for _, _, wall in gen)
+    sims = {}
+    for s, (rc, out, wall) in zip(SCENE_SIMS, gen):
+        check(rc == 0, f"(a) generate --seed {s} exited {rc}:\n{out[-3000:]}")
+        sim_dir = os.path.join(work["scenes"], f"sim_{s:04d}")
+        with open(os.path.join(sim_dir, "scene.json")) as f:
+            scene = json.load(f)
+        fluids = {fm["id"]: numpy_from_bgeo(
+            os.path.join(sim_dir, fm["particleFile"]))
+            for fm in scene["FluidModels"]}
+        n = sum(p.shape[0] for p, _ in fluids.values())
+        sim_line = [ln for ln in out.splitlines()
+                    if ln.startswith("stand-in simulator:")]
+        check(len(sim_line) == 1, f"(a) sim {s}: the stand-in simulator "
+              f"printed no result:\n{out[-3000:]}")
+        sim_s = float(sim_line[0].rsplit(" in ", 1)[1].split()[0])
+        print(f"(a) sim {s}: generate (beside the build) {wall:.2f} s: the "
+              f"stand-in {sim_s:.2f} s, the rest (interpreter, imports, "
+              f"synthesis) {wall - sim_s:.2f} s; "
+              f"{n} particles in {len(fluids)} fluid(s) "
+              + ", ".join(f"{fid} {p.shape[0]} (viscosity "
+                          f"{scene[fid]['viscosity']:.5f}, density0 "
+                          f"{scene[fid]['density0']:.1f})"
+                          for fid, (p, _) in fluids.items())
+              + f"; {sim_line[0]}")
+        check(n == SCENE_PARTICLES,
+              f"(a) sim {s}: {n} particles, not {SCENE_PARTICLES}")
+        # the reader against the stand-in's frames and the scene's constants
+        t0 = time.perf_counter()
+        pos, vel, visc, mass = scene_sim(sim_dir)
+        read_s = time.perf_counter() - t0
+        dt = np.float32(1.0 / scene["Configuration"]["particleFPS"])
+        truth = np.stack([np.concatenate(
+            [p + np.float32(t * float(dt)) * v for p, v in fluids.values()])
+            for t in range(SCENE_FRAMES)])
+        check(pos.shape == (SCENE_FRAMES, SCENE_PARTICLES, 3)
+              and vel.shape == pos.shape,
+              f"(a) sim {s}: frames {pos.shape}, {vel.shape}")
+        err = float(np.abs(pos - truth).max())
+        want_v = np.concatenate([np.full(p.shape[0], scene[f]["viscosity"],
+                                         np.float32)
+                                 for f, (p, _) in fluids.items()])
+        want_m = (np.concatenate([np.full(p.shape[0], scene[f]["density0"],
+                                          np.float32)
+                                  for f, (p, _) in fluids.items()])
+                  * (2 * SCENE_RADIUS) ** 3).astype(np.float32)
+        print(f"(a) sim {s}: read {SCENE_FRAMES} frames in {read_s:.2f} s; "
+              f"positions vs the stand-in's frames max abs err {err:.3e} "
+              f"(tol 1e-6); viscosity and mass per fluid "
+              f"{np.array_equal(visc, want_v) and np.array_equal(mass, want_m)}")
+        check(err <= 1e-6, f"(a) sim {s}: positions off the stand-in's")
+        check(np.array_equal(visc, want_v) and np.array_equal(mass, want_m),
+              f"(a) sim {s}: viscosity or mass not the scene's")
+        sims[s] = sim_dir
+    print("(a) pack: not run (no zstandard installed); the pack -> "
+          "read_sim round trip is held on the CPU")
+
+    data_dir = os.path.join(tmp, "data")
+    cfg = derive_runtime_fields(load_config(
+        os.path.join(root, "configs", "largefluid_distegnn.yaml"),
+        {"model.edge_impl": "fused", "data.edge_block": BLOCK,
+         "data.max_samples": 2, "train.epochs": 1, **EAGER,
+         "log.test_interval": 1, "data.data_dir": data_dir,
+         "log.log_dir": os.path.join(tmp, "logs")}))
+    ws = cfg.data.world_size
+    backend = backend_for(ws, dev.type)
+    check(ws == max(1, torch.cuda.device_count()) and ws == 1,
+          f"(a) world size {ws} not derived from one card")
+    if dev.type == "cuda":
+        check(backend == "nccl", "(a) one rank would not take nccl")
+    reads, prep = [], []
+
+    def read_scene(data_dir_, name, idx):
+        check(data_dir_ == data_dir and name == cfg.data.dataset_name
+              and idx in sims, f"(a) read_sim({data_dir_!r}, {name!r}, "
+              f"{idx}) outside the synthesized scenes")
+        t0 = time.perf_counter()
+        out = scene_sim(sims[idx])
+        reads.append(time.perf_counter() - t0)
+        return out
+
+    real_prep = launch._dispatch_preprocess
+
+    def timed_prep(*a, **k):
+        t0 = time.perf_counter()
+        out = real_prep(*a, **k)
+        prep.append(time.perf_counter() - t0)
+        return out
+
+    probe_dir = os.path.join(tmp, "probe")
+    os.makedirs(probe_dir)
+    print_mode("phase 18 (a) ", cfg)
+    # the rank runs in this process: its collective counts start from 0
+    for c in (all_reduce, all_gather):
+        c.counts.clear()
+        c.seconds.clear()
+    reset_fused_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the main path: counts 0 just before, read just after
+    with mock.patch.object(fluid113k, "read_sim", read_scene), \
+            mock.patch.object(launch, "_dispatch_preprocess", timed_prep):
+        best = launch.run_distributed(cfg, device=dev,
+                                      on_step=StepProbe(probe_dir))
+    fwd, bwd = fused_counts()
+    tc = ep.fused_edge_layer.tc_launches
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(prep) == 1 and len(reads) == 3,
+          f"(a) {len(prep)} preprocessing call(s), {len(reads)} sim reads")
+    print(f"(a) run_distributed at world size {ws} (backend {backend}): "
+          f"{wall:.1f} s; read {sum(reads):.2f} s for {len(reads)} sims, "
+          f"preprocessing (frames -> graphs -> the partition shards) "
+          f"{prep[0] - sum(reads):.2f} s; best {best}")
+    rows = read_probe(probe_dir, ws)[0]
+    L, micro = cfg.model.n_layers, len(rows)
+    with mock.patch.object(fluid113k, "read_sim", read_scene):
+        paths = launch._dispatch_preprocess(cfg, ws)
+    check(len(reads) == 3, "(a) the cached shards were read again")
+    with open(paths[0][0], "rb") as f:
+        train = pickle.load(f)
+    deg = [g["edge_index"].shape[1] / g["loc"].shape[0] for g in train]
+    print(f"(a) train graphs: {len(train)} of "
+          f"{[g['loc'].shape[0] for g in train]} nodes, mean degree "
+          + " ".join(f"{d:.2f}" for d in deg))
+    evals = 2 * 2     # valid + test, max_samples 2 each, batch 1
+    want_fwd, want_bwd = 2 * L * micro + L * evals, L * micro
+    steps = [(r["fwd"] - q["fwd"], r["bwd"] - q["bwd"]) for q, r in
+             zip([{"fwd": 0, "bwd": 0}] + rows, rows)]
+    print(f"(a) {micro} micro-steps ({cfg.train.epochs} epoch of "
+          f"{len(train)} graphs, batch {cfg.data.batch_size}) + {evals} eval "
+          f"forwards: fused_edge_fwd {fwd} ({tc} on the tensor cores; "
+          f"expected {2 * L} a micro-step x {micro} + {L} x {evals} = "
+          f"{want_fwd}), fused_edge_bwd {bwd} (expected {want_bwd}); per "
+          f"micro-step {steps}; peak device memory {peak / 2**30:.3f} GiB")
+    check(micro == 2 and len(train) == 2, f"(a) {micro} micro-steps")
+    check(all(st == (2 * L, L) for st in steps),
+          f"(a) launches a micro-step {steps}, expected {(2 * L, L)}")
+    check(fwd == want_fwd and bwd == want_bwd and tc == fwd,
+          f"(a) launches fwd {fwd} bwd {bwd} tc {tc}")
+    check(all(math.isfinite(r["loss"]) for r in rows),
+          "(a) non-finite train loss")
+    report_dist_run("(a) ", cfg, [rows], SCENE_PARTICLES,
+                    {"layout": 6, "replicated": 1})
+
+    # the first update again, in this process at world size 1: the kernels,
+    # then the plain versions; both kernels at the batch's shape
+    gg = init_graph_group(1, 0, dev.type,
+                          "file://" + os.path.join(tmp, "check_store"))
+    try:
+        loader = launch.rank_loaders(cfg, paths, 0, gg.device)[0]
+        loader.set_epoch(1)
+        batches = list(itertools.islice(loader,
+                                        cfg.train.accumulation_steps))
+        init = get_model(cfg.model, generator=torch.Generator().manual_seed(
+            int(cfg.seed))).state_dict()
+        k = first_update(cfg, init, batches, dev, time_extra=SCENE_TIMED,
+                         axis_name=GRAPH_AXIS, rank=0)
+        p = first_update(cfg, init, batches, dev,
+                         patches=fused_plain_patches(), axis_name=GRAPH_AXIS,
+                         rank=0)
+        fused = get_model(cfg.model)
+        fused.load_state_dict(init)
+        kernels = flagship_kernel_phase(fused.to(dev), batches[0], dev)
+        n_real = float(batches[0].node_mask.sum())
+    finally:
+        destroy_graph_group()
+    n_micro = cfg.train.accumulation_steps
+    check(k["launches"] == (2 * L * n_micro, L * n_micro)
+          and p["launches"] == (0, 0),
+          f"(a) first update launches: kernels {k['launches']}, plain "
+          f"{p['launches']}")
+    errs, per = update_distance(k, p)
+    worst = sorted(per.items(), key=lambda kv: -kv[1])
+    print(f"(a) first update, kernels vs plain: losses max rel err "
+          f"{max(errs['loss'], errs['loss_with_mmd']):.3e}, gradient norm "
+          f"{errs['grad norm']:.3e}, max {errs['grad']:.3e} (tol "
+          f"{TOL_TRAIN:.0e}); worst tensor {worst[0][0]} {worst[0][1]:.3e} "
+          f"(tol {TOL_PARAM:.3e})")
+    check(all(errs[key] <= TOL_TRAIN for key in ("loss_with_mmd", "loss",
+                                                 "grad norm", "grad")),
+          "(a) the kernels disagree with the plain versions")
+    check(worst[0][1] <= TOL_PARAM,
+          f"(a) the gradient of {worst[0][0]} disagrees")
+    med = step_times("(a) ", k, n_real)
+    a_s = time.perf_counter() - t_a
+    print(f"phase 18 (a): {a_s:.1f} s")
+    return {"kernels": kernels, "launches": (fwd, bwd), "ms": med,
+            "a_s": a_s, "gen_s": gen_s}
+
+
+def tiny_cmd(log_dir, *extra):
+    return [sys.executable, "-m", "distegnn_tpu_torch.testing.tiny_run",
+            "--log-dir", log_dir] + [str(a) for a in extra]
+
+
+def tiny_result(label, run, want_rc=0):
+    """(exit code, output, RESULT dict or None) of a tiny_run; checks the
+    exit code."""
+    rc, out, wall = run
+    result = [json.loads(ln[len("RESULT "):]) for ln in out.splitlines()
+              if ln.startswith("RESULT ")]
+    print(f"(b) {label}: exit {rc} in {wall:.1f} s; "
+          f"{result[0] if result else 'no RESULT line'}")
+    check(rc == want_rc, f"(b) {label} exited {rc}, expected {want_rc}:\n"
+          f"{out[-3000:]}")
+    return out, result[0] if result else None
+
+
+def drill_phase(drills):
+    """Phase 18 (b)'s checks of :class:`DrillRuns`:
+    ``python -m distegnn_tpu_torch.testing.tiny_run`` at its default device
+    (the card), as the JAX package's resilience tests drive its own: the
+    controls finish; the SIGKILL leaves step checkpoints and its resume
+    logs "resume: skipping" (past the truncated newest) and "resume:
+    restored"; the SIGTERM exits 75 with the preempt checkpoint and marker;
+    both resumes reach the control's final loss within max(DRILL_FACTOR x
+    the controls' distance, DRILL_FLOOR x |loss|); the NaN batch gives one
+    divergence event, not diverged, a finite loss. tiny_run's FastEGNN
+    runs the plain scatter: it launches no kernel, so this checks the
+    training runtime on the card, not a kernel. Returns the drills' wall
+    seconds."""
+    print("phase 18 (b): the kill-and-resume drills of tiny_run on the card "
+          "(plain scatter: no kernel launches; the runtime is checked, not "
+          "a kernel)")
+    check(drills.error is None, f"(b) the drills failed: {drills.error!r}")
+    first, second, d = drills.first, drills.second, drills.dirs
+    _, r1 = tiny_result("control 1", first[0])
+    _, r2 = tiny_result("control 2", first[1])
+    tiny_result("SIGKILL after step 6", first[2], want_rc=-9)
+    out, rt = tiny_result("SIGTERM after step 2", first[3], want_rc=75)
+    state = os.path.join(d["term"], "run", "state_dict")
+    check("PREEMPTED" in out and rt is not None and rt["preempted"]
+          and os.path.exists(os.path.join(state, "preempt_model.ckpt"))
+          and os.path.exists(os.path.join(state, "PREEMPTED")),
+          "(b) SIGTERM left no preempt checkpoint and marker")
+    out, rp = tiny_result("NaN batch at step 5, 2 retries", first[4])
+    check("DIVERGED" in out and "rolling back" in out
+          and rp["divergence_events"] == 1 and not rp["diverged"]
+          and math.isfinite(rp["final_train_loss"]),
+          f"(b) the poisoned run did not roll back and recover: {rp}")
+    check(len(drills.steps) >= 2, f"(b) the killed run left "
+          f"{len(drills.steps)} step checkpoints")
+    print(f"(b) truncated the newest of {len(drills.steps)} step "
+          f"checkpoints: {os.path.basename(drills.steps[-1])}")
+    loss = r1["final_train_loss"]
+    bound = max(DRILL_FACTOR * abs(r2["final_train_loss"] - loss),
+                DRILL_FLOOR * abs(loss))
+    for label, run, skip in (("resume after SIGKILL", second[0], True),
+                             ("resume after SIGTERM", second[1], False)):
+        out, r = tiny_result(label, run)
+        dist = abs(r["final_train_loss"] - loss)
+        print(f"(b) {label}: final train loss {r['final_train_loss']!r} vs "
+              f"control {loss!r}: {dist:.3e} (bound {bound:.3e}: "
+              f"{DRILL_FACTOR:g} x the controls' "
+              f"{abs(r2['final_train_loss'] - loss):.3e}, floor "
+              f"{DRILL_FLOOR:g} x |loss|); from epoch {r['start_epoch']} + "
+              f"{r['start_step_in_epoch']} step(s)")
+        check("resume: restored" in out and (not skip
+                                            or "resume: skipping" in out),
+              f"(b) {label}: the log lacks the resume lines")
+        check(r["start_epoch"] > 0 or r["start_step_in_epoch"] > 0,
+              f"(b) {label} started from scratch")
+        check(dist <= bound, f"(b) {label}: {dist:.3e} from the control's "
+              f"loss, bound {bound:.3e}")
+    print(f"phase 18 (b): the drills took {drills.seconds:.1f} s (wall, "
+          "beside the build: each run's seconds are from its wave's start)")
+    return drills.seconds
+
+
 def main():
     import torch
 
@@ -7073,11 +7693,27 @@ def main():
     smi = nvidia_smi()
     print(f"card: {smi}")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
-    t0 = time.perf_counter()
-    reports = build_all(["fused_edge_fwd", "fused_edge_bwd", "prefix_scan",
-                         "fused_stack_fwd", "blocked_onehot"])
-    print(f"built {len(reports)} kernel source(s) in "
-          f"{time.perf_counter() - t0:.1f} s")
+    root = os.path.dirname(os.path.abspath(__file__))
+    scene_work = start_scene_work(root)
+
+    def build():
+        t = time.perf_counter()
+        return build_all(["fused_edge_fwd", "fused_edge_bwd", "prefix_scan",
+                          "fused_stack_fwd", "blocked_onehot"]), \
+            time.perf_counter() - t
+
+    # the phases' host inputs are made while nvcc builds
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build)
+        t0 = time.perf_counter()
+        clouds = [fluid_cloud(300 + i) for i in range(6)]
+        stack_clouds = [fluid_cloud(400 + i, n=STACK_FLUID_N)
+                        for i in range(6)]
+        scenes = serve_scenes()
+        inputs_s = time.perf_counter() - t0
+        reports, build_s = building.result()
+    print(f"built {len(reports)} kernel source(s) in {build_s:.1f} s")
+    join_scene_work(scene_work, time.perf_counter())
     for name, rep in reports.items():
         for line in rep.splitlines():
             if ("entry function" in line or "registers" in line
@@ -7085,16 +7721,11 @@ def main():
                 print(f"  {name}: {line.strip()}")
 
     dev = torch.device(DEVICE)
-    root = os.path.dirname(os.path.abspath(__file__))
     profile = "--profile" in sys.argv[1:]
-    t0 = time.perf_counter()
-    clouds = [fluid_cloud(300 + i) for i in range(6)]
-    stack_clouds = [fluid_cloud(400 + i, n=STACK_FLUID_N) for i in range(6)]
-    scenes = serve_scenes()
     e = [c["edge_index"].shape[1] for c in clouds]
     print(f"clouds: 6 x N={FLUID_N}, edges {min(e)}..{max(e)} (mean degree "
           f"{np.mean(e) / FLUID_N:.2f}); serve scenes; built in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{inputs_s:.1f} s, beside the kernel build")
 
     cfg = load_config(os.path.join(root, "configs", "nbody_serve.yaml"),
                       {"model.edge_impl": "fused", "data.edge_block": BLOCK})
@@ -7130,6 +7761,7 @@ def main():
     fam = family_phase(root, dev)
     mesh = mesh_phase(root, dev, clouds[0], dist["part"])
     scan = scan_epoch_phase(root, dev, clouds, stack_clouds)
+    scenes_res = scene_phase(root, dev, scene_work)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{gate['fwd']} (gateway) + {promo['sub_fwd']} (worker children) "
           f"+ {tiled['launches']} (tiled serve) "
@@ -7160,7 +7792,9 @@ def main():
           f"fused_edge_fwd {data['launches'][0]} (all on the f32 kernel), "
           f"fused_edge_bwd {data['launches'][1]}; scanned epoch (phase 17, "
           f"graph replays): cell (d) {scan['a']['replayed']}, n-body "
-          f"{scan['b']}, stack {scan['c']['replayed']}")
+          f"{scan['b']}, stack {scan['c']['replayed']}; Fluid113K scenes "
+          f"(phase 18 (a)): fused_edge_fwd {scenes_res['launches'][0]}, "
+          f"fused_edge_bwd {scenes_res['launches'][1]}")
 
     # one row per kernel and path, with the numbers of the dtype and shape
     # that path launches the kernel at: serving f32 at phase 2's shape,
@@ -7264,6 +7898,16 @@ def main():
     kernels += family_rows(fam, row)
     kernels += mesh_rows(mesh, row)
     kernels += scanned_epoch_rows(scan, flagship, stack, fam, row)
+    sk = scenes_res["kernels"]
+    kernels += [
+        row(sk["fused_edge_fwd"]["kernel"], f"Fluid113K scenes train "
+            f"{sk['fused_edge_fwd']['dtype']} {sk['fused_edge_fwd']['shape']}",
+            sk["fused_edge_fwd"], fwd_tpu, scenes_res["launches"][0],
+            source="fused_edge_fwd"),
+        row("fused_edge_bwd", f"Fluid113K scenes train "
+            f"{sk['fused_edge_bwd']['dtype']} {sk['fused_edge_bwd']['shape']}",
+            sk["fused_edge_bwd"], "distegnn_tpu/ops/edge_pipeline.py:314",
+            scenes_res["launches"][1])]
     print(family_summary(fam))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s, the kernels' build "

@@ -1,14 +1,23 @@
-"""Fault injection for the serving layer (port of the serving half of
+"""Deterministic fault injection for the resilience layer (port of
 ``distegnn_tpu/testing``; docs/ROBUSTNESS.md).
 
-``serve_faults``: chaos injectors that kill, wedge, slow, SIGKILL or
-SIGSTOP replicas, fail worker spawns and sabotage hot-swaps in a live
-gateway. The training half (``faults``, ``tiny_run``) is not ported yet
-(ROADMAP.md queue 1 item 9).
+Everything here is test machinery: injectors that corrupt checkpoints, poison
+batches, and fail file opens on demand (``faults``), serving chaos injectors
+that kill/wedge replicas and sabotage hot-swaps in a live gateway
+(``serve_faults``), the promotion conveyor's drill (``promote_drill``), plus
+a tiny subprocess training entry point (``tiny_run``) the kill-and-resume
+tests drive.
 """
 
-from distegnn_tpu_torch.testing.serve_faults import (
+from distegnn_tpu_torch.testing.faults import (
     corrupt_checkpoint,
+    flaky_open,
+    inject_at_call,
+    poison_nan_batches,
+    simulate_killed_save,
+    truncated_read,
+)
+from distegnn_tpu_torch.testing.serve_faults import (
     corrupt_swap_checkpoint,
     inject_execute_latency,
     kill9_replica,
@@ -20,6 +29,11 @@ from distegnn_tpu_torch.testing.serve_faults import (
 
 __all__ = [
     "corrupt_checkpoint",
+    "simulate_killed_save",
+    "poison_nan_batches",
+    "flaky_open",
+    "truncated_read",
+    "inject_at_call",
     "kill_replica",
     "kill9_replica",
     "sigstop_replica",

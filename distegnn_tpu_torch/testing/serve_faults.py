@@ -47,28 +47,7 @@ from __future__ import annotations
 import os
 import signal
 
-
-def corrupt_checkpoint(path: str, mode: str = "truncate") -> None:
-    """Damage an existing checkpoint file in place (the JAX package's
-    ``testing/faults.corrupt_checkpoint``). ``truncate``: cut the file to
-    half its size (a torn write). ``garbage``: flip 64 bytes in the middle
-    keeping the size (bit-rot). ``headerless``: replace the whole file with
-    bytes that are no checkpoint."""
-    size = os.path.getsize(path)
-    if mode == "truncate":
-        with open(path, "rb+") as f:
-            f.truncate(max(1, size // 2))
-    elif mode == "garbage":
-        with open(path, "rb+") as f:
-            f.seek(size // 2)
-            chunk = f.read(64)
-            f.seek(size // 2)
-            f.write(bytes(b ^ 0xFF for b in chunk))
-    elif mode == "headerless":
-        with open(path, "wb") as f:
-            f.write(b"not a pickle at all")
-    else:
-        raise ValueError(f"unknown corruption mode {mode!r}")
+from distegnn_tpu_torch.testing.faults import corrupt_checkpoint
 
 
 def _replica(registry, model: str, replica: int):
@@ -161,7 +140,7 @@ def spawn_failure(registry, model: str, n: int = 1,
 
 def corrupt_swap_checkpoint(path: str, mode: str = "garbage") -> None:
     """Damage the checkpoint a blue/green swap is about to load (modes as
-    :func:`corrupt_checkpoint`): the swap's verified load must fail and the
-    swap must report ``stage="restore", rolled_back=True`` without touching
-    live params."""
+    :func:`distegnn_tpu_torch.testing.faults.corrupt_checkpoint`): the
+    swap's verified load must fail and the swap must report
+    ``stage="restore", rolled_back=True`` without touching live params."""
     corrupt_checkpoint(path, mode=mode)

@@ -1322,3 +1322,48 @@ def test_replayed_scan_runner_equals_the_eager_loop_on_card():
     el = max(abs(x - y) for x, y in zip(la, lb))
     sl = max(abs(x - y) for x, y in zip(la, ls))
     assert sl <= max(2 * el, 1e-6 * max(abs(v) for v in la)), (sl, el)
+
+
+@pytest.mark.cuda
+def test_tiny_run_sigterm_resume_on_card(tmp_path):
+    """``python -m distegnn_tpu_torch.testing.tiny_run`` on the card (its
+    default device): SIGTERM after the 2nd step exits 75 with the preempt
+    checkpoint and marker, and ``--resume auto`` reaches the control's
+    final loss within max(2x the distance of two controls, 1e-6 of it)
+    (the plain scatter's atomics sum in no fixed order on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the run's default device")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def start(name, *extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "distegnn_tpu_torch.testing.tiny_run",
+             "--log-dir", str(tmp_path / name)] + [str(a) for a in extra],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=repo, env=dict(os.environ, PYTHONPATH=repo))
+
+    def finish(proc):
+        out, _ = proc.communicate(timeout=300)
+        result = [json.loads(line[len("RESULT "):])
+                  for line in out.splitlines() if line.startswith("RESULT ")]
+        return proc.returncode, out, result[0] if result else None
+
+    runs = [finish(p) for p in (start("c1"), start("c2"),
+                                start("v", "--sigterm-at-step", 2))]
+    (rc1, out1, r1), (rc2, out2, r2), (rcv, outv, rv) = runs
+    assert rc1 == rc2 == 0, out1 + out2
+    assert rcv == 75 and rv["preempted"], outv
+    state = tmp_path / "v" / "run" / "state_dict"
+    assert (state / "preempt_model.ckpt").exists()
+    assert (state / "PREEMPTED").exists()
+    rc, out, r = finish(start("v", "--resume", "auto"))
+    assert rc == 0 and "resume: restored" in out, out
+    assert r["start_step_in_epoch"] == 2
+    loss = r1["final_train_loss"]
+    bound = max(2 * abs(r2["final_train_loss"] - loss), 1e-6 * abs(loss))
+    assert abs(r["final_train_loss"] - loss) <= bound, (r, loss, bound)

@@ -8,7 +8,6 @@ to JAX's under the same faults; a failure on every attempt raises after the
 third; the dataset's bytes land on the ``data/host_bytes`` gauge."""
 
 import torch_threads  # noqa: F401  (first: one torch thread)
-import io
 import pickle
 
 import numpy as np
@@ -20,6 +19,7 @@ from distegnn_tpu.testing.faults import truncated_read as jax_truncated_read
 from distegnn_tpu_torch import obs
 from distegnn_tpu_torch.data import loader, stream
 from distegnn_tpu_torch.data.loader import GraphDataset
+from distegnn_tpu_torch.testing.faults import flaky_open, truncated_read
 
 
 def _graphs(seed=0, n_graphs=3):
@@ -44,23 +44,11 @@ def _equal(a, b):
             np.testing.assert_array_equal(ga[k], gb[k])
 
 
-class _Hook:
-    """Stand-in for ``loader._file_open``: the first ``fail_times`` opens
-    raise (``mode='raise'``) or hand back the first half of the file
-    (``'truncate'``); it counts every open."""
-
-    def __init__(self, fail_times, mode):
-        self.fail_times, self.mode, self.n = fail_times, mode, 0
-
-    def __call__(self, path, mode="rb"):
-        self.n += 1
-        if self.n <= self.fail_times:
-            if self.mode == "raise":
-                raise OSError(5, "injected transient I/O error")
-            with open(path, "rb") as f:
-                data = f.read()
-            return io.BytesIO(data[:len(data) // 2])
-        return open(path, mode)
+def _fault(mode):
+    """The port's injector of ``mode``: the first opens raise
+    (``flaky_open``) or hand back the first half of the file
+    (``truncated_read``); each counts every open."""
+    return flaky_open if mode == "raise" else truncated_read
 
 
 @pytest.fixture
@@ -80,13 +68,11 @@ def sleeps(monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["raise", "truncate"])
-def test_two_failed_reads_of_a_pickle_still_load_it(pickled, sleeps,
-                                                    monkeypatch, mode):
+def test_two_failed_reads_of_a_pickle_still_load_it(pickled, sleeps, mode):
     path, graphs = pickled
-    hook = _Hook(2, mode)
-    monkeypatch.setattr(loader, "_file_open", hook)
-    ds = GraphDataset(path)
-    assert hook.n == 3 and sleeps == [0.1, 0.2]
+    with _fault(mode)(2) as hook:
+        ds = GraphDataset(path)
+    assert hook["n"] == 3 and sleeps == [0.1, 0.2]
     _equal(ds.graphs, graphs)
     # JAX under the same two faults loads the same graphs
     jfault = jax_flaky_open if mode == "raise" else jax_truncated_read
@@ -97,28 +83,24 @@ def test_two_failed_reads_of_a_pickle_still_load_it(pickled, sleeps,
 
 
 @pytest.mark.parametrize("mode", ["raise", "truncate"])
-def test_a_failure_on_every_attempt_still_raises(pickled, sleeps,
-                                                 monkeypatch, mode):
+def test_a_failure_on_every_attempt_still_raises(pickled, sleeps, mode):
     path, _ = pickled
-    hook = _Hook(5, mode)
-    monkeypatch.setattr(loader, "_file_open", hook)
     with pytest.raises(OSError if mode == "raise" else
                        (EOFError, pickle.UnpicklingError)):
-        GraphDataset(path)
-    assert hook.n == 3 and sleeps == [0.1, 0.2]
+        with _fault(mode)(5) as hook:
+            GraphDataset(path)
+    assert hook["n"] == 3 and sleeps == [0.1, 0.2]
 
 
-def test_shard_reads_go_through_the_same_hook(tmp_path, sleeps,
-                                              monkeypatch):
+def test_shard_reads_go_through_the_same_hook(tmp_path, sleeps):
     graphs = _graphs(1, n_graphs=4)
     out = str(tmp_path / "shards")
     stream.write_shards(graphs, out, shard_size=2)
-    hook = _Hook(2, "truncate")
-    monkeypatch.setattr(loader, "_file_open", hook)
-    ds = stream.StreamedGraphDataset(out)     # the manifest: 2 torn reads
-    assert hook.n == 3
-    got = [ds[i] for i in range(len(ds))]
-    assert hook.n == 5                        # one read per shard
+    with truncated_read(2) as hook:
+        ds = stream.StreamedGraphDataset(out)     # the manifest: 2 torn reads
+        assert hook["n"] == 3
+        got = [ds[i] for i in range(len(ds))]
+        assert hook["n"] == 5                     # one read per shard
     for g, ref in zip(got, graphs):
         for k in ("node_feat", "loc", "vel", "edge_index"):
             np.testing.assert_array_equal(g[k], ref[k])

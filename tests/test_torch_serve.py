@@ -136,7 +136,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'models.schnet', 'models.basic', 'models.eghn', 'models.se3', "
         "'models.se3.so3', 'models.se3.fibers', 'models.se3.basis', "
         "'models.se3.tfn', 'models.se3.attention', "
-        "'models.se3.dynamics')}\n"
+        "'models.se3.dynamics', 'data.bgeo', 'data.fluid_scenes', "
+        "'testing.faults', 'testing.tiny_run')}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
