@@ -344,6 +344,32 @@ or of the JAX package. Phases (any failure exits nonzero):
      Printed: each scene's seconds and particles, the read and
      preprocessing seconds, the mean degree, the micro-step ms, nodes/s,
      peak memory and each drill run's seconds.
+  19. the tools (``distegnn_tpu_torch/scripts``), each run in this process
+     through its ``main(argv)`` on the card, the counts set to 0 just
+     before and read just after. (a) ``serve_bench --transport http
+     --requests 64 --sizes 256,512,1024`` on configs/nbody_serve.yaml +
+     model.edge_impl fused, data.edge_block 512 at --rate 10, 20 and 40:
+     each BENCH line, the sustained rate, completed, shed, p50 / p99;
+     fused_edge_fwd_f32_kernel exactly L x max_batch = 16 a batch executed
+     after the warmup boundary (and a multiple of 16 before it). (b)
+     ``serve_bench --workload rollout --sizes 1000,2000,4000`` on phase
+     3d's config: rows 5, 6 and the plan exactly blocked_want's for the
+     run's steps (the warmup's two, the solo and B=1 windows and the
+     coalesced batches, K each). (c) ``traffic_gen --profile spike10x
+     --requests 96 --rate 10 --mix predict=0.6,session=0.3,rollout=0.1``
+     against phase 12's two-model YAML in process (row 1 exactly 16 a
+     fused batch, rows 5 / 6 and the plan exactly blocked_want's for the
+     rollout steps) and with --url against ``python -m
+     distegnn_tpu_torch.serve.gateway`` (a process of its own; SIGTERM,
+     exit 0): both records' per-phase p50 / p99 and SLO verdicts, the same
+     phase counts, no request lost. (d) ``measure_remat_memory --xla-temp``
+     at 20000, 50000 and 113140 nodes (the flagship model, bf16, H=64,
+     L=4, C=3): saved bytes and the card's grad-step peak, each lower with
+     remat. (e) ``evaluate_rollout`` on 4 n-body test trajectories (71
+     frames) from the port's generator, configs/nbody_fastegnn.yaml +
+     model.blocked_impl pallas, random weights: finite horizons, rows 5 / 6
+     and the plan exactly blocked_want's. Its clouds are built beside the
+     kernel build.
 
 Phases 3, 5, 6, 7 and 8 also time the host layout (``pad_batch``, the
 loader's first pass) with the native library and with the numpy layout.
@@ -7669,6 +7695,385 @@ def drill_phase(drills):
     return drills.seconds
 
 
+# ---------------------------------------------------------------- phase 19
+
+TOOLS_SIZES = (256, 512, 1024)          # (a)'s --sizes
+TOOLS_RATES = (10.0, 20.0, 40.0)        # (a)'s --rate, req/s
+TOOLS_REQUESTS = 64
+TOOLS_ROLLOUT_SIZES = (1000, 2000, 4000)   # (b)'s --sizes
+TOOLS_ROLLOUT_SCENES, TOOLS_ROLLOUT_STEPS = 8, 8
+TOOLS_TRAFFIC = ["--profile", "spike10x", "--requests", "96", "--rate", "10",
+                 "--mix", "predict=0.6,session=0.3,rollout=0.1"]
+TOOLS_REMAT_NODES = (20000, 50000, FLUID_N)   # the script's defaults + 113140
+TOOLS_EVAL_SAMPLES = 4
+TOOLS_EVAL_FRAMES = 71          # frame_0 30, frame_T 40: 4 horizons
+
+
+def run_tool(main, argv):
+    """A tool's ``main(argv)`` in this process: (return value, its stdout
+    lines); the lines are printed here too."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    for ln in lines:
+        print(f"  | {ln}")
+    return rc, lines
+
+
+def tools_phase(root, dev):
+    """Phase 19 (see the module docstring). Its files go to a temporary
+    directory that is removed afterwards."""
+    with phase_tmp("chip_smoke_tools_") as tmp:
+        return _tools_phase(root, dev, tmp)
+
+
+def tools_yaml(root, tmp, name, over):
+    """configs/nbody_serve.yaml with the nested overrides ``over``."""
+    import yaml
+
+    with open(os.path.join(root, "configs", "nbody_serve.yaml")) as f:
+        raw = yaml.safe_load(f)
+    for section, kv in over.items():
+        raw.setdefault(section, {}).update(kv)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def tools_bench_http(root, dev, tmp):
+    """(a): serve_bench --transport http at three offered rates on the
+    gateway's fused model; row 1 launches exactly L x max_batch a batch."""
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.scripts import serve_bench as psb
+    from distegnn_tpu_torch.serve.buckets import synthetic_graph
+
+    path = tools_yaml(root, tmp, "bench.yaml", {
+        "model": {"edge_impl": "fused"}, "data": {"edge_block": BLOCK}})
+    cfg = load_config(path)
+    L, B = cfg.model.n_layers, cfg.serve.max_batch
+    edges = [synthetic_graph(n, seed=43 + i).get("edge_index").shape[1]
+             for i, n in enumerate(TOOLS_SIZES)]
+    print(f"phase 19 (a): serve_bench's graphs {dict(zip(TOOLS_SIZES, edges))} "
+          f"edges (max_edges {cfg.serve.max_edges})")
+    check(max(edges) <= cfg.serve.max_edges, "tools: a bench graph exceeds "
+          "serve.max_edges")
+    out, fwd = [], 0
+    for rate in TOOLS_RATES:
+        warm = {}
+
+        def boundary(_real=psb._mark_warmup_done):
+            warm["launches"] = ep.fused_edge_layer.launches
+            _real()
+
+        reset_all_counts()
+        with mock.patch.object(psb, "_mark_warmup_done", boundary):
+            rc, lines = run_tool(psb.main, [
+                "--config_path", path, "--transport", "http", "--requests",
+                str(TOOLS_REQUESTS), "--sizes",
+                ",".join(map(str, TOOLS_SIZES)), "--rate", str(rate),
+                "--obs-dir", "", "--device", dev.type])
+        n, n32 = ep.fused_edge_layer.launches, ep.fused_edge_layer.f32_launches
+        rec = json.loads(lines[-1])
+        snap = rec["snapshot"]
+        batches = snap["batches_executed"]
+        timed = n - warm["launches"]
+        print(f"phase 19 (a) rate {rate:g} req/s: sustained "
+              f"{rec['value']} req/s, completed {snap['requests_completed']}"
+              f"/{TOOLS_REQUESTS}, shed {rec['rejected_at_submit']} (429) + "
+              f"{snap['requests_timeout']} (timeout), latency p50 "
+              f"{snap['latency_p50_ms']} ms p99 {snap['latency_p99_ms']} ms, "
+              f"queue wait p50 {snap['queue_wait_p50_ms']} ms p99 "
+              f"{snap['queue_wait_p99_ms']} ms, batches {batches} (fill "
+              f"{snap['batch_fill_ratio']}), wall {rec['wall_s']} s; "
+              f"fused_edge_fwd_f32 launches {timed} in the timed window + "
+              f"{warm['launches']} in the warmup")
+        check(rc == 0 and snap["requests_completed"] > 0,
+              f"tools (a) rate {rate}: nothing completed")
+        check(timed == L * B * batches,
+              f"tools (a): {timed} fused launches for {batches} batches, "
+              f"want {L * B} a batch")
+        check(warm["launches"] % (L * B) == 0 and n32 == n,
+              f"tools (a): warmup launches {warm['launches']}, f32 {n32} of "
+              f"{n}")
+        fwd += n
+        out.append({"rate": rate, "sustained": rec["value"],
+                    "completed": snap["requests_completed"],
+                    "shed": rec["rejected_at_submit"],
+                    "timeouts": snap["requests_timeout"],
+                    "p50": snap["latency_p50_ms"],
+                    "p99": snap["latency_p99_ms"]})
+    return out, fwd
+
+
+def tools_bench_rollout(root, dev, tmp, r0):
+    """(b): serve_bench --workload rollout on phase 3d's config; the one-hot
+    kernels launch exactly as blocked_want derives them for the run's
+    steps."""
+    from distegnn_tpu_torch.config import load_config
+    from distegnn_tpu_torch.scripts import serve_bench as psb
+
+    opts = dict(ROLLOUT_OPTS, radius=float(r0))
+    path = tools_yaml(root, tmp, "rollout.yaml", {
+        "model": {"blocked_impl": "pallas"}, "serve": {"rollout": opts}})
+    L = load_config(path).model.n_layers
+    K, S = TOOLS_ROLLOUT_STEPS, TOOLS_ROLLOUT_SCENES
+    reset_all_counts()
+    rc, lines = run_tool(psb.main, [
+        "--config_path", path, "--workload", "rollout", "--sizes",
+        ",".join(map(str, TOOLS_ROLLOUT_SIZES)), "--rollout-scenes", str(S),
+        "--rollout-steps", str(K), "--rate", "40", "--obs-dir", "",
+        "--device", dev.type])
+    got = blocked_counts(), blocked_widths()
+    rec = json.loads(lines[-1])
+    batches = rec["snapshot"]["batches_executed"]
+    # warmup (one solo + one batch-of-1 rollout), the solo and the B=1
+    # windows (S each) and the coalesced batches: K steps each
+    steps = K * (2 + 2 * S + batches)
+    want = blocked_want(L, steps=steps)
+    print(f"phase 19 (b): serve_bench rollout {rec['value']} scenes*steps/s "
+          f"batched vs {rec['baseline_b1']} B=1 ({rec['vs_baseline']}x), "
+          f"solo {rec['baseline_solo']}; {rec['scenes_completed']}/{S} "
+          f"scenes in {batches} batches; blocked_seg_sum {got[0][0]} "
+          f"{got[1][0]}, blocked_gather {got[0][1]} {got[1][1]}, "
+          f"blocked_plan {got[0][2]} (want {want} for {steps} steps)")
+    check(rc == 0 and rec["scenes_completed"] == S,
+          f"tools (b): {rec['scenes_completed']}/{S} scenes completed")
+    check(got[1] == want[:2] and got[0] == (steps * 2 * L, steps * 2 * L,
+                                            steps),
+          f"tools (b): launches {got} != {want}")
+    return rec, got
+
+
+def tools_traffic(root, dev, tmp, r0):
+    """(c): traffic_gen's spike10x replay against phase 12's two-model
+    gateway, in process and over --url against a gateway process."""
+    import signal
+
+    from distegnn_tpu_torch.ops import edge_pipeline as ep
+    from distegnn_tpu_torch.scripts import traffic_gen as ptg
+
+    path = gateway_yaml(root, tmp, r0)
+    argv = ["--config_path", path, *TOOLS_TRAFFIC, "--obs-dir", ""]
+    held = {}
+
+    def boot(args, cfg, device, _real=ptg.boot_gateway):
+        gw, server, reg = _real(args, cfg, device)
+        held["reg"], held["warm"] = reg, (ep.fused_edge_layer.launches,
+                                          blocked_counts())
+        eng = reg.get("rollout").engine
+        held["steps"] = 0
+        real_batch = eng.rollout_batch
+
+        def counting(scenes, *a, **kw):
+            held["steps"] += int(scenes[0]["steps"])
+            return real_batch(scenes, *a, **kw)
+
+        eng.rollout_batch = counting
+        return gw, server, reg
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(ptg, "boot_gateway", boot):
+        rc, lines = run_tool(ptg.main, argv + ["--device", dev.type])
+    inproc = json.loads(lines[-1])
+    reg = held["reg"]
+    fused_batches = reg.get("fused").engine.metrics.snapshot()[
+        "batches_executed"]
+    L = reg.get("fused").engine.model.n_layers
+    B = reg.get("fused").engine.max_batch
+    fwd = ep.fused_edge_layer.launches
+    timed = fwd - held["warm"][0]
+    bl, widths = blocked_counts(), blocked_widths()
+    want = blocked_want(L, steps=held["steps"])
+    s = held["steps"]
+    print(f"phase 19 (c) in process ({time.perf_counter() - t0:.1f} s): "
+          f"fused_edge_fwd_f32 {timed} for {fused_batches} fused batches "
+          f"(+ {held['warm'][0]} warmup); {s} rollout steps: "
+          f"blocked_seg_sum {bl[0]} {widths[0]}, blocked_gather {bl[1]} "
+          f"{widths[1]}, blocked_plan {bl[2]} (want {want})")
+    check(rc == 0 and inproc["completed"] > 0, "tools (c): in-process "
+          "replay completed nothing")
+    check(timed == L * B * fused_batches, f"tools (c): {timed} fused "
+          f"launches for {fused_batches} batches")
+    check(held["warm"][1] == (0, 0, 0) and widths == want[:2]
+          and bl == (s * 2 * L, s * 2 * L, s),
+          f"tools (c): one-hot launches {bl} {widths} != {want}")
+    launches = {"fwd": fwd, "widths": widths, "plan": bl[2]}
+
+    # the same replay over --url against a gateway process: the clients and
+    # the gateway no longer share an interpreter
+    env = dict(os.environ, PYTHONPATH=root)
+    err_path = os.path.join(tmp, "tools_gateway.stderr")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distegnn_tpu_torch.serve.gateway",
+             "--config_path", path, "--port", "0", "--obs-dir", "",
+             "--device", dev.type], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            port = None
+            for line in proc.stdout:
+                if "listening on http://" in line:
+                    port = int(line.split("http://")[1].split()[0]
+                               .rsplit(":", 1)[1])
+                    break
+            check(port is not None, "tools (c): the gateway process printed "
+                  "no listening line: " + open(err_path).read()[-2000:])
+            while http_call(port, "GET", "/readyz")[0] != 200:
+                check(time.perf_counter() - t0 < 120, "tools (c): /readyz "
+                      "never answered 200")
+                time.sleep(0.05)
+            up_s = time.perf_counter() - t0
+            rc, lines = run_tool(ptg.main, argv + [
+                "--url", f"http://127.0.0.1:{port}"])
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                code = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                code = proc.wait()
+    remote = json.loads(lines[-1])
+    check(code == 0, f"tools (c): the gateway process exited {code}")
+    check(rc == 0 and remote["completed"] > 0, "tools (c): the --url replay "
+          "completed nothing")
+    for label, rec in (("in process", inproc), ("--url", remote)):
+        ph = rec["phases"]
+        print(f"phase 19 (c) {label}: completed {rec['completed']}/"
+              f"{rec['requests']}, shed {rec['shed']}, errors {rec['errors']}"
+              f", lost {rec['lost']}, {rec['throughput_rps']} req/s; "
+              + "; ".join(
+                  f"{p} n={ph[p]['count']} ok={ph[p]['ok']} p50 "
+                  f"{ph[p]['p50_ms']} p99 {ph[p]['p99_ms']} interactive p99 "
+                  f"{ph[p]['interactive_p99_ms']} slo "
+                  f"{'PASS' if ph[p].get('slo_pass') else 'BREACH'}"
+                  for p in ("pre", "spike", "post"))
+              + f"; SLO overall {'PASS' if rec['slo']['pass'] else 'BREACH'}")
+        check(rec["lost"] == 0, f"tools (c) {label}: {rec['lost']} requests "
+              "got no answer")
+    check({p: v["count"] for p, v in inproc["phases"].items()}
+          == {p: v["count"] for p, v in remote["phases"].items()},
+          "tools (c): the two replays' phases differ")
+    print(f"phase 19 (c): the gateway process was ready in {up_s:.1f} s and "
+          f"drained to exit 0 on SIGTERM")
+    return {"inproc": inproc, "remote": remote}, launches
+
+
+def tools_remat(dev, tmp):
+    """(d): measure_remat_memory on the flagship model (bf16, H=64, L=4,
+    C=3) at the script's default sizes and at 113140 nodes."""
+    from distegnn_tpu_torch.scripts import measure_remat_memory as premat
+
+    out = os.path.join(tmp, "remat.json")
+    run_tool(premat.main, ["--nodes", *map(str, TOOLS_REMAT_NODES),
+                           "--xla-temp", "--device", dev.type, "--json",
+                           out])
+    with open(out) as f:
+        rows = json.load(f)["rows"]
+    by = {(r["n_nodes"], r["remat"]): r for r in rows}
+    for n in TOOLS_REMAT_NODES:
+        off, on = by[n, False], by[n, True]
+        print(f"phase 19 (d) N={n} E={off['n_edges']}: saved "
+              f"{mib(off['residual_bytes'])} without remat, "
+              f"{mib(on['residual_bytes'])} with; the card's peak over a "
+              f"grad step {mib(off['temp_bytes'])} without, "
+              f"{mib(on['temp_bytes'])} with (peak allocated "
+              f"{mib(off['peak_bytes'])} / {mib(on['peak_bytes'])})")
+        check(on["residual_bytes"] < off["residual_bytes"]
+              and on["temp_bytes"] < off["temp_bytes"],
+              f"tools (d): remat saved nothing at N={n}")
+    return rows
+
+
+def tools_evaluate(root, dev, tmp):
+    """(e): evaluate_rollout's n-body leg on the port's generator's data
+    with model.blocked_impl pallas: exact one-hot launches."""
+    import yaml
+
+    from distegnn_tpu_torch.data.nbody_sim import generate_nbody_files
+    from distegnn_tpu_torch.scripts import evaluate_rollout as pro
+
+    with open(os.path.join(root, "configs", "nbody_fastegnn.yaml")) as f:
+        raw = yaml.safe_load(f)
+    data_dir = os.path.join(tmp, "nbody")
+    raw["data"]["data_dir"] = data_dir
+    raw["model"]["blocked_impl"] = "pallas"
+    path = os.path.join(tmp, "nbody_eval.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    t0 = time.perf_counter()
+    generate_nbody_files(os.path.join(data_dir, raw["data"]["dataset_name"]),
+                         n_isolated=100, num_test=TOOLS_EVAL_SAMPLES,
+                         length=TOOLS_EVAL_FRAMES * 100, sample_freq=100,
+                         seed=43, device=dev)
+    gen_s = time.perf_counter() - t0
+    L = raw["model"]["n_layers"]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    _, lines = run_tool(pro.main, ["--config_path", path, "--samples",
+                                   str(TOOLS_EVAL_SAMPLES), "--device",
+                                   dev.type])
+    eval_s = time.perf_counter() - t0
+    rec = json.loads(lines[-1])
+    got = blocked_counts(), blocked_widths()
+    steps = rec["steps"] * rec["samples"]
+    want = blocked_want(L, steps=steps)
+    print(f"phase 19 (e): {rec['samples']} n-body trajectories generated in "
+          f"{gen_s:.1f} s, evaluated in {eval_s:.1f} s: horizons "
+          f"{rec['horizons']}; blocked_seg_sum {got[0][0]} {got[1][0]}, "
+          f"blocked_gather {got[0][1]} {got[1][1]}, blocked_plan "
+          f"{got[0][2]} (want {want} for {steps} steps)")
+    check(rec["steps"] >= 2 and all(math.isfinite(v)
+                                    for v in rec["horizons"].values()),
+          "tools (e): bad horizons")
+    check(got[1] == want[:2] and got[0] == (steps * 2 * L, steps * 2 * L,
+                                            steps),
+          f"tools (e): launches {got} != {want}")
+    return rec, got
+
+
+def _tools_phase(root, dev, tmp):
+    t_phase = time.perf_counter()
+    # the host the open loops share: threads that earlier phases left
+    # running in this interpreter compete with the clients and the gateway
+    names = collections.Counter(
+        "".join(c for c in t.name if not c.isdigit()).rstrip("-_ ")
+        for t in threading.enumerate())
+    print(f"phase 19: at its start {threading.active_count()} threads in "
+          f"this process ({dict(names)}), load average "
+          f"{tuple(round(x, 2) for x in os.getloadavg())}")
+    r0, _ = rollout_radius()
+    t = [time.perf_counter()]
+    rates, fwd = tools_bench_http(root, dev, tmp)
+    t.append(time.perf_counter())
+    bench_rollout, rl = tools_bench_rollout(root, dev, tmp, r0)
+    t.append(time.perf_counter())
+    traffic, tl = tools_traffic(root, dev, tmp, r0)
+    t.append(time.perf_counter())
+    remat = tools_remat(dev, tmp)
+    t.append(time.perf_counter())
+    evaluate, el = tools_evaluate(root, dev, tmp)
+    t.append(time.perf_counter())
+    secs = [round(b - a, 1) for a, b in zip(t, t[1:])]
+    print(f"phase 19 (the tools): passed in {time.perf_counter() - t_phase:.1f}"
+          f" s ((a) {secs[0]}, (b) {secs[1]}, (c) {secs[2]}, (d) {secs[3]},"
+          f" (e) {secs[4]} s)")
+    widths = [collections.Counter() for _ in range(2)]
+    for i in (0, 1):
+        for w in (rl[1][i], tl["widths"][i], el[1][i]):
+            widths[i].update(w)
+    return {"rates": rates, "rollout": bench_rollout, "traffic": traffic,
+            "remat": remat, "evaluate": evaluate, "fwd": fwd + tl["fwd"],
+            "widths": [dict(w) for w in widths],
+            "plan": rl[0][2] + tl["plan"] + el[0][2]}
+
+
 def main():
     import torch
 
@@ -7710,6 +8115,10 @@ def main():
         stack_clouds = [fluid_cloud(400 + i, n=STACK_FLUID_N)
                         for i in range(6)]
         scenes = serve_scenes()
+        # phase 19 (d)'s clouds (the remat script caches them a size)
+        from distegnn_tpu_torch.scripts import measure_remat_memory
+        for n in TOOLS_REMAT_NODES:
+            measure_remat_memory._fluid_batch(n)
         inputs_s = time.perf_counter() - t0
         reports, build_s = building.result()
     print(f"built {len(reports)} kernel source(s) in {build_s:.1f} s")
@@ -7762,9 +8171,11 @@ def main():
     mesh = mesh_phase(root, dev, clouds[0], dist["part"])
     scan = scan_epoch_phase(root, dev, clouds, stack_clouds)
     scenes_res = scene_phase(root, dev, scene_work)
+    tools = tools_phase(root, dev)
     print(f"main-path launches: fused_edge_fwd {launches} (serve) + "
           f"{gate['fwd']} (gateway) + {promo['sub_fwd']} (worker children) "
-          f"+ {tiled['launches']} (tiled serve) "
+          f"+ {tiled['launches']} (tiled serve) + {tools['fwd']} (the "
+          f"tools: serve_bench http, traffic_gen in process) "
           f"+ {promo['drill_fwd']} (promotion drill children) + "
           f"{train_fwd} (train) + {stack['launches'][1]} (stack train "
           f"backward) + {dist['launches'][0]} (distributed train, "
@@ -7794,7 +8205,9 @@ def main():
           f"graph replays): cell (d) {scan['a']['replayed']}, n-body "
           f"{scan['b']}, stack {scan['c']['replayed']}; Fluid113K scenes "
           f"(phase 18 (a)): fused_edge_fwd {scenes_res['launches'][0]}, "
-          f"fused_edge_bwd {scenes_res['launches'][1]}")
+          f"fused_edge_bwd {scenes_res['launches'][1]}; the tools (phase "
+          f"19): blocked_seg_sum {tools['widths'][0]}, blocked_gather "
+          f"{tools['widths'][1]}, blocked_plan {tools['plan']}")
 
     # one row per kernel and path, with the numbers of the dtype and shape
     # that path launches the kernel at: serving f32 at phase 2's shape,
@@ -7825,7 +8238,8 @@ def main():
          "distegnn_tpu/ops/cumsum.py:62"))
     kernels = [
         row("fused_edge_fwd_f32", "serve f32 N=8192", kres["f32"], fwd_tpu,
-            launches + gate["fwd"] + promo["fwd"], source="fused_edge_fwd"),
+            launches + gate["fwd"] + promo["fwd"] + tools["fwd"],
+            source="fused_edge_fwd"),
         row("fused_edge_fwd_f32", f"tiled serve f32 {tiled['shape']}",
             tiled["row"], fwd_tpu, tiled["launches"],
             source="fused_edge_fwd"),
@@ -7879,7 +8293,8 @@ def main():
     for i, name in enumerate(("blocked_seg_sum", "blocked_gather")):
         for path, rows, widths in (
                 ("rollout serve", rollout["rows"],
-                 [w[i] for w in rollout["widths"]] + [gate["widths"][i]]),
+                 [w[i] for w in rollout["widths"]] + [gate["widths"][i],
+                                                      tools["widths"][i]]),
                 ("blocked train", blocked["rows"], [blocked["widths"][i]])):
             for key, r in sorted(rows.items()):
                 n = sum(w.get(key, 0) for w in widths)
@@ -7889,7 +8304,8 @@ def main():
                         BLOCKED_TPU[name], n, source="blocked_onehot"))
     for path, rows, n in (
             ("rollout serve", rollout["rows"],
-             sum(c[2] for c in rollout["launches"]) + gate["blocked"][2]),
+             sum(c[2] for c in rollout["launches"]) + gate["blocked"][2]
+             + tools["plan"]),
             ("blocked train", blocked["rows"], blocked["launches"][2])):
         r = rows[min(rows)]["blocked_plan"]
         kernels.append(row("blocked_plan", f"{path} {r['shape']}", r,

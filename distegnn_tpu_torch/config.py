@@ -489,20 +489,20 @@ def validate_config(cfg: ConfigDict) -> None:
         raise ValueError("data.batch_size must be >= 1")
     if (d.node_order or "none") not in _VALID_NODE_ORDERS:
         raise ValueError(f"data.node_order must be one of {_VALID_NODE_ORDERS}")
-    t = cfg.train
-    if int(t.accumulation_steps) < 1:
+    tr = cfg.train
+    if int(tr.accumulation_steps) < 1:
         raise ValueError("train.accumulation_steps must be >= 1")
-    resume = t.get("resume")
+    resume = tr.get("resume")
     if resume is not None and not isinstance(resume, str):
         raise ValueError("train.resume must be null, 'auto', or a checkpoint "
                          "path")
-    if float(t.get("checkpoint_interval_s", 0) or 0) < 0:
+    if float(tr.get("checkpoint_interval_s", 0) or 0) < 0:
         raise ValueError("train.checkpoint_interval_s must be >= 0")
-    if int(t.get("keep_checkpoints", 3)) < 1:
+    if int(tr.get("keep_checkpoints", 3)) < 1:
         raise ValueError("train.keep_checkpoints must be >= 1")
-    if int(t.epochs) < 0 or int(t.early_stop) < 1:
+    if int(tr.epochs) < 0 or int(tr.early_stop) < 1:
         raise ValueError("train.epochs must be >= 0 and train.early_stop >= 1")
-    if float(t.mmd.sigma) <= 0 or int(t.mmd.samples) < 1:
+    if float(tr.mmd.sigma) <= 0 or int(tr.mmd.samples) < 1:
         raise ValueError("train.mmd.sigma must be > 0 and train.mmd.samples "
                          ">= 1")
     lg = cfg.log

@@ -479,13 +479,13 @@ def _generate(args) -> int:
         const_fluid_particles=args.const_fluid_particles,
         max_fluid_particles=args.max_fluid_particles,
         min_fluid_particles=args.min_fluid_particles)
-    print(f"scene written: {sim_dir}")
+    print(f"scene written: {sim_dir}")  # noqa: obs-print
 
     if args.simulator_bin:
         rc = run_simulator(args.simulator_bin, sim_dir)
-        print(f"simulator exit code {rc}; exports under {sim_dir}/partio/")
+        print(f"simulator exit code {rc}; exports under {sim_dir}/partio/")  # noqa: obs-print
         return rc
-    print("no --simulator-bin: scene-only mode (run SPlisHSPlasH elsewhere, "
+    print("no --simulator-bin: scene-only mode (run SPlisHSPlasH elsewhere, "  # noqa: obs-print
           "then the pack subcommand)")
     return 0
 
@@ -496,7 +496,7 @@ def _pack(args) -> int:
     os.makedirs(args.output, exist_ok=True)
     scene_dirs = sorted(glob.glob(os.path.join(args.input, "sim_*")))
     if not scene_dirs:
-        print(f"no sim_* directories under {args.input}", file=sys.stderr)
+        print(f"no sim_* directories under {args.input}", file=sys.stderr)  # noqa: obs-print
         return 1
     for scene_dir in scene_dirs:
         name = os.path.basename(scene_dir)
@@ -505,9 +505,9 @@ def _pack(args) -> int:
                                         os.path.join(args.output, name),
                                         splits=args.splits, radius=args.radius)
         except FileNotFoundError as e:
-            print(f"skipping {name}: {e}", file=sys.stderr)
+            print(f"skipping {name}: {e}", file=sys.stderr)  # noqa: obs-print
             continue
-        print(f"{name}: {len(shards)} shards")
+        print(f"{name}: {len(shards)} shards")  # noqa: obs-print
     return 0
 
 

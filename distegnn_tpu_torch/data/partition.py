@@ -20,11 +20,12 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from distegnn_tpu_torch import obs
 from distegnn_tpu_torch.ops.radius import radius_graph_np
 
 
 def _log(msg: str) -> None:
-    print(f"[partition] {msg}", flush=True)
+    obs.log(f"[partition] {msg}")
 
 
 def random_labels(n: int, n_parts: int, rng: np.random.Generator) -> np.ndarray:

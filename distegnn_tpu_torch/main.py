@@ -120,9 +120,9 @@ def run(config, ds_train: GraphDataset, ds_valid: GraphDataset,
     model = get_model(config.model, dataset_name=config.data.dataset_name,
                       generator=gen).to(dev)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[train] Model: {config.model.model_name}, {n_params} parameters, "
-          f"{len(ds_train)}/{len(ds_valid)}/{len(ds_test)} graphs, on {dev}",
-          flush=True)
+    obs.log(f"[train] Model: {config.model.model_name}, {n_params} "
+            f"parameters, {len(ds_train)}/{len(ds_valid)}/{len(ds_test)} "
+            f"graphs, on {dev}")
     state, _, best, log_dict = train_model(config, model, loaders, dev,
                                            on_step=on_step)
     return state, best, log_dict
@@ -243,10 +243,9 @@ def main(argv=None):
         _, best, _ = run(config, ds_train, ds_valid, ds_test,
                          device=args.device)
     if best.get("preempted"):
-        print(f"[train] Preempted (resumable). Best so far: {best}",
-              flush=True)
+        obs.log(f"[train] Preempted (resumable). Best so far: {best}")
     else:
-        print(f"[train] Done. Best: {best}", flush=True)
+        obs.log(f"[train] Done. Best: {best}")
     point_at_events()
     return best
 

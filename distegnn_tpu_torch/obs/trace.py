@@ -181,7 +181,7 @@ class Tracer:
         """Print ``msg`` (prefixed ``[p<rank>] `` on ranks > 0), flushed,
         and mirror it into the stream."""
         prefix = f"[p{self.process_index}] " if self.process_index else ""
-        print(prefix + msg, flush=True)
+        print(prefix + msg, flush=True)  # noqa: obs-print (the logger itself)
         self._emit("log", "log", msg=msg, **attrs)
 
     def flush(self) -> None:

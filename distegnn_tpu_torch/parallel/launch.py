@@ -39,7 +39,7 @@ from typing import Callable, List, Optional
 import torch
 import torch.distributed as dist
 
-from distegnn_tpu_torch import resolve_device
+from distegnn_tpu_torch import obs, resolve_device
 from distegnn_tpu_torch.parallel.checks import assert_replicated
 from distegnn_tpu_torch.parallel.mesh import (DATA_AXIS, GRAPH_AXIS,
                                               TENSOR_AXIS, WORLD_AXES,
@@ -49,7 +49,7 @@ from distegnn_tpu_torch.parallel.mesh import (DATA_AXIS, GRAPH_AXIS,
 
 
 def _log(msg: str) -> None:
-    print(f"[train] {msg}", flush=True)
+    obs.log(f"[train] {msg}")
 
 
 def _dispatch_preprocess(config, ws: int) -> List[List[str]]:

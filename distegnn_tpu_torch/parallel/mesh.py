@@ -37,6 +37,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from distegnn_tpu_torch import obs
+
 GRAPH_AXIS = "graph"
 DATA_AXIS = "data"
 TENSOR_AXIS = "tensor"
@@ -115,11 +117,12 @@ def init_graph_group(world_size: int, rank: int, device: str = "cuda",
                             world_size=world_size, rank=rank, **kw)
     if rank == 0:
         cards = torch.cuda.device_count() if dev_type == "cuda" else 0
-        print(f"[dist] {world_size} rank(s) on {dev_type} ({cards} card(s)), "
-              f"mesh data x graph x tensor = {shape[0]} x {shape[1]} x "
-              f"{shape[2]}: backend {backend} — nccl when every rank has a "
-              "card of its own, gloo when ranks share a card or run on the "
-              "CPU (gloo reduces CUDA tensors through the host)", flush=True)
+        obs.log(f"[dist] {world_size} rank(s) on {dev_type} ({cards} "
+                f"card(s)), mesh data x graph x tensor = {shape[0]} x "
+                f"{shape[1]} x {shape[2]}: backend {backend} — nccl when "
+                "every rank has a card of its own, gloo when ranks share a "
+                "card or run on the CPU (gloo reduces CUDA tensors through "
+                "the host)")
     world = dist.group.WORLD
     _MESH.update(shape=shape, coords=mesh_coords(rank, shape))
     _GROUPS[frozenset(WORLD_AXES)] = world

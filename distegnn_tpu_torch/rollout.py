@@ -52,9 +52,10 @@ def _check_layout(max_degree: int, edge_block: int) -> None:
 
 
 def _scene_graph(x, v, node_mask, radius, max_degree, max_per_cell,
-                 feature_fn, edge_attr_fn):
+                 feature_fn, edge_attr_fn, node_attr=None):
     """One scene's per-step graph: (arrays of the GraphBatch fields without
-    the batch axis, overflow flag)."""
+    the batch axis, overflow flag). ``node_attr`` [N, A]: static per-node
+    attributes (none by default)."""
     g = radius_graph_dev(x, radius, max_degree, max_per_cell,
                          node_mask=node_mask)
     ei, em = ell_to_edge_list(g)
@@ -64,7 +65,8 @@ def _scene_graph(x, v, node_mask, radius, max_degree, max_per_cell,
                                                       min=1.0)
     fields = dict(
         node_feat=feature_fn(v) * nm,
-        node_attr=x.new_zeros((N, 0)),
+        node_attr=(x.new_zeros((N, 0)) if node_attr is None
+                   else node_attr * nm),
         loc=x * nm,
         vel=v * nm,
         target=x.new_zeros((N, 3)),
@@ -115,6 +117,7 @@ def make_rollout_fn(
     edge_block: int = 256,
     velocity_from_delta: bool = True,
     velocity_scale: float = 1.0,
+    node_attr=None,
 ):
     """Build ``rollout(loc0 [N, 3], vel0 [N, 3], node_mask [N], steps)``.
 
@@ -122,7 +125,8 @@ def make_rollout_fn(
     device. N must be a multiple of ``edge_block`` and ``max_degree *
     edge_block`` a multiple of the kernel edge tile (512 at block 256 ->
     keep max_degree even) so every rebuilt graph is a legal blocked
-    layout."""
+    layout. ``node_attr`` [N, A]: the scene's static per-node attributes
+    (JAX's ``node_attr`` / ``node_attr_now``)."""
     _check_layout(max_degree, edge_block)
 
     def rollout(loc0, vel0, node_mask, steps: int
@@ -133,7 +137,7 @@ def make_rollout_fn(
         fn = functools.partial(
             _scene_graph, radius=radius, max_degree=max_degree,
             max_per_cell=max_per_cell, feature_fn=feature_fn,
-            edge_attr_fn=edge_attr_fn)
+            edge_attr_fn=edge_attr_fn, node_attr=node_attr)
         traj, over = _rollout_loop(model, steps, loc0[None], vel0[None],
                                    node_mask[None], fn, edge_block,
                                    velocity_from_delta, velocity_scale)

@@ -70,12 +70,12 @@ def publish_child_main(spec_json: str) -> int:
             fd, _ = tempfile.mkstemp(
                 dir=watch, prefix=f"step_{step:010d}.ckpt.tmp.")
             os.write(fd, b"partial-checkpoint-bytes")
-            print(f"PUBLISH-HANG {step}", flush=True)
+            print(f"PUBLISH-HANG {step}", flush=True)  # noqa: obs-print (the drill reads it)
             time.sleep(600.0)
             os.close(fd)
             return 3  # unreachable under the drill's SIGKILL
         pub.publish(item["ckpt"], step=step, val_loss=item.get("val_loss"))
-        print(f"PUBLISHED {step}", flush=True)
+        print(f"PUBLISHED {step}", flush=True)  # noqa: obs-print (the drill reads it)
     return 0
 
 
@@ -288,8 +288,13 @@ def run_promote_drill(gateway, registry, model: str, probe_body: bytes,
         # phase 3: kill the canary replica mid-promotion -> immediate
         # canary_died rollback; the supervisor restores the replica
         wait_for(lambda: healthy_replicas() >= n_replicas, timeout_s)
-        hold = promoter.min_shadow
-        promoter.min_shadow = 10 ** 6  # pin the canary open for the kill
+        # pin the canary open for the kill: neither the shadow quorum nor
+        # the gate timeout may promote it, so the dead canary is the only
+        # way candidate 30 can resolve
+        hold = promoter.min_shadow, promoter.gate_timeout_s
+        promoter.min_shadow = 10 ** 6
+        promoter.gate_timeout_s = 1e9
+        supervisor = entry.replicas.supervisor
         killed_via, idx, old_pid = None, None, None
         t0 = time.perf_counter()
         try:
@@ -305,15 +310,22 @@ def run_promote_drill(gateway, registry, model: str, probe_body: bytes,
             idx = (promoter.status().get("canary") or {}).get("replica")
             if idx is not None:
                 rep = entry.replicas.replicas[idx]
+                # hold the supervisor until the verdict: a restart that
+                # lands before the promoter's next tick would hide the dead
+                # canary from it (a loaded host delays that tick past the
+                # supervisor's backoff)
+                supervisor.stop()
                 if rep.backend == "process":
                     old_pid = serve_faults.kill9_replica(registry, model, idx)
                     killed_via = "kill9"
                 else:
                     serve_faults.kill_replica(registry, model, idx)
                     killed_via = "kill"
+                wait_for(lambda: not rep.healthy(), timeout_s)
             wait_for(lambda: outcome_for(30), timeout_s)
         finally:
-            promoter.min_shadow = hold
+            promoter.min_shadow, promoter.gate_timeout_s = hold
+            supervisor.start()
         o3 = dict(outcome_for(30) or {})
         o3.update(killed_via=killed_via, replica=idx, killed_pid=old_pid)
         respawned = wait_for(lambda: healthy_replicas() >= n_replicas,

@@ -242,27 +242,51 @@ def test_errors_match_jax(live, i):
 
 def test_queue_full_is_429_in_both(live):
     """A wedged dispatcher fills the 4-slot ingress: the overflow sheds with
-    429 QueueFull and a Retry-After; every admitted request gets its 200."""
+    429 QueueFull and a Retry-After; every admitted request gets its 200.
+
+    The order is fixed, not timed: the first request goes alone, and the
+    other six follow once the dispatcher holds it (an idle dispatcher
+    absorbs what has arrived before it sees the wedge, and four absorbed
+    together would run as a full batch); the dispatcher stays wedged until
+    each of the 7 is either queued or answered, then ``wedge(0)`` releases
+    it. The queued deadline is raised for this test alone, so a loaded host
+    cannot turn the admitted requests into 504s before the release."""
     out = {}
     for side, reg in (("j", live.jreg), ("p", live.preg)):
         client = getattr(live, side)
-        reg.get("nbody").replicas.replicas[0].queue.wedge(0.3)
+        queue = reg.get("nbody").replicas.replicas[0].queue
+        hold = queue.request_timeout
+        queue.request_timeout = 60.0
+        queue.wedge(3600.0)
         res = [None] * 7
         body = _payload(scene(40, 11))
 
         def go(k):
             res[k] = client.call("POST", "/v1/models/nbody/predict", body)
 
+        def wait_for(pred):
+            deadline = time.perf_counter() + 60.0
+            while not pred() and time.perf_counter() < deadline:
+                time.sleep(0.005)
+
         ts = [threading.Thread(target=go, args=(k,)) for k in range(7)]
-        for t in ts:
-            t.start()
-            time.sleep(0.01)
-        for t in ts:
-            t.join(60)
+        try:
+            ts[0].start()
+            wait_for(lambda: res[0] is not None or (
+                queue.depth() == 1 and queue._ingress.empty()))
+            for t in ts[1:]:
+                t.start()
+            wait_for(lambda: sum(r is not None for r in res)
+                     + queue.depth() >= 7)
+        finally:
+            queue.wedge(0)
+            for t in ts:
+                t.join(60)
+            queue.request_timeout = hold
         out[side] = res
+    codes = {s: [None if r is None else r[0] for r in out[s]] for s in "jp"}
     for side in "jp":
-        codes = sorted(r[0] for r in out[side])
-        assert set(codes) == {200, 429}, codes
+        assert set(codes[side]) == {200, 429}, codes
     shed = [next(r for r in out[s] if r[0] == 429) for s in "jp"]
     _same_shape(*shed)
     assert shed[1][1]["type"] == "QueueFull" and "Retry-After" in shed[1][2]

@@ -137,7 +137,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'models.se3.so3', 'models.se3.fibers', 'models.se3.basis', "
         "'models.se3.tfn', 'models.se3.attention', "
         "'models.se3.dynamics', 'data.bgeo', 'data.fluid_scenes', "
-        "'testing.faults', 'testing.tiny_run')}\n"
+        "'testing.faults', 'testing.tiny_run', 'scripts.serve_bench', "
+        "'scripts.traffic_gen', 'scripts.check_no_print', "
+        "'scripts.check_route_spans', 'scripts.check_config_keys', "
+        "'scripts.measure_remat_memory', 'scripts.partition_quality', "
+        "'scripts.evaluate_rollout', "
+        "'scripts.evaluate_protein_equivariance')}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
